@@ -7,14 +7,23 @@ CUDA GPU.
 Phases (each prints one line; a failed check raises and the exit code is
 not 0):
   1. environment: torch / CUDA versions, the card's name and power limit;
-  2. build kernels K1 and K2 from ``manisdp_tpu_torch/csrc``;
-  3. every kernel mode against its plain PyTorch twin on the card at the
+  2. build kernels K1-K4 from ``manisdp_tpu_torch/csrc``;
+  3. every K1 / K2 mode against its plain PyTorch twin on the card at the
      G67 shapes (n = 10^4, p_pad in {8, 24, 40, 48}, f64 and f32),
      with times;
   4. a G1-size solve (n = 800: dense cost, eigh certificate);
   5. the G67-size solve (n = 10^4: sparse cost through K1, f32 tCG,
      device LOBPCG certificate), with the kernels' launch counters and an
-     independent KKT oracle (dense f64 eigvalsh of S on the card).
+     independent KKT oracle (dense f64 eigvalsh of S on the card);
+  6. K3, K4 (both orderings, with and without base / alpha) and K1's
+     ``al_hess`` mode against their twins at the shapes of trace-min
+     matrix completion at n = 12,000 (nnzP = 9.0 M, m = 4.49 M, p_pad in
+     {8, 16, 24}, f64 and f32), with times;
+  7. that matrix completion solved through ``solve_sdp`` (the primal AL
+     on the factored constraint operator, f32 tCG, device LOBPCG
+     certificate), with the launch counters and an independent KKT oracle
+     on the card (A(YᵀY) from the raw SeDuMi triplets, f64 eigvalsh of the
+     dense S = mat(c - Aᵀy), the duality gap).
 Then one ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {...}}``.
 
@@ -42,6 +51,12 @@ import numpy as np
 # the rank buckets
 P_PADS = (8, 24, 40, 48)
 HOT_P_PAD = 40
+# trace-min matrix completion at n = 12,000, the reference construction
+# (example_matrixcompletion.m; bench.py bench_mc at p = 6000); the AL's
+# rank ramp keeps p_pad in {8, 16, 24}
+MC = dict(p=6000, q=6000, rank=10, m_samples=4_800_000, seed=3)
+AL_P_PADS = (8, 16, 24)
+AL_HOT_P_PAD = 16
 
 
 def emit(obj):
@@ -142,6 +157,32 @@ def kkt_oracle_on_card(C_sp, res, device):
                 eta=max(pinf, dinf, comp), lam_min=float(w[0]))
 
 
+def worst_errors(rows):
+    """The largest absolute and relative error of each kernel's rows."""
+    worst = {}
+    for r in rows:
+        w = worst.setdefault(r["kernel"], dict(max_abs_err=0.0, rel_err=0.0))
+        w["max_abs_err"] = max(w["max_abs_err"], r["max_abs_err"])
+        w["rel_err"] = max(w["rel_err"], r["rel_err"])
+    return worst
+
+
+def check_case(rows, name, mode, fn, twin, args, kw, tol, **info):
+    """One kernel call against its twin on the same inputs, timed."""
+    import torch
+    got = fn(*args, **kw)
+    ref = twin(*args, **kw)
+    torch.cuda.synchronize()
+    abs_err, rel_err = max_err(got, ref)
+    row = dict(kernel=name, mode=mode, **info, max_abs_err=abs_err,
+               rel_err=rel_err, tol=tol,
+               ms=time_ms(lambda: fn(*args, **kw)),
+               plain_ms=time_ms(lambda: twin(*args, **kw)))
+    rows.append(row)
+    if not rel_err <= tol:
+        raise AssertionError(f"kernel disagrees with its twin: {row}")
+
+
 def phase_kernels(C_sp, device, seed):
     """Every K1 / K2 mode against its twin at the G67 shapes."""
     import torch
@@ -177,22 +218,159 @@ def phase_kernels(C_sp, device, seed):
                                                  "renormalize"), {}),
             ]
             for name, mode, args, kw in cases:
-                fn = getattr(K, name)
-                twin = getattr(K, f"{name}_plain")
-                got = fn(*args, **kw)
-                ref = twin(*args, **kw)
-                torch.cuda.synchronize()
-                abs_err, rel_err = max_err(got, ref)
-                row = dict(kernel=name, mode=mode, dtype=str(dt)[6:],
-                           p_pad=p, n=n, nnz=C.nnz, max_abs_err=abs_err,
-                           rel_err=rel_err, tol=tol[dt],
-                           ms=time_ms(lambda: fn(*args, **kw)),
-                           plain_ms=time_ms(lambda: twin(*args, **kw)))
-                rows.append(row)
-                if not rel_err <= tol[dt]:
-                    raise AssertionError(f"kernel disagrees with its twin: "
-                                         f"{row}")
+                check_case(rows, name, mode, getattr(K, name),
+                           getattr(K, f"{name}_plain"), args, kw, tol[dt],
+                           dtype=str(dt)[6:], p_pad=p, n=n, nnz=C.nnz)
     return rows
+
+
+def mc_instance():
+    """The n = 12,000 matrix completion (SeDuMi data) and its build
+    seconds."""
+    from manisdp_tpu_torch.frontends.workloads import matrix_completion
+    t0 = time.perf_counter()
+    data, _ = matrix_completion(MC["p"], MC["q"], rank=MC["rank"],
+                                m_samples=MC["m_samples"], seed=MC["seed"])
+    return data, time.perf_counter() - t0
+
+
+def phase_al_kernels(op64, device, seed):
+    """K3, K4 and K1 al_hess against their twins at the matrix-completion
+    shapes."""
+    import torch
+    from manisdp_tpu_torch import kernels as K
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    n, m = op64.n, op64.m
+    sigma = 0.37
+    rows = []
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}
+    for dt in (torch.float64, torch.float32):
+        op = op64.astype(dt)
+        rnd = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                     dtype=torch.float64,
+                                     device=device).to(dt)
+        info = dict(dtype=str(dt)[6:], n=n, m=m, nnzP=op.pat.nnz,
+                    nnzA=op.nnz)
+        e, w = rnd(op.pat.nnz), rnd(m)
+        # K4 does not depend on p: once per dtype, both orderings
+        k4 = [("apply_from_e", (e, op.krow_ptr, op.a2p, op.v), {}),
+              ("adjoint_on_pattern", (w, op.pat_ptr, op.kp, op.vp), {}),
+              ("es_vals", (w, op.pat_ptr, op.kp, op.vp),
+               dict(base=op.pat.v, alpha=sigma)),
+              ("s_vals", (w, op.pat_ptr, op.kp, op.vp),
+               dict(base=op.pat.v, alpha=-1.0))]
+        for mode, args, kw in k4:
+            check_case(rows, "csr_gather", mode, K.csr_gather,
+                       K.csr_gather_plain, args, kw, tol[dt], p_pad=None,
+                       **info)
+        es = K.csr_gather_plain(w, op.pat_ptr, op.kp, op.vp, base=op.pat.v,
+                                alpha=sigma)
+        ayu = K.csr_gather_plain(rnd(m), op.pat_ptr, op.kp, op.vp)
+        for p in AL_P_PADS:
+            Y = K.oblique_cols_plain(rnd(p, n), None, "renormalize")
+            U = K.oblique_cols_plain(Y, rnd(p, n), "proj")
+            YeG = rnd(n)
+            hess = dict(vals=es, B=Y, vals2=ayu, coefs=(2.0, 4.0 * sigma))
+            for name, mode, args, kw in (
+                    ("pattern_dots", "pair_dots", (Y, U, op.pat), {}),
+                    ("symcoo_spmm", "al_hess", (U, op.pat, "al_hess"),
+                     hess),
+                    ("symcoo_spmm", "al_hess_diag", (U, op.pat, "al_hess"),
+                     dict(hess, eG=YeG))):
+                check_case(rows, name, mode, getattr(K, name),
+                           getattr(K, f"{name}_plain"), args, kw, tol[dt],
+                           p_pad=p, **info)
+    return rows
+
+
+def al_kkt_oracle_on_card(data, res, device):
+    """Independent KKT check of a general-variant solve on the card, from
+    the raw SeDuMi triplets and the returned (Y, y) alone: pinf from
+    A(YᵀY), dinf from f64 eigvalsh of the dense S = mat(c - Aᵀy), gap from
+    <C, X> and bᵀy.  No ConstraintOp and no kernel is used."""
+    import torch
+    t0 = time.perf_counter()
+    n = int(data.K.s)
+    At = data.At.tocoo()
+    f64 = dict(dtype=torch.float64, device=device)
+    lin = torch.as_tensor(At.row.astype(np.int64), device=device)
+    k = torch.as_tensor(At.col.astype(np.int64), device=device)
+    v = torch.as_tensor(At.data, **f64)
+    Y = torch.as_tensor(res.Y, **f64)
+    y = torch.as_tensor(res.y, **f64)
+    b = torch.as_tensor(data.b, **f64)
+    m = b.shape[0]
+    Ax = torch.zeros(m, **f64).index_add_(
+        0, k, v * torch.sum(Y[:, lin % n] * Y[:, lin // n], dim=0))
+    pinf = float(torch.linalg.norm(Ax - b) / (1.0 + torch.linalg.norm(b)))
+    cnz = np.flatnonzero(data.c)
+    cl = torch.as_tensor(cnz, device=device)
+    cv = torch.as_tensor(data.c[cnz], **f64)
+    obj = float(torch.sum(cv * torch.sum(Y[:, cl % n] * Y[:, cl // n],
+                                         dim=0)))
+    by = float(torch.dot(b, y))
+    gap = abs(obj - by) / (1.0 + abs(obj) + abs(by))
+    del Ax, Y
+    S = torch.zeros(n * n, **f64)
+    S[cl] = cv
+    S.index_add_(0, lin, -v * y[k])
+    S = S.reshape(n, n).T          # vec is column-major; S is symmetric
+    wv = torch.linalg.eigvalsh(S)
+    lam_min, lam_max = float(wv[0]), float(wv[-1])
+    del S
+    dinf = max(0.0, -lam_min) / (1.0 + lam_max)
+    torch.cuda.synchronize()
+    return dict(pinf=pinf, dinf=dinf, gap=gap, eta=max(pinf, dinf, gap),
+                obj=obj, trace_X=float(np.sum(res.Y * res.Y)), by=by,
+                lam_min=lam_min, lam_max=lam_max,
+                seconds=time.perf_counter() - t0)
+
+
+def al_solve_phase(data, op, build_s, assemble_s, device):
+    """Matrix completion at n = 12,000 through solve_sdp (given its
+    ConstraintOp, assembled in ``assemble_s``) with bench.py's mc
+    settings."""
+    import torch
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch import recipes, solve_sdp
+
+    n = int(data.K.s)
+    _, kw = recipes.recipe("mc")
+    kw = dict(kw, delta=10, tr_maxinner=6, tr_maxiter=8, theta=1e-2,
+              inner_dtype="tcg32")
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve_sdp(op, data.b, data.c, n, device=device, verbose=False,
+                    **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    spmm_modes = dict(K.SPMM_LAUNCHES)
+    out = dict(phase="mc12000_solve", instance=MC, n=n, m=op.m,
+               nnzA=op.nnz, nnzP=op.pat.nnz, options=kw,
+               instance_build_s=build_s, assemble_s=assemble_s,
+               seconds=seconds, solver_time_s=res.time, status=res.status,
+               obj=res.obj, eta=res.eta, gap=res.gap, pinf=res.pinf,
+               dinf=res.dinf, iterations=res.iterations,
+               fac_size=res.fac_size, rtr_iters=res.rtr_iters,
+               hess_calls=res.hess_calls,
+               rtr_iters_per_s=res.rtr_iters / seconds, timers=res.timers,
+               launches=launches, symcoo_spmm_modes=spmm_modes)
+    out["oracle"] = al_kkt_oracle_on_card(data, res, device)
+    emit(out)
+    if res.status != 0 or not res.eta <= 1e-8:
+        raise AssertionError(f"mc12000: status {res.status}, eta {res.eta}")
+    if not out["oracle"]["eta"] <= 1e-8:
+        raise AssertionError(f"mc12000: KKT oracle {out['oracle']}")
+    for name in ("pattern_dots", "csr_gather"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the mc12000 solve never launched {name}")
+    if spmm_modes["al_hess"] <= 0:
+        raise AssertionError("the mc12000 solve never launched K1 al_hess")
+    return out
 
 
 def solve_phase(label, C_sp, source, device, check_oracle):
@@ -267,11 +445,7 @@ def main(argv=None):
     C1, src1 = load_graph("G1", args.gset, args.seed)
     C67, src67 = load_graph("G67", args.gset, args.seed)
     rows = phase_kernels(C67, device, args.seed)
-    worst = {}
-    for r in rows:
-        w = worst.setdefault(r["kernel"], dict(max_abs_err=0.0, rel_err=0.0))
-        w["max_abs_err"] = max(w["max_abs_err"], r["max_abs_err"])
-        w["rel_err"] = max(w["rel_err"], r["rel_err"])
+    worst = worst_errors(rows)
     emit(dict(phase="kernels_vs_twins", cases=len(rows), worst=worst,
               table=[{k: r[k] for k in ("kernel", "mode", "dtype", "p_pad",
                                           "rel_err", "ms", "plain_ms")}
@@ -281,31 +455,68 @@ def main(argv=None):
     g1 = solve_phase("G1_solve", C1, src1, device, check_oracle=True)
     # -- 5. G67-size solve: the slice --
     g67 = solve_phase("G67_solve", C67, src67, device, check_oracle=True)
-    for name, count in g67["launches"].items():
-        if count <= 0:
+    for name in ("symcoo_spmm", "oblique_cols"):
+        if g67["launches"][name] <= 0:
             raise AssertionError(f"the G67 solve never launched {name}")
 
-    # the main path's hot calls: the f32 tCG's Hessian and projection
-    hot = {"symcoo_spmm": "hess", "oblique_cols": "proj"}
-    sources = {"symcoo_spmm": "manisdp_tpu_torch/csrc/symcoo_spmm.cu",
-               "oblique_cols": "manisdp_tpu_torch/csrc/oblique_cols.cu"}
-    replaces = {"symcoo_spmm": "manisdp_tpu/ops/sparse.py:40",
-                "oblique_cols": "manisdp_tpu/manifolds/oblique.py:27"}
-    kern = []
-    for name in ("symcoo_spmm", "oblique_cols"):
-        r = next(r for r in rows if r["kernel"] == name and
-                 r["mode"] == hot[name] and r["dtype"] == "float32" and
-                 r["p_pad"] == HOT_P_PAD)
-        kern.append(dict(name=name, route="cuda", source=sources[name],
-                         replaces=replaces[name],
-                         launches=g67["launches"][name],
-                         max_abs_err=worst[name]["max_abs_err"],
-                         ms=r["ms"], plain_ms=r["plain_ms"]))
+    # -- 6. K3 / K4 / K1 al_hess vs twins at the matrix-completion shapes --
+    from manisdp_tpu_torch.ops.sparse import ConstraintOp
+    data, mc_build_s = mc_instance()
+    t0 = time.perf_counter()
+    op_mc = ConstraintOp.build(data.At, data.b, data.c, int(data.K.s),
+                               device)
+    torch.cuda.synchronize()
+    assemble_s = time.perf_counter() - t0
+    al_rows = phase_al_kernels(op_mc, device, args.seed)
+    worst = worst_errors(rows + al_rows)
+    emit(dict(phase="al_kernels_vs_twins", cases=len(al_rows),
+              worst=worst_errors(al_rows),
+              table=[{k: r[k] for k in ("kernel", "mode", "dtype", "p_pad",
+                                          "rel_err", "ms", "plain_ms")}
+                     for r in al_rows]))
+    # -- 7. the slice's solve: matrix completion at n = 12,000 --
+    mc = al_solve_phase(data, op_mc, mc_build_s, assemble_s, device)
+
+    # each kernel's hot call on its main path: the f32 tCG's Hessian and
+    # projection (G67 solve), the f32 AL Hessian's products (mc solve)
+    def pick(table, name, mode, p_pad):
+        return next(r for r in table if r["kernel"] == name and
+                    r["mode"] == mode and r["dtype"] == "float32" and
+                    r["p_pad"] == p_pad)
+    entries = [
+        ("symcoo_spmm", "hess", pick(rows, "symcoo_spmm", "hess", HOT_P_PAD),
+         "manisdp_tpu_torch/csrc/symcoo_spmm.cu",
+         "manisdp_tpu/ops/sparse.py:40", g67["launches"]["symcoo_spmm"]),
+        ("oblique_cols", "proj",
+         pick(rows, "oblique_cols", "proj", HOT_P_PAD),
+         "manisdp_tpu_torch/csrc/oblique_cols.cu",
+         "manisdp_tpu/manifolds/oblique.py:27",
+         g67["launches"]["oblique_cols"]),
+        ("symcoo_spmm", "al_hess",
+         pick(al_rows, "symcoo_spmm", "al_hess", AL_HOT_P_PAD),
+         "manisdp_tpu_torch/csrc/symcoo_spmm.cu",
+         "manisdp_tpu/solvers/primal_al.py:97",
+         mc["symcoo_spmm_modes"]["al_hess"]),
+        ("pattern_dots", "pair_dots",
+         pick(al_rows, "pattern_dots", "pair_dots", AL_HOT_P_PAD),
+         "manisdp_tpu_torch/csrc/pattern_dots.cu",
+         "manisdp_tpu/ops/sparse.py:240", mc["launches"]["pattern_dots"]),
+        ("csr_gather", "adjoint_on_pattern",
+         pick(al_rows, "csr_gather", "adjoint_on_pattern", None),
+         "manisdp_tpu_torch/csrc/csr_gather.cu",
+         "manisdp_tpu/ops/sparse.py:244", mc["launches"]["csr_gather"]),
+    ]
+    kern = [dict(name=name if name != "symcoo_spmm" else f"{name}.{mode}",
+                 route="cuda", source=src, replaces=rep, launches=launches,
+                 max_abs_err=worst[name]["max_abs_err"], ms=r["ms"],
+                 plain_ms=r["plain_ms"])
+            for name, mode, r, src, rep, launches in entries]
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(dict(nvidia_smi=smi, build_s=build_s, kernel_rows=rows,
-                       g1=g1, g67=g67, kernels=kern,
-                       total_s=time.perf_counter() - t_start), f, indent=1)
+                       al_kernel_rows=al_rows, g1=g1, g67=g67, mc12000=mc,
+                       kernels=kern, total_s=time.perf_counter() - t_start),
+                  f, indent=1)
     emit(dict(kernels=kern))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,9 @@
 """Carry JAX-package state across to the port.
 
 The tests feed both packages from the same numpy data through these:
-the arrays of a JAX ``SymCOO`` (``np.asarray`` of its fields), the
-``dataclasses.asdict`` of a JAX ``SolverOptions``, and a factor Y.
+the arrays of a JAX ``SymCOO`` or ``ConstraintOp`` (``np.asarray`` of
+their fields), the ``dataclasses.asdict`` of a JAX ``SolverOptions``, and
+a factor Y.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 from .config import SolverOptions
-from .ops.sparse import SymCOO
+from .ops.sparse import ConstraintOp, SymCOO
 from .solvers.common import pad_rows
 
 
@@ -21,6 +22,14 @@ def symcoo_from_arrays(i, j, v, n: int, device) -> SymCOO:
     """The port's SymCOO (with ``colptr``) from the numpy arrays of a JAX
     SymCOO, which are already sorted by (column, row)."""
     return SymCOO.from_arrays(i, j, v, n, device)
+
+
+def constraint_op_from_jax(arrays: dict, device) -> ConstraintOp:
+    """The port's ConstraintOp from a JAX ConstraintOp's arrays as numpy:
+    keys k, i, j, v, a2p, pat.i, pat.j, pat.v, b, kp, vp, a2p_sorted, m, n.
+    The same arrays plus the derived colptr, krow_ptr and pat_ptr."""
+    a = {key.replace("pat.", "pat_"): val for key, val in arrays.items()}
+    return ConstraintOp.from_arrays(a, device)
 
 
 def options_from_dict(d: dict) -> SolverOptions:

@@ -32,14 +32,17 @@ _TCG_CHUNK = 8
 
 
 def cast_floats(obj, dtype):
-    """Cast every floating tensor in ``obj`` (a tensor, a tuple / list of
-    them, or an object with ``astype`` such as SymCOO) to ``dtype``."""
+    """Cast every floating tensor in ``obj`` (a tensor, a tuple / list /
+    dict of them, or an object with ``astype`` such as SymCOO) to
+    ``dtype``.  Python numbers pass through."""
     if obj is None:
         return None
     if isinstance(obj, torch.Tensor):
         return obj.to(dtype) if obj.is_floating_point() else obj
     if isinstance(obj, (tuple, list)):
         return type(obj)(cast_floats(o, dtype) for o in obj)
+    if isinstance(obj, dict):
+        return {k: cast_floats(v, dtype) for k, v in obj.items()}
     if hasattr(obj, "astype"):
         return obj.astype(dtype)
     return obj

@@ -5,6 +5,7 @@
 //   ops/sparse.py  SymCOO.quad_cols / pair_dots (z_j = eG_j, "cost" mode)
 //   solvers/maxcut.py make_maxcut_problem cost / hess epilogues
 //   ops/eigs_rr.py DeviceCertSolver row matvec V C - z o V ("shift" mode)
+//   solvers/primal_al.py _make_problem hess (the AL Hessian, "al_hess")
 //
 // out[:, j] = sum_{e in colptr[j] .. colptr[j+1]} v_e * A[:, i_e]
 // C is symmetric and stored sorted by column, so the column pointer of
@@ -25,6 +26,13 @@
 //             (A = U, B = Y; A M never reaches device memory when the
 //             column fits in one pass of 32 * NCH rows, otherwise the
 //             second pass recomputes it)
+//   4 al_hess      : out = H := c1 * A M + c2 * B M2, where M2 has C's
+//                    pattern and the values vals2 (one pass over the
+//                    column gathers both factors)
+//   5 al_hess_diag : out = H - B[:, j] * sum_r(B[r, j] H[r, j]) - A[:, j] eG_j
+//                    (the unit-diagonal AL Hessian: A = U, B = Y,
+//                    M = mat(es), M2 = mat(A'A vec(Y'U)), c1 = 2,
+//                    c2 = 4 sigma, eG = colsum(Y o grad))
 //
 // What bounds it on an H100: at the G67 shape (n = 10^4, nnz = 5 * 10^4,
 // p_pad = 48) one call moves ~nnz * p_pad * 8 B = 19 MB of gathered
@@ -70,6 +78,34 @@ __device__ __forceinline__ void gather_chunk(
   }
 }
 
+// acc = c1 * (A M)[rows, j] + c2 * (B M2)[rows, j]: both gathers in one
+// walk over the column's entries
+template <typename T, int NCH>
+__device__ __forceinline__ void gather2_chunk(
+    T (&acc)[NCH], const T* __restrict__ A, int64_t sar, int64_t sac,
+    const T* __restrict__ B, int64_t sbr, int64_t sbc,
+    const int* __restrict__ rows, const T* __restrict__ vals,
+    const T* __restrict__ vals2, T c1, T c2, int e0, int e1, int r0,
+    int p) {
+  T acc2[NCH];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) acc[c] = acc2[c] = T(0);
+  for (int e = e0; e < e1; ++e) {
+    const int64_t i = rows[e];
+    const T v = vals[e], v2 = vals2[e];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int r = r0 + 32 * c;
+      if (r < p) {
+        acc[c] += v * A[(int64_t)r * sar + i * sac];
+        acc2[c] += v2 * B[(int64_t)r * sbr + i * sbc];
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) acc[c] = c1 * acc[c] + c2 * acc2[c];
+}
+
 template <typename T, int NCH>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 symcoo_spmm_kernel(const T* __restrict__ A, int64_t sar, int64_t sac,
@@ -78,8 +114,9 @@ symcoo_spmm_kernel(const T* __restrict__ A, int64_t sar, int64_t sac,
                    const T* __restrict__ vals, int p, int n, int mode,
                    const T* __restrict__ z,
                    const T* __restrict__ B, int64_t sbr, int64_t sbc,
-                   const T* __restrict__ eG, T* __restrict__ out,
-                   T* __restrict__ w) {
+                   const T* __restrict__ eG,
+                   const T* __restrict__ vals2, T c1, T c2,
+                   T* __restrict__ out, T* __restrict__ w) {
   const int lane = threadIdx.x & 31;
   const int j = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (j >= n) return;  // whole warp leaves together
@@ -90,15 +127,20 @@ symcoo_spmm_kernel(const T* __restrict__ A, int64_t sar, int64_t sac,
 
   T acc[NCH];
   T part = T(0);
+  const bool two = mode >= 4;
   for (int g = 0; g < npass; ++g) {
     const int rbase = g * rows_per_pass + lane;
-    gather_chunk<T, NCH>(acc, A, sar, sac, rows, vals, e0, e1, rbase, p);
+    if (two)
+      gather2_chunk<T, NCH>(acc, A, sar, sac, B, sbr, sbc, rows, vals,
+                            vals2, c1, c2, e0, e1, rbase, p);
+    else
+      gather_chunk<T, NCH>(acc, A, sar, sac, rows, vals, e0, e1, rbase, p);
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
       const int r = rbase + 32 * c;
       if (r >= p) continue;
       const int64_t o = (int64_t)r * n + j;
-      if (mode == 0) {
+      if (mode == 0 || mode == 4) {
         out[o] = acc[c];
       } else if (mode == 1) {
         out[o] = acc[c] - z[j] * A[(int64_t)r * sar + acol];
@@ -113,13 +155,17 @@ symcoo_spmm_kernel(const T* __restrict__ A, int64_t sar, int64_t sac,
   if (mode == 2) {
     part = warp_allsum(part);
     if (lane == 0) w[j] = part;
-  } else if (mode == 3) {
+  } else if (mode == 3 || mode == 5) {
     const T s = warp_allsum(part);
     const T eg = eG[j];
     for (int g = 0; g < npass; ++g) {
       const int rbase = g * rows_per_pass + lane;
-      // one pass: acc still holds this column's A M; otherwise recompute
-      if (npass > 1)
+      // one pass: acc still holds this column's product; otherwise
+      // recompute it
+      if (npass > 1 && two)
+        gather2_chunk<T, NCH>(acc, A, sar, sac, B, sbr, sbc, rows, vals,
+                              vals2, c1, c2, e0, e1, rbase, p);
+      else if (npass > 1)
         gather_chunk<T, NCH>(acc, A, sar, sac, rows, vals, e0, e1, rbase, p);
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
@@ -137,7 +183,8 @@ template <typename T>
 int launch(const void* A, int64_t sar, int64_t sac, const void* colptr,
            const void* rows, const void* vals, int p, int n, int mode,
            const void* z, const void* B, int64_t sbr, int64_t sbc,
-           const void* eG, void* out, void* w, void* stream) {
+           const void* eG, const void* vals2, double c1, double c2,
+           void* out, void* w, void* stream) {
   if (n <= 0 || p <= 0) return (int)cudaSuccess;
   const dim3 block(32 * kWarpsPerBlock);
   const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
@@ -146,7 +193,7 @@ int launch(const void* A, int64_t sar, int64_t sac, const void* colptr,
 #define K1_ARGS                                                           \
   (const T*)A, sar, sac, (const int*)colptr, (const int*)rows,            \
       (const T*)vals, p, n, mode, (const T*)z, (const T*)B, sbr, sbc,     \
-      (const T*)eG, (T*)out, (T*)w
+      (const T*)eG, (const T*)vals2, (T)c1, (T)c2, (T*)out, (T*)w
   if (nch <= 1)
     symcoo_spmm_kernel<T, 1><<<grid, block, 0, s>>>(K1_ARGS);
   else if (nch <= 2)
@@ -164,19 +211,21 @@ extern "C" {
 int symcoo_spmm_f64(const void* A, int64_t sar, int64_t sac,
                     const void* colptr, const void* rows, const void* vals,
                     int p, int n, int mode, const void* z, const void* B,
-                    int64_t sbr, int64_t sbc, const void* eG, void* out,
+                    int64_t sbr, int64_t sbc, const void* eG,
+                    const void* vals2, double c1, double c2, void* out,
                     void* w, void* stream) {
   return launch<double>(A, sar, sac, colptr, rows, vals, p, n, mode, z, B,
-                        sbr, sbc, eG, out, w, stream);
+                        sbr, sbc, eG, vals2, c1, c2, out, w, stream);
 }
 
 int symcoo_spmm_f32(const void* A, int64_t sar, int64_t sac,
                     const void* colptr, const void* rows, const void* vals,
                     int p, int n, int mode, const void* z, const void* B,
-                    int64_t sbr, int64_t sbc, const void* eG, void* out,
+                    int64_t sbr, int64_t sbc, const void* eG,
+                    const void* vals2, double c1, double c2, void* out,
                     void* w, void* stream) {
   return launch<float>(A, sar, sac, colptr, rows, vals, p, n, mode, z, B,
-                       sbr, sbc, eG, out, w, stream);
+                       sbr, sbc, eG, vals2, c1, c2, out, w, stream);
 }
 
 }  // extern "C"

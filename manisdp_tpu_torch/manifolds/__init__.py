@@ -1,3 +1,5 @@
+from .euclidean import Euclidean
 from .oblique import Oblique
+from .sphere import Sphere
 
-__all__ = ["Oblique"]
+__all__ = ["Euclidean", "Oblique", "Sphere"]

@@ -1,11 +1,13 @@
 """Sparse operators on Burer-Monteiro factors (PyTorch port of
-manisdp_tpu/ops/sparse.py, MaxCut slice).
+manisdp_tpu/ops/sparse.py: SymCOO and the factored constraint operator).
 
 The factor Y is (p, n); X = YᵀY is never formed.  ``gather_cols``,
 ``pair_dots`` and ``scatter_cols`` are the plain formulas the JAX package
 runs as gather / segment-sum chains; ``SymCOO``'s products go through
 kernel K1 (``kernels.symcoo_spmm``) on CUDA tensors and through its plain
-twin, built from these formulas, on CPU tensors.
+twin, built from these formulas, on CPU tensors.  ``ConstraintOp``'s pair
+dots are kernel K3 (``kernels.pattern_dots``) and its operator and
+adjoint are kernel K4 (``kernels.csr_gather``), again with plain twins.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels import symcoo_spmm
+from ..kernels import csr_gather, pattern_dots, symcoo_spmm
 
 
 def gather_cols(Y, idx):
@@ -111,3 +113,225 @@ class SymCOO:
         out.index_put_((self.i.long(), self.j.long()), self.v,
                        accumulate=True)
         return out
+
+
+def _ptr(seg, nseg: int) -> np.ndarray:
+    """CSR pointer (nseg+1,) of ascending segment ids ``seg``."""
+    ptr = np.zeros(nseg + 1, dtype=np.int64)
+    np.cumsum(np.bincount(seg, minlength=nseg), out=ptr[1:])
+    return ptr
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstraintOp:
+    """The affine operator A : S^n -> R^m in factored-entry form (the JAX
+    package's ConstraintOp).
+
+    Every nonzero of the m-by-n^2 SeDuMi constraint matrix is stored as
+    (k, i, j, v), sorted by constraint row k, with:
+
+    - ``pat``: the union sparsity pattern P of {c} U {rows of A}, a SymCOO
+      sorted by (j, i) whose values are c restricted to P;
+    - ``a2p``: A-entry -> index in P;
+    - the a2p-sorted second ordering (``kp``, ``vp``, ``a2p_sorted``) that
+      the adjoint reads;
+    - ``krow_ptr`` (m+1) over the k-sorted entries and ``pat_ptr``
+      (nnzP+1) over ``a2p_sorted``: the CSR pointers of kernel K4 in
+      both orderings (a pattern entry only C touches has an empty
+      segment).
+
+    Assembly runs once per problem in numpy on the host; the arrays then
+    live on one device, indices as int32.
+    """
+    k: torch.Tensor          # (nnzA,) int32, ascending
+    i: torch.Tensor
+    j: torch.Tensor
+    v: torch.Tensor          # (nnzA,) values
+    a2p: torch.Tensor        # (nnzA,) int32 index into P
+    pat: SymCOO              # pattern P with v = c restricted to P
+    b: torch.Tensor          # (m,) right-hand side
+    kp: torch.Tensor         # (nnzA,) int32 constraint row, a2p-sorted
+    vp: torch.Tensor         # (nnzA,) values, a2p-sorted
+    a2p_sorted: torch.Tensor  # (nnzA,) int32, ascending
+    krow_ptr: torch.Tensor   # (m+1,) int32
+    pat_ptr: torch.Tensor    # (nnzP+1,) int32
+    m: int
+    n: int
+
+    @staticmethod
+    def build(At, b, c, n: int, device) -> "ConstraintOp":
+        """From SeDuMi data: At (n^2, m) sparse, b (m,), c (n^2,)."""
+        import scipy.sparse as sp
+        A = sp.csr_matrix(At.T) if not sp.issparse(At) else At.T.tocsr()
+        m = A.shape[0]
+        coo = A.tocoo()
+        kk = coo.row.astype(np.int64)
+        lin = coo.col.astype(np.int64)          # index into vec(X), col-major
+        ii = (lin % n).astype(np.int64)
+        jj = (lin // n).astype(np.int64)
+        vv = coo.data.astype(np.float64)
+
+        c = np.asarray(c).ravel().astype(np.float64)
+        c_sp = sp.coo_matrix(c.reshape(n, n, order="F"))
+        arrays = ConstraintOp._assemble(
+            kk, ii, jj, vv,
+            c_sp.row.astype(np.int64), c_sp.col.astype(np.int64),
+            c_sp.data.astype(np.float64), b, n, m)
+        return ConstraintOp.from_arrays(arrays, device)
+
+    @staticmethod
+    def _assemble(kk, ii, jj, vv, ci, cj, cv, b, n, m) -> dict:
+        """Host arrays of the operator (the JAX package's ``_assemble``):
+        entries sorted by k, the union pattern sorted by (j, i), both
+        maps."""
+        order = np.argsort(kk, kind="stable")
+        kk, ii, jj, vv = kk[order], ii[order], jj[order], vv[order]
+
+        # union pattern P, sorted by (j, i)
+        keys_a = jj * n + ii
+        keys_c = cj * n + ci
+        pat_keys = np.unique(np.concatenate([keys_a, keys_c]))
+        a2p = np.searchsorted(pat_keys, keys_a).astype(np.int32)
+        c2p = np.searchsorted(pat_keys, keys_c)
+        c_on_p = np.zeros(pat_keys.shape[0], dtype=np.float64)
+        np.add.at(c_on_p, c2p, cv)
+        perm = np.argsort(a2p, kind="stable")
+        return dict(
+            k=kk.astype(np.int32), i=ii.astype(np.int32),
+            j=jj.astype(np.int32), v=vv, a2p=a2p,
+            pat_i=(pat_keys % n).astype(np.int32),
+            pat_j=(pat_keys // n).astype(np.int32), pat_v=c_on_p,
+            b=np.asarray(b, dtype=np.float64).ravel(),
+            kp=kk[perm].astype(np.int32), vp=vv[perm],
+            a2p_sorted=a2p[perm], m=int(m), n=int(n))
+
+    @staticmethod
+    def from_arrays(a: dict, device, dtype=torch.float64) -> "ConstraintOp":
+        """The operator on ``device`` from host arrays as ``_assemble``
+        returns them (keys k, i, j, v, a2p, pat_i, pat_j, pat_v, b, kp, vp,
+        a2p_sorted, m, n); derives colptr, krow_ptr and pat_ptr."""
+        m, n = int(a["m"]), int(a["n"])
+        k = np.asarray(a["k"])
+        pat_i, pat_j = np.asarray(a["pat_i"]), np.asarray(a["pat_j"])
+        a2p_sorted = np.asarray(a["a2p_sorted"])
+        nnzp = pat_i.shape[0]
+        keys = pat_j.astype(np.int64) * n + pat_i
+        if np.any(np.diff(keys) <= 0) or np.any(np.diff(k) < 0) or \
+                np.any(np.diff(a2p_sorted) < 0):
+            raise ValueError("operator arrays are not in the sorted order "
+                             "_assemble gives them")
+        for name, arr, hi in (("k", k, m), ("a2p_sorted", a2p_sorted, nnzp),
+                              ("pat_i", pat_i, n), ("pat_j", pat_j, n)):
+            if arr.size and (arr.min() < 0 or arr.max() >= hi):
+                raise ValueError(f"{name} out of range [0, {hi})")
+        idx = lambda x: torch.tensor(np.asarray(x), dtype=torch.int32,  # noqa: E731
+                                     device=device)
+        val = lambda x: torch.tensor(np.asarray(x), dtype=dtype,  # noqa: E731
+                                     device=device)
+        pat = SymCOO(i=idx(pat_i), j=idx(pat_j), v=val(a["pat_v"]), n=n,
+                     colptr=idx(_ptr(pat_j, n)))
+        return ConstraintOp(
+            k=idx(k), i=idx(a["i"]), j=idx(a["j"]), v=val(a["v"]),
+            a2p=idx(a["a2p"]), pat=pat, b=val(a["b"]), kp=idx(a["kp"]),
+            vp=val(a["vp"]), a2p_sorted=idx(a2p_sorted),
+            krow_ptr=idx(_ptr(k, m)), pat_ptr=idx(_ptr(a2p_sorted, nnzp)),
+            m=m, n=n)
+
+    @property
+    def nnz(self) -> int:
+        return int(self.v.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.v.device
+
+    def astype(self, dtype) -> "ConstraintOp":
+        """The same operator with its float arrays (v, vp, b, pat.v) cast
+        to ``dtype``; the int32 arrays are shared."""
+        return dataclasses.replace(self, v=self.v.to(dtype),
+                                   vp=self.vp.to(dtype), b=self.b.to(dtype),
+                                   pat=self.pat.astype(dtype))
+
+    # -- forward operator ------------------------------------------------
+    def pattern_pair_dots(self, Y, U=None):
+        """e_P = <Y[:,i], U[:,j]> on the union pattern P -> (nnzP,)."""
+        return pattern_dots(Y, Y if U is None else U, self.pat)
+
+    def apply_from_e(self, e):
+        """A(vec(M)) given M's values e on pattern P (via the a2p map)."""
+        return csr_gather(e, self.krow_ptr, self.a2p, self.v)
+
+    def apply_factored(self, Y, U=None):
+        """A(vec(YᵀU)) -> (m,); U defaults to Y (then it is A(X))."""
+        return self.apply_from_e(self.pattern_pair_dots(Y, U))
+
+    def apply_vec(self, x):
+        """A @ x for a dense vec(X) (n^2,), off the hot path."""
+        e = x[self.i.long() + self.j.long() * self.n]
+        out = torch.zeros((self.m,), dtype=e.dtype, device=e.device)
+        return out.index_add_(0, self.k.long(), self.v * e)
+
+    # -- adjoint on the pattern ------------------------------------------
+    def adjoint_on_pattern(self, w):
+        """Values of mat(Aᵀw) restricted to pattern P -> (nnzP,)."""
+        return csr_gather(w, self.pat_ptr, self.kp, self.vp)
+
+    def es_vals(self, w, sigma: float):
+        """Values on P of eS = mat(c + sigma * Aᵀw)."""
+        return csr_gather(w, self.pat_ptr, self.kp, self.vp,
+                          base=self.pat.v, alpha=sigma)
+
+    def s_vals(self, y):
+        """Values on P of mat(c - Aᵀy) (the dual slack matrix)."""
+        return csr_gather(y, self.pat_ptr, self.kp, self.vp,
+                          base=self.pat.v, alpha=-1.0)
+
+    def pattern_dense(self, vals):
+        out = torch.zeros((self.n, self.n), dtype=vals.dtype,
+                          device=vals.device)
+        return out.index_put_((self.pat.i.long(), self.pat.j.long()), vals,
+                              accumulate=True)
+
+    # -- operator protocol -----------------------------------------------
+    # The AL drivers see the operator only through these and the methods
+    # above.  Multipliers / residuals live in R^m.
+    def res_zeros(self):
+        return torch.zeros((self.m,), dtype=self.b.dtype, device=self.device)
+
+    def res_from_mvec(self, y):
+        """Host (m,) multipliers -> device residual-space repr."""
+        return torch.as_tensor(np.asarray(y, dtype=np.float64).ravel(),
+                               dtype=self.b.dtype, device=self.device)
+
+    def res_to_mvec(self, y_dev):
+        """Device residual-space repr -> host (m,) multipliers."""
+        return y_dev.cpu().numpy()
+
+    def dot_res(self, u, v):
+        """<u, v> in residual (constraint) space."""
+        return torch.dot(u, v)
+
+    def norm_res(self, u):
+        return torch.linalg.norm(u)
+
+    @property
+    def c_pattern(self):
+        """Values of the cost vector c restricted to the pattern P."""
+        return self.pat.v
+
+    def dot_pattern(self, u, v):
+        """<u, v> over pattern entries."""
+        return torch.dot(u, v)
+
+    def colsum_pattern(self, vals):
+        """Column sums of mat(vals) on P -> (n,)."""
+        out = torch.zeros((self.n,), dtype=vals.dtype, device=vals.device)
+        return out.index_add_(0, self.pat.j.long(), vals)
+
+    def matmat_pattern(self, Y, vals):
+        """Y @ mat(vals) for vals on P -> (p, n)."""
+        return self.pat.matmat_vals(Y, vals)
+
+    def matvec_pattern(self, V, vals):
+        """mat(vals) @ V for a dense (n, k) block (certificate matvec)."""
+        return self.pat.matvec_block(V, vals)

@@ -1,5 +1,6 @@
 """Outer-loop machinery shared by the drivers (PyTorch port of the part
-of manisdp_tpu/solvers/common.py that the MaxCut driver uses).
+of manisdp_tpu/solvers/common.py that the MaxCut and primal AL drivers
+use).
 
 Rank policy: the factor is a (p_pad, n) buffer with zero padding rows,
 p_pad = the active rank p rounded up to a multiple of ``p_bucket``.
@@ -15,6 +16,8 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+
+from ..core.trustregions import cast_floats
 
 
 @dataclasses.dataclass
@@ -75,6 +78,16 @@ class PhaseTimers:
                 timers.add(phase, time.time() - self._t0)
 
         return _Ctx()
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; "cuda" without a card raises — the
+    solvers never move to the CPU on their own."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but torch finds no CUDA device; "
+                           "pass device='cpu' to run the plain twins")
+    return device
 
 
 def bucketed(p: int, bucket: int) -> int:
@@ -148,7 +161,7 @@ class SlowProgress:
 
 
 def make_line_search(cost_fn: Callable, renorm: Callable,
-                     max_extra: int = 45):
+                     max_extra: int = 45, ls_dtype=None):
     """Backtracking saddle-escape line search (ManiSDP_unitdiag.m:138-150).
 
     alpha starts at 1 and shrinks by 0.8 up to 15 times; a step is
@@ -158,26 +171,40 @@ def make_line_search(cost_fn: Callable, renorm: Callable,
     more steps until the cost strictly decreases, and stays put if none
     does.  ``cost_fn(Y, params) -> f`` (0-d tensor); ``renorm`` maps an
     ambient point back to the manifold.
+
+    ``ls_dtype`` ("float32"): the first 15 trial costs are evaluated in
+    that dtype (params and trial point cast; the accepted point stays in
+    the ambient dtype).  Their 1e-3 accept test sits far above f32 noise;
+    the strict-decrease tail and the final stay-put guard compare
+    full-precision costs.
     """
     i_max = 15 + max_extra
+    ls_dt = getattr(torch, ls_dtype) if ls_dtype else None
 
     def line_search(Y, U, params):
-        f = lambda P: float(cost_fn(P, params))  # noqa: E731
-        f0 = f(Y)
+        f_full = lambda P: float(cost_fn(P, params))  # noqa: E731
+        if ls_dt is None:
+            f_of = f_full
+        else:
+            params_c = cast_floats(params, ls_dt)
+            f_of = lambda P: float(cost_fn(P.to(ls_dt), params_c))  # noqa: E731
+        f0 = f_of(Y)
         alpha, i = 1.0, 1
         nY = renorm(Y + alpha * U)
-        fa = f(nY)
+        fa = f_of(nY)
         while i <= 15 and fa - f0 > -1e-3:
             alpha *= 0.8
             nY = renorm(Y + alpha * U)
-            fa = f(nY)
+            fa = f_of(nY)
             i += 1
         if fa - f0 <= -1e-3:
             return nY
+        if ls_dt is not None:
+            f0, fa = f_full(Y), f_full(nY)
         while i <= i_max and fa >= f0:
             alpha *= 0.8
             nY = renorm(Y + alpha * U)
-            fa = f(nY)
+            fa = f_full(nY)
             i += 1
         # if even the smallest step failed to decrease, stay put
         return nY if fa < f0 else Y

@@ -31,7 +31,8 @@ from ..manifolds import Oblique
 from ..ops.eigs_rr import DeviceCertSolver
 from ..ops.sparse import SymCOO
 from .common import (PhaseTimers, RankController, SDPResult, SlowProgress,
-                     bucketed, log_iter, make_line_search, pad_rows)
+                     bucketed, log_iter, make_line_search, pad_rows,
+                     resolve_device)
 
 
 def make_maxcut_problem(dense: bool = True) -> Problem:
@@ -193,10 +194,7 @@ def solve_maxcut_unitdiag(C, options: Optional[SolverOptions] = None,
     (the default) raises when no GPU is present — the solver never moves
     to the CPU on its own.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' but torch finds no CUDA device; "
-                           "pass device='cpu' to run the plain twins")
+    device = resolve_device(device)
     if resume:
         from ..utils.checkpoint import resume_kwargs
         Y0 = resume_kwargs(resume).get("Y0", Y0)

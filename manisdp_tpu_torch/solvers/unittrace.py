@@ -1,0 +1,32 @@
+"""min <C,X> s.t. A(X)=b, tr(X)=1, X>=0 (PyTorch port of
+manisdp_tpu/solvers/unittrace.py; src/primal/ManiSDP_unittrace.m:
+unit-Frobenius sphere + augmented Lagrangian).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..config import SolverOptions
+from .common import SDPResult
+from .primal_al import solve_sedumi_al
+
+
+def solve_unittrace(At, b, c, n: int,
+                    options: Optional[SolverOptions] = None,
+                    Y0: Optional[np.ndarray] = None,
+                    y0: Optional[np.ndarray] = None,
+                    resume: Optional[str] = None,
+                    device="cuda",
+                    **overrides) -> SDPResult:
+    """SeDuMi-format input: At (n^2, m) sparse (or a ConstraintOp already
+    on ``device``), b (m,), c (n^2,).
+
+    ``resume``: path of a checkpoint_every snapshot; loads the
+    factor/multipliers/penalty and continues that trajectory.
+    ``device``: where the solve runs; "cuda" (the default) raises when no
+    GPU is present."""
+    return solve_sedumi_al("unittrace", At, b, c, n, options, Y0, y0, resume,
+                           device, overrides)
