@@ -7,7 +7,7 @@ CUDA GPU.
 Phases (each prints one line; a failed check raises and the exit code is
 not 0):
   1. environment: torch / CUDA versions, the card's name and power limit;
-  2. build kernels K1-K4 from ``manisdp_tpu_torch/csrc``;
+  2. build kernels K1-K6 from ``manisdp_tpu_torch/csrc``;
   3. every K1 / K2 mode against its plain PyTorch twin on the card at the
      G67 shapes (n = 10^4, p_pad in {8, 24, 40, 48}, f64 and f32),
      with times;
@@ -23,9 +23,20 @@ not 0):
      on the factored constraint operator, f32 tCG, device LOBPCG
      certificate), with the launch counters and an independent KKT oracle
      on the card (A(YᵀY) from the raw SeDuMi triplets, f64 eigvalsh of the
-     dense S = mat(c - Aᵀy), the duality gap).
-Then one ``{"kernels": [...]}`` line and, last, the result line
-``{"ok": true, "device": {...}}``.
+     dense S = mat(c - Aᵀy), the duality gap);
+  8. K5 (``apply``, ``aat``, ``axpy``), K4's ``scatter_pos`` mode and gather
+     on the dense carrier (f64 and f32), and K6 (f64), against their twins
+     at the shapes of matrix completion at n = 4,000 (m = 1.32 M), with
+     times;
+  9. that matrix completion through ``solve_sedumi`` on its default
+     options (the entrywise carrier, kernel K5), with the same oracle;
+ 10. the same with ``al_op_mode="dense"`` (the dense carrier, K4
+     ``scatter_pos``), which must reach phase 9's objective;
+ 11. the same with ``cert_method="dense_eigh"`` (f32 eigh + K6
+     refinement), with its tier counts and one plain f64 eigh of the final
+     S for comparison.
+Phases 9-11 report peak device memory.  Then one ``{"kernels": [...]}``
+line and, last, the result line ``{"ok": true, "device": {...}}``.
 
 ``--gset DIR`` reads G1.txt / G67.txt from a Gset directory; without it
 (or when a file is missing) seeded stand-ins of the same shape are used
@@ -57,6 +68,9 @@ HOT_P_PAD = 40
 MC = dict(p=6000, q=6000, rank=10, m_samples=4_800_000, seed=3)
 AL_P_PADS = (8, 16, 24)
 AL_HOT_P_PAD = 16
+# matrix completion at n = 4,000 (bench.py bench_mc(2000), the JAX bench's
+# mc_n4000 row, uncut): below the entrywise and dense carriers' limits
+MC4 = dict(p=2000, q=2000, rank=10, m_samples=1_600_000, seed=3)
 
 
 def emit(obj):
@@ -104,13 +118,13 @@ def load_graph(name, gset_dir, seed):
     return make(seed), f"seeded stand-in for {name} (seed {seed})"
 
 
-def time_ms(fn, reps=25):
+def time_ms(fn, reps=25, warm=3):
     """Median device milliseconds of one call, from CUDA events around
     it.  A spin kernel holds the stream while the host enqueues the call,
     so its launches run back to back and the events time the device work
     rather than the host's launch overhead."""
     import torch
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     ts = []
@@ -224,13 +238,14 @@ def phase_kernels(C_sp, device, seed):
     return rows
 
 
-def mc_instance():
-    """The n = 12,000 matrix completion (SeDuMi data) and its build
+def mc_instance(spec):
+    """The matrix completion of ``spec`` (SeDuMi data) and its build
     seconds."""
     from manisdp_tpu_torch.frontends.workloads import matrix_completion
     t0 = time.perf_counter()
-    data, _ = matrix_completion(MC["p"], MC["q"], rank=MC["rank"],
-                                m_samples=MC["m_samples"], seed=MC["seed"])
+    data, _ = matrix_completion(spec["p"], spec["q"], rank=spec["rank"],
+                                m_samples=spec["m_samples"],
+                                seed=spec["seed"])
     return data, time.perf_counter() - t0
 
 
@@ -328,18 +343,25 @@ def al_kkt_oracle_on_card(data, res, device):
                 seconds=time.perf_counter() - t0)
 
 
+def mc_options():
+    """bench.py's overrides on recipe("mc"): delta 10, TR 8 x 6, theta
+    1e-2, f32 tCG."""
+    from manisdp_tpu_torch import recipes
+    _, kw = recipes.recipe("mc")
+    return dict(kw, delta=10, tr_maxinner=6, tr_maxiter=8, theta=1e-2,
+                inner_dtype="tcg32")
+
+
 def al_solve_phase(data, op, build_s, assemble_s, device):
     """Matrix completion at n = 12,000 through solve_sdp (given its
     ConstraintOp, assembled in ``assemble_s``) with bench.py's mc
     settings."""
     import torch
     from manisdp_tpu_torch import kernels as K
-    from manisdp_tpu_torch import recipes, solve_sdp
+    from manisdp_tpu_torch import solve_sdp
 
     n = int(data.K.s)
-    _, kw = recipes.recipe("mc")
-    kw = dict(kw, delta=10, tr_maxinner=6, tr_maxiter=8, theta=1e-2,
-              inner_dtype="tcg32")
+    kw = mc_options()
     K.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -371,6 +393,160 @@ def al_solve_phase(data, op, build_s, assemble_s, device):
     if spmm_modes["al_hess"] <= 0:
         raise AssertionError("the mc12000 solve never launched K1 al_hess")
     return out
+
+
+def phase_carrier_kernels(ew, dense, device, seed):
+    """K5's three modes and K4 on the dense carrier (scatter_pos with and
+    without base, the flat-position gather) against their twins at the
+    n = 4,000 matrix-completion shapes, f64 and f32; then K6 (f64) on the
+    refinement inputs of the instance's dual slack S = C - Aᵀy."""
+    import torch
+    from manisdp_tpu_torch import kernels as K
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    n, m = ew.n, ew.m
+    sigma = 0.37
+    rows = []
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}
+    rnd = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                 dtype=torch.float64, device=device)
+    E64, w64 = rnd(n, n), rnd(m)
+    W64 = ew.res_from_mvec(w64.cpu().numpy())   # w's dense representative
+    for dt in (torch.float64, torch.float32):
+        eo, do = ew.astype(dt), dense.astype(dt)
+        E, w, W = E64.to(dt), w64.to(dt), W64.to(dt)
+        info = dict(dtype=str(dt)[6:], n=n, m=m, nnzA=do.nnz,
+                    npos=int(do.pos.shape[0]))
+        scatter = dict(pos=do.pos, size=n * n)
+        seg = (w, do.pos_ptr, do.kq, do.vq)
+        for name, mode, args, kw in (
+                ("masked_sym", "apply", (E, eo.aval, eo.dfac, "apply"), {}),
+                ("masked_sym", "aat", (E, eo.aval, eo.dfac, "aat"), {}),
+                ("masked_sym", "axpy", (W, eo.aval, None, "axpy"),
+                 dict(C=eo.C, alpha=sigma)),
+                ("csr_gather", "scatter_pos", seg,
+                 dict(scatter, base=do.C.view(-1), alpha=sigma)),
+                ("csr_gather", "scatter_pos_adjoint", seg, scatter),
+                ("csr_gather", "dense_apply_from_e",
+                 (E.view(-1), do.krow_ptr, do.ij, do.v), {})):
+            check_case(rows, name, mode, getattr(K, name),
+                       getattr(K, f"{name}_plain"), args, kw, tol[dt],
+                       **info)
+    S = ew.s_vals(W64)
+    V = torch.linalg.eigh(S.to(torch.float32))[1].to(torch.float64)
+    SV = V.T @ (S @ V)
+    SV = 0.5 * (SV + SV.T)
+    B = V.T @ V
+    mu = torch.diagonal(SV) / torch.diagonal(B)
+    check_case(rows, "oa_refine", "f64", K.oa_refine, K.oa_refine_plain,
+               (SV, B, mu, torch.min(mu), torch.max(mu)), {},
+               tol[torch.float64], dtype="float64", n=n)
+    return rows
+
+
+def mc4_solve_phase(label, data, device, call, expect, **extra):
+    """One solve of the n = 4,000 matrix completion with bench.py's mc
+    settings plus ``extra``, through ``call(kw)``; checks that the
+    operator ladder picked the class named ``expect``, the solver's and
+    the oracle's eta, and reports peak device memory and every launch
+    counter of the solve."""
+    import torch
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch.ops import dense_cert
+    from manisdp_tpu_torch.solvers import primal_al
+
+    kw = dict(mc_options(), **extra)
+    picked = []
+    select = primal_al._select_operator
+
+    def spy(opt, op):
+        picked.append(select(opt, op))
+        return picked[-1]
+
+    primal_al._select_operator = spy
+    K.reset_launches()
+    dense_cert.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = call(kw)
+        torch.cuda.synchronize()
+    finally:
+        primal_al._select_operator = select
+    seconds = time.perf_counter() - t0
+    out = dict(phase=label, instance=MC4, n=int(data.K.s),
+               m=int(data.b.shape[0]),
+               operator=type(picked[0]).__name__ if picked else None,
+               options=kw, seconds=seconds, solver_time_s=res.time,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               status=res.status, obj=res.obj, eta=res.eta, gap=res.gap,
+               pinf=res.pinf, dinf=res.dinf, iterations=res.iterations,
+               fac_size=res.fac_size, rtr_iters=res.rtr_iters,
+               hess_calls=res.hess_calls, timers=res.timers,
+               launches=dict(K.LAUNCHES), csr_modes=dict(K.CSR_LAUNCHES),
+               masked_modes=dict(K.MASKED_LAUNCHES),
+               cert_tiers=dict(dense_cert.COUNTS))
+    out["oracle"] = al_kkt_oracle_on_card(data, res, device)
+    emit(out)
+    if out["operator"] != expect:
+        raise AssertionError(f"{label}: the ladder picked "
+                             f"{out['operator']}, expected {expect}")
+    if res.status != 0 or not res.eta <= 1e-8:
+        raise AssertionError(f"{label}: status {res.status}, eta {res.eta}")
+    if not out["oracle"]["eta"] <= 1e-8:
+        raise AssertionError(f"{label}: KKT oracle {out['oracle']}")
+    return out, res
+
+
+def carrier_solve_phases(data, op, device):
+    """Phases 9-11 on the n = 4,000 matrix completion (``op`` its
+    ConstraintOp): solve_sedumi on the defaults, then the dense carrier and
+    the dense_eigh certificate through solve_sdp."""
+    import torch
+    from manisdp_tpu_torch import solve_sdp, solve_sedumi
+
+    n = int(data.K.s)
+    ew, _ = mc4_solve_phase(
+        "mc4000_entrywise", data, device,
+        lambda kw: solve_sedumi(data, device=device, verbose=False, **kw),
+        "EntrywiseConstraintOp")
+    for mode, count in ew["masked_modes"].items():
+        if count <= 0:
+            raise AssertionError(f"the entrywise solve never launched K5 "
+                                 f"{mode}")
+    by_op = lambda kw: solve_sdp(op, data.b, data.c, n,  # noqa: E731
+                                 device=device, verbose=False, **kw)
+    dense, _ = mc4_solve_phase("mc4000_dense", data, device, by_op,
+                               "DenseConstraintOp", al_op_mode="dense")
+    if dense["csr_modes"]["scatter_pos"] <= 0:
+        raise AssertionError("the dense solve never launched K4 scatter_pos")
+    rel = abs(dense["obj"] - ew["obj"]) / abs(ew["obj"])
+    if not rel <= 1e-8 or dense["iterations"] != ew["iterations"]:
+        raise AssertionError(
+            f"dense vs entrywise: objectives {dense['obj']} / {ew['obj']} "
+            f"(rel {rel}), iterations {dense['iterations']} / "
+            f"{ew['iterations']}")
+    cert, res = mc4_solve_phase("mc4000_dense_eigh", data, device, by_op,
+                                "EntrywiseConstraintOp",
+                                cert_method="dense_eigh")
+    if cert["launches"]["oa_refine"] <= 0:
+        raise AssertionError("the dense_eigh solve never launched K6")
+    # the exact certificate dense_eigh stands in for, on the final S
+    S = torch.as_tensor(res.S, dtype=torch.float64, device=device)
+    S = 0.5 * (S + S.T)
+    cmp = dict(phase="mc4000_cert_compare",
+               dense_eigh_cert_s=cert["timers"].get("cert"),
+               devrr_cert_s=ew["timers"].get("cert"),
+               cert_tiers=cert["cert_tiers"],
+               eigh_f64_ms=time_ms(lambda: torch.linalg.eigh(S), reps=3,
+                                   warm=1),
+               eigh_f32_ms=time_ms(lambda: torch.linalg.eigh(S.float()),
+                                   reps=3, warm=1),
+               dense_vs_entrywise_obj_rel=rel)
+    emit(cmp)
+    return dict(entrywise=ew, dense=dense, dense_eigh=cert, compare=cmp)
 
 
 def solve_phase(label, C_sp, source, device, check_oracle):
@@ -461,7 +637,7 @@ def main(argv=None):
 
     # -- 6. K3 / K4 / K1 al_hess vs twins at the matrix-completion shapes --
     from manisdp_tpu_torch.ops.sparse import ConstraintOp
-    data, mc_build_s = mc_instance()
+    data, mc_build_s = mc_instance(MC)
     t0 = time.perf_counter()
     op_mc = ConstraintOp.build(data.At, data.b, data.c, int(data.K.s),
                                device)
@@ -476,13 +652,47 @@ def main(argv=None):
                      for r in al_rows]))
     # -- 7. the slice's solve: matrix completion at n = 12,000 --
     mc = al_solve_phase(data, op_mc, mc_build_s, assemble_s, device)
+    del data, op_mc
+
+    # -- 8. carrier kernels vs twins at the n = 4,000 matrix completion --
+    from manisdp_tpu_torch.ops.sparse import EntrywiseConstraintOp
+    data4, mc4_build_s = mc_instance(MC4)
+    setup = dict(instance_build_s=mc4_build_s)
+    t0 = time.perf_counter()
+    op4 = ConstraintOp.build(data4.At, data4.b, data4.c, int(data4.K.s),
+                             device)
+    torch.cuda.synchronize()
+    setup["assemble_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ew4 = EntrywiseConstraintOp.detect(op4)
+    torch.cuda.synchronize()
+    setup["entrywise_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense4 = op4.to_dense_op()
+    torch.cuda.synchronize()
+    setup["dense_build_s"] = time.perf_counter() - t0
+    carrier_rows = phase_carrier_kernels(ew4, dense4, device, args.seed)
+    emit(dict(phase="carrier_kernels_vs_twins", instance=MC4, n=op4.n,
+              m=op4.m, nnzA=op4.nnz, **setup, cases=len(carrier_rows),
+              worst=worst_errors(carrier_rows),
+              table=[{k: r[k] for k in ("kernel", "mode", "dtype", "rel_err",
+                                          "ms", "plain_ms")}
+                     for r in carrier_rows]))
+    del ew4, dense4
+    # -- 9-11. the carriers' solves: matrix completion at n = 4,000 --
+    mc4 = carrier_solve_phases(data4, op4, device)
 
     # each kernel's hot call on its main path: the f32 tCG's Hessian and
-    # projection (G67 solve), the f32 AL Hessian's products (mc solve)
-    def pick(table, name, mode, p_pad):
+    # projection (G67 solve), the f32 AL Hessian's products (mc solves),
+    # the f64 refinement pass (dense_eigh solve)
+    def pick(table, name, mode, p_pad=None, dtype="float32"):
         return next(r for r in table if r["kernel"] == name and
-                    r["mode"] == mode and r["dtype"] == "float32" and
-                    r["p_pad"] == p_pad)
+                    r["mode"] == mode and r["dtype"] == dtype and
+                    r.get("p_pad") == p_pad)
+
+    def worst_abs(table, name, modes):
+        return max(r["max_abs_err"] for r in table
+                   if r["kernel"] == name and r["mode"] in modes)
     entries = [
         ("symcoo_spmm", "hess", pick(rows, "symcoo_spmm", "hess", HOT_P_PAD),
          "manisdp_tpu_torch/csrc/symcoo_spmm.cu",
@@ -511,10 +721,39 @@ def main(argv=None):
                  max_abs_err=worst[name]["max_abs_err"], ms=r["ms"],
                  plain_ms=r["plain_ms"])
             for name, mode, r, src, rep, launches in entries]
+    # the carriers' kernels: K5 and K4 scatter_pos in the f32 tCG's
+    # Hessian, K6 in the near tier of the dense_eigh certificate
+    masked = mc4["entrywise"]["masked_modes"]
+    for name, r, modes, src, rep, launches in (
+            ("masked_sym.apply", pick(carrier_rows, "masked_sym", "apply"),
+             ("apply",), "masked_sym.cu", "ops/sparse.py:551",
+             masked["apply"]),
+            ("masked_sym.aat", pick(carrier_rows, "masked_sym", "aat"),
+             ("aat",), "masked_sym.cu", "ops/sparse.py:558",
+             masked["aat"]),
+            ("masked_sym.axpy", pick(carrier_rows, "masked_sym", "axpy"),
+             ("axpy",), "masked_sym.cu", "ops/sparse.py:561",
+             masked["axpy"]),
+            ("csr_gather.scatter_pos",
+             pick(carrier_rows, "csr_gather", "scatter_pos"),
+             ("scatter_pos", "scatter_pos_adjoint"), "csr_gather.cu",
+             "ops/sparse.py:401",
+             mc4["dense"]["csr_modes"]["scatter_pos"]),
+            ("oa_refine", pick(carrier_rows, "oa_refine", "f64",
+                               dtype="float64"),
+             ("f64",), "oa_refine.cu", "ops/dense_cert.py:83",
+             mc4["dense_eigh"]["launches"]["oa_refine"])):
+        kern.append(dict(
+            name=name, route="cuda", source=f"manisdp_tpu_torch/csrc/{src}",
+            replaces=f"manisdp_tpu/{rep}", launches=launches,
+            max_abs_err=worst_abs(carrier_rows, name.split(".")[0], modes),
+            ms=r["ms"], plain_ms=r["plain_ms"]))
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(dict(nvidia_smi=smi, build_s=build_s, kernel_rows=rows,
-                       al_kernel_rows=al_rows, g1=g1, g67=g67, mc12000=mc,
+                       al_kernel_rows=al_rows,
+                       carrier_kernel_rows=carrier_rows, g1=g1, g67=g67,
+                       mc12000=mc, mc4000=mc4, mc4000_setup=setup,
                        kernels=kern, total_s=time.perf_counter() - t_start),
                   f, indent=1)
     emit(dict(kernels=kern))

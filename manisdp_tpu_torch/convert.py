@@ -1,9 +1,9 @@
 """Carry JAX-package state across to the port.
 
 The tests feed both packages from the same numpy data through these:
-the arrays of a JAX ``SymCOO`` or ``ConstraintOp`` (``np.asarray`` of
-their fields), the ``dataclasses.asdict`` of a JAX ``SolverOptions``, and
-a factor Y.
+the arrays of a JAX ``SymCOO``, ``ConstraintOp``, ``DenseConstraintOp`` or
+``EntrywiseConstraintOp`` (``np.asarray`` of their fields), the
+``dataclasses.asdict`` of a JAX ``SolverOptions``, and a factor Y.
 """
 
 from __future__ import annotations
@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from .config import SolverOptions
-from .ops.sparse import ConstraintOp, SymCOO
+from .ops.sparse import (ConstraintOp, DenseConstraintOp,
+                         EntrywiseConstraintOp, SymCOO)
 from .solvers.common import pad_rows
 
 
@@ -30,6 +31,19 @@ def constraint_op_from_jax(arrays: dict, device) -> ConstraintOp:
     The same arrays plus the derived colptr, krow_ptr and pat_ptr."""
     a = {key.replace("pat.", "pat_"): val for key, val in arrays.items()}
     return ConstraintOp.from_arrays(a, device)
+
+
+def dense_op_from_jax(arrays: dict, device) -> DenseConstraintOp:
+    """The port's DenseConstraintOp from a JAX DenseConstraintOp's fields as
+    numpy: keys k, i, j, v, C, b, m, n.  The port derives the flat
+    positions and the CSR pointers of its gather and scatter."""
+    return DenseConstraintOp.from_arrays(arrays, device)
+
+
+def entrywise_op_from_jax(arrays: dict, device) -> EntrywiseConstraintOp:
+    """The port's EntrywiseConstraintOp from a JAX EntrywiseConstraintOp's
+    fields as numpy: keys aval, C, b, minv, dfac, ki, kj, m, n."""
+    return EntrywiseConstraintOp.from_arrays(arrays, device)
 
 
 def options_from_dict(d: dict) -> SolverOptions:

@@ -11,7 +11,12 @@ K3 ``pattern_dots`` (csrc/pattern_dots.cu): the pair dots
    <Y[:, i_e], U[:, j_e]> over a column-sorted pattern (an SDDMM).
 K4 ``csr_gather`` (csrc/csr_gather.cu): y_r = base_r + alpha ·
    sum_e val_e · x[col_e] over CSR segments: the constraint operator
-   A(·) and its adjoint on the pattern.
+   A(·) and its adjoint on the pattern; mode ``scatter_pos`` writes row r
+   at a position pos_r of a dense array (the dense carrier's adjoint).
+K5 ``masked_sym`` (csrc/masked_sym.cu): the entrywise carrier's dense
+   (n, n) algebra, modes ``apply``, ``aat`` and ``axpy``.
+K6 ``oa_refine`` (csrc/oa_refine.cu): the elementwise pass of one
+   Ogita-Aishima refinement step of the dense eigen-certificate (f64).
 
 A wrapper given CPU tensors runs the plain PyTorch twin beside it; given
 CUDA tensors it launches the kernel (building it on first use) or
@@ -25,18 +30,23 @@ import torch
 from .build import build
 
 LAUNCHES = {"symcoo_spmm": 0, "oblique_cols": 0, "pattern_dots": 0,
-            "csr_gather": 0}
+            "csr_gather": 0, "masked_sym": 0, "oa_refine": 0}
 
 # "al_hess" is kernel mode 4, or 5 when eG selects the diag epilogue
 SPMM_MODES = {"plain": 0, "shift": 1, "cost": 2, "hess": 3, "al_hess": 4}
 # K1's launches by mode (their sum is LAUNCHES["symcoo_spmm"])
 SPMM_LAUNCHES = {mode: 0 for mode in SPMM_MODES}
 OBLIQUE_MODES = {"proj": 0, "retr": 1, "renormalize": 2}
+# K4's launches by mode: "gather" (y_r at r) and "scatter_pos" (at pos_r)
+CSR_LAUNCHES = {"gather": 0, "scatter_pos": 0}
+MASKED_MODES = {"apply": 0, "aat": 1, "axpy": 2}
+# K5's launches by mode
+MASKED_LAUNCHES = {mode: 0 for mode in MASKED_MODES}
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 
 def reset_launches():
-    for counts in (LAUNCHES, SPMM_LAUNCHES):
+    for counts in (LAUNCHES, SPMM_LAUNCHES, CSR_LAUNCHES, MASKED_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -234,48 +244,181 @@ def pattern_dots(Y, U, P):
 
 # -------------------------------------------------------------------- K4 --
 
-def csr_gather_plain(x, ptr, col, val, base=None, alpha=1.0):
+def csr_gather_plain(x, ptr, col, val, base=None, alpha=1.0, pos=None,
+                     size=None):
     """Plain twin of K4: the JAX package's scalar gather + segment-sum
-    (ops/sparse.py apply_from_e, adjoint_on_pattern, es_vals, s_vals)."""
+    (ops/sparse.py apply_from_e, adjoint_on_pattern, es_vals, s_vals) and,
+    with ``pos``, the dense carrier's scatter-add (DenseConstraintOp
+    adjoint_on_pattern, es_vals, s_vals)."""
     nrows = ptr.shape[0] - 1
     seg = torch.repeat_interleave(
         torch.arange(nrows, device=ptr.device),
         (ptr[1:] - ptr[:-1]).long(), output_size=col.shape[0])
     acc = torch.zeros((nrows,), dtype=x.dtype, device=x.device)
     acc.index_add_(0, seg, val * x[col.long()])
-    return alpha * acc if base is None else base + alpha * acc
-
-
-def csr_gather(x, ptr, col, val, base=None, alpha=1.0):
-    """K4.  ``ptr`` (R+1,) int32 delimits R segments of the entries
-    (``col`` int32, ``val``); returns y (R,) with
-    y_r = base_r + alpha · sum_e val_e · x[col_e] (no ``base``: 0).
-    ``alpha`` is a Python number."""
-    if not _on_cuda(x, ptr, col, val, base):
-        return csr_gather_plain(x, ptr, col, val, base, alpha)
-    _check_dtype(x.dtype, x, val, base)
-    nrows = ptr.shape[0] - 1
-    if ptr.dtype != torch.int32 or col.dtype != torch.int32:
-        raise TypeError("ptr and col must be int32")
-    if col.shape != val.shape or x.dim() != 1 or \
-            (base is not None and base.shape != (nrows,)):
-        raise ValueError(f"col {tuple(col.shape)}, val {tuple(val.shape)}, "
-                         f"x {tuple(x.shape)}, {nrows} rows")
-    if not all(t.is_contiguous() for t in (x, ptr, col, val, base)
-               if t is not None):
-        raise ValueError("csr_gather takes contiguous tensors")
-    out = torch.empty((nrows,), dtype=x.dtype, device=x.device)
-    fn = getattr(build(), f"csr_gather_{_SUFFIX[x.dtype]}")
-    err = fn(x.data_ptr(), ptr.data_ptr(), col.data_ptr(), val.data_ptr(),
-             base.data_ptr() if base is not None else None, float(alpha),
-             nrows, out.data_ptr(), _stream(x))
-    if err != 0:
-        raise RuntimeError(f"csr_gather launch failed: CUDA error {err}")
-    LAUNCHES["csr_gather"] += 1
+    if pos is None:
+        return alpha * acc if base is None else base + alpha * acc
+    at = pos.long()
+    out = torch.zeros((size,), dtype=x.dtype, device=x.device) \
+        if base is None else base.clone()
+    out[at] = alpha * acc if base is None else base[at] + alpha * acc
     return out
 
 
-__all__ = ["LAUNCHES", "SPMM_LAUNCHES", "reset_launches", "symcoo_spmm",
-           "symcoo_spmm_plain", "oblique_cols", "oblique_cols_plain",
-           "pattern_dots", "pattern_dots_plain", "csr_gather",
-           "csr_gather_plain", "build"]
+def csr_gather(x, ptr, col, val, base=None, alpha=1.0, pos=None,
+               size=None):
+    """K4.  ``ptr`` (R+1,) int32 delimits R segments of the entries
+    (``col`` int32, ``val``); returns y (R,) with
+    y_r = base_r + alpha · sum_e val_e · x[col_e] (no ``base``: 0).
+    ``alpha`` is a Python number.
+
+    Mode ``scatter_pos`` (``pos`` (R,) int32 distinct positions and the
+    output length ``size``): returns out (size,) with out[pos_r] =
+    base[pos_r] + alpha · sum_e ..., and out = base (or 0) elsewhere;
+    ``base`` then has length ``size``."""
+    scatter = pos is not None
+    if scatter and size is None:
+        raise ValueError("scatter_pos needs the output size")
+    if not _on_cuda(x, ptr, col, val, base, pos):
+        return csr_gather_plain(x, ptr, col, val, base, alpha, pos, size)
+    _check_dtype(x.dtype, x, val, base)
+    nrows = ptr.shape[0] - 1
+    if ptr.dtype != torch.int32 or col.dtype != torch.int32 or \
+            (scatter and pos.dtype != torch.int32):
+        raise TypeError("ptr, col and pos must be int32")
+    nout = size if scatter else nrows
+    if col.shape != val.shape or x.dim() != 1 or \
+            (base is not None and base.shape != (nout,)) or \
+            (scatter and pos.shape != (nrows,)):
+        raise ValueError(f"col {tuple(col.shape)}, val {tuple(val.shape)}, "
+                         f"x {tuple(x.shape)}, {nrows} rows, output {nout}")
+    if not all(t.is_contiguous() for t in (x, ptr, col, val, base, pos)
+               if t is not None):
+        raise ValueError("csr_gather takes contiguous tensors")
+    if not scatter:
+        out = torch.empty((nrows,), dtype=x.dtype, device=x.device)
+    elif base is None:
+        out = torch.zeros((size,), dtype=x.dtype, device=x.device)
+    else:
+        out = base.clone()
+    fn = getattr(build(), f"csr_gather_{_SUFFIX[x.dtype]}")
+    err = fn(x.data_ptr(), ptr.data_ptr(), col.data_ptr(), val.data_ptr(),
+             base.data_ptr() if base is not None else None, float(alpha),
+             pos.data_ptr() if scatter else None, nrows, out.data_ptr(),
+             _stream(x))
+    if err != 0:
+        raise RuntimeError(f"csr_gather launch failed: CUDA error {err}")
+    LAUNCHES["csr_gather"] += 1
+    CSR_LAUNCHES["scatter_pos" if scatter else "gather"] += 1
+    return out
+
+
+# -------------------------------------------------------------------- K5 --
+
+def masked_sym_plain(E, aval, dfac=None, mode="apply", C=None, alpha=1.0):
+    """Plain twin of K5: the JAX package's EntrywiseConstraintOp formulas
+    (ops/sparse.py apply_from_e, adjoint_on_pattern of apply_from_e,
+    es_vals / s_vals / adjoint_on_pattern)."""
+    if mode == "axpy":
+        out = alpha * (aval * E)
+        return out if C is None else C + out
+    R = aval * E
+    out = dfac * (R + R.T)
+    if mode == "apply":
+        return out
+    if mode == "aat":
+        return aval * out
+    raise ValueError(f"unknown masked_sym mode {mode!r}")
+
+
+def masked_sym(E, aval, dfac=None, mode="apply", C=None, alpha=1.0):
+    """K5 on contiguous (n, n) arrays.  ``apply``: dfac ∘ (aval ∘ E +
+    (aval ∘ E)ᵀ); ``aat``: aval ∘ apply; ``axpy``: C + alpha · aval ∘ E
+    (no ``C``: 0).  ``alpha`` is a Python number."""
+    if mode not in MASKED_MODES:
+        raise ValueError(f"unknown masked_sym mode {mode!r}")
+    if (dfac is None) != (mode == "axpy"):
+        raise ValueError(f"mode {mode!r} takes "
+                         f"{'no' if mode == 'axpy' else 'a'} dfac")
+    if C is not None and mode != "axpy":
+        raise ValueError(f"mode {mode!r} takes no C")
+    if not _on_cuda(E, aval, dfac, C):
+        return masked_sym_plain(E, aval, dfac, mode, C, alpha)
+    _check_dtype(E.dtype, E, aval, dfac, C)
+    n = E.shape[0]
+    if E.dim() != 2 or any(t.shape != (n, n) for t in (E, aval, dfac, C)
+                           if t is not None):
+        raise ValueError("masked_sym takes square arrays of one shape")
+    if not all(t.is_contiguous() for t in (E, aval, dfac, C)
+               if t is not None):
+        raise ValueError("masked_sym takes contiguous row-major tensors")
+    out = torch.empty_like(E)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    fn = getattr(build(), f"masked_sym_{_SUFFIX[E.dtype]}")
+    err = fn(E.data_ptr(), aval.data_ptr(), ptr(dfac), ptr(C), float(alpha),
+             n, MASKED_MODES[mode], out.data_ptr(), _stream(E))
+    if err != 0:
+        raise RuntimeError(f"masked_sym launch failed: CUDA error {err}")
+    LAUNCHES["masked_sym"] += 1
+    MASKED_LAUNCHES[mode] += 1
+    return out
+
+
+# -------------------------------------------------------------------- K6 --
+
+def oa_refine_plain(S, B, mu, mu_min, mu_max):
+    """Plain twin of K6: the JAX package's _oa_refine elementwise algebra
+    (ops/dense_cert.py:92-126).  Returns (E, bsum, g1, g2)."""
+    n = S.shape[0]
+    eye = torch.eye(n, dtype=S.dtype, device=S.device)
+    dB = torch.abs(torch.diagonal(B) - 1.0)
+    bsum = (torch.sum(torch.abs(B - eye), dim=1) - dB) + dB
+    G = S - mu_min * B
+    gd = torch.diagonal(G)
+    g1 = gd - (torch.sum(torch.abs(G), dim=1) - torch.abs(gd))
+    G2 = mu_max * B - S
+    g2d = torch.diagonal(G2)
+    g2 = g2d - (torch.sum(torch.abs(G2), dim=1) - torch.abs(g2d))
+    R = eye - B
+    scale = torch.maximum(torch.abs(mu_min), torch.abs(mu_max)) + 1e-30
+    d = mu[None, :] - mu[:, None]
+    safe = torch.abs(d) > 1e-3 * scale
+    E_rot = (S + mu[None, :] * R) / torch.where(safe, d, 1.0)
+    return torch.where(safe, E_rot, 0.5 * R), bsum, g1, g2
+
+
+def oa_refine(S, B, mu, mu_min, mu_max):
+    """K6 on contiguous f64 (n, n) ``S`` (symmetrized VᵀXV) and ``B``
+    (VᵀV), ``mu`` (n,) and the 0-d ``mu_min`` / ``mu_max``.  Returns E
+    (n, n) and the row quantities bsum, g1, g2 (n,) (csrc/oa_refine.cu)."""
+    if not _on_cuda(S, B, mu, mu_min, mu_max):
+        return oa_refine_plain(S, B, mu, mu_min, mu_max)
+    if S.dtype != torch.float64:
+        raise TypeError(f"oa_refine takes float64, got {S.dtype}")
+    _check_dtype(S.dtype, S, B, mu, mu_min, mu_max)
+    n = S.shape[0]
+    if S.shape != (n, n) or B.shape != (n, n) or mu.shape != (n,):
+        raise ValueError(f"S {tuple(S.shape)}, B {tuple(B.shape)}, "
+                         f"mu {tuple(mu.shape)}")
+    if not (S.is_contiguous() and B.is_contiguous() and mu.is_contiguous()):
+        raise ValueError("oa_refine takes contiguous tensors")
+    mm = torch.stack([mu_min, mu_max])
+    E = torch.empty_like(S)
+    bsum, g1, g2 = (torch.empty((n,), dtype=S.dtype, device=S.device)
+                    for _ in range(3))
+    err = build().oa_refine_f64(S.data_ptr(), B.data_ptr(), mu.data_ptr(),
+                                mm.data_ptr(), n, E.data_ptr(),
+                                bsum.data_ptr(), g1.data_ptr(),
+                                g2.data_ptr(), _stream(S))
+    if err != 0:
+        raise RuntimeError(f"oa_refine launch failed: CUDA error {err}")
+    LAUNCHES["oa_refine"] += 1
+    return E, bsum, g1, g2
+
+
+__all__ = ["LAUNCHES", "SPMM_LAUNCHES", "CSR_LAUNCHES", "MASKED_LAUNCHES",
+           "reset_launches", "symcoo_spmm", "symcoo_spmm_plain",
+           "oblique_cols", "oblique_cols_plain", "pattern_dots",
+           "pattern_dots_plain", "csr_gather", "csr_gather_plain",
+           "masked_sym", "masked_sym_plain", "oa_refine", "oa_refine_plain",
+           "build"]

@@ -22,7 +22,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "manisdp_tpu_torch"
 SOURCES = ("symcoo_spmm.cu", "oblique_cols.cu", "pattern_dots.cu",
-           "csr_gather.cu")
+           "csr_gather.cu", "masked_sym.cu", "oa_refine.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,8 +34,12 @@ _SIGNATURES = {
     "oblique_cols": (_P, _P, _I, _I, _I, _P, _P),
     "pattern_dots": (_P, _I64, _I64, _P, _I64, _I64, _P, _P, _I, _I, _P,
                      _P),
-    "csr_gather": (_P, _P, _P, _P, _P, _D, _I, _P, _P),
+    "csr_gather": (_P, _P, _P, _P, _P, _D, _P, _I, _P, _P),
+    "masked_sym": (_P, _P, _P, _P, _D, _I, _I, _P, _P),
+    "oa_refine": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P),
 }
+# the dtypes each kernel is built for (default: both)
+_SUFFIXES = {"oa_refine": ("f64",)}
 
 _lib = None
 # filled by build(): the nvcc command, its seconds and ptxas's report
@@ -99,7 +103,7 @@ def build() -> ctypes.CDLL:
                           ptxas="".join(err for _, err in outs))
     lib = ctypes.CDLL(str(path))
     for base, argtypes in _SIGNATURES.items():
-        for suffix in ("f64", "f32"):
+        for suffix in _SUFFIXES.get(base, ("f64", "f32")):
             fn = getattr(lib, f"{base}_{suffix}")
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int

@@ -1,5 +1,6 @@
 """Sparse operators on Burer-Monteiro factors (PyTorch port of
-manisdp_tpu/ops/sparse.py: SymCOO and the factored constraint operator).
+manisdp_tpu/ops/sparse.py: SymCOO, the factored constraint operator and
+its two dense carriers).
 
 The factor Y is (p, n); X = YᵀY is never formed.  ``gather_cols``,
 ``pair_dots`` and ``scatter_cols`` are the plain formulas the JAX package
@@ -8,16 +9,21 @@ kernel K1 (``kernels.symcoo_spmm``) on CUDA tensors and through its plain
 twin, built from these formulas, on CPU tensors.  ``ConstraintOp``'s pair
 dots are kernel K3 (``kernels.pattern_dots``) and its operator and
 adjoint are kernel K4 (``kernels.csr_gather``), again with plain twins.
+``DenseConstraintOp`` carries the pattern values as dense (n, n) arrays
+(GEMMs, K4's gather and ``scatter_pos`` modes); ``EntrywiseConstraintOp``
+does so for entrywise constraint sets (GEMMs and kernel K5,
+``kernels.masked_sym``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..kernels import csr_gather, pattern_dots, symcoo_spmm
+from ..kernels import csr_gather, masked_sym, pattern_dots, symcoo_spmm
 
 
 def gather_cols(Y, idx):
@@ -122,8 +128,32 @@ def _ptr(seg, nseg: int) -> np.ndarray:
     return ptr
 
 
+class _MVecResiduals:
+    """Residual-space protocol of the operators whose multipliers and
+    residuals are (m,) vectors (needs ``m``, ``b`` and ``device``)."""
+
+    def res_zeros(self):
+        return torch.zeros((self.m,), dtype=self.b.dtype, device=self.device)
+
+    def res_from_mvec(self, y):
+        """Host (m,) multipliers -> device residual-space repr."""
+        return torch.as_tensor(np.asarray(y, dtype=np.float64).ravel(),
+                               dtype=self.b.dtype, device=self.device)
+
+    def res_to_mvec(self, y_dev):
+        """Device residual-space repr -> host (m,) multipliers."""
+        return y_dev.cpu().numpy()
+
+    def dot_res(self, u, v):
+        """<u, v> in residual (constraint) space."""
+        return torch.dot(u, v)
+
+    def norm_res(self, u):
+        return torch.linalg.norm(u)
+
+
 @dataclasses.dataclass(frozen=True)
-class ConstraintOp:
+class ConstraintOp(_MVecResiduals):
     """The affine operator A : S^n -> R^m in factored-entry form (the JAX
     package's ConstraintOp).
 
@@ -286,34 +316,34 @@ class ConstraintOp:
         return csr_gather(y, self.pat_ptr, self.kp, self.vp,
                           base=self.pat.v, alpha=-1.0)
 
+    def normal_factored(self, Y, U):
+        """Values on P of mat(AᵀA vec(YᵀU)): the AL Hessian's penalty
+        term."""
+        return self.adjoint_on_pattern(self.apply_factored(Y, U))
+
     def pattern_dense(self, vals):
         out = torch.zeros((self.n, self.n), dtype=vals.dtype,
                           device=vals.device)
         return out.index_put_((self.pat.i.long(), self.pat.j.long()), vals,
                               accumulate=True)
 
+    def host_arrays(self) -> dict:
+        """The entries (k, i, j, v), b and c on P as host numpy arrays: what
+        the carriers are built from."""
+        names = ("k", "i", "j", "v", "b")
+        out = {name: getattr(self, name).cpu().numpy() for name in names}
+        out.update(pat_i=self.pat.i.cpu().numpy(),
+                   pat_j=self.pat.j.cpu().numpy(),
+                   pat_v=self.pat.v.cpu().numpy(), m=self.m, n=self.n)
+        return out
+
+    def to_dense_op(self) -> "DenseConstraintOp":
+        return DenseConstraintOp.from_op(self)
+
     # -- operator protocol -----------------------------------------------
-    # The AL drivers see the operator only through these and the methods
-    # above.  Multipliers / residuals live in R^m.
-    def res_zeros(self):
-        return torch.zeros((self.m,), dtype=self.b.dtype, device=self.device)
-
-    def res_from_mvec(self, y):
-        """Host (m,) multipliers -> device residual-space repr."""
-        return torch.as_tensor(np.asarray(y, dtype=np.float64).ravel(),
-                               dtype=self.b.dtype, device=self.device)
-
-    def res_to_mvec(self, y_dev):
-        """Device residual-space repr -> host (m,) multipliers."""
-        return y_dev.cpu().numpy()
-
-    def dot_res(self, u, v):
-        """<u, v> in residual (constraint) space."""
-        return torch.dot(u, v)
-
-    def norm_res(self, u):
-        return torch.linalg.norm(u)
-
+    # The AL drivers see the operator only through these, the methods
+    # above and the residual-space protocol (multipliers / residuals in
+    # R^m, _MVecResiduals).
     @property
     def c_pattern(self):
         """Values of the cost vector c restricted to the pattern P."""
@@ -335,3 +365,277 @@ class ConstraintOp:
     def matvec_pattern(self, V, vals):
         """mat(vals) @ V for a dense (n, k) block (certificate matvec)."""
         return self.pat.matvec_block(V, vals)
+
+
+class _DenseCarrier:
+    """The operator-protocol methods both dense carriers share: pattern
+    values are dense (n, n) arrays (needs ``C``, ``apply_from_e``)."""
+
+    @property
+    def c_pattern(self):
+        return self.C
+
+    def pattern_pair_dots(self, Y, U=None):
+        """The dense Gram YᵀU stands in for the pattern dots."""
+        return Y.T @ (Y if U is None else U)
+
+    def dot_pattern(self, u, v):
+        return torch.sum(u * v)
+
+    def apply_factored(self, Y, U=None):
+        return self.apply_from_e(self.pattern_pair_dots(Y, U))
+
+    def colsum_pattern(self, vals):
+        return torch.sum(vals, dim=0)
+
+    def matmat_pattern(self, Y, vals):
+        return Y @ vals
+
+    def matvec_pattern(self, V, vals):
+        return vals @ V
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseConstraintOp(_DenseCarrier, _MVecResiduals):
+    """The constraint operator with dense (n, n) pattern carriers (the JAX
+    package's DenseConstraintOp), for moderate n.
+
+    "Pattern values" are dense row-major (n, n) arrays here: the pattern
+    dots are the Gram YᵀU and the pattern products Y·M are GEMMs.  A(·)
+    gathers each A entry from the flat dense e at i·n + j (kernel K4 over
+    ``krow_ptr``, col = ``ij``).  The adjoint and es_vals / s_vals scatter
+    into a dense (n, n) array through K4's ``scatter_pos`` mode: the
+    entries are grouped by flat position (``pos``, ``pos_ptr``, ``kq``,
+    ``vq``), so each position is written by one thread, without atomics.
+    Every value array (C, the adjoint's scatters) is supported on P, so
+    dense products against them vanish off the pattern exactly.
+    Multipliers and residuals are (m,) vectors, as for ConstraintOp.
+    """
+    k: torch.Tensor          # (nnzA,) int32 constraint row, ascending
+    ij: torch.Tensor         # (nnzA,) int32 flat position i*n + j, k order
+    v: torch.Tensor          # (nnzA,) values, k order
+    krow_ptr: torch.Tensor   # (m+1,) int32
+    pos: torch.Tensor        # (npos,) int32 distinct flat positions
+    pos_ptr: torch.Tensor    # (npos+1,) int32 over the position order
+    kq: torch.Tensor         # (nnzA,) int32 constraint row, position order
+    vq: torch.Tensor         # (nnzA,) values, position order
+    C: torch.Tensor          # (n, n) dense cost
+    b: torch.Tensor          # (m,) right-hand side
+    m: int
+    n: int
+
+    @staticmethod
+    def from_op(op: ConstraintOp) -> "DenseConstraintOp":
+        a = op.host_arrays()
+        a["C"] = op.pattern_dense(op.pat.v)
+        return DenseConstraintOp.from_arrays(a, op.device, op.b.dtype)
+
+    @staticmethod
+    def from_arrays(a: dict, device, dtype=torch.float64
+                    ) -> "DenseConstraintOp":
+        """From host arrays k, i, j, v (sorted by k), C (n, n), b, m, n (the
+        fields of the JAX package's DenseConstraintOp); derives the flat
+        positions and both CSR pointers."""
+        m, n = int(a["m"]), int(a["n"])
+        if n * n > np.iinfo(np.int32).max:
+            raise ValueError(f"n = {n}: flat positions i*n + j overflow int32")
+        k, i, j = (np.asarray(a[x], dtype=np.int64) for x in "kij")
+        v = np.asarray(a["v"], dtype=np.float64)
+        if np.any(np.diff(k) < 0):
+            raise ValueError("entries must be sorted by constraint row k")
+        for name, arr, hi in (("k", k, m), ("i", i, n), ("j", j, n)):
+            if arr.size and (arr.min() < 0 or arr.max() >= hi):
+                raise ValueError(f"{name} out of range [0, {hi})")
+        ij = i * n + j
+        order = np.argsort(ij, kind="stable")
+        pos, counts = np.unique(ij[order], return_counts=True)
+        pos_ptr = np.zeros(pos.shape[0] + 1, dtype=np.int64)
+        np.cumsum(counts, out=pos_ptr[1:])
+        idx = lambda x: torch.tensor(x, dtype=torch.int32,  # noqa: E731
+                                     device=device)
+        val = lambda x: torch.tensor(x, dtype=dtype,  # noqa: E731
+                                     device=device)
+        C = a["C"]
+        C = C.to(device=device, dtype=dtype) if isinstance(C, torch.Tensor) \
+            else val(np.asarray(C, dtype=np.float64))
+        return DenseConstraintOp(
+            k=idx(k), ij=idx(ij), v=val(v), krow_ptr=idx(_ptr(k, m)),
+            pos=idx(pos), pos_ptr=idx(pos_ptr), kq=idx(k[order]),
+            vq=val(v[order]), C=C.reshape(n, n).contiguous(),
+            b=val(np.asarray(a["b"], dtype=np.float64).ravel()), m=m, n=n)
+
+    @property
+    def nnz(self) -> int:
+        return int(self.v.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.v.device
+
+    def astype(self, dtype) -> "DenseConstraintOp":
+        """The same operator with v, vq, C and b cast to ``dtype``."""
+        return dataclasses.replace(self, v=self.v.to(dtype),
+                                   vq=self.vq.to(dtype), C=self.C.to(dtype),
+                                   b=self.b.to(dtype))
+
+    # -- operator protocol (dense carriers; the rest in _DenseCarrier) -----
+    def apply_from_e(self, e):
+        return csr_gather(e.reshape(-1), self.krow_ptr, self.ij, self.v)
+
+    def _scatter(self, w, base, alpha):
+        """base + alpha·mat(Aᵀw) as a dense (n, n) array (base None: 0)."""
+        out = csr_gather(w, self.pos_ptr, self.kq, self.vq, base=base,
+                         alpha=alpha, pos=self.pos, size=self.n * self.n)
+        return out.view(self.n, self.n)
+
+    def adjoint_on_pattern(self, w):
+        return self._scatter(w, None, 1.0)
+
+    def normal_factored(self, Y, U):
+        return self.adjoint_on_pattern(self.apply_factored(Y, U))
+
+    def es_vals(self, w, sigma: float):
+        return self._scatter(w, self.C.view(-1), sigma)
+
+    def s_vals(self, y):
+        return self._scatter(y, self.C.view(-1), -1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class EntrywiseConstraintOp(_DenseCarrier):
+    """The constraint operator of entrywise-sample constraint sets, the
+    matrix-completion class (the JAX package's EntrywiseConstraintOp).
+
+    Every constraint touches one matrix entry: one diagonal position
+    (i, i), or a symmetric off-diagonal pair (i, j), (j, i) with equal
+    coefficients.  Then AᵀA is diagonal and the AL algebra is dense masked
+    elementwise work (kernel K5) plus GEMMs:
+
+      A(M)   (dense rep) = dfac ∘ (aval ∘ M + (aval ∘ M)ᵀ)
+      mat(Aᵀw)           = aval ∘ W        (W the dense rep of w)
+      mat(AᵀA vec(M))    = aval ∘ A(M)
+
+    Residual space: multipliers y and residuals A(X) − b are dense (n, n)
+    symmetric representatives D with D[i, j] = w_k at each position of
+    constraint k.  Inner products weight the positions by 1/mult
+    (``minv``), so they equal the R^m inner products exactly.
+    """
+    aval: torch.Tensor   # (n, n) constraint coefficient at each position
+    C: torch.Tensor      # (n, n) dense symmetric cost
+    b: torch.Tensor      # (n, n) dense rep of the right-hand side
+    minv: torch.Tensor   # (n, n) 1/mult on the sample mask, 0 elsewhere
+    dfac: torch.Tensor   # (n, n) 0.5/minv on the mask (1 off-diag, 0.5 diag)
+    ki: torch.Tensor     # (m,) int32 row of constraint k's entry
+    kj: torch.Tensor     # (m,) int32 column (ki <= kj)
+    m: int
+    n: int
+
+    @staticmethod
+    def detect(op: ConstraintOp) -> Optional["EntrywiseConstraintOp"]:
+        """Build from a ConstraintOp iff every constraint is entrywise (one
+        diagonal entry, or a symmetric off-diagonal pair with equal values)
+        and no two constraints share a position; None otherwise."""
+        a = op.host_arrays()
+        k, i, j, v = (a[x] for x in "kijv")    # sorted by k
+        m, n = op.m, op.n
+        counts = np.bincount(k, minlength=m)
+        if counts.size == 0 or counts.max() > 2 or counts.min() < 1:
+            return None
+        first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        two = first[counts == 2]
+        if two.size and not (np.array_equal(i[two], j[two + 1]) and
+                             np.array_equal(j[two], i[two + 1]) and
+                             np.allclose(v[two], v[two + 1]) and
+                             np.all(i[two] != j[two])):
+            return None
+        one = first[counts == 1]
+        if np.any(i[one] != j[one]):
+            return None            # lone off-diagonal entry: asymmetric A_k
+        if np.unique(i.astype(np.int64) * n + j).shape[0] != k.shape[0]:
+            return None            # two constraints share a position
+
+        aval, brep, minv, dfac, C = (np.zeros((n, n)) for _ in range(5))
+        aval[i, j] = v
+        brep[i, j] = a["b"][k]
+        # a constraint occupies 2 positions off the diagonal, 1 on it
+        offd = i != j
+        minv[i, j] = np.where(offd, 0.5, 1.0)
+        dfac[i, j] = np.where(offd, 1.0, 0.5)
+        C[a["pat_i"], a["pat_j"]] = a["pat_v"]
+        return EntrywiseConstraintOp.from_arrays(
+            dict(aval=aval, C=C, b=brep, minv=minv, dfac=dfac,
+                 ki=np.minimum(i[first], j[first]),
+                 kj=np.maximum(i[first], j[first]), m=m, n=n),
+            op.device, op.b.dtype)
+
+    @staticmethod
+    def from_arrays(a: dict, device, dtype=torch.float64
+                    ) -> "EntrywiseConstraintOp":
+        """From host arrays aval, C, b, minv, dfac (n, n), ki, kj (m,), m, n
+        (the fields of the JAX package's EntrywiseConstraintOp)."""
+        m, n = int(a["m"]), int(a["n"])
+        val = lambda x: torch.tensor(  # noqa: E731
+            np.asarray(x, dtype=np.float64).reshape(n, n), dtype=dtype,
+            device=device)
+        idx = lambda x: torch.tensor(  # noqa: E731
+            np.asarray(x).reshape(m), dtype=torch.int32, device=device)
+        return EntrywiseConstraintOp(
+            aval=val(a["aval"]), C=val(a["C"]), b=val(a["b"]),
+            minv=val(a["minv"]), dfac=val(a["dfac"]), ki=idx(a["ki"]),
+            kj=idx(a["kj"]), m=m, n=n)
+
+    @property
+    def nnz(self) -> int:
+        return self.m
+
+    @property
+    def device(self) -> torch.device:
+        return self.aval.device
+
+    def astype(self, dtype) -> "EntrywiseConstraintOp":
+        """The same operator with its (n, n) float arrays cast to
+        ``dtype``; ki / kj are shared."""
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(dtype)
+                     for f in ("aval", "C", "b", "minv", "dfac")})
+
+    # -- operator protocol (masked carriers; the rest in _DenseCarrier) ----
+    def apply_from_e(self, e):
+        return masked_sym(e, self.aval, self.dfac, "apply")
+
+    def adjoint_on_pattern(self, w):
+        return masked_sym(w, self.aval, mode="axpy")
+
+    def normal_factored(self, Y, U):
+        """adjoint_on_pattern(apply_factored(Y, U)) in one K5 pass."""
+        return masked_sym(self.pattern_pair_dots(Y, U), self.aval, self.dfac,
+                          "aat")
+
+    def es_vals(self, w, sigma: float):
+        return masked_sym(w, self.aval, mode="axpy", C=self.C, alpha=sigma)
+
+    def s_vals(self, y):
+        return masked_sym(y, self.aval, mode="axpy", C=self.C, alpha=-1.0)
+
+    # -- residual space (dense (n, n) representatives) ---------------------
+    def res_zeros(self):
+        return torch.zeros((self.n, self.n), dtype=self.b.dtype,
+                           device=self.device)
+
+    def res_from_mvec(self, y):
+        y = torch.as_tensor(np.asarray(y, dtype=np.float64).ravel(),
+                            dtype=self.b.dtype, device=self.device)
+        ki, kj = self.ki.long(), self.kj.long()
+        out = self.res_zeros()
+        out[ki, kj] = y
+        out[kj, ki] = y
+        return out
+
+    def res_to_mvec(self, y_dev):
+        return y_dev[self.ki.long(), self.kj.long()].cpu().numpy()
+
+    def dot_res(self, u, v):
+        return torch.sum(u * v * self.minv)
+
+    def norm_res(self, u):
+        return torch.sqrt(self.dot_res(u, u))

@@ -11,17 +11,23 @@ manifold, dual shift and bookkeeping:
   - general    (euclidean): min <C,X> s.t. A(X)=b, X>=0
                 (src/primal/ManiSDP.m)
 
-Every per-iteration quantity is factored over the union pattern P of
-{C} U {A_k}: the pair dots e_P = <Y[:,i], Y[:,j]> (kernel K3), A(YYᵀ) and
-the adjoint mat(c + sigma Aᵀw) on P (kernel K4), and the pattern
-products Y·mat(vals) with the AL Hessian's epilogue (kernel K1).  X is
-never formed on the device.  The dual certificate is a device eigh of
-the dense S at small n, the device LOBPCG class otherwise.
+The constraint operator is picked by the JAX package's ladder
+(``config.al_op_mode``): the entrywise carrier (matrix-completion class,
+n <= entrywise_al_max_n), the dense carrier (n <= dense_al_max_n), else
+the factored ``ConstraintOp``.  On the factored operator every
+per-iteration quantity lives on the union pattern P of {C} U {A_k}: the
+pair dots e_P = <Y[:,i], Y[:,j]> (kernel K3), A(YYᵀ) and the adjoint
+mat(c + sigma Aᵀw) on P (kernel K4), and the pattern products
+Y·mat(vals) with the AL Hessian's epilogue (kernel K1); X is never formed
+on the device.  On a carrier the pattern values are dense (n, n) arrays:
+the Gram YᵀU and the products are GEMMs, A and its adjoint K4 gathers /
+scatters or kernel K5.  The dual certificate is a device eigh of the
+dense S at small n, the device LOBPCG class otherwise, or on a carrier
+with cert_method="dense_eigh" the f32-eigh + refinement certificate
+(``ops/dense_cert.py``, kernel K6).
 
 The constraint matrices A_k and C are assumed symmetric (SeDuMi
-semantics), as in the JAX package.  Only the factored ``ConstraintOp`` is
-ported: where ``al_op_mode="auto"`` would pick the JAX package's dense or
-entrywise carrier, the driver raises ``NotImplementedError``.
+semantics), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,8 +43,9 @@ from ..config import SolverOptions, merged_options
 from ..core import Problem, TROptions, make_trustregions
 from ..kernels import symcoo_spmm
 from ..manifolds import Euclidean, Oblique, Sphere
+from ..ops.dense_cert import DenseEighCert
 from ..ops.eigs_rr import DeviceCertSolver
-from ..ops.sparse import ConstraintOp
+from ..ops.sparse import ConstraintOp, EntrywiseConstraintOp
 from .common import (PhaseTimers, RankController, SDPResult, SlowProgress,
                      bucketed, log_iter, make_line_search, pad_rows,
                      resolve_device)
@@ -64,7 +71,7 @@ VARIANTS = {
 def _make_problem(variant: ALVariant):
     """cost/grad/hess with explicit aux flow.
 
-    params = dict(op=ConstraintOp, y=(m,), sigma=Python float).
+    params = dict(op=operator, y=residual-space repr, sigma=Python float).
     aux    = (Axb, e_P): AL residual and pattern pair-dots.
     gaux   = (es, extra): eS on P and the variant's shift byproduct.
     """
@@ -93,17 +100,24 @@ def _make_problem(variant: ALVariant):
 
     def hess(Y, U, params, aux, gaux):
         # eH = 2 U mat(es) + 4 sigma Y mat(A'A vec(Y'U)), then the shift
-        # epilogue; K1's al_hess mode fuses both products (and the diag
-        # epilogue), the trace epilogue's global sum stays in torch
+        # epilogue.  On the factored operator K1's al_hess mode fuses both
+        # products (and the diag epilogue); on a carrier they are two
+        # GEMMs.  The trace epilogue's global sum stays in torch.
         op, sigma = params["op"], params["sigma"]
         es, extra = gaux
-        ayu = op.adjoint_on_pattern(op.apply_factored(Y, U))
+        ayu = op.normal_factored(Y, U)
         coefs = (2.0, 4.0 * sigma)
-        if variant.shift == "diag":
+        if not isinstance(op, ConstraintOp):
+            eH = torch.addmm(U @ es, Y, ayu, beta=coefs[0], alpha=coefs[1])
+            if variant.shift == "diag":
+                return eH - Y * torch.sum(Y * eH, dim=0, keepdim=True) \
+                    - U * extra[None, :]
+        elif variant.shift == "diag":
             return symcoo_spmm(U, op.pat, "al_hess", vals=es, B=Y,
                                vals2=ayu, coefs=coefs, eG=extra)
-        eH = symcoo_spmm(U, op.pat, "al_hess", vals=es, B=Y, vals2=ayu,
-                         coefs=coefs)
+        else:
+            eH = symcoo_spmm(U, op.pat, "al_hess", vals=es, B=Y, vals2=ayu,
+                             coefs=coefs)
         if variant.shift == "trace":
             return eH - torch.sum(eH * Y) * Y - 2.0 * extra * U
         return eH
@@ -127,9 +141,11 @@ def _make_stats(variant: ALVariant):
         sv = op.s_vals(y_new)                        # c - A'y on P
         by = op.dot_res(op.b, y_new)
         if variant.shift == "diag":
-            # colsum_pattern(sv * e) = colsum(Y o Y mat(sv)): K1's cost
-            # epilogue
-            z = symcoo_spmm(Y, op.pat, "cost", vals=sv)[1]
+            # colsum_pattern(sv * e); on the factored operator that is
+            # colsum(Y o Y mat(sv)), K1's cost epilogue
+            z = symcoo_spmm(Y, op.pat, "cost", vals=sv)[1] \
+                if isinstance(op, ConstraintOp) else \
+                op.colsum_pattern(sv * e)
             by = by + torch.sum(z)
         elif variant.shift == "trace":
             z = op.dot_pattern(sv, e)
@@ -142,37 +158,68 @@ def _make_stats(variant: ALVariant):
     return stats
 
 
-def _make_certificate(variant: ALVariant, op: ConstraintOp, n: int, k: int,
+def _dense_s(variant: ALVariant, op, sv, z):
+    """The dense S = mat(sv) - shift(z) as a new (n, n) array (on a carrier
+    sv already is mat(sv))."""
+    S = op.pattern_dense(sv) if isinstance(op, ConstraintOp) else sv.clone()
+    if variant.shift != "none":
+        S.diagonal().sub_(z)
+    return S
+
+
+def _make_certificate(variant: ALVariant, op, n: int, k: int,
                       use_eigh: bool, opt: SolverOptions,
                       gen: torch.Generator):
     """Eigen-certificate of S = mat(sv) - shift(z).  Returns
     cert(Y, sv, z, gap, pinf) -> (lam_min, lam_max, num_neg,
     neg_vecs (n, k) on the device, neg_vals)."""
+    factored = isinstance(op, ConstraintOp)
+    if (not factored and not use_eigh and opt.eig_method == "auto" and
+            n <= opt.dense_cert_max_n and opt.cert_method == "dense_eigh"):
+        # the dense carrier's sv is the dense dual slack: one f32 eigh (and
+        # an f64-refined bound near convergence) replaces LOBPCG
+        dc = DenseEighCert(n, k)
+
+        def cert(Y, sv, z, gap=np.inf, pinf=np.inf):
+            S = _dense_s(variant, op, sv, z)
+            S = 0.5 * (S + S.T)
+            far = max(gap, pinf) > max(opt.cert_cheap_eta, opt.tol)
+            res = dc.certify(S, far, opt.tol)
+            vals = torch.full((k,), np.nan, dtype=S.dtype, device=S.device)
+            vals[0] = res.lam_min
+            return (res.lam_min, res.lam_max, res.num_neg, res.neg_vecs,
+                    vals)
+        return cert
+
     if use_eigh:
         def cert(Y, sv, z, gap=np.inf, pinf=np.inf):
-            S = op.pattern_dense(sv)
-            if variant.shift != "none":
-                S.diagonal().sub_(z)
-            vals, vecs = torch.linalg.eigh(S)
+            vals, vecs = torch.linalg.eigh(_dense_s(variant, op, sv, z))
             return (float(vals[0]), float(vals[-1]),
                     int(torch.sum(vals < 0)), vecs[:, :k], vals[:k])
         return cert
 
     if opt.cert_method not in ("devrr", "rowrr"):
         raise NotImplementedError(
-            f"cert_method={opt.cert_method!r} (the lobpcg / dense_eigh "
-            "certificates) is not ported yet; use 'devrr' or 'rowrr'")
+            f"cert_method={opt.cert_method!r} here takes the legacy lobpcg "
+            "certificate (dense_eigh needs a dense carrier, eig_method="
+            "'auto' and n <= dense_cert_max_n), which is not ported yet; "
+            "use 'devrr' or 'rowrr'")
     if opt.cert_pre_dtype == "float32":
         raise NotImplementedError(
             "cert_pre_dtype='float32' (the f32 LOBPCG pre-stage) is not "
             "ported yet; the certificate runs in float64")
 
     def mvr_for(sv, z):
-        """V -> V S for (rows, n) V: K1 with S's values on P."""
+        """V -> V S for (rows, n) V: K1 with S's values on P, or a GEMM
+        with the dense S on a carrier."""
         if variant.shift == "none":
+            if not factored:
+                return lambda V: V @ sv
             return lambda V: symcoo_spmm(V, op.pat, "plain", vals=sv)
         zv = z if variant.shift == "diag" else \
             z.reshape(1).expand(n).contiguous()
+        if not factored:
+            return lambda V: V @ sv - zv[None, :] * V
         return lambda V: symcoo_spmm(V, op.pat, "shift", vals=sv, z=zv)
 
     def decides(res):
@@ -257,47 +304,24 @@ def _device_rank_rebuild(variant: ALVariant, opt: SolverOptions, Y, UlT,
     return Yn, V
 
 
-def _entrywise(op: ConstraintOp) -> bool:
-    """Whether the JAX package's EntrywiseConstraintOp.detect accepts this
-    operator: every constraint is one diagonal entry or a symmetric
-    off-diagonal pair with equal values, and no two share a position."""
-    k, i, j, v = (t.cpu().numpy() for t in (op.k, op.i, op.j, op.v))
-    counts = np.bincount(k, minlength=op.m)
-    if counts.size == 0 or counts.max() > 2 or counts.min() < 1:
-        return False
-    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    two = counts == 2
-    if np.any(two):
-        a = first[two]
-        if not (np.array_equal(i[a], j[a + 1]) and
-                np.array_equal(j[a], i[a + 1]) and
-                np.allclose(v[a], v[a + 1]) and np.all(i[a] != j[a])):
-            return False
-    one = counts == 1
-    if np.any(one) and np.any(i[first[one]] != j[first[one]]):
-        return False
-    keys = i.astype(np.int64) * op.n + j
-    return np.unique(keys).shape[0] == keys.shape[0]
-
-
-def _check_carrier(opt: SolverOptions, op: ConstraintOp):
-    """Raise where the JAX package's operator ladder would take a carrier
-    the port does not have (config.al_op_mode)."""
+def _select_operator(opt: SolverOptions, op: ConstraintOp):
+    """The JAX package's operator ladder (config.al_op_mode): the entrywise
+    carrier for entrywise constraint sets at n <= entrywise_al_max_n, the
+    dense carrier at n <= dense_al_max_n, else the factored operator."""
     mode, n = opt.al_op_mode, op.n
-    carrier = None
-    if mode == "entrywise" or (mode == "auto" and
-                               n <= opt.entrywise_al_max_n and
-                               _entrywise(op)):
-        carrier = "the entrywise carrier (EntrywiseConstraintOp)"
-    elif mode == "dense" or (mode == "auto" and n <= opt.dense_al_max_n):
-        carrier = "the dense carrier (DenseConstraintOp)"
-    elif mode not in ("auto", "sparse"):
+    if mode not in ("auto", "entrywise", "dense", "sparse"):
         raise ValueError(f"unknown al_op_mode {mode!r}")
-    if carrier:
-        raise NotImplementedError(
-            f"al_op_mode={mode!r} at n={n} selects {carrier}, which is not "
-            "ported yet; pass al_op_mode='sparse' for the factored "
-            "ConstraintOp")
+    if mode in ("auto", "entrywise") and n <= opt.entrywise_al_max_n:
+        ew = EntrywiseConstraintOp.detect(op)
+        if ew is not None:
+            return ew
+        if mode == "entrywise":
+            raise ValueError(
+                "al_op_mode='entrywise' but the constraint set is not "
+                "entrywise (single-entry / symmetric-pair)")
+    if mode == "dense" or (mode == "auto" and n <= opt.dense_al_max_n):
+        return op.to_dense_op()
+    return op
 
 
 def solve_primal_al(variant_name: str, op: ConstraintOp,
@@ -306,16 +330,19 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
                     y0: Optional[np.ndarray] = None,
                     **overrides) -> SDPResult:
     """The AL outer loop [RTR inner solve -> stats -> certificate -> rank
-    update -> sigma schedule] on ``op``'s device."""
+    update -> sigma schedule] on ``op``'s device, on the operator the
+    ladder picks (timed as ``timers["operator"]``)."""
     variant = VARIANTS[variant_name]
     opt = merged_options(variant.name, options, **overrides)
     n, m = op.n, op.m
     device = op.device
-    _check_carrier(opt, op)
     if opt.inner_dtype == "mixed":
         raise NotImplementedError(
             "inner_dtype='mixed' (the f32 RTR pre-stage) is not ported "
             "yet; use 'tcg32' or 'float64'")
+    timers = PhaseTimers()
+    with timers.timed("operator"):
+        op = _select_operator(opt, op)
     use_eigh = (opt.eig_method == "eigh") or \
         (opt.eig_method == "auto" and n < opt.eig_switch_n)
     k_cert = opt.delta + 1
@@ -380,7 +407,6 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
     use32 = opt.inner_dtype == "tcg32"
     frozen = 0          # consecutive endgame iterations with frozen sigma
 
-    timers = PhaseTimers()
     for it in range(1, opt.max_outer + 1):
         fac_size.append(p)
         solve = make_trustregions(problem, budget(tier, use32))
@@ -524,10 +550,13 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
     X = Y_act.T @ Y_act
     S_host = None
     if sv_dev is not None:
-        # pattern entries are unique, so assignment is the scatter-add
-        S_host = np.zeros((n, n))
-        S_host[op.pat.i.cpu().numpy(), op.pat.j.cpu().numpy()] = \
-            sv_dev.cpu().numpy()
+        if isinstance(op, ConstraintOp):
+            # pattern entries are unique, so assignment is the scatter-add
+            S_host = np.zeros((n, n))
+            S_host[op.pat.i.cpu().numpy(), op.pat.j.cpu().numpy()] = \
+                sv_dev.cpu().numpy()
+        else:
+            S_host = sv_dev.cpu().numpy().copy()
         if variant.shift != "none":
             S_host[np.arange(n), np.arange(n)] -= z_dev.cpu().numpy()
     return SDPResult(

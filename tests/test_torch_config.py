@@ -25,7 +25,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.mark.parametrize("rel", ["config.py", "frontends/gset.py",
                                  "utils/checkpoint.py", "recipes.py",
                                  "frontends/sedumi.py",
-                                 "frontends/workloads.py"])
+                                 "frontends/workloads.py",
+                                 "frontends/sdpa.py", "frontends/convert.py",
+                                 "frontends/moments.py",
+                                 "frontends/stls.py", "frontends/snl.py",
+                                 "frontends/lasserre.py",
+                                 "frontends/monomials.py"])
 def test_copied_module_is_identical(rel):
     with open(os.path.join(REPO, "manisdp_tpu", rel)) as f:
         original = f.read()
@@ -88,7 +93,16 @@ def test_import_loads_no_jax():
             "manisdp_tpu_torch.solvers.general, "
             "manisdp_tpu_torch.solvers.unitdiag, "
             "manisdp_tpu_torch.solvers.unittrace, "
-            "manisdp_tpu_torch.frontends.workloads\n"
+            "manisdp_tpu_torch.solvers.dispatch, "
+            "manisdp_tpu_torch.ops.dense_cert, "
+            "manisdp_tpu_torch.frontends.workloads, "
+            "manisdp_tpu_torch.frontends.sdpa, "
+            "manisdp_tpu_torch.frontends.convert, "
+            "manisdp_tpu_torch.frontends.moments, "
+            "manisdp_tpu_torch.frontends.stls, "
+            "manisdp_tpu_torch.frontends.snl, "
+            "manisdp_tpu_torch.frontends.lasserre, "
+            "manisdp_tpu_torch.frontends.monomials\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'manisdp_tpu' or "
             "m.startswith('manisdp_tpu.')]\n"

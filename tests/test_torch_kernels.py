@@ -1,4 +1,4 @@
-"""Kernel build and launch plumbing of manisdp_tpu_torch, and K1-K4 on
+"""Kernel build and launch plumbing of manisdp_tpu_torch, and K1-K6 on
 the card against their plain twins.
 
 This file imports no jax, so the card tests run on a machine without it:
@@ -15,7 +15,8 @@ import torch
 
 import chip_smoke
 from manisdp_tpu_torch import kernels as K
-from manisdp_tpu_torch.ops.sparse import ConstraintOp, SymCOO
+from manisdp_tpu_torch.ops.sparse import (ConstraintOp, DenseConstraintOp,
+                                          SymCOO)
 
 # the module, not the build() function that kernels/__init__ re-exports
 B = importlib.import_module("manisdp_tpu_torch.kernels.build")
@@ -51,11 +52,31 @@ def test_library_name_tracks_sources_and_flags():
 def test_reset_launches():
     K.LAUNCHES["symcoo_spmm"] = 3
     K.SPMM_LAUNCHES["al_hess"] = 2
+    K.CSR_LAUNCHES["scatter_pos"] = 4
+    K.MASKED_LAUNCHES["aat"] = 5
     K.reset_launches()
     assert K.LAUNCHES == {"symcoo_spmm": 0, "oblique_cols": 0,
-                          "pattern_dots": 0, "csr_gather": 0}
+                          "pattern_dots": 0, "csr_gather": 0,
+                          "masked_sym": 0, "oa_refine": 0}
     assert set(K.SPMM_LAUNCHES) == set(K.SPMM_MODES)
-    assert not any(K.SPMM_LAUNCHES.values())
+    assert set(K.MASKED_LAUNCHES) == set(K.MASKED_MODES)
+    assert set(K.CSR_LAUNCHES) == {"gather", "scatter_pos"}
+    for counts in (K.SPMM_LAUNCHES, K.CSR_LAUNCHES, K.MASKED_LAUNCHES):
+        assert not any(counts.values())
+
+
+def test_carrier_wrappers_reject_bad_modes_anywhere():
+    """Checks that hold before any device is touched (CPU tensors too)."""
+    E = torch.ones((3, 3), dtype=torch.float64)
+    with pytest.raises(ValueError, match="unknown"):
+        K.masked_sym(E, E, E, "transpose")
+    with pytest.raises(ValueError, match="dfac"):
+        K.masked_sym(E, E, None, "apply")                 # apply needs dfac
+    with pytest.raises(ValueError, match="C"):
+        K.masked_sym(E, E, E, "apply", C=E)               # only axpy takes C
+    ptr = torch.tensor([0, 1], dtype=torch.int32)
+    with pytest.raises(ValueError, match="size"):
+        K.csr_gather(E[0], ptr, ptr[:1], E[0, :1], pos=ptr[:1])
 
 
 def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
@@ -227,3 +248,125 @@ def test_al_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         K.symcoo_spmm(Y, op.pat, "al_hess", B=Y)            # no vals2
     with pytest.raises(ValueError, match="devices"):
         K.csr_gather(w.cpu(), op.pat_ptr, op.kp, op.vp)     # CPU / CUDA mix
+
+
+def _carrier_inputs(device, dtype, n, seed=2):
+    """A symmetric entrywise mask (aval, dfac as the carrier has them: dfac
+    1 off the diagonal, 0.5 on it) and random dense operands."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=dtype,  # noqa: E731
+                                 device=device)
+    mask = torch.rand((n, n), generator=gen, device=device) < 0.3
+    mask = mask | mask.T
+    aval = torch.where(mask, rnd(n, n), torch.zeros((), dtype=dtype,
+                                                    device=device))
+    aval = torch.triu(aval) + torch.triu(aval, 1).T
+    dfac = torch.where(mask, 1.0, 0.0).to(dtype)
+    dfac.diagonal().mul_(0.5)
+    return aval, dfac, rnd(n, n), rnd(n, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [40, 77])
+def test_masked_sym_matches_twin_on_card(cuda_device, dtype, n):
+    """K5's three modes on the card against their twin; n = 77 leaves
+    ragged 32 x 32 tiles on the diagonal and the edges."""
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    aval, dfac, E, C = _carrier_inputs(cuda_device, dtype, n)
+    cases = [((E, aval, dfac, "apply"), {}), ((E, aval, dfac, "aat"), {}),
+             ((E, aval, None, "axpy"), dict(C=C, alpha=0.37)),
+             ((E, aval, None, "axpy"), dict(C=C, alpha=-1.0)),
+             ((E, aval, None, "axpy"), {})]
+    before = dict(K.MASKED_LAUNCHES)
+    for args, kw in cases:
+        got, ref = K.masked_sym(*args, **kw), K.masked_sym_plain(*args, **kw)
+        assert got.device.type == "cuda" and got.dtype == dtype
+        assert _rel(got, ref) <= tol
+    torch.cuda.synchronize()
+    assert {m: K.MASKED_LAUNCHES[m] - before[m] for m in before} == \
+        {"apply": 1, "aat": 1, "axpy": 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_csr_gather_scatter_pos_matches_twin_on_card(cuda_device, dtype):
+    """K4's scatter_pos mode on the dense carrier's position order, with
+    base (es / s) and without (the adjoint), plus a hand-made row whose
+    segment is empty; positions no A entry touches keep base exactly."""
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    op = DenseConstraintOp.from_op(_constraint_op(cuda_device)).astype(dtype)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(4)
+    w = torch.randn((op.m,), generator=gen, dtype=dtype, device=cuda_device)
+    base = op.C.reshape(-1)
+    size = N * N
+    for kw in (dict(base=base, alpha=0.37), dict(base=base, alpha=-1.0),
+               {}):
+        args = (w, op.pos_ptr, op.kq, op.vq)
+        got = K.csr_gather(*args, pos=op.pos, size=size, **kw)
+        ref = K.csr_gather_plain(*args, pos=op.pos, size=size, **kw)
+        assert _rel(got, ref) <= tol
+    off = torch.ones(size, dtype=torch.bool, device=cuda_device)
+    off[op.pos.long()] = False
+    assert torch.equal(got[off], torch.zeros_like(got[off]))
+    got = K.csr_gather(w, op.pos_ptr, op.kq, op.vq, base=base, alpha=0.37,
+                       pos=op.pos, size=size)
+    assert torch.equal(got[off], base[off]) and (base[off] != 0).any()
+    # rows 0 and 2 have entries, row 1 an empty segment
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    ptr = torch.tensor([0, 2, 2, 3], **i32)
+    col = torch.tensor([0, 1, 2], **i32)
+    val = torch.tensor([1.0, 2.0, 3.0], dtype=dtype, device=cuda_device)
+    pos = torch.tensor([5, 1, 7], **i32)
+    x = torch.tensor([1.0, 10.0, 100.0], dtype=dtype, device=cuda_device)
+    b = torch.arange(9, dtype=dtype, device=cuda_device)
+    got = K.csr_gather(x, ptr, col, val, base=b, alpha=2.0, pos=pos, size=9)
+    want = b.clone()
+    want[5] += 2.0 * 21.0
+    want[7] += 2.0 * 300.0
+    assert torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [40, 300])
+def test_oa_refine_matches_twin_on_card(cuda_device, n):
+    """K6 (f64) against its twin on a near-orthonormal basis of a random
+    symmetric matrix, with one near-degenerate pair."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    f64 = dict(dtype=torch.float64, device=cuda_device)
+    X = torch.randn((n, n), generator=gen, **f64)
+    X = 0.5 * (X + X.T)
+    V = torch.linalg.eigh(X.float())[1].double()
+    S = V.T @ X @ V
+    S = 0.5 * (S + S.T)
+    B = V.T @ V
+    mu = torch.diagonal(S) / torch.diagonal(B)
+    mu[3] = mu[7] * (1 + 1e-9)
+    args = (S, B, mu.contiguous(), torch.min(mu), torch.max(mu))
+    before = K.LAUNCHES["oa_refine"]
+    got, ref = K.oa_refine(*args), K.oa_refine_plain(*args)
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= 1e-12
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["oa_refine"] - before == 1
+
+
+@pytest.mark.cuda
+def test_carrier_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    E = torch.ones((8, 8), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(TypeError):
+        K.masked_sym(E.float(), E, E, "apply")            # dtype mix
+    with pytest.raises(ValueError):
+        K.masked_sym(E[:, :4], E[:, :4], E[:, :4], "apply")  # not square
+    with pytest.raises(ValueError):
+        K.masked_sym(E.T[::2], E[::2], None, "axpy")      # not contiguous
+    mu = torch.ones(8, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(TypeError, match="float64"):
+        K.oa_refine(E.float(), E.float(), mu.float(), mu[0].float(),
+                    mu[0].float())
+    with pytest.raises(ValueError, match="devices"):
+        K.masked_sym(E.cpu(), E, E, "apply")              # CPU / CUDA mix

@@ -2,8 +2,8 @@
 twins): the sphere / Euclidean manifolds, the cost / grad / Hessian and
 stats closures of all three variants at the same (Y, U, y, sigma), end to
 end solves from the same explicit Y0 (the cases of tests/test_primal_al.py
-plus matrix completion under recipe("mc") and tcg32), and the operator
-carriers the port does not have."""
+plus matrix completion under recipe("mc") and tcg32), the operator ladder
+against the JAX package's, and the options the port does not have."""
 
 import dataclasses
 
@@ -293,21 +293,76 @@ def test_constraint_op_given_on_another_device_raises():
         solve_sdp(op, b, c, n, device="meta", verbose=False)
 
 
+class _Picked(Exception):
+    """Stops a solve once its operator is known."""
+
+
+def _picked_operators(monkeypatch, At, b, c, n, **kw):
+    """The class names of the operators the JAX ladder and the port's pick
+    for the same data and options."""
+    picked = {}
+
+    def jcert(variant, op, n, k, use_eigh, opt, op_dev=None, **_):
+        picked["jax"] = type(op_dev).__name__
+        raise _Picked
+
+    select = tal._select_operator
+
+    def tselect(opt, op):
+        picked["torch"] = type(select(opt, op)).__name__
+        raise _Picked
+
+    monkeypatch.setattr(jal, "_make_certificate", jcert)
+    monkeypatch.setattr(tal, "_select_operator", tselect)
+    with pytest.raises(_Picked):
+        j_sdp(At, b, c, n, verbose=False, **kw)
+    with pytest.raises(_Picked):
+        solve_sdp(At, b, c, n, device="cpu", verbose=False, **kw)
+    return picked
+
+
 @pytest.mark.parametrize("mode,which", [
     ("auto", "entrywise"), ("entrywise", "entrywise"), ("dense", "dense"),
     ("auto_dense", "dense")])
-def test_unported_carriers_raise(mode, which):
-    """Where the JAX package's operator ladder picks a dense or entrywise
-    carrier, the port raises and names it (no quiet other route)."""
+def test_unported_carriers_raise(mode, which, monkeypatch):
+    """The four selections that raised before the dense and entrywise
+    carriers were ported: the port's ladder now picks the carrier the JAX
+    package's picks."""
     At, b, c, n = _small_general()
     if mode == "auto_dense":
         # a constraint on two diagonal entries is not entrywise
         At = sp.coo_matrix(([1.0, 1.0], ([0, n + 1], [0, 0])),
                            shape=(n * n, 1)).tocsc()
         b, mode = np.array([1.0]), "auto"
-    with pytest.raises(NotImplementedError, match=which):
-        solve_sdp(At, b, c, n, device="cpu", verbose=False,
-                  al_op_mode=mode)
+    picked = _picked_operators(monkeypatch, At, b, c, n, al_op_mode=mode)
+    cls = {"entrywise": "EntrywiseConstraintOp",
+           "dense": "DenseConstraintOp"}[which]
+    assert picked == {"jax": cls, "torch": cls}
+
+
+@pytest.mark.parametrize("kw,cls", [
+    (dict(al_op_mode="sparse"), "ConstraintOp"),
+    (dict(al_op_mode="auto", entrywise_al_max_n=5), "DenseConstraintOp"),
+    (dict(al_op_mode="auto", entrywise_al_max_n=5, dense_al_max_n=5),
+     "ConstraintOp"),
+    (dict(al_op_mode="entrywise", entrywise_al_max_n=5), "ConstraintOp")])
+def test_ladder_limits_match_jax(kw, cls, monkeypatch):
+    """Above each carrier's limit of n both ladders fall through to the
+    next rung (al_op_mode="entrywise" above its limit: the factored
+    operator)."""
+    At, b, c, n = _small_general()
+    picked = _picked_operators(monkeypatch, At, b, c, n, **kw)
+    assert picked == {"jax": cls, "torch": cls}
+
+
+def test_entrywise_mode_on_a_non_entrywise_set_raises():
+    At, b, c, n = _small_general()
+    At = sp.coo_matrix(([1.0, 1.0], ([0, n + 1], [0, 0])),
+                       shape=(n * n, 1)).tocsc()
+    for solve, kw in ((j_sdp, {}), (solve_sdp, dict(device="cpu"))):
+        with pytest.raises(ValueError, match="not entrywise"):
+            solve(At, np.array([1.0]), c, n, verbose=False,
+                  al_op_mode="entrywise", **kw)
 
 
 @pytest.mark.parametrize("kw,name", [
@@ -318,9 +373,14 @@ def test_unported_carriers_raise(mode, which):
      "cert_pre_dtype='float32'"),
 ])
 def test_unported_options_raise(kw, name):
+    """Options the port does not have yet raise and name themselves;
+    cert_method="dense_eigh" on the factored operator falls through to the
+    legacy lobpcg certificate, as in the JAX package, and names it."""
     At, b, c, n = _small_general()
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(NotImplementedError, match=name) as err:
         solve_sdp(At, b, c, n, device="cpu", **dict(SPARSE, **kw))
+    if name == "dense_eigh":
+        assert "lobpcg" in str(err.value)
 
 
 def test_entry_points_keep_the_jax_signatures():
