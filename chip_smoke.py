@@ -2,7 +2,7 @@
 """End-to-end smoke of the PyTorch port (``manisdp_tpu_torch``) on one
 CUDA GPU.
 
-    python3 chip_smoke.py [--gset DIR] [--seed 0] [--out DIR]
+    python3 chip_smoke.py [--gset DIR] [--bqp DIR] [--seed 0] [--out DIR]
 
 Phases (each prints one line; a failed check raises and the exit code is
 not 0):
@@ -34,11 +34,32 @@ not 0):
      ``scatter_pos``), which must reach phase 9's objective;
  11. the same with ``cert_method="dense_eigh"`` (f32 eigh + K6
      refinement), with its tier counts and one plain f64 eigh of the final
-     S for comparison.
-Phases 9-11 report peak device memory.  Then one ``{"kernels": [...]}``
-line and, last, the result line ``{"ok": true, "device": {...}}``.
+     S for comparison;
+ 12. the dual path's kernels against their twins, f64 and f32: K7 and
+     K8 (``adjoint``, ``sym_mat``, ``sym_factor`` at p_pad 8 / 64 / 192)
+     at the BQP SOS dual's expanded shape q = 60 (n~ = 3,662), K2 ``proj``
+     with the Hessian's eG term, K4 on the q = 60 original-basis DualOp
+     (n = 1,831, m = 523,686) and on the d = 30 quartic-sphere iAB pair;
+ 13. the BQP SOS dual through ``solve_bqp_sos_dual`` (the expanded-basis
+     SymDualOp: K7, K8, K2, and the compressed dense certificate, K6) at
+     q = 30 against the JAX package's optimum, then at q = 60 with
+     bench.py's settings, with an oracle (f64 eigvalsh of the returned X
+     on the card; the bound below 100,000 seeded +-1 points), launch
+     counts, peak memory and one ``torch.profiler`` breakdown;
+ 14. the same instances in the original basis through
+     ``solve_dual_unitdiag`` (the DualOp on K4, devrr certificate at
+     q = 60), with an oracle from the raw SeDuMi triplets;
+ 15. the quartic over the sphere at d = 30 through ``solve_dual_sdp`` (the
+     general variant with iAB on K4), against the JAX package's optimum.
+Phases 9-11 and 13-15 report peak device memory.  Every kernel case
+carries its time, its plain twin's, the least time the card could take
+(``bound_ms``: bytes at 3.35 TB/s or operations at the dtype's peak) and
+the time of one PyTorch library call computing the same function where
+there is one (``library_ms``).  Then one ``{"kernels": [...]}`` line and,
+last, the result line ``{"ok": true, "device": {...}}``.
 
-``--gset DIR`` reads G1.txt / G67.txt from a Gset directory; without it
+``--gset DIR`` reads G1.txt / G67.txt from a Gset directory and ``--bqp
+DIR`` bqp_Q_60_1.txt / bqp_e_60_1.txt (and the q = 30 files); without them
 (or when a file is missing) seeded stand-ins of the same shape are used
 and labelled so.  The full record (every timing, both solves) goes to
 ``chip_smoke.json`` in ``--out`` (default ``build/chip_smoke``).
@@ -71,6 +92,19 @@ AL_HOT_P_PAD = 16
 # matrix completion at n = 4,000 (bench.py bench_mc(2000), the JAX bench's
 # mc_n4000 row, uncut): below the entrywise and dense carriers' limits
 MC4 = dict(p=2000, q=2000, rank=10, m_samples=1_600_000, seed=3)
+# the BQP SOS dual (bench.py:176-199: the stand-in construction and the
+# settings of its bqp_q60_dual row) and the quartic over the sphere
+# (examples/example_qsphere.py:23-37)
+BQP_Q = 60
+BQP_KW = dict(line_search=True, inner_dtype="tcg32", p_bucket=192)
+QS_D = 30
+# the JAX package's optima on the CPU (f64), the values the port is held to
+JAX_BQP30 = -154.7359587770444
+JAX_QS30 = -7.324338872437511
+# the card's published peaks (H100 SXM data sheet): HBM bytes/s, and
+# FLOP/s outside the tensor cores (f64 34 T, f32 67 T)
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 
 
 def emit(obj):
@@ -181,17 +215,57 @@ def worst_errors(rows):
     return worst
 
 
-def check_case(rows, name, mode, fn, twin, args, kw, tol, **info):
-    """One kernel call against its twin on the same inputs, timed."""
+def nbytes(*items):
+    """Bytes of the given tensors; an int item is a byte count."""
+    return sum(t if isinstance(t, int) else t.numel() * t.element_size()
+               for t in items if t is not None)
+
+
+def gathered(x, col):
+    """Bytes a gather of x at ``col`` must read: at most one read of each
+    of x's entries, at most one per index."""
+    return min(x.numel(), col.numel()) * x.element_size()
+
+
+def bound(bytes_, flops, dtype):
+    """The least time (ms) the card could take: the larger of the bytes at
+    the HBM rate and the operations at the dtype's peak, and which."""
+    tb = bytes_ / PEAK_BYTES
+    tf = flops / PEAK_FLOPS[dtype]
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def csr(ptr, col, val, shape):
+    """A torch CSR tensor on the same arrays (the library yardstick)."""
+    import torch
+    return torch.sparse_csr_tensor(ptr, col, val, size=shape)
+
+
+def check_case(rows, name, mode, fn, twin, args, kw, tol, reads=(),
+               flops=0.0, library=None, **info):
+    """One kernel call against its twin on the same inputs, timed, with
+    its bound (``reads``: the input tensors the function must read once;
+    its outputs are written once) and the time of ``library``, one
+    PyTorch call computing the same function (None where there is none;
+    a call the installed PyTorch refuses is recorded as null with the
+    error)."""
     import torch
     got = fn(*args, **kw)
     ref = twin(*args, **kw)
     torch.cuda.synchronize()
     abs_err, rel_err = max_err(got, ref)
+    outs = got if isinstance(got, tuple) else (got,)
+    b_ms, b_by = bound(nbytes(*reads, *outs), flops, info["dtype"])
     row = dict(kernel=name, mode=mode, **info, max_abs_err=abs_err,
                rel_err=rel_err, tol=tol,
                ms=time_ms(lambda: fn(*args, **kw)),
-               plain_ms=time_ms(lambda: twin(*args, **kw)))
+               plain_ms=time_ms(lambda: twin(*args, **kw)),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    if library is not None:
+        try:
+            row["library_ms"] = time_ms(library)
+        except (RuntimeError, NotImplementedError, TypeError) as err:
+            row["library_error"] = str(err).splitlines()[0][:200]
     rows.append(row)
     if not rel_err <= tol:
         raise AssertionError(f"kernel disagrees with its twin: {row}")
@@ -211,6 +285,8 @@ def phase_kernels(C_sp, device, seed):
     tol = {torch.float64: 1e-12, torch.float32: 1e-5}
     for dt in (torch.float64, torch.float32):
         C = C64.astype(dt)
+        Ccsr = csr(C.colptr, C.i, C.v, (n, n))     # C symmetric: CSR = CSC
+        Cr = (C.i, C.colptr, C.v)
         for p in P_PADS:
             rnd = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
                                          dtype=torch.float64,
@@ -220,20 +296,30 @@ def phase_kernels(C_sp, device, seed):
             z = rnd(n)
             eG = K.symcoo_spmm_plain(Y, C, "cost")[1]
             V = rnd(n, 9)       # matvec_block's (n, k) block, K1 on V.T
+            Yu = Y + U
+            fl = 2.0 * C.nnz * p
             cases = [
-                ("symcoo_spmm", "plain", (Y, C, "plain"), {}),
-                ("symcoo_spmm", "shift", (Y, C, "shift"), dict(z=z)),
-                ("symcoo_spmm", "cost", (Y, C, "cost"), {}),
-                ("symcoo_spmm", "hess", (U, C, "hess"), dict(B=Y, eG=eG)),
-                ("symcoo_spmm", "plain_strided", (V.T, C, "plain"), {}),
-                ("oblique_cols", "proj", (Y, U, "proj"), {}),
-                ("oblique_cols", "retr", (Y, U, "retr"), {}),
-                ("oblique_cols", "renormalize", (Y + U, None,
-                                                 "renormalize"), {}),
+                ("symcoo_spmm", "plain", (Y, C, "plain"), {}, (Y, *Cr), fl,
+                 lambda: Ccsr @ Y.T),
+                ("symcoo_spmm", "shift", (Y, C, "shift"), dict(z=z),
+                 (Y, *Cr, z), fl + 2 * p * n, None),
+                ("symcoo_spmm", "cost", (Y, C, "cost"), {}, (Y, *Cr),
+                 fl + 2 * p * n, None),
+                ("symcoo_spmm", "hess", (U, C, "hess"), dict(B=Y, eG=eG),
+                 (U, *Cr, Y, eG), fl + 6 * p * n, None),
+                ("symcoo_spmm", "plain_strided", (V.T, C, "plain"), {},
+                 (V, *Cr), 18.0 * C.nnz, lambda: Ccsr @ V),
+                ("oblique_cols", "proj", (Y, U, "proj"), {}, (Y, U),
+                 4 * p * n, None),
+                ("oblique_cols", "retr", (Y, U, "retr"), {}, (Y, U),
+                 5 * p * n, None),
+                ("oblique_cols", "renormalize", (Yu, None, "renormalize"),
+                 {}, (Yu,), 3 * p * n, None),
             ]
-            for name, mode, args, kw in cases:
+            for name, mode, args, kw, reads, flops, lib in cases:
                 check_case(rows, name, mode, getattr(K, name),
                            getattr(K, f"{name}_plain"), args, kw, tol[dt],
+                           reads=reads, flops=flops, library=lib,
                            dtype=str(dt)[6:], p_pad=p, n=n, nnz=C.nnz)
     return rows
 
@@ -269,33 +355,53 @@ def phase_al_kernels(op64, device, seed):
         info = dict(dtype=str(dt)[6:], n=n, m=m, nnzP=op.pat.nnz,
                     nnzA=op.nnz)
         e, w = rnd(op.pat.nnz), rnd(m)
+        nP = op.pat.nnz
+        A_k = csr(op.krow_ptr, op.a2p, op.v, (m, nP))
+        A_p = csr(op.pat_ptr, op.kp, op.vp, (nP, m))
+        fl = 2.0 * op.nnz
         # K4 does not depend on p: once per dtype, both orderings
-        k4 = [("apply_from_e", (e, op.krow_ptr, op.a2p, op.v), {}),
-              ("adjoint_on_pattern", (w, op.pat_ptr, op.kp, op.vp), {}),
+        k4 = [("apply_from_e", (e, op.krow_ptr, op.a2p, op.v), {},
+               lambda: A_k @ e),
+              ("adjoint_on_pattern", (w, op.pat_ptr, op.kp, op.vp), {},
+               lambda: A_p @ w),
               ("es_vals", (w, op.pat_ptr, op.kp, op.vp),
-               dict(base=op.pat.v, alpha=sigma)),
+               dict(base=op.pat.v, alpha=sigma),
+               lambda: torch.addmv(op.pat.v, A_p, w, alpha=sigma)),
               ("s_vals", (w, op.pat_ptr, op.kp, op.vp),
-               dict(base=op.pat.v, alpha=-1.0))]
-        for mode, args, kw in k4:
+               dict(base=op.pat.v, alpha=-1.0),
+               lambda: torch.addmv(op.pat.v, A_p, w, alpha=-1.0))]
+        for mode, args, kw, lib in k4:
             check_case(rows, "csr_gather", mode, K.csr_gather,
-                       K.csr_gather_plain, args, kw, tol[dt], p_pad=None,
-                       **info)
+                       K.csr_gather_plain, args, kw, tol[dt],
+                       reads=(gathered(args[0], args[2]), *args[1:],
+                              kw.get("base")), flops=fl, library=lib,
+                       p_pad=None, **info)
         es = K.csr_gather_plain(w, op.pat_ptr, op.kp, op.vp, base=op.pat.v,
                                 alpha=sigma)
         ayu = K.csr_gather_plain(rnd(m), op.pat_ptr, op.kp, op.vp)
+        Pz = csr(op.pat.colptr, op.pat.i, torch.zeros_like(op.pat.v),
+                 (n, n))
+        Pr = (op.pat.i, op.pat.colptr)
         for p in AL_P_PADS:
             Y = K.oblique_cols_plain(rnd(p, n), None, "renormalize")
             U = K.oblique_cols_plain(Y, rnd(p, n), "proj")
             YeG = rnd(n)
             hess = dict(vals=es, B=Y, vals2=ayu, coefs=(2.0, 4.0 * sigma))
-            for name, mode, args, kw in (
-                    ("pattern_dots", "pair_dots", (Y, U, op.pat), {}),
+            # e_k = <Y[:, i_k], U[:, j_k]> = (U^T Y)[j_k, i_k]: the pattern
+            # in CSR by column j is the sampling mask
+            sddmm = lambda Y=Y, U=U: torch.sparse.sampled_addmm(  # noqa: E731
+                Pz, U.T.contiguous(), Y, beta=0.0)
+            for name, mode, args, kw, reads, flops, lib in (
+                    ("pattern_dots", "pair_dots", (Y, U, op.pat), {},
+                     (Y, U, *Pr), 2.0 * nP * p, sddmm),
                     ("symcoo_spmm", "al_hess", (U, op.pat, "al_hess"),
-                     hess),
+                     hess, (U, *Pr, es, Y, ayu), 4.0 * nP * p, None),
                     ("symcoo_spmm", "al_hess_diag", (U, op.pat, "al_hess"),
-                     dict(hess, eG=YeG))):
+                     dict(hess, eG=YeG), (U, *Pr, es, Y, ayu, YeG),
+                     4.0 * nP * p + 6 * p * n, None)):
                 check_case(rows, name, mode, getattr(K, name),
                            getattr(K, f"{name}_plain"), args, kw, tol[dt],
+                           reads=reads, flops=flops, library=lib,
                            p_pad=p, **info)
     return rows
 
@@ -420,19 +526,39 @@ def phase_carrier_kernels(ew, dense, device, seed):
                     npos=int(do.pos.shape[0]))
         scatter = dict(pos=do.pos, size=n * n)
         seg = (w, do.pos_ptr, do.kq, do.vq)
-        for name, mode, args, kw in (
-                ("masked_sym", "apply", (E, eo.aval, eo.dfac, "apply"), {}),
-                ("masked_sym", "aat", (E, eo.aval, eo.dfac, "aat"), {}),
+        # the scatter as one CSR product over all n^2 rows (empty rows
+        # where no A entry lands)
+        counts = torch.zeros(n * n + 1, dtype=torch.int64, device=device)
+        counts[do.pos.long() + 1] = (do.pos_ptr[1:] - do.pos_ptr[:-1]).long()
+        A_full = csr(torch.cumsum(counts, 0).to(torch.int32), do.kq, do.vq,
+                     (n * n, m))
+        A_dense = csr(do.krow_ptr, do.ij, do.v, (m, n * n))
+        Cflat = do.C.view(-1)
+        n2 = float(n * n)
+        for name, mode, args, kw, reads, flops, lib in (
+                ("masked_sym", "apply", (E, eo.aval, eo.dfac, "apply"), {},
+                 (E, eo.aval, eo.dfac), 4 * n2, None),
+                ("masked_sym", "aat", (E, eo.aval, eo.dfac, "aat"), {},
+                 (E, eo.aval, eo.dfac), 5 * n2, None),
                 ("masked_sym", "axpy", (W, eo.aval, None, "axpy"),
-                 dict(C=eo.C, alpha=sigma)),
+                 dict(C=eo.C, alpha=sigma), (W, eo.aval, eo.C), 3 * n2,
+                 None),
                 ("csr_gather", "scatter_pos", seg,
-                 dict(scatter, base=do.C.view(-1), alpha=sigma)),
-                ("csr_gather", "scatter_pos_adjoint", seg, scatter),
+                 dict(scatter, base=Cflat, alpha=sigma),
+                 (gathered(w, do.kq), *seg[1:], do.pos, Cflat), 2.0 * do.nnz,
+                 lambda: torch.addmv(Cflat, A_full, w, alpha=sigma)),
+                ("csr_gather", "scatter_pos_adjoint", seg, scatter,
+                 (gathered(w, do.kq), *seg[1:], do.pos), 2.0 * do.nnz,
+                 lambda: A_full @ w),
                 ("csr_gather", "dense_apply_from_e",
-                 (E.view(-1), do.krow_ptr, do.ij, do.v), {})):
+                 (E.view(-1), do.krow_ptr, do.ij, do.v), {},
+                 (gathered(E, do.ij), do.krow_ptr, do.ij, do.v),
+                 2.0 * do.nnz,
+                 lambda: A_dense @ E.view(-1))):
             check_case(rows, name, mode, getattr(K, name),
                        getattr(K, f"{name}_plain"), args, kw, tol[dt],
-                       **info)
+                       reads=reads, flops=flops, library=lib, **info)
+        del A_full, counts
     S = ew.s_vals(W64)
     V = torch.linalg.eigh(S.to(torch.float32))[1].to(torch.float64)
     SV = V.T @ (S @ V)
@@ -441,7 +567,8 @@ def phase_carrier_kernels(ew, dense, device, seed):
     mu = torch.diagonal(SV) / torch.diagonal(B)
     check_case(rows, "oa_refine", "f64", K.oa_refine, K.oa_refine_plain,
                (SV, B, mu, torch.min(mu), torch.max(mu)), {},
-               tol[torch.float64], dtype="float64", n=n)
+               tol[torch.float64], reads=(SV, B, mu), flops=12.0 * n * n,
+               dtype="float64", n=n)
     return rows
 
 
@@ -549,6 +676,427 @@ def carrier_solve_phases(data, op, device):
     return dict(entrywise=ew, dense=dense, dense_eigh=cert, compare=cmp)
 
 
+def bqp_instance(q, bqp_dir):
+    """Q, e of the BQP of size q: the reference's bqp_Q_{q}_1.txt /
+    bqp_e_{q}_1.txt from ``bqp_dir`` when present, else bench.py's seeded
+    stand-in of the same class (bench.py:176-179)."""
+    path = os.path.join(bqp_dir, f"bqp_Q_{q}_1.txt") if bqp_dir else None
+    if path and os.path.exists(path):
+        Q = np.loadtxt(path, delimiter=",")
+        e = np.loadtxt(os.path.join(bqp_dir, f"bqp_e_{q}_1.txt"),
+                       delimiter=",")
+        return Q, e, f"reference bqp instance q = {q}, i = 1"
+    rng = np.random.default_rng(1)
+    Q = rng.standard_normal((q, q))
+    Q = (Q + Q.T) / 2.0
+    e = rng.standard_normal(q)
+    return Q, e, f"seeded stand-in for bqp q = {q} (default_rng(1))"
+
+
+def qs_instance(d):
+    """The quartic over the sphere of examples/example_qsphere.py: its SOS
+    dual data (A, b, c, mb, f, dAAt) from frontends.sos.qssos."""
+    from manisdp_tpu_torch.frontends.monomials import monomial_basis
+    from manisdp_tpu_torch.frontends.sos import qssos
+    coe = np.random.RandomState(1).randn(monomial_basis(d, 4).shape[1])
+    return qssos(d, coe)
+
+
+def phase_dual_kernels(top64, dop64, iab64, device, seed):
+    """K7, K8's three modes and K2's eG epilogue at the expanded q = 60
+    shape, K4 on the original-basis DualOp and on the iAB pair, f64 and
+    f32, against their twins."""
+    import torch
+    from manisdp_tpu_torch import kernels as K
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    q, n = top64.q, top64.n
+    sigma = 0.37
+    rows = []
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}
+    rnd = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                 dtype=torch.float64, device=device)
+    M64 = rnd(n, n)
+    M64 = 0.5 * (M64 + M64.T)
+    B64 = rnd(n, n)
+    for dt in (torch.float64, torch.float32):
+        info = dict(dtype=str(dt)[6:], q=q, n=n)
+        top = top64.astype(dt)
+        M, Xm = M64.to(dt), B64.to(dt)
+        y = K.symdual_apply_plain(M, q)
+        n2 = float(n * n)
+        k7 = (K.symdual_apply, K.symdual_apply_plain)
+        k8 = (K.symdual_adjoint, K.symdual_adjoint_plain)
+        cases = [
+            ("symdual_apply", "apply", k7, (M, q), {}, (M,), n2),
+            ("symdual_apply", "y_step", k7, (M, q),
+             dict(scale=top.idAAt, shift=top.Ac), (M,), n2),
+            ("symdual_adjoint", "adjoint", k8, (y, q),
+             dict(scale=top.idAAt), y, n2),
+            ("symdual_adjoint", "residual", k8, (y, q),
+             dict(B1=M, c1=-1.0, B2=Xm, c2=-1.0 / sigma), (*y, M, Xm),
+             4 * n2),
+            ("symdual_adjoint", "sym_mat",
+             (K.symdual_sym_mat, K.symdual_sym_mat_plain), (M, q), {},
+             (M,), 3 * n2),
+        ]
+        for p in (8, 64, 192):
+            Y = rnd(p, n).to(dt)
+            for renorm in (True, False):
+                cases.append((
+                    "symdual_adjoint",
+                    f"sym_factor_p{p}_{'renorm' if renorm else 'plain'}",
+                    (K.symdual_sym_factor, K.symdual_sym_factor_plain),
+                    (Y, q, renorm), {}, (Y,), 4.0 * p * n))
+        for name, mode, (fn, twin), args, kw, reads, flops in cases:
+            check_case(rows, name, mode, fn, twin, args, kw, tol[dt],
+                       reads=reads, flops=flops, **info)
+        del y
+        # K2 proj with the Hessian's eG term at the solve's widest factor
+        Y, H, U = (rnd(192, n).to(dt) for _ in range(3))
+        g = rnd(n).to(dt)
+        check_case(rows, "oblique_cols", "proj_eG", K.oblique_cols,
+                   K.oblique_cols_plain, (Y, H, "proj"), dict(v=U, g=g),
+                   tol[dt], reads=(Y, H, U, g), flops=6.0 * 192 * n,
+                   p_pad=192, **info)
+        del M, Xm, Y, H, U
+        # K4 on the original-basis DualOp (q = 60) and the iAB pair
+        dop, iab = dop64.astype(dt), iab64.astype(dt)
+        nd, md = dop.n, dop.m
+        Md = rnd(nd, nd).to(dt).view(-1)
+        w = rnd(md).to(dt)
+        A_k = csr(dop.krow_ptr, dop.lin_r, dop.v_r, (md, nd * nd))
+        A_t = csr(dop.pos_ptr, dop.k_c, dop.v_c, (int(dop.pos.shape[0]), md))
+        negAc = -dop.Ac
+        nnz = float(dop.v_r.numel())
+        dinfo = dict(dtype=str(dt)[6:], n=nd, m=md, nnzA=int(nnz))
+        u = rnd(iab.ncols).to(dt)
+        Mi = rnd(iab.nrows).to(dt)
+        I_r = csr(iab.row_ptr, iab.col_r, iab.val_r, (iab.nrows, iab.ncols))
+        I_c = csr(iab.col_ptr, iab.row_c, iab.val_c, (iab.ncols, iab.nrows))
+        inz = float(iab.val_r.numel())
+        iinfo = dict(dtype=str(dt)[6:], nrows=iab.nrows, ncols=iab.ncols,
+                     nnz=int(inz))
+        for mode, args, kw, reads, flops, lib, inf in (
+                ("dual_apply", (Md, dop.krow_ptr, dop.lin_r, dop.v_r), {},
+                 (gathered(Md, dop.lin_r), dop.krow_ptr, dop.lin_r, dop.v_r),
+                 2 * nnz, lambda: A_k @ Md, dinfo),
+                ("dual_y_step", (Md, dop.krow_ptr, dop.lin_r, dop.v_r),
+                 dict(base=negAc), (gathered(Md, dop.lin_r), dop.krow_ptr,
+                                    dop.lin_r, dop.v_r, negAc), 2 * nnz,
+                 lambda: torch.addmv(negAc, A_k, Md), dinfo),
+                ("dual_adjoint", (w, dop.pos_ptr, dop.k_c, dop.v_c),
+                 dict(pos=dop.pos, size=nd * nd),
+                 (gathered(w, dop.k_c), dop.pos_ptr, dop.k_c, dop.v_c,
+                  dop.pos), 2 * nnz,
+                 lambda: A_t @ w, dinfo),
+                ("iab_mat", (u, iab.row_ptr, iab.col_r, iab.val_r), {},
+                 (gathered(u, iab.col_r), iab.row_ptr, iab.col_r, iab.val_r),
+                 2 * inz,
+                 lambda: I_r @ u, iinfo),
+                ("iab_rmat", (Mi, iab.col_ptr, iab.row_c, iab.val_c), {},
+                 (gathered(Mi, iab.row_c), iab.col_ptr, iab.row_c,
+                  iab.val_c), 2 * inz,
+                 lambda: I_c @ Mi, iinfo)):
+            check_case(rows, "csr_gather", mode, K.csr_gather,
+                       K.csr_gather_plain, args, kw, tol[dt], reads=reads,
+                       flops=flops, library=lib, **inf)
+        del A_k, A_t, I_r, I_c
+    return rows
+
+
+def dual_kkt_oracle_on_card(A, b, c, n, f, res, device):
+    """Independent KKT check of a dual solve on the card from the raw
+    SeDuMi dual triplets (A (m, f + n^2), column-major vec; b as solved)
+    and the returned (Y, y, X, obj), with the residuals of
+    solvers/dual_al.py:176-200: As = mat(A_psd' y) - (Y'Y - C),
+    Af = B'y - c_f, pinf = (|As| + |Af|) / (1 + |(C, c_f)|), dinf from f64
+    eigvalsh of X, gap = |obj - b'y| / (1 + |obj| + |b'y|)."""
+    import scipy.sparse as sp
+    import torch
+    t0 = time.perf_counter()
+    f64 = dict(dtype=torch.float64, device=device)
+    A = sp.coo_matrix(A)
+    c = np.asarray(c, dtype=np.float64).ravel()
+    y = torch.as_tensor(res.y, **f64)
+    psd = A.col >= f
+    col = A.col[psd].astype(np.int64) - f
+    lin = torch.as_tensor((col % n) * n + col // n, device=device)
+    rows = torch.as_tensor(A.row[psd].astype(np.int64), device=device)
+    At_y = torch.zeros(n * n, **f64).index_add_(
+        0, lin, torch.as_tensor(A.data[psd], **f64) * y[rows])
+    cnz = np.flatnonzero(c[f:])
+    Cf = torch.zeros(n * n, **f64)
+    Cf[torch.as_tensor((cnz % n) * n + cnz // n, device=device)] = \
+        torch.as_tensor(c[f:][cnz], **f64)
+    Y = torch.as_tensor(res.Y, **f64)
+    As = At_y.view(n, n) - (Y.T @ Y - Cf.view(n, n))
+    fr = A.col < f
+    Bty = torch.zeros(f, **f64).index_add_(
+        0, torch.as_tensor(A.col[fr].astype(np.int64), device=device),
+        torch.as_tensor(A.data[fr], **f64) *
+        y[torch.as_tensor(A.row[fr].astype(np.int64), device=device)])
+    cf = torch.as_tensor(c[:f], **f64)
+    Af = Bty - cf
+    normc = 1.0 + float(torch.sqrt(torch.sum(Cf * Cf) + torch.sum(cf * cf)))
+    pinf = (float(torch.linalg.norm(As)) + float(torch.linalg.norm(Af))) \
+        / normc
+    by = float(torch.dot(torch.as_tensor(np.asarray(b).ravel(), **f64), y))
+    gap = abs(res.obj - by) / (1.0 + abs(res.obj) + abs(by))
+    del At_y, As, Y
+    wv = torch.linalg.eigvalsh(torch.as_tensor(res.X, **f64))
+    lam_min, lam_max = float(wv[0]), float(wv[-1])
+    dinf = max(0.0, -lam_min) / (1.0 + abs(lam_max))
+    torch.cuda.synchronize()
+    return dict(pinf=pinf, dinf=dinf, gap=gap, eta=max(pinf, dinf, gap),
+                by=by, lam_min=lam_min, lam_max=lam_max,
+                seconds=time.perf_counter() - t0)
+
+
+def profile_breakdown(fn):
+    """Run ``fn`` under torch.profiler; device seconds and launches by
+    kernel kind (device events only: kernels, memcpy, memset), the
+    profiled wall and the device busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    kinds = (("K7 symdual_apply", ("symdual_low", "symdual_y4")),
+             ("K8 symdual_adjoint", ("adjoint_kernel", "sym_factor_kernel",
+                                     "sym_mat_kernel")),
+             ("K2 oblique_cols", ("oblique_cols",)),
+             ("K4 csr_gather", ("csr_gather",)),
+             ("K6 oa_refine", ("oa_refine",)),
+             ("GEMM (cuBLAS)", ("gemm", "gemv", "sm90_xmma", "cutlass",
+                                "Kernel2", "dot_kernel")),
+             ("cuSOLVER", ("syevd", "syevj", "sytrd", "ormtr", "orgtr",
+                           "steqr", "stedc", "potrf", "cusolver", "lansy",
+                           "larf", "geqrf")),
+             ("memcpy / memset", ("Memcpy", "Memset", "memcpy", "memset")),
+             ("reductions", ("reduce", "Reduce")),
+             ("indexing / copies", ("index", "Index", "gather", "scatter",
+                                    "copy", "cat", "Cat", "tril", "triu")),
+             ("elementwise", ("elementwise", "Elementwise", "vectorized",
+                              "unrolled")))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_kind = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = evt.self_device_time_total
+        if not us:
+            continue
+        kind = next((k for k, keys in kinds
+                     if any(key in evt.key for key in keys)), "other")
+        d = by_kind.setdefault(kind, dict(s=0.0, launches=0, top=[]))
+        d["s"] += us / 1e6
+        d["launches"] += evt.count
+        d["top"].append((us / 1e6, evt.key[:80]))
+    for d in by_kind.values():
+        d["top"] = sorted(d["top"], reverse=True)[:3]
+    busy = sum(d["s"] for d in by_kind.values())
+    return out, dict(wall_s=wall, device_busy_s=busy,
+                     busy_share=busy / wall, by_kind=by_kind)
+
+
+def dual_solve_phase(label, call, device, check_ok=True, **extra):
+    """One dual solve through ``call()``: seconds, peak device memory,
+    every launch counter and the certificate tiers of that run."""
+    import torch
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch.ops import dense_cert
+
+    K.reset_launches()
+    dense_cert.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = call()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = dict(phase=label, **extra, seconds=seconds,
+               solver_time_s=res.time,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               status=res.status, obj=res.obj, eta=res.eta, gap=res.gap,
+               pinf=res.pinf, dinf=res.dinf, iterations=res.iterations,
+               fac_size=res.fac_size, rtr_iters=res.rtr_iters,
+               hess_calls=res.hess_calls, timers=res.timers,
+               launches=dict(K.LAUNCHES), csr_modes=dict(K.CSR_LAUNCHES),
+               oblique_modes=dict(K.OBLIQUE_LAUNCHES),
+               symdual_modes=dict(K.SYMDUAL_LAUNCHES),
+               cert_tiers=dict(dense_cert.COUNTS))
+    if check_ok and (res.status != 0 or not res.eta <= 1e-8):
+        emit(out)
+        raise AssertionError(f"{label}: status {res.status}, eta {res.eta}")
+    return out, res
+
+
+def bqp_sample_min(Q, e, device, count=100_000, seed=0):
+    """min x'Qx + e'x over ``count`` seeded random x in {-1, 1}^q."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=device)
+    x = 2.0 * torch.randint(0, 2, (count, Q.shape[0]), generator=gen,
+                            device=device).to(torch.float64) - 1.0
+    Qt, et = torch.as_tensor(Q, **f64), torch.as_tensor(e, **f64)
+    vals = torch.sum((x @ Qt) * x, dim=1) + x @ et
+    return float(torch.min(vals))
+
+
+def dual_phases(args, device, top60, dop60, q60_data, bqp_label):
+    """Phases 13-15: the BQP SOS dual in both bases (q = 30 against the JAX
+    package's optimum first, then q = 60) and the quartic over the sphere
+    through the general variant."""
+    import torch
+    from manisdp_tpu_torch import solve_dual_sdp, solve_dual_unitdiag
+    from manisdp_tpu_torch.frontends.sos import assemble_bqpsos
+    from manisdp_tpu_torch.solvers import dual_al
+    from manisdp_tpu_torch.solvers.dual_unitdiag import solve_bqp_sos_dual
+
+    out = {}
+    # -- 13. the expanded basis (SymDualOp) --
+    Q30, e30, lab30 = bqp_instance(30, args.bqp)
+    q30 = Q30.shape[0]
+    standin30 = "stand-in" in lab30
+    kw30 = dict(line_search=True, inner_dtype="tcg32")
+    r, res = dual_solve_phase(
+        "bqp30_expanded",
+        lambda: solve_bqp_sos_dual(Q30, e30, q30, device=device,
+                                   verbose=False, **kw30),
+        device, instance=lab30, options=kw30)
+    r["rel_to_jax"] = abs(res.obj - JAX_BQP30) / abs(JAX_BQP30) \
+        if standin30 else None
+    emit(r)
+    out["bqp30_expanded"] = r
+    Q, e = q60_data[:2]
+    q = Q.shape[0]
+    r, res = dual_solve_phase(
+        "bqp60_expanded",
+        lambda: solve_bqp_sos_dual(Q, e, q, device=device, verbose=False,
+                                   **BQP_KW),
+        device, instance=bqp_label, options=BQP_KW, n_expanded=top60.n,
+        m_true=top60.m_true)
+    t0 = time.perf_counter()
+    wv = torch.linalg.eigvalsh(torch.as_tensor(res.X, dtype=torch.float64,
+                                               device=device))
+    lam_min, lam_max = float(wv[0]), float(wv[-1])
+    sample_min = bqp_sample_min(Q, e, device, seed=args.seed)
+    r["oracle"] = dict(
+        dinf=max(0.0, -lam_min) / (1.0 + abs(lam_max)), lam_min=lam_min,
+        lam_max=lam_max, sample_min_100k=sample_min,
+        bound_minus_sample=res.obj - sample_min,
+        seconds=time.perf_counter() - t0)
+    emit(r)
+    out["bqp60_expanded"] = r
+    if not r["oracle"]["dinf"] <= 1e-8:
+        raise AssertionError(f"bqp60 expanded: oracle {r['oracle']}")
+    if not res.obj <= sample_min + 1e-9 * abs(res.obj):
+        raise AssertionError(f"bqp60: the SOS bound {res.obj} exceeds a "
+                             f"sampled value {sample_min}")
+    for key in ("symdual_apply", "symdual_adjoint", "oblique_cols",
+                "oa_refine"):
+        if r["launches"][key] <= 0:
+            raise AssertionError(f"the bqp60 expanded solve never launched "
+                                 f"{key}")
+    _, prof = profile_breakdown(
+        lambda: solve_bqp_sos_dual(Q, e, q, device=device, verbose=False,
+                                   **BQP_KW))
+    prof = dict(phase="bqp60_expanded_profile", **prof)
+    emit(prof)
+    out["bqp60_profile"] = prof
+
+    # -- 14. the original basis (DualOp, K4) --
+    A, b, c, mb, f, dAAt = assemble_bqpsos(Q30, e30, q30)
+    maxb = float(np.max(np.abs(b)))
+    r, res = dual_solve_phase(
+        "bqp30_original",
+        lambda: solve_dual_unitdiag(A, b / maxb, c, mb, f=f, dAAt=dAAt,
+                                    device=device, verbose=False, **kw30),
+        device, instance=lab30, options=kw30)
+    r["obj_unscaled"] = res.obj * maxb
+    r["rel_to_jax"] = abs(res.obj * maxb - JAX_BQP30) / abs(JAX_BQP30) \
+        if standin30 else None
+    r["oracle"] = dual_kkt_oracle_on_card(A, b / maxb, c, mb, f, res,
+                                          device)
+    emit(r)
+    out["bqp30_original"] = r
+    for key in ("bqp30_expanded", "bqp30_original"):
+        rel = out[key]["rel_to_jax"]
+        if rel is not None and not rel <= 1e-7:
+            raise AssertionError(f"{key}: {rel} from the JAX optimum")
+    A, b, c, mb, f, dAAt = q60_data[2]
+    maxb = float(np.max(np.abs(b)))
+    kw_orig = dict(line_search=True, inner_dtype="tcg32")
+    r, res = dual_solve_phase(
+        "bqp60_original",
+        lambda: solve_dual_unitdiag(dop60, None, None, mb, device=device,
+                                    verbose=False, **kw_orig),
+        device, instance=bqp_label, options=kw_orig, n=mb, m=int(A.shape[0]),
+        nnzA=int(A.nnz))
+    r["obj_unscaled"] = res.obj * maxb
+    r["rel_to_expanded"] = abs(res.obj * maxb - out["bqp60_expanded"]["obj"]) \
+        / abs(out["bqp60_expanded"]["obj"])
+    r["oracle"] = dual_kkt_oracle_on_card(A, b / maxb, c, mb, f, res,
+                                          device)
+    emit(r)
+    out["bqp60_original"] = r
+    if not r["oracle"]["eta"] <= 1e-8:
+        raise AssertionError(f"bqp60 original: oracle {r['oracle']}")
+    if not r["rel_to_expanded"] <= 1e-6:
+        raise AssertionError(f"bqp60: the bases disagree by "
+                             f"{r['rel_to_expanded']}")
+    if r["csr_modes"]["gather"] <= 0 or r["csr_modes"]["scatter_pos"] <= 0:
+        raise AssertionError("the bqp60 original solve never launched K4")
+
+    # -- 15. the general variant: the quartic over the sphere --
+    t0 = time.perf_counter()
+    A, b, c, mb, f, dAAt = qs_instance(QS_D)
+    build_s = time.perf_counter() - t0
+    maxb = float(np.max(np.abs(b)))
+    kw_qs = dict(theta=1e-1, tau2=0.5)
+    iab_calls = {"mat": 0, "rmat": 0}
+    mat, rmat = dual_al._iab_mat, dual_al._iab_rmat
+
+    def spy_mat(*a):
+        iab_calls["mat"] += 1
+        return mat(*a)
+
+    def spy_rmat(*a):
+        iab_calls["rmat"] += 1
+        return rmat(*a)
+    dual_al._iab_mat, dual_al._iab_rmat = spy_mat, spy_rmat
+    try:
+        r, res = dual_solve_phase(
+            "qs30_general",
+            lambda: solve_dual_sdp(A, b / maxb, c, mb, f=f, dAAt=dAAt,
+                                   device=device, verbose=False, **kw_qs),
+            device, instance=f"quartic over the sphere d = {QS_D} "
+            "(RandomState(1), examples/example_qsphere.py)", options=kw_qs,
+            n=mb, m=int(A.shape[0]), f=f, instance_build_s=build_s)
+    finally:
+        dual_al._iab_mat, dual_al._iab_rmat = mat, rmat
+    r["iab_calls"] = dict(iab_calls)
+    r["obj_unscaled"] = res.obj * maxb
+    r["rel_to_jax"] = abs(res.obj * maxb - JAX_QS30) / abs(JAX_QS30)
+    r["oracle"] = dual_kkt_oracle_on_card(A, b / maxb, c, mb, f, res,
+                                          device)
+    emit(r)
+    out["qs30_general"] = r
+    if not r["oracle"]["eta"] <= 1e-8 or not r["rel_to_jax"] <= 1e-6:
+        raise AssertionError(f"qs30: oracle {r['oracle']}, "
+                             f"{r['rel_to_jax']} from the JAX optimum")
+    if min(iab_calls.values()) <= 0 or r["csr_modes"]["gather"] <= 0:
+        raise AssertionError("the qs30 solve never ran the iAB pair on K4")
+    return out
+
+
 def solve_phase(label, C_sp, source, device, check_oracle):
     import torch
     from manisdp_tpu_torch import kernels as K
@@ -582,6 +1130,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--gset", default=None,
                     help="Gset directory holding G1.txt and G67.txt")
+    ap.add_argument("--bqp", default=None,
+                    help="directory holding the reference's bqp_Q_60_1.txt "
+                    "and bqp_e_60_1.txt (and the q = 30 files)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join("build", "chip_smoke"),
                     help="directory of the full JSON record")
@@ -644,7 +1195,6 @@ def main(argv=None):
     torch.cuda.synchronize()
     assemble_s = time.perf_counter() - t0
     al_rows = phase_al_kernels(op_mc, device, args.seed)
-    worst = worst_errors(rows + al_rows)
     emit(dict(phase="al_kernels_vs_twins", cases=len(al_rows),
               worst=worst_errors(al_rows),
               table=[{k: r[k] for k in ("kernel", "mode", "dtype", "p_pad",
@@ -682,9 +1232,52 @@ def main(argv=None):
     # -- 9-11. the carriers' solves: matrix completion at n = 4,000 --
     mc4 = carrier_solve_phases(data4, op4, device)
 
+    del op4, data4
+
+    # -- 12. the dual path's kernels vs twins --
+    from manisdp_tpu_torch.frontends.sos import assemble_bqpsos
+    from manisdp_tpu_torch.ops.dualops import DualOp
+    from manisdp_tpu_torch.ops.symdual import SymDualOp
+    from manisdp_tpu_torch.solvers.dual_general import build_iab
+    dual_setup = {}
+    Q60, e60, bqp_label = bqp_instance(BQP_Q, args.bqp)
+    t0 = time.perf_counter()
+    top60 = SymDualOp.build_bqpsos(Q60, e60, BQP_Q, device=device)
+    torch.cuda.synchronize()
+    dual_setup["symdual_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data60 = assemble_bqpsos(Q60, e60, BQP_Q)
+    dual_setup["assemble_bqpsos_s"] = time.perf_counter() - t0
+    A60, b60, c60, mb60, f60, dAAt60 = data60
+    t0 = time.perf_counter()
+    dop60 = DualOp.build(A60, b60 / np.max(np.abs(b60)), c60, mb60, f60,
+                         dAAt60, device=device)
+    torch.cuda.synchronize()
+    dual_setup["dualop_build_s"] = time.perf_counter() - t0
+    Aq, bq, cq, mbq, fq, dAAtq = qs_instance(QS_D)
+    t0 = time.perf_counter()
+    iab30 = build_iab(Aq, mbq, fq, dAAtq, device)
+    torch.cuda.synchronize()
+    dual_setup["build_iab_s"] = time.perf_counter() - t0
+    dual_rows = phase_dual_kernels(top60, dop60, iab30, device, args.seed)
+    del iab30
+    emit(dict(phase="dual_kernels_vs_twins", instance=bqp_label,
+              n_expanded=top60.n, n=mb60, m=dop60.m,
+              nnzA=int(dop60.v_r.numel()), **dual_setup,
+              cases=len(dual_rows), worst=worst_errors(dual_rows),
+              table=[{k: r[k] for k in ("kernel", "mode", "dtype", "rel_err",
+                                          "ms", "plain_ms", "bound_ms",
+                                          "library_ms")}
+                     for r in dual_rows]))
+    # -- 13-15. the dual solves --
+    dual = dual_phases(args, device, top60, dop60, (Q60, e60, data60),
+                       bqp_label)
+    del top60, dop60
+
     # each kernel's hot call on its main path: the f32 tCG's Hessian and
     # projection (G67 solve), the f32 AL Hessian's products (mc solves),
-    # the f64 refinement pass (dense_eigh solve)
+    # the f64 refinement pass (dense_eigh solve), the f32 dual Hessian's
+    # operator, adjoint and epilogue (bqp solves)
     def pick(table, name, mode, p_pad=None, dtype="float32"):
         return next(r for r in table if r["kernel"] == name and
                     r["mode"] == mode and r["dtype"] == dtype and
@@ -693,68 +1286,94 @@ def main(argv=None):
     def worst_abs(table, name, modes):
         return max(r["max_abs_err"] for r in table
                    if r["kernel"] == name and r["mode"] in modes)
-    entries = [
-        ("symcoo_spmm", "hess", pick(rows, "symcoo_spmm", "hess", HOT_P_PAD),
-         "manisdp_tpu_torch/csrc/symcoo_spmm.cu",
-         "manisdp_tpu/ops/sparse.py:40", g67["launches"]["symcoo_spmm"]),
-        ("oblique_cols", "proj",
-         pick(rows, "oblique_cols", "proj", HOT_P_PAD),
-         "manisdp_tpu_torch/csrc/oblique_cols.cu",
-         "manisdp_tpu/manifolds/oblique.py:27",
-         g67["launches"]["oblique_cols"]),
-        ("symcoo_spmm", "al_hess",
-         pick(al_rows, "symcoo_spmm", "al_hess", AL_HOT_P_PAD),
-         "manisdp_tpu_torch/csrc/symcoo_spmm.cu",
-         "manisdp_tpu/solvers/primal_al.py:97",
-         mc["symcoo_spmm_modes"]["al_hess"]),
-        ("pattern_dots", "pair_dots",
-         pick(al_rows, "pattern_dots", "pair_dots", AL_HOT_P_PAD),
-         "manisdp_tpu_torch/csrc/pattern_dots.cu",
-         "manisdp_tpu/ops/sparse.py:240", mc["launches"]["pattern_dots"]),
-        ("csr_gather", "adjoint_on_pattern",
-         pick(al_rows, "csr_gather", "adjoint_on_pattern", None),
-         "manisdp_tpu_torch/csrc/csr_gather.cu",
-         "manisdp_tpu/ops/sparse.py:244", mc["launches"]["csr_gather"]),
-    ]
-    kern = [dict(name=name if name != "symcoo_spmm" else f"{name}.{mode}",
-                 route="cuda", source=src, replaces=rep, launches=launches,
-                 max_abs_err=worst[name]["max_abs_err"], ms=r["ms"],
-                 plain_ms=r["plain_ms"])
-            for name, mode, r, src, rep, launches in entries]
-    # the carriers' kernels: K5 and K4 scatter_pos in the f32 tCG's
-    # Hessian, K6 in the near tier of the dense_eigh certificate
+
+    all_rows = rows + al_rows + carrier_rows + dual_rows
     masked = mc4["entrywise"]["masked_modes"]
-    for name, r, modes, src, rep, launches in (
-            ("masked_sym.apply", pick(carrier_rows, "masked_sym", "apply"),
-             ("apply",), "masked_sym.cu", "ops/sparse.py:551",
-             masked["apply"]),
-            ("masked_sym.aat", pick(carrier_rows, "masked_sym", "aat"),
-             ("aat",), "masked_sym.cu", "ops/sparse.py:558",
-             masked["aat"]),
-            ("masked_sym.axpy", pick(carrier_rows, "masked_sym", "axpy"),
-             ("axpy",), "masked_sym.cu", "ops/sparse.py:561",
-             masked["axpy"]),
-            ("csr_gather.scatter_pos",
-             pick(carrier_rows, "csr_gather", "scatter_pos"),
-             ("scatter_pos", "scatter_pos_adjoint"), "csr_gather.cu",
-             "ops/sparse.py:401",
-             mc4["dense"]["csr_modes"]["scatter_pos"]),
-            ("oa_refine", pick(carrier_rows, "oa_refine", "f64",
-                               dtype="float64"),
-             ("f64",), "oa_refine.cu", "ops/dense_cert.py:83",
-             mc4["dense_eigh"]["launches"]["oa_refine"])):
+    e60x, o60 = dual["bqp60_expanded"], dual["bqp60_original"]
+    qs = dual["qs30_general"]
+    sym_modes = e60x["symdual_modes"]
+    factor_modes = tuple(r["mode"] for r in dual_rows
+                         if r["mode"].startswith("sym_factor"))
+    # (name, row, modes whose worst error it reports, source, replaces,
+    #  launches on the main path)
+    entries = [
+        ("symcoo_spmm.hess", pick(rows, "symcoo_spmm", "hess", HOT_P_PAD),
+         None, "symcoo_spmm.cu", "ops/sparse.py:40",
+         g67["launches"]["symcoo_spmm"]),
+        ("oblique_cols.proj", pick(rows, "oblique_cols", "proj", HOT_P_PAD),
+         None, "oblique_cols.cu", "manifolds/oblique.py:27",
+         g67["launches"]["oblique_cols"]),
+        ("symcoo_spmm.al_hess",
+         pick(al_rows, "symcoo_spmm", "al_hess", AL_HOT_P_PAD), None,
+         "symcoo_spmm.cu", "solvers/primal_al.py:97",
+         mc["symcoo_spmm_modes"]["al_hess"]),
+        ("pattern_dots", pick(al_rows, "pattern_dots", "pair_dots",
+                              AL_HOT_P_PAD), None,
+         "pattern_dots.cu", "ops/sparse.py:240",
+         mc["launches"]["pattern_dots"]),
+        ("csr_gather", pick(al_rows, "csr_gather", "adjoint_on_pattern"),
+         ("apply_from_e", "adjoint_on_pattern", "es_vals", "s_vals"),
+         "csr_gather.cu", "ops/sparse.py:244", mc["launches"]["csr_gather"]),
+        ("masked_sym.apply", pick(carrier_rows, "masked_sym", "apply"),
+         ("apply",), "masked_sym.cu", "ops/sparse.py:551", masked["apply"]),
+        ("masked_sym.aat", pick(carrier_rows, "masked_sym", "aat"),
+         ("aat",), "masked_sym.cu", "ops/sparse.py:558", masked["aat"]),
+        ("masked_sym.axpy", pick(carrier_rows, "masked_sym", "axpy"),
+         ("axpy",), "masked_sym.cu", "ops/sparse.py:561", masked["axpy"]),
+        ("csr_gather.scatter_pos",
+         pick(carrier_rows, "csr_gather", "scatter_pos"),
+         ("scatter_pos", "scatter_pos_adjoint"), "csr_gather.cu",
+         "ops/sparse.py:401", mc4["dense"]["csr_modes"]["scatter_pos"]),
+        ("oa_refine", pick(carrier_rows, "oa_refine", "f64",
+                           dtype="float64"), ("f64",), "oa_refine.cu",
+         "ops/dense_cert.py:83",
+         mc4["dense_eigh"]["launches"]["oa_refine"]),
+        ("symdual_apply", pick(dual_rows, "symdual_apply", "apply"),
+         ("apply", "y_step"), "symdual_apply.cu", "ops/symdual.py:97",
+         e60x["launches"]["symdual_apply"]),
+        ("symdual_adjoint.adjoint",
+         pick(dual_rows, "symdual_adjoint", "adjoint"),
+         ("adjoint", "residual"), "symdual_adjoint.cu", "ops/symdual.py:174",
+         sym_modes["adjoint"]),
+        ("symdual_adjoint.sym_factor",
+         pick(dual_rows, "symdual_adjoint", "sym_factor_p192_renorm",
+              dtype="float64"), factor_modes, "symdual_adjoint.cu",
+         "ops/symdual.py:446", sym_modes["sym_factor"]),
+        ("symdual_adjoint.sym_mat",
+         pick(dual_rows, "symdual_adjoint", "sym_mat", dtype="float64"),
+         ("sym_mat",), "symdual_adjoint.cu", "ops/symdual.py:363",
+         sym_modes["sym_mat"]),
+        ("oblique_cols.proj_eG",
+         pick(dual_rows, "oblique_cols", "proj_eG", 192), ("proj_eG",),
+         "oblique_cols.cu", "solvers/dual_al.py:123",
+         e60x["oblique_modes"]["proj_eG"]),
+        ("csr_gather.dual_op", pick(dual_rows, "csr_gather", "dual_apply"),
+         ("dual_apply", "dual_y_step", "dual_adjoint"), "csr_gather.cu",
+         "ops/dualops.py:178", o60["launches"]["csr_gather"]),
+        ("csr_gather.iab", pick(dual_rows, "csr_gather", "iab_mat"),
+         ("iab_mat", "iab_rmat"), "csr_gather.cu", "solvers/dual_al.py:152",
+         qs["launches"]["csr_gather"]),
+    ]
+    kern = []
+    for name, r, modes, src, rep, launches in entries:
+        base = name.split(".")[0]
         kern.append(dict(
             name=name, route="cuda", source=f"manisdp_tpu_torch/csrc/{src}",
             replaces=f"manisdp_tpu/{rep}", launches=launches,
-            max_abs_err=worst_abs(carrier_rows, name.split(".")[0], modes),
-            ms=r["ms"], plain_ms=r["plain_ms"]))
+            max_abs_err=(worst_abs(all_rows, base, modes) if modes
+                         else worst_errors(rows + al_rows)[base]
+                         ["max_abs_err"]),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(dict(nvidia_smi=smi, build_s=build_s, kernel_rows=rows,
                        al_kernel_rows=al_rows,
-                       carrier_kernel_rows=carrier_rows, g1=g1, g67=g67,
-                       mc12000=mc, mc4000=mc4, mc4000_setup=setup,
-                       kernels=kern, total_s=time.perf_counter() - t_start),
+                       carrier_kernel_rows=carrier_rows,
+                       dual_kernel_rows=dual_rows, dual_setup=dual_setup,
+                       g1=g1, g67=g67, mc12000=mc, mc4000=mc4,
+                       mc4000_setup=setup, dual=dual, kernels=kern,
+                       total_s=time.perf_counter() - t_start),
                   f, indent=1)
     emit(dict(kernels=kern))
     print(smi, flush=True)

@@ -1,5 +1,6 @@
-"""ManiSDP on PyTorch: the MaxCut path and the primal augmented-Lagrangian
-drivers of the low-rank SDP solver, with hand-written Hopper kernels.
+"""ManiSDP on PyTorch: the MaxCut path, the primal augmented-Lagrangian
+drivers and the dual Riemannian-ADMM drivers of the low-rank SDP solver,
+with hand-written Hopper kernels.
 
 A port of the JAX package ``manisdp_tpu`` (the reference it is tested
 against) to PyTorch and CUDA on an NVIDIA H100.  Burer-Monteiro factor Y
@@ -17,14 +18,20 @@ twin that CPU tensors use.  ``solve_sdp`` / ``solve_unitdiag`` /
 operator as the JAX package does: the entrywise carrier (kernel K5), the
 dense carrier (K4 gathers and scatters) or the factored operator;
 ``solve_sedumi`` takes a SeDuMi container with one PSD block.  The
-``dense_eigh`` certificate's refinement pass is kernel K6.  Importing this
-package imports neither jax nor ``manisdp_tpu`` and builds nothing.
+``dense_eigh`` certificate's refinement pass is kernel K6.
+``solve_dual_unitdiag`` / ``solve_dual_sdp`` take SeDuMi dual data (the
+sparse operator on kernel K4); ``solvers.dual_unitdiag.solve_bqp_sos_dual``
+solves the BQP SOS dual on the expanded-basis tensor operator (kernels K7
+and K8).  Importing this package imports neither jax nor ``manisdp_tpu``
+and builds nothing.
 """
 
 from . import recipes
 from .config import SolverOptions
 from .frontends.gset import load_gset_laplacian
 from .solvers.dispatch import solve_sedumi
+from .solvers.dual_general import solve_dual_sdp
+from .solvers.dual_unitdiag import solve_dual_unitdiag
 from .solvers.general import solve_sdp
 from .solvers.maxcut import solve_maxcut_unitdiag
 from .solvers.unitdiag import solve_unitdiag
@@ -32,6 +39,6 @@ from .solvers.unittrace import solve_unittrace
 
 __all__ = ["SolverOptions", "recipes", "solve_maxcut_unitdiag", "solve_sdp",
            "solve_sedumi", "solve_unitdiag", "solve_unittrace",
-           "load_gset_laplacian"]
+           "solve_dual_unitdiag", "solve_dual_sdp", "load_gset_laplacian"]
 
 __version__ = "0.1.0"

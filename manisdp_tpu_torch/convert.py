@@ -1,8 +1,9 @@
 """Carry JAX-package state across to the port.
 
 The tests feed both packages from the same numpy data through these:
-the arrays of a JAX ``SymCOO``, ``ConstraintOp``, ``DenseConstraintOp`` or
-``EntrywiseConstraintOp`` (``np.asarray`` of their fields), the
+the arrays of a JAX ``SymCOO``, ``ConstraintOp``, ``DenseConstraintOp``,
+``EntrywiseConstraintOp``, ``SparseMat``, ``DualOp`` or ``SymDualOp``
+(``np.asarray`` of their fields), the
 ``dataclasses.asdict`` of a JAX ``SolverOptions``, and a factor Y.
 """
 
@@ -14,6 +15,8 @@ import numpy as np
 import torch
 
 from .config import SolverOptions
+from .ops.dualops import DualOp, SparseMat, _ptr
+from .ops.symdual import SymDualOp
 from .ops.sparse import (ConstraintOp, DenseConstraintOp,
                          EntrywiseConstraintOp, SymCOO)
 from .solvers.common import pad_rows
@@ -44,6 +47,64 @@ def entrywise_op_from_jax(arrays: dict, device) -> EntrywiseConstraintOp:
     """The port's EntrywiseConstraintOp from a JAX EntrywiseConstraintOp's
     fields as numpy: keys aval, C, b, minv, dfac, ki, kj, m, n."""
     return EntrywiseConstraintOp.from_arrays(arrays, device)
+
+
+def sparse_mat_from_jax(arrays: dict, device) -> SparseMat:
+    """The port's SparseMat from a JAX SparseMat's fields as numpy: keys
+    row_r, col_r, val_r, row_c, col_c, val_c, nrows, ncols.  The port
+    derives the CSR pointers of both orderings."""
+    a = arrays
+    i32 = lambda k: torch.tensor(  # noqa: E731
+        np.asarray(a[k], dtype=np.int32), device=device)
+    f64 = lambda k: torch.tensor(  # noqa: E731
+        np.asarray(a[k], dtype=np.float64), device=device)
+    nrows, ncols = int(a["nrows"]), int(a["ncols"])
+    return SparseMat(
+        row_r=i32("row_r"), col_r=i32("col_r"), val_r=f64("val_r"),
+        row_c=i32("row_c"), col_c=i32("col_c"), val_c=f64("val_c"),
+        row_ptr=torch.as_tensor(_ptr(np.asarray(a["row_r"]), nrows),
+                                device=device),
+        col_ptr=torch.as_tensor(_ptr(np.asarray(a["col_c"]), ncols),
+                                device=device),
+        nrows=nrows, ncols=ncols)
+
+
+def dual_op_from_jax(arrays: dict, device) -> DualOp:
+    """The port's DualOp from a JAX DualOp's fields as numpy: keys k_r,
+    lin_r, v_r, k_c, lin_c, v_c, b, cf, C, idAAt, bA, Ac, m, n, f, and
+    ``B`` (the SparseMat's dict, as sparse_mat_from_jax takes it).  The
+    port derives krow_ptr and the distinct positions with their pointer."""
+    a = arrays
+    m, n = int(a["m"]), int(a["n"])
+    i32 = lambda k: torch.tensor(  # noqa: E731
+        np.asarray(a[k], dtype=np.int32), device=device)
+    f64 = lambda k: torch.tensor(  # noqa: E731
+        np.asarray(a[k], dtype=np.float64), device=device)
+    pos, seg = np.unique(np.asarray(a["lin_c"]), return_inverse=True)
+    as32 = lambda x: torch.as_tensor(x.astype(np.int32),  # noqa: E731
+                                     device=device)
+    return DualOp(
+        k_r=i32("k_r"), lin_r=i32("lin_r"), v_r=f64("v_r"),
+        k_c=i32("k_c"), lin_c=i32("lin_c"), v_c=f64("v_c"),
+        B=sparse_mat_from_jax(a["B"], device), b=f64("b"), cf=f64("cf"),
+        C=f64("C"), idAAt=f64("idAAt"), bA=f64("bA"), Ac=f64("Ac"),
+        krow_ptr=as32(_ptr(np.asarray(a["k_r"]), m)), pos=as32(pos),
+        pos_ptr=as32(_ptr(seg, pos.shape[0])), m=m, n=n, f=int(a["f"]))
+
+
+def symdual_op_from_jax(arrays: dict, device) -> SymDualOp:
+    """The port's SymDualOp from a JAX SymDualOp's fields as numpy: keys
+    b, cf, C, idAAt, bA, Ac, dup0, dup1, q, m, n, f, m_true, n_orig (the
+    free block is empty and not carried)."""
+    a = arrays
+    f64 = lambda k: torch.tensor(  # noqa: E731
+        np.asarray(a[k], dtype=np.float64), device=device)
+    i32 = lambda k: torch.tensor(  # noqa: E731
+        np.asarray(a[k], dtype=np.int32), device=device)
+    return SymDualOp(
+        b=f64("b"), cf=f64("cf"), C=f64("C"), idAAt=f64("idAAt"),
+        bA=f64("bA"), Ac=f64("Ac"), dup0=i32("dup0"), dup1=i32("dup1"),
+        **{k: int(a[k]) for k in ("q", "m", "n", "f", "m_true", "n_orig")})
 
 
 def options_from_dict(d: dict) -> SolverOptions:

@@ -4,6 +4,9 @@
 // renormalize of the JAX package (each a per-column reduction over the
 // p rows followed by an elementwise pass):
 //   mode 0 proj        : out = u - x o colsum(x o u)
+//                        [- v o g]   (v (p, n), g (n,) given: the oblique
+//                        Hessian epilogue eH - Y o colsum(Y o eH) - U o YeG
+//                        of solvers/dual_al.py:123-124)
 //   mode 1 retr        : out = (x + u) / ||x + u||_col
 //   mode 2 renormalize : out = x / ||x||_col
 // Zero padding rows stay zero.  A zero column gives 0/0 = NaN, exactly
@@ -39,6 +42,7 @@ __device__ __forceinline__ float sqrt_t<float>(float v) { return sqrtf(v); }
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 oblique_cols_kernel(const T* __restrict__ x, const T* __restrict__ u,
+                    const T* __restrict__ v, const T* __restrict__ g,
                     int p, int n, int mode, T* __restrict__ out) {
   const int j = blockIdx.x * kThreads + threadIdx.x;
   if (j >= n) return;
@@ -48,9 +52,17 @@ oblique_cols_kernel(const T* __restrict__ x, const T* __restrict__ u,
       const int64_t o = (int64_t)r * n + j;
       s += x[o] * u[o];
     }
-    for (int r = 0; r < p; ++r) {
-      const int64_t o = (int64_t)r * n + j;
-      out[o] = u[o] - x[o] * s;
+    if (v != nullptr) {
+      const T gj = g[j];
+      for (int r = 0; r < p; ++r) {
+        const int64_t o = (int64_t)r * n + j;
+        out[o] = (u[o] - x[o] * s) - v[o] * gj;
+      }
+    } else {
+      for (int r = 0; r < p; ++r) {
+        const int64_t o = (int64_t)r * n + j;
+        out[o] = u[o] - x[o] * s;
+      }
     }
   } else if (mode == 1) {
     for (int r = 0; r < p; ++r) {
@@ -65,8 +77,8 @@ oblique_cols_kernel(const T* __restrict__ x, const T* __restrict__ u,
     }
   } else {
     for (int r = 0; r < p; ++r) {
-      const T v = x[(int64_t)r * n + j];
-      s += v * v;
+      const T xv = x[(int64_t)r * n + j];
+      s += xv * xv;
     }
     const T nrm = sqrt_t<T>(s);
     for (int r = 0; r < p; ++r) {
@@ -77,12 +89,13 @@ oblique_cols_kernel(const T* __restrict__ x, const T* __restrict__ u,
 }
 
 template <typename T>
-int launch(const void* x, const void* u, int p, int n, int mode, void* out,
-           void* stream) {
+int launch(const void* x, const void* u, const void* v, const void* g, int p,
+           int n, int mode, void* out, void* stream) {
   if (n <= 0 || p <= 0) return (int)cudaSuccess;
   const dim3 grid((n + kThreads - 1) / kThreads);
   oblique_cols_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)u, p, n, mode, (T*)out);
+      (const T*)x, (const T*)u, (const T*)v, (const T*)g, p, n, mode,
+      (T*)out);
   return (int)cudaGetLastError();
 }
 
@@ -90,14 +103,16 @@ int launch(const void* x, const void* u, int p, int n, int mode, void* out,
 
 extern "C" {
 
-int oblique_cols_f64(const void* x, const void* u, int p, int n, int mode,
-                     void* out, void* stream) {
-  return launch<double>(x, u, p, n, mode, out, stream);
+int oblique_cols_f64(const void* x, const void* u, const void* v,
+                     const void* g, int p, int n, int mode, void* out,
+                     void* stream) {
+  return launch<double>(x, u, v, g, p, n, mode, out, stream);
 }
 
-int oblique_cols_f32(const void* x, const void* u, int p, int n, int mode,
-                     void* out, void* stream) {
-  return launch<float>(x, u, p, n, mode, out, stream);
+int oblique_cols_f32(const void* x, const void* u, const void* v,
+                     const void* g, int p, int n, int mode, void* out,
+                     void* stream) {
+  return launch<float>(x, u, v, g, p, n, mode, out, stream);
 }
 
 }  // extern "C"

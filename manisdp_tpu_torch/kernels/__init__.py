@@ -17,6 +17,11 @@ K5 ``masked_sym`` (csrc/masked_sym.cu): the entrywise carrier's dense
    (n, n) algebra, modes ``apply``, ``aat`` and ``axpy``.
 K6 ``oa_refine`` (csrc/oa_refine.cu): the elementwise pass of one
    Ogita-Aishima refinement step of the dense eigen-certificate (f64).
+K7 ``symdual_apply`` (csrc/symdual_apply.cu): the SOS-dual tensor
+   operator's class sums of an (n~, n~) matrix, every degree (y0 .. Y4).
+K8 ``symdual_adjoint`` (csrc/symdual_adjoint.cu): its adjoint (mode
+   ``adjoint``) and the duplicate-copy projections of a factor
+   (``sym_factor``) and of a matrix (``sym_mat``).
 
 A wrapper given CPU tensors runs the plain PyTorch twin beside it; given
 CUDA tensors it launches the kernel (building it on first use) or
@@ -30,23 +35,29 @@ import torch
 from .build import build
 
 LAUNCHES = {"symcoo_spmm": 0, "oblique_cols": 0, "pattern_dots": 0,
-            "csr_gather": 0, "masked_sym": 0, "oa_refine": 0}
+            "csr_gather": 0, "masked_sym": 0, "oa_refine": 0,
+            "symdual_apply": 0, "symdual_adjoint": 0}
 
 # "al_hess" is kernel mode 4, or 5 when eG selects the diag epilogue
 SPMM_MODES = {"plain": 0, "shift": 1, "cost": 2, "hess": 3, "al_hess": 4}
 # K1's launches by mode (their sum is LAUNCHES["symcoo_spmm"])
 SPMM_LAUNCHES = {mode: 0 for mode in SPMM_MODES}
 OBLIQUE_MODES = {"proj": 0, "retr": 1, "renormalize": 2}
+# K2's launches by mode; "proj_eG" is proj with the Hessian's - v o g term
+OBLIQUE_LAUNCHES = {"proj": 0, "proj_eG": 0, "retr": 0, "renormalize": 0}
 # K4's launches by mode: "gather" (y_r at r) and "scatter_pos" (at pos_r)
 CSR_LAUNCHES = {"gather": 0, "scatter_pos": 0}
 MASKED_MODES = {"apply": 0, "aat": 1, "axpy": 2}
 # K5's launches by mode
 MASKED_LAUNCHES = {mode: 0 for mode in MASKED_MODES}
+# K8's launches by mode (their sum is LAUNCHES["symdual_adjoint"])
+SYMDUAL_LAUNCHES = {"adjoint": 0, "sym_factor": 0, "sym_mat": 0}
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 
 def reset_launches():
-    for counts in (LAUNCHES, SPMM_LAUNCHES, CSR_LAUNCHES, MASKED_LAUNCHES):
+    for counts in (LAUNCHES, SPMM_LAUNCHES, CSR_LAUNCHES, MASKED_LAUNCHES,
+                   OBLIQUE_LAUNCHES, SYMDUAL_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -169,10 +180,12 @@ def symcoo_spmm(A, C, mode="plain", vals=None, z=None, B=None, eG=None,
 
 # -------------------------------------------------------------------- K2 --
 
-def oblique_cols_plain(x, u=None, mode="proj"):
-    """Plain twin of K2: manifolds/oblique.py of the JAX package."""
+def oblique_cols_plain(x, u=None, mode="proj", v=None, g=None):
+    """Plain twin of K2: manifolds/oblique.py of the JAX package, and with
+    ``v``, ``g`` the oblique Hessian epilogue of solvers/dual_al.py."""
     if mode == "proj":
-        return u - x * torch.sum(x * u, dim=0, keepdim=True)
+        out = u - x * torch.sum(x * u, dim=0, keepdim=True)
+        return out if v is None else out - v * g[None, :]
     if mode == "retr":
         xtd = x + u
         return xtd / torch.sqrt(torch.sum(xtd * xtd, dim=0, keepdim=True))
@@ -181,28 +194,36 @@ def oblique_cols_plain(x, u=None, mode="proj"):
     raise ValueError(f"unknown oblique_cols mode {mode!r}")
 
 
-def oblique_cols(x, u=None, mode="proj"):
-    """K2 on contiguous (p, n) ``x`` (and ``u`` for proj / retr)."""
+def oblique_cols(x, u=None, mode="proj", v=None, g=None):
+    """K2 on contiguous (p, n) ``x`` (and ``u`` for proj / retr).  proj
+    with ``v`` (p, n) and ``g`` (n,) returns u - x ∘ colsum(x ∘ u) - v ∘ g."""
     if mode not in OBLIQUE_MODES:
         raise ValueError(f"unknown oblique_cols mode {mode!r}")
     if (u is None) != (mode == "renormalize"):
         raise ValueError(f"mode {mode!r} takes "
                          f"{'no' if mode == 'renormalize' else 'a'} u")
-    if not _on_cuda(x, u):
-        return oblique_cols_plain(x, u, mode)
-    _check_dtype(x.dtype, x, u)
-    if x.dim() != 2 or (u is not None and u.shape != x.shape):
-        raise ValueError("x and u must be the same (p, n) shape")
-    if not x.is_contiguous() or (u is not None and not u.is_contiguous()):
-        raise ValueError("oblique_cols takes contiguous row-major tensors")
+    if (v is None) != (g is None) or (v is not None and mode != "proj"):
+        raise ValueError("v and g go together, in mode 'proj' only")
+    if not _on_cuda(x, u, v, g):
+        return oblique_cols_plain(x, u, mode, v, g)
+    _check_dtype(x.dtype, x, u, v, g)
+    if x.dim() != 2 or any(t is not None and t.shape != x.shape
+                           for t in (u, v)):
+        raise ValueError("x, u and v must be the same (p, n) shape")
     p, n = x.shape
+    if g is not None and g.shape != (n,):
+        raise ValueError(f"g has shape {tuple(g.shape)}, expected ({n},)")
+    if not all(t.is_contiguous() for t in (x, u, v, g) if t is not None):
+        raise ValueError("oblique_cols takes contiguous row-major tensors")
     out = torch.empty_like(x)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     fn = getattr(build(), f"oblique_cols_{_SUFFIX[x.dtype]}")
-    err = fn(x.data_ptr(), u.data_ptr() if u is not None else None, p, n,
+    err = fn(x.data_ptr(), ptr(u), ptr(v), ptr(g), p, n,
              OBLIQUE_MODES[mode], out.data_ptr(), _stream(x))
     if err != 0:
         raise RuntimeError(f"oblique_cols launch failed: CUDA error {err}")
     LAUNCHES["oblique_cols"] += 1
+    OBLIQUE_LAUNCHES["proj_eG" if v is not None else mode] += 1
     return out
 
 
@@ -416,9 +437,175 @@ def oa_refine(S, B, mu, mu_min, mu_max):
     return E, bsum, g1, g2
 
 
+# -------------------------------------------------------------------- K7 --
+
+def _qn(q: int) -> int:
+    return 2 + q + q * q
+
+
+def symdual_apply_plain(M, q: int, scale=None, shift=None):
+    """Plain twin of K7: the JAX package's _apply_tensor einsums
+    (ops/symdual.py), repeated-index slots set to 0, then y0 - shift and
+    the per-degree scale (SymDualOp.y_step)."""
+    from ..ops.symdual import _apply_tensor, zero_dontcare
+    y = zero_dontcare(_apply_tensor(M, q), q)
+    if shift is not None:
+        y = (y[0] - shift,) + y[1:]
+    if scale is not None:
+        y = tuple(t * scale[d] for d, t in enumerate(y))
+    return y
+
+
+def symdual_apply(M, q: int, scale=None, shift=None):
+    """K7 on a contiguous (n~, n~) ``M``, n~ = 2 + q + q^2.  Returns the
+    per-degree class sums (y0 0-d, y1 (q,), Y2 (q,q), Y3 (q,q,q),
+    Y4 (q,q,q,q)) as views of one flat (1+q+q^2+q^3+q^4,) buffer, 0 at
+    every repeated-index slot; ``shift`` (0-d) is subtracted from y0 and
+    ``scale`` (5,) multiplies degree d by scale[d]."""
+    if not _on_cuda(M, scale, shift):
+        return symdual_apply_plain(M, q, scale, shift)
+    _check_dtype(M.dtype, M, scale, shift)
+    n = _qn(q)
+    if M.shape != (n, n) or not M.is_contiguous():
+        raise ValueError(f"M must be contiguous ({n}, {n}) for q = {q}, got "
+                         f"{tuple(M.shape)}")
+    if (scale is not None and (scale.shape != (5,) or
+                               not scale.is_contiguous())) or \
+            (shift is not None and shift.numel() != 1):
+        raise ValueError("scale must be contiguous (5,) and shift 0-d")
+    sizes = [1, q, q * q, q ** 3, q ** 4]
+    y = torch.empty((sum(sizes),), dtype=M.dtype, device=M.device)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    fn = getattr(build(), f"symdual_apply_{_SUFFIX[M.dtype]}")
+    err = fn(M.data_ptr(), q, ptr(scale), ptr(shift), y.data_ptr(),
+             _stream(M))
+    if err != 0:
+        raise RuntimeError(f"symdual_apply launch failed: CUDA error {err}")
+    LAUNCHES["symdual_apply"] += 1
+    parts = torch.split(y, sizes)
+    return (parts[0].reshape(()), parts[1], parts[2].view(q, q),
+            parts[3].view(q, q, q), parts[4].view(q, q, q, q))
+
+
+# -------------------------------------------------------------------- K8 --
+
+def symdual_adjoint_plain(y, q: int, scale=None, B1=None, c1=0.0, B2=None,
+                          c2=0.0):
+    """Plain twin of K8 ``adjoint``: the JAX package's _adjoint_tensor
+    where-chain of the per-degree tuple ``y`` (scaled by ``scale`` first),
+    plus c1 · B1 + c2 · B2."""
+    from ..ops.symdual import _adjoint_tensor
+    if scale is not None:
+        y = tuple(t * scale[d] for d, t in enumerate(y))
+    W = _adjoint_tensor(*y, q)
+    if B1 is not None:
+        W = W + c1 * B1
+    if B2 is not None:
+        W = W + c2 * B2
+    return W
+
+
+def symdual_adjoint(y, q: int, scale=None, B1=None, c1=0.0, B2=None,
+                    c2=0.0):
+    """K8 ``adjoint``: the (n~, n~) matrix whose entry (u, v) is the class
+    value of (u, v) from the tuple ``y`` = (y0, y1, Y2, Y3, Y4) (degree d
+    times scale[d] when ``scale`` (5,) is given), plus c1 · B1 + c2 · B2
+    for the optional (n~, n~) ``B1``, ``B2``; c1, c2 are Python numbers.
+    Repeated-index slots of Y2..Y4 are never read."""
+    if len(y) != 5:
+        raise ValueError("y must be the 5-tuple (y0, y1, Y2, Y3, Y4)")
+    if not _on_cuda(*y, scale, B1, B2):
+        return symdual_adjoint_plain(y, q, scale, B1, c1, B2, c2)
+    dt = y[4].dtype
+    _check_dtype(dt, *y, scale, B1, B2)
+    n = _qn(q)
+    if n > 65535:
+        raise ValueError(f"n~ = {n} exceeds the kernel's grid (q <= 254)")
+    shapes = [(), (q,), (q, q), (q, q, q), (q, q, q, q)]
+    if any(t.numel() != max(1, q ** d) or (d and tuple(t.shape) != s)
+           for d, (t, s) in enumerate(zip(y, shapes))):
+        raise ValueError(f"y's shapes do not match q = {q}")
+    if any(t is not None and (t.shape != (n, n) or not t.is_contiguous())
+           for t in (B1, B2)) or \
+            (scale is not None and scale.shape != (5,)):
+        raise ValueError(f"B1 / B2 must be contiguous ({n}, {n}) and scale "
+                         "(5,)")
+    y = [t.contiguous() for t in y]
+    scale = scale.contiguous() if scale is not None else None
+    out = torch.empty((n, n), dtype=dt, device=y[4].device)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    fn = getattr(build(), f"symdual_adjoint_{_SUFFIX[dt]}")
+    err = fn(*(t.data_ptr() for t in y), q, ptr(scale), ptr(B1), float(c1),
+             ptr(B2), float(c2), out.data_ptr(), _stream(out))
+    if err != 0:
+        raise RuntimeError(f"symdual_adjoint launch failed: CUDA error {err}")
+    LAUNCHES["symdual_adjoint"] += 1
+    SYMDUAL_LAUNCHES["adjoint"] += 1
+    return out
+
+
+def symdual_sym_factor_plain(Y, q: int, renorm: bool = True):
+    """Plain twin of K8 ``sym_factor``: the JAX package's _symmetrize_jit."""
+    from ..ops.symdual import _symmetrize
+    return _symmetrize(Y, q, renorm)
+
+
+def symdual_sym_factor(Y, q: int, renorm: bool = True):
+    """K8 ``sym_factor`` on a contiguous (p, n~) factor: every column
+    averaged with its duplicate partner, then (``renorm``) divided by
+    max(its norm, 1e-30)."""
+    if not _on_cuda(Y):
+        return symdual_sym_factor_plain(Y, q, renorm)
+    _check_dtype(Y.dtype, Y)
+    if Y.dim() != 2 or Y.shape[1] != _qn(q) or not Y.is_contiguous():
+        raise ValueError(f"Y must be contiguous (p, {_qn(q)}), got "
+                         f"{tuple(Y.shape)}")
+    out = torch.empty_like(Y)
+    fn = getattr(build(), f"symdual_sym_factor_{_SUFFIX[Y.dtype]}")
+    err = fn(Y.data_ptr(), Y.shape[0], q, int(bool(renorm)), out.data_ptr(),
+             _stream(Y))
+    if err != 0:
+        raise RuntimeError(f"symdual_adjoint launch failed: CUDA error {err}")
+    LAUNCHES["symdual_adjoint"] += 1
+    SYMDUAL_LAUNCHES["sym_factor"] += 1
+    return out
+
+
+def symdual_sym_mat_plain(M, q: int):
+    """Plain twin of K8 ``sym_mat``: SymDualOp.symmetrize_mat of the JAX
+    package (the column projector along both axes)."""
+    from ..ops.symdual import _symmetrize
+    return _symmetrize(_symmetrize(M, q, False).T, q, False).T
+
+
+def symdual_sym_mat(M, q: int):
+    """K8 ``sym_mat`` on a contiguous (n~, n~) ``M``: every entry averaged
+    over its 4-element copy orbit."""
+    if not _on_cuda(M):
+        return symdual_sym_mat_plain(M, q)
+    _check_dtype(M.dtype, M)
+    n = _qn(q)
+    if M.shape != (n, n) or not M.is_contiguous():
+        raise ValueError(f"M must be contiguous ({n}, {n}), got "
+                         f"{tuple(M.shape)}")
+    if n > 65535:
+        raise ValueError(f"n~ = {n} exceeds the kernel's grid (q <= 254)")
+    out = torch.empty_like(M)
+    fn = getattr(build(), f"symdual_sym_mat_{_SUFFIX[M.dtype]}")
+    err = fn(M.data_ptr(), q, out.data_ptr(), _stream(M))
+    if err != 0:
+        raise RuntimeError(f"symdual_adjoint launch failed: CUDA error {err}")
+    LAUNCHES["symdual_adjoint"] += 1
+    SYMDUAL_LAUNCHES["sym_mat"] += 1
+    return out
+
+
 __all__ = ["LAUNCHES", "SPMM_LAUNCHES", "CSR_LAUNCHES", "MASKED_LAUNCHES",
-           "reset_launches", "symcoo_spmm", "symcoo_spmm_plain",
+           "OBLIQUE_LAUNCHES", "SYMDUAL_LAUNCHES", "reset_launches", "symcoo_spmm", "symcoo_spmm_plain",
            "oblique_cols", "oblique_cols_plain", "pattern_dots",
            "pattern_dots_plain", "csr_gather", "csr_gather_plain",
            "masked_sym", "masked_sym_plain", "oa_refine", "oa_refine_plain",
-           "build"]
+           "symdual_apply", "symdual_apply_plain", "symdual_adjoint",
+           "symdual_adjoint_plain", "symdual_sym_factor",
+           "symdual_sym_factor_plain", "symdual_sym_mat",
+           "symdual_sym_mat_plain", "build"]

@@ -30,7 +30,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
                                  "frontends/moments.py",
                                  "frontends/stls.py", "frontends/snl.py",
                                  "frontends/lasserre.py",
-                                 "frontends/monomials.py"])
+                                 "frontends/monomials.py",
+                                 "frontends/sos.py"])
 def test_copied_module_is_identical(rel):
     with open(os.path.join(REPO, "manisdp_tpu", rel)) as f:
         original = f.read()
@@ -102,7 +103,12 @@ def test_import_loads_no_jax():
             "manisdp_tpu_torch.frontends.stls, "
             "manisdp_tpu_torch.frontends.snl, "
             "manisdp_tpu_torch.frontends.lasserre, "
-            "manisdp_tpu_torch.frontends.monomials\n"
+            "manisdp_tpu_torch.frontends.monomials, "
+            "manisdp_tpu_torch.frontends.sos, "
+            "manisdp_tpu_torch.ops.dualops, manisdp_tpu_torch.ops.symdual, "
+            "manisdp_tpu_torch.solvers.dual_al, "
+            "manisdp_tpu_torch.solvers.dual_unitdiag, "
+            "manisdp_tpu_torch.solvers.dual_general\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'manisdp_tpu' or "
             "m.startswith('manisdp_tpu.')]\n"

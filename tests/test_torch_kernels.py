@@ -1,4 +1,4 @@
-"""Kernel build and launch plumbing of manisdp_tpu_torch, and K1-K6 on
+"""Kernel build and launch plumbing of manisdp_tpu_torch, and K1-K8 on
 the card against their plain twins.
 
 This file imports no jax, so the card tests run on a machine without it:
@@ -54,14 +54,20 @@ def test_reset_launches():
     K.SPMM_LAUNCHES["al_hess"] = 2
     K.CSR_LAUNCHES["scatter_pos"] = 4
     K.MASKED_LAUNCHES["aat"] = 5
+    K.OBLIQUE_LAUNCHES["proj_eG"] = 6
+    K.SYMDUAL_LAUNCHES["sym_mat"] = 7
     K.reset_launches()
     assert K.LAUNCHES == {"symcoo_spmm": 0, "oblique_cols": 0,
                           "pattern_dots": 0, "csr_gather": 0,
-                          "masked_sym": 0, "oa_refine": 0}
+                          "masked_sym": 0, "oa_refine": 0,
+                          "symdual_apply": 0, "symdual_adjoint": 0}
     assert set(K.SPMM_LAUNCHES) == set(K.SPMM_MODES)
     assert set(K.MASKED_LAUNCHES) == set(K.MASKED_MODES)
     assert set(K.CSR_LAUNCHES) == {"gather", "scatter_pos"}
-    for counts in (K.SPMM_LAUNCHES, K.CSR_LAUNCHES, K.MASKED_LAUNCHES):
+    assert set(K.OBLIQUE_LAUNCHES) == set(K.OBLIQUE_MODES) | {"proj_eG"}
+    assert set(K.SYMDUAL_LAUNCHES) == {"adjoint", "sym_factor", "sym_mat"}
+    for counts in (K.SPMM_LAUNCHES, K.CSR_LAUNCHES, K.MASKED_LAUNCHES,
+                   K.OBLIQUE_LAUNCHES, K.SYMDUAL_LAUNCHES):
         assert not any(counts.values())
 
 
@@ -96,6 +102,21 @@ def test_chip_smoke_standins_have_gset_shape(name, n, edges):
     assert off.nnz == edges
     np.testing.assert_allclose(np.asarray(C.sum(axis=0)).ravel(), 0.0,
                                atol=1e-12)              # C = -L/4
+
+
+def test_chip_smoke_bqp_reader(tmp_path):
+    """--bqp DIR reads the reference's comma-separated Q / e files; without
+    them the seeded stand-in of bench.py is used and labelled so."""
+    Q, e, label = chip_smoke.bqp_instance(6, None)
+    assert "stand-in" in label and Q.shape == (6, 6) and e.shape == (6,)
+    np.testing.assert_array_equal(Q, Q.T)
+    Q2 = np.arange(9.0).reshape(3, 3)
+    np.savetxt(tmp_path / "bqp_Q_3_1.txt", Q2 + Q2.T, delimiter=",")
+    np.savetxt(tmp_path / "bqp_e_3_1.txt", np.ones(3), delimiter=",")
+    Q3, e3, label = chip_smoke.bqp_instance(3, str(tmp_path))
+    assert "reference" in label
+    np.testing.assert_array_equal(Q3, Q2 + Q2.T)
+    np.testing.assert_array_equal(e3, np.ones(3))
 
 
 @pytest.fixture
@@ -370,3 +391,88 @@ def test_carrier_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
                     mu[0].float())
     with pytest.raises(ValueError, match="devices"):
         K.masked_sym(E.cpu(), E, E, "apply")              # CPU / CUDA mix
+
+
+def _dontcare(q):
+    from manisdp_tpu_torch.ops.symdual import _dontcare_mask
+    return torch.as_tensor(_dontcare_mask(q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("q", [3, 7, 20])
+def test_symdual_kernels_match_twins_on_card(cuda_device, dtype, q):
+    """K7 (with and without the y-step epilogue) and K8's three modes
+    against their twins; K7's repeated-index slots are 0 in both."""
+    from manisdp_tpu_torch.ops.symdual import _flatten
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    n = 2 + q + q * q
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(q)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=torch.float64,  # noqa: E731
+                                 device=cuda_device).to(dtype)
+    M, B1, B2 = rnd(n, n), rnd(n, n), rnd(n, n)
+    scale, shift = rnd(5), rnd(1)[0]
+    before = dict(K.LAUNCHES)
+    for kw in ({}, dict(scale=scale, shift=shift)):
+        got = _flatten(*K.symdual_apply(M, q, **kw))
+        ref = _flatten(*K.symdual_apply_plain(M, q, **kw))
+        assert got.device.type == "cuda" and got.dtype == dtype
+        assert _rel(got, ref) <= tol
+        assert not torch.any(got.cpu()[_dontcare(q)] != 0)
+    y = tuple(rnd(*s) for s in ((), (q,), (q, q), (q, q, q), (q,) * 4))
+    for kw in ({}, dict(scale=scale), dict(B1=B1, c1=-1.0),
+               dict(scale=scale, B1=B1, c1=-1.0, B2=B2, c2=-0.3)):
+        assert _rel(K.symdual_adjoint(y, q, **kw),
+                    K.symdual_adjoint_plain(y, q, **kw)) <= tol
+    for p in (1, 8, 13):
+        Y = rnd(p, n)
+        for renorm in (True, False):
+            assert _rel(K.symdual_sym_factor(Y, q, renorm),
+                        K.symdual_sym_factor_plain(Y, q, renorm)) <= tol
+    assert _rel(K.symdual_sym_mat(M, q), K.symdual_sym_mat_plain(M, q)) \
+        <= tol
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["symdual_apply"] - before["symdual_apply"] == 2
+    assert K.LAUNCHES["symdual_adjoint"] - before["symdual_adjoint"] == 11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_oblique_proj_eg_matches_twin_on_card(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=dtype,  # noqa: E731
+                                 device=cuda_device)
+    Y, H, U, g = rnd(24, 500), rnd(24, 500), rnd(24, 500), rnd(500)
+    before = K.OBLIQUE_LAUNCHES["proj_eG"]
+    got = K.oblique_cols(Y, H, "proj", v=U, g=g)
+    assert _rel(got, K.oblique_cols_plain(Y, H, "proj", v=U, g=g)) <= \
+        (1e-12 if dtype == torch.float64 else 1e-5)
+    torch.cuda.synchronize()
+    assert K.OBLIQUE_LAUNCHES["proj_eG"] - before == 1
+
+
+@pytest.mark.cuda
+def test_symdual_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q, n = 3, 14
+    M = torch.ones((n, n), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError):
+        K.symdual_apply(M[:, :7], q)                       # wrong shape
+    with pytest.raises(ValueError):
+        K.symdual_apply(M.T, q)                            # not contiguous
+    with pytest.raises(TypeError):
+        K.symdual_apply(M, q, scale=torch.ones(5, device=cuda_device))
+    y = (M[0, 0], M[0, :q], M[:q, :q], torch.ones((q,) * 3, dtype=M.dtype,
+                                                  device=cuda_device),
+         torch.ones((q,) * 4, dtype=M.dtype, device=cuda_device))
+    with pytest.raises(ValueError):
+        K.symdual_adjoint(y[:4], q)                        # 4-tuple
+    with pytest.raises(ValueError):
+        K.symdual_adjoint(y, 4)                            # wrong q
+    with pytest.raises(ValueError):
+        K.symdual_sym_factor(M, 4)                         # wrong width
+    with pytest.raises(ValueError, match="devices"):
+        K.oblique_cols(M, M.cpu(), "proj")                 # CPU / CUDA mix
+    with pytest.raises(ValueError):
+        K.oblique_cols(M, M, "retr", v=M, g=M[0])          # eG in proj only
