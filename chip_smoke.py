@@ -7,7 +7,7 @@ CUDA GPU.
 Phases (each prints one line; a failed check raises and the exit code is
 not 0):
   1. environment: torch / CUDA versions, the card's name and power limit;
-  2. build kernels K1-K6 from ``manisdp_tpu_torch/csrc``;
+  2. build kernels K1-K10 from ``manisdp_tpu_torch/csrc``;
   3. every K1 / K2 mode against its plain PyTorch twin on the card at the
      G67 shapes (n = 10^4, p_pad in {8, 24, 40, 48}, f64 and f32),
      with times;
@@ -50,8 +50,30 @@ not 0):
      ``solve_dual_unitdiag`` (the DualOp on K4, devrr certificate at
      q = 60), with an oracle from the raw SeDuMi triplets;
  15. the quartic over the sphere at d = 30 through ``solve_dual_sdp`` (the
-     general variant with iAB on K4), against the JAX package's optimum.
-Phases 9-11 and 13-15 report peak device memory.  Every kernel case
+     general variant with iAB on K4), against the JAX package's optimum;
+ 16. the primal moment path's kernels against their twins, f64 and f32:
+     K9 and K10 (plain and with the fused es_vals base) at the BQP q = 60
+     expanded shape (n~ = 3,662, flat m = 13.4 M), and K2's masked mode
+     (proj, proj with the eG term, retr, renormalize) at the clique
+     chain's (p_pad, N = 4,220) shapes;
+ 17. the BQP moment primal through ``solve_bqp_mom`` (SymMomOp: K9, K10,
+     K8 ``sym_factor``, the compressed dense certificate) at q = 30 against
+     the JAX package's optimum, then at q = 60 with bench.py's
+     bench_bqp_primal settings, held to phase 13's q = 60 SOS dual
+     objective, with an on-card KKT oracle from the raw
+     frontends/moments.bqpmom triplets and one ``torch.profiler``
+     breakdown;
+ 18. examples/example_bqp_sparse.py's clique chain (t = 20 cliques of 20
+     variables, 20 blocks of 211) through ``solve_multiblock`` (K3, K4, K1
+     ``al_hess``, K2 masked) with a block-diagonal on-card KKT oracle, and
+     its SOS dual through ``solve_dual_multiblock`` (K4, K2 masked); the
+     two objectives must agree;
+ 19. ``solve_sedumi`` on a two-block input (a quartic over two spheres
+     that share one variable: two moment blocks of 66), held to the
+     optimum of its SOS dual through ``solve_dual_multiblock``.
+The host builds of phases 17-18's SeDuMi data (numpy, about a minute
+each) run in three worker processes started with the script, beside
+phases 1-15.  Phases 9-11, 13-15 and 17-19 report peak device memory.  Every kernel case
 carries its time, its plain twin's, the least time the card could take
 (``bound_ms``: bytes at 3.35 TB/s or operations at the dtype's peak) and
 the time of one PyTorch library call computing the same function where
@@ -98,9 +120,23 @@ MC4 = dict(p=2000, q=2000, rank=10, m_samples=1_600_000, seed=3)
 BQP_Q = 60
 BQP_KW = dict(line_search=True, inner_dtype="tcg32", p_bucket=192)
 QS_D = 30
+# the BQP moment primal with bench_bqp_primal's settings (bench.py:202-218)
+# and examples/example_bqp_sparse.py's chain: t cliques of CHAIN_Q
+# variables overlapping by 2, and its primal options; phase 19's sparse
+# quartic over two spheres (two cliques of QS2_K variables sharing one)
+# with tests/test_sparse_quartic.py's options
+BQP_PRIMAL_KW = dict(inner_dtype="tcg32", p_bucket=192)
+CHAIN_T, CHAIN_Q = 20, 20
+CHAIN_PRIMAL_KW = dict(line_search=True, tau1=1.0)
+QS2_K = 10
+QS2_PRIMAL_KW = dict(theta=1e-2, tau1=0.02, tau2=0.1, sigma0=1e-2,
+                     sigma_min=1e-1, line_search=True, max_outer=1000)
+QS2_DUAL_KW = dict(gama=2.0, alpha=0.01, sigma0=1e-2, theta=1e-2, delta=6,
+                   max_outer=1000)
 # the JAX package's optima on the CPU (f64), the values the port is held to
 JAX_BQP30 = -154.7359587770444
 JAX_QS30 = -7.324338872437511
+JAX_BQPMOM30 = -154.73595877704594
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, and
 # FLOP/s outside the tensor cores (f64 34 T, f32 67 T)
 PEAK_BYTES = 3.35e12
@@ -861,7 +897,11 @@ def profile_breakdown(fn):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    kinds = (("K7 symdual_apply", ("symdual_low", "symdual_y4")),
+    kinds = (("K9 symmom_apply", ("namespace)::ct_kernel",
+                                  "namespace)::rows_kernel")),
+             ("K10 symmom_adjoint", ("namespace)::small_kernel",
+                                     "namespace)::entry_kernel")),
+             ("K7 symdual_apply", ("symdual_low", "symdual_y4")),
              ("K8 symdual_adjoint", ("adjoint_kernel", "sym_factor_kernel",
                                      "sym_mat_kernel")),
              ("K2 oblique_cols", ("oblique_cols",)),
@@ -905,9 +945,10 @@ def profile_breakdown(fn):
                      busy_share=busy / wall, by_kind=by_kind)
 
 
-def dual_solve_phase(label, call, device, check_ok=True, **extra):
-    """One dual solve through ``call()``: seconds, peak device memory,
-    every launch counter and the certificate tiers of that run."""
+def solve_with_counts(label, call, device, check_ok=True, **extra):
+    """One solve through ``call()`` (the dual solves first, then the
+    moment primal and the multiblock drivers): seconds, peak device
+    memory, every launch counter and the certificate tiers of that run."""
     import torch
     from manisdp_tpu_torch import kernels as K
     from manisdp_tpu_torch.ops import dense_cert
@@ -930,6 +971,7 @@ def dual_solve_phase(label, call, device, check_ok=True, **extra):
                launches=dict(K.LAUNCHES), csr_modes=dict(K.CSR_LAUNCHES),
                oblique_modes=dict(K.OBLIQUE_LAUNCHES),
                symdual_modes=dict(K.SYMDUAL_LAUNCHES),
+               spmm_modes=dict(K.SPMM_LAUNCHES),
                cert_tiers=dict(dense_cert.COUNTS))
     if check_ok and (res.status != 0 or not res.eta <= 1e-8):
         emit(out)
@@ -966,7 +1008,7 @@ def dual_phases(args, device, top60, dop60, q60_data, bqp_label):
     q30 = Q30.shape[0]
     standin30 = "stand-in" in lab30
     kw30 = dict(line_search=True, inner_dtype="tcg32")
-    r, res = dual_solve_phase(
+    r, res = solve_with_counts(
         "bqp30_expanded",
         lambda: solve_bqp_sos_dual(Q30, e30, q30, device=device,
                                    verbose=False, **kw30),
@@ -977,7 +1019,7 @@ def dual_phases(args, device, top60, dop60, q60_data, bqp_label):
     out["bqp30_expanded"] = r
     Q, e = q60_data[:2]
     q = Q.shape[0]
-    r, res = dual_solve_phase(
+    r, res = solve_with_counts(
         "bqp60_expanded",
         lambda: solve_bqp_sos_dual(Q, e, q, device=device, verbose=False,
                                    **BQP_KW),
@@ -1015,7 +1057,7 @@ def dual_phases(args, device, top60, dop60, q60_data, bqp_label):
     # -- 14. the original basis (DualOp, K4) --
     A, b, c, mb, f, dAAt = assemble_bqpsos(Q30, e30, q30)
     maxb = float(np.max(np.abs(b)))
-    r, res = dual_solve_phase(
+    r, res = solve_with_counts(
         "bqp30_original",
         lambda: solve_dual_unitdiag(A, b / maxb, c, mb, f=f, dAAt=dAAt,
                                     device=device, verbose=False, **kw30),
@@ -1034,7 +1076,7 @@ def dual_phases(args, device, top60, dop60, q60_data, bqp_label):
     A, b, c, mb, f, dAAt = q60_data[2]
     maxb = float(np.max(np.abs(b)))
     kw_orig = dict(line_search=True, inner_dtype="tcg32")
-    r, res = dual_solve_phase(
+    r, res = solve_with_counts(
         "bqp60_original",
         lambda: solve_dual_unitdiag(dop60, None, None, mb, device=device,
                                     verbose=False, **kw_orig),
@@ -1073,7 +1115,7 @@ def dual_phases(args, device, top60, dop60, q60_data, bqp_label):
         return rmat(*a)
     dual_al._iab_mat, dual_al._iab_rmat = spy_mat, spy_rmat
     try:
-        r, res = dual_solve_phase(
+        r, res = solve_with_counts(
             "qs30_general",
             lambda: solve_dual_sdp(A, b / maxb, c, mb, f=f, dAAt=dAAt,
                                    device=device, verbose=False, **kw_qs),
@@ -1095,6 +1137,415 @@ def dual_phases(args, device, top60, dop60, q60_data, bqp_label):
     if min(iab_calls.values()) <= 0 or r["csr_modes"]["gather"] <= 0:
         raise AssertionError("the qs30 solve never ran the iAB pair on K4")
     return out
+
+
+def build_bqpmom(q, bqp_dir):
+    """The raw frontends/moments.bqpmom SeDuMi data of the BQP of size q
+    (the q = 60 oracle's triplets) and its build seconds; runs in a worker
+    process."""
+    from manisdp_tpu_torch.frontends.moments import bqpmom
+    Q, e, _ = bqp_instance(q, bqp_dir)
+    t0 = time.perf_counter()
+    data = bqpmom(q, Q, e)
+    return data, time.perf_counter() - t0
+
+
+def build_chain(t, q, which):
+    """examples/example_bqp_sparse.py's instance (the chain of t cliques of
+    q variables, its RandomState(1) objective) as its moment relaxation
+    (``which="mom"``: SeDuMi data) or its SOS relaxation (``"sos"``: A, b,
+    c, mbs, f, dAAt), and the build seconds; runs in a worker process."""
+    from manisdp_tpu_torch.frontends.sparse_moments import (
+        bqpmom_sparse, bqpsos_sparse, clique_chain, sparse_objective_basis)
+    n, cliques = clique_chain(t, q)
+    nsp = sparse_objective_basis(n, cliques)
+    nsp = nsp[:, ~np.all(nsp == 0, axis=0)]
+    coe = np.random.RandomState(1).randn(nsp.shape[1])
+    t0 = time.perf_counter()
+    make = bqpmom_sparse if which == "mom" else bqpsos_sparse
+    out = make(n, cliques, coe)
+    return out, time.perf_counter() - t0
+
+
+def start_host_builds(bqp_dir):
+    """Start the host builds of phases 17-18 in three worker processes
+    (spawned, so they never touch the card); returns the pool and the
+    pending results."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(3)
+    jobs = dict(bqpmom60=pool.apply_async(build_bqpmom, (BQP_Q, bqp_dir)),
+                chain_mom=pool.apply_async(build_chain,
+                                           (CHAIN_T, CHAIN_Q, "mom")),
+                chain_sos=pool.apply_async(build_chain,
+                                           (CHAIN_T, CHAIN_Q, "sos")))
+    pool.close()
+    return pool, jobs
+
+
+def flat_slot_map(q):
+    """frontends/moments.bqpmom row index -> SymMomOp flat slot index: the
+    map of tests/test_symmom.py's _flat_slot_map, which a test holds this
+    to, built without its monomial_basis(q, 4) loop.  The repeated-monomial
+    rows follow that basis's label order: degree 2, 3, 4, and within a
+    degree the squarefree supports in colex order (largest variable
+    first), one row per pair and two per triple or quadruple."""
+    from itertools import combinations
+    q2, q3 = q * q, q ** 3
+    bD2 = 1 + q
+    bSv = bD2 + q2
+    bSp = bSv + q2
+    bE2 = bSp + q3
+    bE4 = bE2 + q2
+    bE6 = bE4 + q3
+
+    def colex(k):
+        c = np.array(list(combinations(range(q), k)),
+                     dtype=np.int64).reshape(-1, k)
+        return c[np.lexsort(c.T)].T           # last variable major
+
+    pu, pv = colex(2)
+    head = [np.arange(1 + q)]
+    head.append(np.stack([bD2 + pu * q + pv, bD2 + pv * q + pu], 1).ravel())
+    for k in range(q):
+        b = np.delete(np.arange(q), k)
+        keep = (pu != k) & (pv != k)
+        head += [bSv + k * q + b, bSp + k * q2 + pu[keep] * q + pv[keep]]
+    a, b, c = colex(3)
+    a4, b4, c4, d4 = colex(4)
+    eq = [bE2 + pu * q + pv,
+          np.stack([bE4 + a * q2 + b * q + c,
+                    bE4 + b * q2 + a * q + c], 1).ravel(),
+          np.stack([bE6 + ((a4 * q + b4) * q + c4) * q + d4,
+                    bE6 + ((b4 * q + a4) * q + c4) * q + d4], 1).ravel()]
+    return np.concatenate(head + eq)
+
+
+def phase_mom_kernels(mop64, N, device, seed):
+    """K9 and K10 (plain, and with es_vals' fused base) at the expanded
+    shape of ``mop64``, and K2's masked modes at the chain's (p_pad, N)
+    shapes with a seeded half-oblique mask, f64 and f32, against their
+    twins."""
+    import torch
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch.ops.symmom import dontcare_mask
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    q, n, m = mop64.q, mop64.n, mop64.m
+    rows = []
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}
+    rnd = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                 dtype=torch.float64, device=device)
+    M64, y64 = rnd(n, n), rnd(m)
+    # K10 reads only the valid slots of y; every other slot is don't-care
+    valid = m - int(np.count_nonzero(dontcare_mask(q)))
+    k9 = (K.symmom_apply, K.symmom_apply_plain)
+    k10 = (K.symmom_adjoint, K.symmom_adjoint_plain)
+    q4 = float(q) ** 4
+    for dt in (torch.float64, torch.float32):
+        info = dict(dtype=str(dt)[6:], q=q, n=n, m=m)
+        M, y, C = M64.to(dt), y64.to(dt), mop64.C.to(dt)
+        yb = valid * y.element_size()
+        for name, mode, (fn, twin), args, kw, reads, flops in (
+                ("symmom_apply", "apply", k9, (M, q), {}, (M,), 12 * q4),
+                ("symmom_adjoint", "adjoint", k10, (y, q), {}, (yb,),
+                 40 * q4),
+                ("symmom_adjoint", "es_vals", k10, (y, q),
+                 dict(base=C, alpha=0.37), (yb, C), 42 * q4)):
+            check_case(rows, name, mode, fn, twin, args, kw, tol[dt],
+                       reads=reads, flops=flops, **info)
+        del M, y, C
+    mask64 = (torch.rand(N, generator=gen, device=device) < 0.5).double()
+    for dt in (torch.float64, torch.float32):
+        mask = mask64.to(dt)
+        for p in (8, 16, 24):
+            info = dict(dtype=str(dt)[6:], p_pad=p, n=N)
+            Y = K.oblique_cols_plain(rnd(p, N).to(dt), None, "renormalize",
+                                     mask=mask)
+            H, U, g = rnd(p, N).to(dt), rnd(p, N).to(dt), rnd(N).to(dt)
+            for mode, args, kw, reads, flops in (
+                    ("proj", (Y, H, "proj"), {}, (Y, H, mask), 4 * p * N),
+                    ("proj_eG", (Y, H, "proj"), dict(v=U, g=g),
+                     (Y, H, U, g, mask), 6 * p * N),
+                    ("retr", (Y, H, "retr"), {}, (Y, H, mask), 5 * p * N),
+                    ("renormalize", (Y, None, "renormalize"), {},
+                     (Y, mask), 3 * p * N)):
+                check_case(rows, "oblique_cols", f"masked_{mode}",
+                           K.oblique_cols, K.oblique_cols_plain, args,
+                           dict(kw, mask=mask), tol[dt], reads=reads,
+                           flops=flops, **info)
+    return rows
+
+
+def mom_kkt_oracle_on_card(data, op, res, device):
+    """Independent KKT check of a solve_bqp_mom result on the card, from the
+    raw frontends/moments.bqpmom triplets (At over the original basis of
+    n_orig columns, one row per reference constraint) and the returned
+    (Y, y): X = Yoᵀ Yo with Yo the first copy of each original column, y
+    read at the reference's rows through ``flat_slot_map``; pinf from
+    A(X), the reference's certificate (ManiSDP_unitdiag.m:65-69:
+    S = mat(c - Aᵀy) - diag(z), z = colsum(S ∘ X)) by f64 eigvalsh, gap
+    from <C, X> and bᵀy + sum(z).  No SymMomOp method and no kernel is
+    used."""
+    import torch
+    t0 = time.perf_counter()
+    n = op.n_orig
+    At = data.At.tocoo()
+    f64 = dict(dtype=torch.float64, device=device)
+    lin = torch.as_tensor(At.row.astype(np.int64), device=device)
+    k = torch.as_tensor(At.col.astype(np.int64), device=device)
+    v = torch.as_tensor(At.data, **f64)
+    Yo = torch.as_tensor(res.Y, **f64)[:, op.dup0.long()]
+    smap = torch.as_tensor(flat_slot_map(op.q), device=device)
+    y = torch.as_tensor(res.y, **f64)[smap]
+    b = torch.as_tensor(data.b, **f64)
+    X = Yo.T @ Yo
+    Xv = X.T.reshape(-1)                   # column-major vec
+    Ax = torch.zeros(b.shape[0], **f64).index_add_(0, k, v * Xv[lin])
+    pinf = float(torch.linalg.norm(Ax - b) / (1.0 + torch.linalg.norm(b)))
+    diag_err = float(torch.max(torch.abs(torch.diagonal(X) - 1.0)))
+    cnz = np.flatnonzero(data.c)
+    S = torch.zeros(n * n, **f64)
+    S[torch.as_tensor(cnz, device=device)] = torch.as_tensor(data.c[cnz],
+                                                             **f64)
+    obj = float(torch.dot(S, Xv))
+    S.index_add_(0, lin, -v * y[k])
+    S = S.reshape(n, n).T
+    z = torch.sum(S * X, dim=0)
+    by = float(torch.dot(b, y)) + float(torch.sum(z))
+    gap = abs(obj - by) / (1.0 + abs(obj) + abs(by))
+    S = S - torch.diag(z)
+    wv = torch.linalg.eigvalsh(0.5 * (S + S.T))
+    lam_min, lam_max = float(wv[0]), float(wv[-1])
+    del S, X, Xv, Ax
+    dinf = max(0.0, -lam_min) / (1.0 + abs(lam_max))
+    torch.cuda.synchronize()
+    return dict(pinf=pinf, dinf=dinf, gap=gap, eta=max(pinf, dinf, gap),
+                diag_err=diag_err, obj=obj, by=by, lam_min=lam_min,
+                lam_max=lam_max, m_true=int(b.shape[0]),
+                seconds=time.perf_counter() - t0)
+
+
+def mom_phases(args, device, mop60, Q60, e60, bqp_label, dual60_obj,
+               raw60):
+    """Phase 17: the BQP moment primal at q = 30 (against the JAX package's
+    optimum) and q = 60 (against the SOS dual's objective, with the KKT
+    oracle and one profiled repeat)."""
+    from manisdp_tpu_torch.solvers.primal_mom import solve_bqp_mom
+
+    out = {}
+    Q30, e30, lab30 = bqp_instance(30, args.bqp)
+    q30 = Q30.shape[0]
+    kw30 = dict(inner_dtype="tcg32")
+    r, res = solve_with_counts(
+        "bqpmom30",
+        lambda: solve_bqp_mom(Q30, e30, q30, device=device, verbose=False,
+                              **kw30),
+        device, instance=lab30, options=kw30)
+    r["rel_to_jax"] = abs(res.obj - JAX_BQPMOM30) / abs(JAX_BQPMOM30) \
+        if "stand-in" in lab30 else None
+    emit(r)
+    out["bqpmom30"] = r
+    if r["rel_to_jax"] is not None and not r["rel_to_jax"] <= 1e-7:
+        raise AssertionError(f"bqpmom30: {r['rel_to_jax']} from the JAX "
+                             "optimum")
+    q = Q60.shape[0]
+    r, res = solve_with_counts(
+        "bqpmom60",
+        lambda: solve_bqp_mom(Q60, e60, q, device=device, verbose=False,
+                              **BQP_PRIMAL_KW),
+        device, instance=bqp_label, options=BQP_PRIMAL_KW,
+        n_expanded=mop60.n, n_orig=mop60.n_orig, m_flat=mop60.m,
+        m_true=mop60.m_true)
+    r["rel_to_sos_dual"] = abs(res.obj - dual60_obj) / abs(dual60_obj)
+    data60, raw_build_s = raw60
+    r["oracle"] = dict(mom_kkt_oracle_on_card(data60, mop60, res, device),
+                       raw_build_s=raw_build_s)
+    emit(r)
+    out["bqpmom60"] = r
+    if not r["oracle"]["eta"] <= 1e-8:
+        raise AssertionError(f"bqpmom60: oracle {r['oracle']}")
+    if not r["rel_to_sos_dual"] <= 1e-6:
+        raise AssertionError(f"bqpmom60: {r['rel_to_sos_dual']} from the "
+                             "q = 60 SOS dual")
+    for key in ("symmom_apply", "symmom_adjoint", "oblique_cols",
+                "oa_refine"):
+        if r["launches"][key] <= 0:
+            raise AssertionError(f"the bqpmom60 solve never launched {key}")
+    if r["symdual_modes"]["sym_factor"] <= 0:
+        raise AssertionError("the bqpmom60 solve never launched K8 "
+                             "sym_factor")
+    _, prof = profile_breakdown(
+        lambda: solve_bqp_mom(Q60, e60, q, device=device, verbose=False,
+                              **BQP_PRIMAL_KW))
+    prof = dict(phase="bqpmom60_profile", **prof)
+    emit(prof)
+    out["bqpmom60_profile"] = prof
+    return out
+
+
+def block_kkt_oracle_on_card(data, res, device):
+    """Independent KKT check of a multiblock primal solve on the card, from
+    the raw SeDuMi triplets (At (sum n_i^2, m), each block's column-major
+    vec stacked; K.s, K.nob) and the returned (Y, y): X_i = Y_iᵀ Y_i per
+    column group; pinf from A(X); z = colsum(S ∘ X) on the first nob
+    (unit-diagonal) blocks, S = mat(c - Aᵀy) - diag(z) restricted to the
+    block diagonal; dinf from f64 eigvalsh of each block; gap from <C, X>
+    and bᵀy + sum(z).  No ConstraintOp and no kernel is used."""
+    import torch
+    t0 = time.perf_counter()
+    ns = np.asarray(data.K.s, dtype=np.int64)
+    nob = int(data.K.nob)
+    off = np.concatenate([[0], np.cumsum(ns)])
+    off2 = np.concatenate([[0], np.cumsum(ns ** 2)])
+    N = int(off[-1])
+    f64 = dict(dtype=torch.float64, device=device)
+
+    def to_global(lin):
+        bl = np.searchsorted(off2, lin, side="right") - 1
+        loc = lin - off2[bl]
+        return (torch.as_tensor(loc % ns[bl] + off[bl], device=device),
+                torch.as_tensor(loc // ns[bl] + off[bl], device=device))
+
+    At = data.At.tocoo()
+    gi, gj = to_global(At.row.astype(np.int64))
+    k = torch.as_tensor(At.col.astype(np.int64), device=device)
+    v = torch.as_tensor(At.data, **f64)
+    Y = torch.as_tensor(res.Y, **f64)
+    y = torch.as_tensor(res.y, **f64)
+    b = torch.as_tensor(data.b, **f64)
+    X = Y.T @ Y
+    Ax = torch.zeros(b.shape[0], **f64).index_add_(0, k, v * X[gi, gj])
+    pinf = float(torch.linalg.norm(Ax - b) / (1.0 + torch.linalg.norm(b)))
+    cnz = np.flatnonzero(data.c)
+    ci, cj = to_global(cnz.astype(np.int64))
+    cv = torch.as_tensor(data.c[cnz], **f64)
+    obj = float(torch.sum(cv * X[ci, cj]))
+    S = torch.zeros((N, N), **f64)
+    S.index_put_((ci, cj), cv, accumulate=True)
+    S.index_put_((gi, gj), -v * y[k], accumulate=True)
+    mask = torch.zeros(N, **f64)
+    mask[:int(off[nob])] = 1.0
+    blocks = [slice(int(off[i]), int(off[i + 1])) for i in range(len(ns))]
+    z = torch.cat([torch.sum(S[sl, sl] * X[sl, sl], dim=0)
+                   for sl in blocks]) * mask
+    by = float(torch.dot(b, y)) + float(torch.sum(z))
+    gap = abs(obj - by) / (1.0 + abs(obj) + abs(by))
+    S.diagonal().sub_(z)
+    dinf, lam_min = 0.0, np.inf
+    for sl in blocks:
+        Sb = S[sl, sl]
+        wv = torch.linalg.eigvalsh(0.5 * (Sb + Sb.T))
+        lam_min = min(lam_min, float(wv[0]))
+        dinf = max(dinf, max(0.0, -float(wv[0])) / (1.0 + abs(float(wv[-1]))))
+    del S, X
+    torch.cuda.synchronize()
+    return dict(pinf=pinf, dinf=dinf, gap=gap, eta=max(pinf, dinf, gap),
+                obj=obj, by=by, lam_min=lam_min,
+                seconds=time.perf_counter() - t0)
+
+
+def chain_phases(device, chain_mom, chain_sos):
+    """Phase 18: the clique chain through both multiblock drivers."""
+    import torch
+    from manisdp_tpu_torch.ops.sparse import ConstraintOp
+    from manisdp_tpu_torch.solvers.dual_multiblock import \
+        solve_dual_multiblock
+    from manisdp_tpu_torch.solvers.multiblock import solve_multiblock
+
+    label = (f"examples/example_bqp_sparse.py: clique_chain({CHAIN_T}, "
+             f"{CHAIN_Q}), RandomState(1) objective")
+    data, mom_build_s = chain_mom
+    ns = [int(s) for s in data.K.s]
+    t0 = time.perf_counter()
+    op = ConstraintOp.build_multiblock(data.At, data.b, data.c, ns, device)
+    torch.cuda.synchronize()
+    assemble_s = time.perf_counter() - t0
+    r, res = solve_with_counts(
+        "chain_primal",
+        lambda: solve_multiblock(op, None, None, ns=ns, nob=data.K.nob,
+                                 device=device, verbose=False,
+                                 **CHAIN_PRIMAL_KW),
+        device, instance=label, options=CHAIN_PRIMAL_KW, blocks=len(ns),
+        N=op.n, m=op.m, nnzA=op.nnz, instance_build_s=mom_build_s,
+        assemble_s=assemble_s)
+    r["oracle"] = block_kkt_oracle_on_card(data, res, device)
+    emit(r)
+    if not r["oracle"]["eta"] <= 1e-8:
+        raise AssertionError(f"chain primal: oracle {r['oracle']}")
+    for key in ("pattern_dots", "csr_gather"):
+        if r["launches"][key] <= 0:
+            raise AssertionError(f"the chain primal never launched {key}")
+    if r["spmm_modes"]["al_hess"] <= 0 or r["oblique_modes"]["masked"] <= 0:
+        raise AssertionError("the chain primal never launched K1 al_hess "
+                             "or K2's masked mode")
+    primal = r
+    (A, b, c, mbs, f, dAAt), sos_build_s = chain_sos
+    maxb = float(np.max(np.abs(b)))
+    r, res = solve_with_counts(
+        "chain_dual",
+        lambda: solve_dual_multiblock(A, b / maxb, c, ns=mbs, nob=len(mbs),
+                                      f=f, dAAt=dAAt, device=device,
+                                      verbose=False),
+        device, instance=label, blocks=len(mbs), m=int(A.shape[0]),
+        nnzA=int(A.nnz), f=int(f), instance_build_s=sos_build_s)
+    r["obj_unscaled"] = res.obj * maxb
+    r["rel_to_primal"] = abs(res.obj * maxb - primal["obj"]) / \
+        max(1.0, abs(primal["obj"]))
+    emit(r)
+    if not r["rel_to_primal"] <= 1e-6:
+        raise AssertionError(f"chain: primal {primal['obj']} and dual "
+                             f"{r['obj_unscaled']} disagree")
+    if r["launches"]["csr_gather"] <= 0 or \
+            r["oblique_modes"]["masked"] <= 0:
+        raise AssertionError("the chain dual never launched K4 or K2's "
+                             "masked mode")
+    return dict(primal=primal, dual=r)
+
+
+def two_block_phase(device):
+    """Phase 19: solve_sedumi on the two-block moment relaxation of a
+    quartic over two spheres sharing a variable, held to its SOS dual's
+    optimum through solve_dual_multiblock."""
+    from manisdp_tpu_torch import solve_sedumi
+    from manisdp_tpu_torch.frontends.sparse_moments import (
+        qsmom_sparse, qssos_sparse, sparse_quartic_basis)
+    from manisdp_tpu_torch.solvers.dual_multiblock import \
+        solve_dual_multiblock
+
+    N = 2 * QS2_K - 1
+    cliques = [list(range(QS2_K)), list(range(QS2_K - 1, N))]
+    coe = np.random.RandomState(0).randn(
+        sparse_quartic_basis(N, cliques).shape[1])
+    data = qsmom_sparse(N, cliques, coe)
+    label = (f"quartic over two spheres, cliques {QS2_K} + {QS2_K} sharing "
+             "one variable (RandomState(0))")
+    r, res = solve_with_counts(
+        "two_block_sedumi",
+        lambda: solve_sedumi(data, device=device, verbose=False,
+                             **QS2_PRIMAL_KW),
+        device, instance=label, options=QS2_PRIMAL_KW,
+        ns=[int(s) for s in data.K.s], m=int(data.b.shape[0]))
+    A, b, c, mbs, f, dAAt = qssos_sparse(N, cliques, coe)
+    maxb = float(np.max(np.abs(b)))
+    rd, resd = solve_with_counts(
+        "two_block_sos_dual",
+        lambda: solve_dual_multiblock(A, b / maxb, c, ns=mbs, nob=0, f=f,
+                                      dAAt=dAAt, device=device,
+                                      verbose=False, **QS2_DUAL_KW),
+        device, instance=label, options=QS2_DUAL_KW)
+    r["sos_dual"] = dict(obj=resd.obj * maxb, status=resd.status,
+                         eta=resd.eta, seconds=rd["seconds"])
+    r["rel_to_sos_dual"] = abs(res.obj - resd.obj * maxb) / \
+        max(1.0, abs(res.obj))
+    emit(r)
+    if not r["rel_to_sos_dual"] <= 1e-6:
+        raise AssertionError(f"two-block: primal {res.obj} and SOS dual "
+                             f"{resd.obj * maxb} disagree")
+    if r["oblique_modes"]["masked"] <= 0:
+        raise AssertionError("the two-block solve never launched K2's "
+                             "masked mode")
+    return r
 
 
 def solve_phase(label, C_sp, source, device, check_oracle):
@@ -1143,6 +1594,18 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     import manisdp_tpu_torch  # noqa: F401  (fails outside the repository)
+    pool, jobs = start_host_builds(args.bqp)
+    try:
+        return run_phases(args, jobs)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def run_phases(args, jobs):
+    """Phases 1-19 and the closing lines; ``jobs`` are the pending host
+    builds of start_host_builds."""
+    import torch
     from manisdp_tpu_torch import kernels as K
     from manisdp_tpu_torch.kernels.build import build_info
 
@@ -1272,12 +1735,49 @@ def main(argv=None):
     # -- 13-15. the dual solves --
     dual = dual_phases(args, device, top60, dop60, (Q60, e60, data60),
                        bqp_label)
-    del top60, dop60
+    del top60, dop60, data60
+
+    # -- 16. the moment primal's and the multiblock drivers' kernels --
+    from manisdp_tpu_torch.ops.symmom import SymMomOp
+    mom_setup = {}
+    t0 = time.perf_counter()
+    mop60 = SymMomOp.build_bqpmom(Q60, e60, BQP_Q, device=device)
+    torch.cuda.synchronize()
+    mom_setup["symmom_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chain_mom = jobs["chain_mom"].get()
+    mom_setup["chain_build_wait_s"] = time.perf_counter() - t0
+    N_chain = int(np.sum(chain_mom[0].K.s))
+    mom_rows = phase_mom_kernels(mop60, N_chain, device, args.seed)
+    emit(dict(phase="mom_kernels_vs_twins", instance=bqp_label,
+              n_expanded=mop60.n, m_flat=mop60.m, chain_N=N_chain,
+              **mom_setup, cases=len(mom_rows),
+              worst=worst_errors(mom_rows),
+              table=[{k: r[k] for k in ("kernel", "mode", "dtype", "rel_err",
+                                          "ms", "plain_ms", "bound_ms")}
+                     for r in mom_rows]))
+    # -- 17. the BQP moment primal --
+    t0 = time.perf_counter()
+    raw60 = jobs["bqpmom60"].get()
+    mom_setup["bqpmom60_build_wait_s"] = time.perf_counter() - t0
+    mom = mom_phases(args, device, mop60, Q60, e60, bqp_label,
+                     dual["bqp60_expanded"]["obj"], raw60)
+    del mop60, raw60
+    # -- 18. the clique chain through both multiblock drivers --
+    t0 = time.perf_counter()
+    chain_sos = jobs["chain_sos"].get()
+    mom_setup["chain_sos_build_wait_s"] = time.perf_counter() - t0
+    chain = chain_phases(device, chain_mom, chain_sos)
+    del chain_mom, chain_sos
+    # -- 19. solve_sedumi on a two-block input --
+    two_block = two_block_phase(device)
 
     # each kernel's hot call on its main path: the f32 tCG's Hessian and
     # projection (G67 solve), the f32 AL Hessian's products (mc solves),
     # the f64 refinement pass (dense_eigh solve), the f32 dual Hessian's
-    # operator, adjoint and epilogue (bqp solves)
+    # operator, adjoint and epilogue (bqp solves), the f32 moment
+    # Hessian's operator and adjoint (bqpmom60), the f64 masked Hessian
+    # epilogue (chain primal)
     def pick(table, name, mode, p_pad=None, dtype="float32"):
         return next(r for r in table if r["kernel"] == name and
                     r["mode"] == mode and r["dtype"] == dtype and
@@ -1287,7 +1787,7 @@ def main(argv=None):
         return max(r["max_abs_err"] for r in table
                    if r["kernel"] == name and r["mode"] in modes)
 
-    all_rows = rows + al_rows + carrier_rows + dual_rows
+    all_rows = rows + al_rows + carrier_rows + dual_rows + mom_rows
     masked = mc4["entrywise"]["masked_modes"]
     e60x, o60 = dual["bqp60_expanded"], dual["bqp60_original"]
     qs = dual["qs30_general"]
@@ -1353,6 +1853,19 @@ def main(argv=None):
         ("csr_gather.iab", pick(dual_rows, "csr_gather", "iab_mat"),
          ("iab_mat", "iab_rmat"), "csr_gather.cu", "solvers/dual_al.py:152",
          qs["launches"]["csr_gather"]),
+        ("symmom_apply", pick(mom_rows, "symmom_apply", "apply"),
+         ("apply",), "symmom_apply.cu", "ops/symmom.py:291",
+         mom["bqpmom60"]["launches"]["symmom_apply"]),
+        ("symmom_adjoint", pick(mom_rows, "symmom_adjoint", "adjoint"),
+         ("adjoint", "es_vals"), "symmom_adjoint.cu", "ops/symmom.py:297",
+         mom["bqpmom60"]["launches"]["symmom_adjoint"]),
+        ("oblique_cols.masked",
+         pick(mom_rows, "oblique_cols", "masked_proj_eG", 8,
+              dtype="float64"),
+         ("masked_proj", "masked_proj_eG", "masked_retr",
+          "masked_renormalize"), "oblique_cols.cu",
+         "manifolds/product.py:52",
+         chain["primal"]["oblique_modes"]["masked"]),
     ]
     kern = []
     for name, r, modes, src, rep, launches in entries:
@@ -1371,8 +1884,10 @@ def main(argv=None):
                        al_kernel_rows=al_rows,
                        carrier_kernel_rows=carrier_rows,
                        dual_kernel_rows=dual_rows, dual_setup=dual_setup,
+                       mom_kernel_rows=mom_rows, mom_setup=mom_setup,
                        g1=g1, g67=g67, mc12000=mc, mc4000=mc4,
-                       mc4000_setup=setup, dual=dual, kernels=kern,
+                       mc4000_setup=setup, dual=dual, mom=mom, chain=chain,
+                       two_block=two_block, kernels=kern,
                        total_s=time.perf_counter() - t_start),
                   f, indent=1)
     emit(dict(kernels=kern))

@@ -22,8 +22,14 @@ dense carrier (K4 gathers and scatters) or the factored operator;
 ``solve_dual_unitdiag`` / ``solve_dual_sdp`` take SeDuMi dual data (the
 sparse operator on kernel K4); ``solvers.dual_unitdiag.solve_bqp_sos_dual``
 solves the BQP SOS dual on the expanded-basis tensor operator (kernels K7
-and K8).  Importing this package imports neither jax nor ``manisdp_tpu``
-and builds nothing.
+and K8), and ``solvers.primal_mom.solve_bqp_mom`` its primal moment
+relaxation on the expanded-basis moment operator (kernels K9 and K10).
+``solvers.multiblock.solve_multiblock`` and
+``solvers.dual_multiblock.solve_dual_multiblock`` take block-diagonal
+SeDuMi data on the masked product manifold (K2 with a column mask);
+``solve_sedumi`` sends an LP cone or several PSD blocks to the first.
+Importing this package imports neither jax nor ``manisdp_tpu`` and
+builds nothing.
 """
 
 from . import recipes

@@ -2,8 +2,8 @@
 
 The tests feed both packages from the same numpy data through these:
 the arrays of a JAX ``SymCOO``, ``ConstraintOp``, ``DenseConstraintOp``,
-``EntrywiseConstraintOp``, ``SparseMat``, ``DualOp`` or ``SymDualOp``
-(``np.asarray`` of their fields), the
+``EntrywiseConstraintOp``, ``SparseMat``, ``DualOp``, ``SymDualOp`` or
+``SymMomOp`` (``np.asarray`` of their fields), the
 ``dataclasses.asdict`` of a JAX ``SolverOptions``, and a factor Y.
 """
 
@@ -17,6 +17,7 @@ import torch
 from .config import SolverOptions
 from .ops.dualops import DualOp, SparseMat, _ptr
 from .ops.symdual import SymDualOp
+from .ops.symmom import SymMomOp
 from .ops.sparse import (ConstraintOp, DenseConstraintOp,
                          EntrywiseConstraintOp, SymCOO)
 from .solvers.common import pad_rows
@@ -105,6 +106,24 @@ def symdual_op_from_jax(arrays: dict, device) -> SymDualOp:
         b=f64("b"), cf=f64("cf"), C=f64("C"), idAAt=f64("idAAt"),
         bA=f64("bA"), Ac=f64("Ac"), dup0=i32("dup0"), dup1=i32("dup1"),
         **{k: int(a[k]) for k in ("q", "m", "n", "f", "m_true", "n_orig")})
+
+
+def symmom_op_from_jax(arrays: dict, device) -> SymMomOp:
+    """The port's SymMomOp from a JAX SymMomOp's fields as numpy: keys C,
+    dup0, dup1, q, m, n, m_true, n_orig.  The port holds b (1 at slot 0)
+    as an array where the JAX package builds it on each read."""
+    a = arrays
+    m = int(a["m"])
+    b = torch.zeros(m, dtype=torch.float64, device=device)
+    b[0] = 1.0
+    return SymMomOp(
+        C=torch.tensor(np.asarray(a["C"], dtype=np.float64), device=device),
+        b=b,
+        dup0=torch.tensor(np.asarray(a["dup0"], dtype=np.int32),
+                          device=device),
+        dup1=torch.tensor(np.asarray(a["dup1"], dtype=np.int32),
+                          device=device),
+        m=m, **{k: int(a[k]) for k in ("q", "n", "m_true", "n_orig")})
 
 
 def options_from_dict(d: dict) -> SolverOptions:

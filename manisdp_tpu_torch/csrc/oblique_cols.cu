@@ -9,6 +9,14 @@
 //                        of solvers/dual_al.py:123-124)
 //   mode 1 retr        : out = (x + u) / ||x + u||_col
 //   mode 2 renormalize : out = x / ||x||_col
+// Masked mode (a 0/1 column mask given; replaces manifolds/product.py
+// MaskedProduct.proj / retr / renormalize, the multiblock drivers'
+// product geometry, and their masked Hessian epilogue
+// eH - Y o (colsum(Y o eH) o mask) - U o YeG, solvers/multiblock.py:59-63,
+// dual_multiblock.py:71-75): a column with mask 0 skips the projection
+// (its colsum is multiplied by 0) and the normalization (divided by 1),
+// as the JAX expressions do.  Without a mask every mode computes exactly
+// what it did before.
 // Zero padding rows stay zero.  A zero column gives 0/0 = NaN, exactly
 // as the JAX expressions do.
 //
@@ -43,15 +51,19 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 oblique_cols_kernel(const T* __restrict__ x, const T* __restrict__ u,
                     const T* __restrict__ v, const T* __restrict__ g,
-                    int p, int n, int mode, T* __restrict__ out) {
+                    const T* __restrict__ mask, int p, int n, int mode,
+                    T* __restrict__ out) {
   const int j = blockIdx.x * kThreads + threadIdx.x;
   if (j >= n) return;
+  // masked mode: a column with mask 0 is Euclidean
+  const bool skip = mask != nullptr && !(mask[j] > T(0));
   T s = T(0);
   if (mode == 0) {
     for (int r = 0; r < p; ++r) {
       const int64_t o = (int64_t)r * n + j;
       s += x[o] * u[o];
     }
+    if (mask != nullptr) s = s * mask[j];
     if (v != nullptr) {
       const T gj = g[j];
       for (int r = 0; r < p; ++r) {
@@ -70,7 +82,7 @@ oblique_cols_kernel(const T* __restrict__ x, const T* __restrict__ u,
       const T d = x[o] + u[o];
       s += d * d;
     }
-    const T nrm = sqrt_t<T>(s);
+    const T nrm = skip ? T(1) : sqrt_t<T>(s);
     for (int r = 0; r < p; ++r) {
       const int64_t o = (int64_t)r * n + j;
       out[o] = (x[o] + u[o]) / nrm;
@@ -80,7 +92,7 @@ oblique_cols_kernel(const T* __restrict__ x, const T* __restrict__ u,
       const T xv = x[(int64_t)r * n + j];
       s += xv * xv;
     }
-    const T nrm = sqrt_t<T>(s);
+    const T nrm = skip ? T(1) : sqrt_t<T>(s);
     for (int r = 0; r < p; ++r) {
       const int64_t o = (int64_t)r * n + j;
       out[o] = x[o] / nrm;
@@ -89,13 +101,14 @@ oblique_cols_kernel(const T* __restrict__ x, const T* __restrict__ u,
 }
 
 template <typename T>
-int launch(const void* x, const void* u, const void* v, const void* g, int p,
-           int n, int mode, void* out, void* stream) {
+int launch(const void* x, const void* u, const void* v, const void* g,
+           const void* mask, int p, int n, int mode, void* out,
+           void* stream) {
   if (n <= 0 || p <= 0) return (int)cudaSuccess;
   const dim3 grid((n + kThreads - 1) / kThreads);
   oblique_cols_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)u, (const T*)v, (const T*)g, p, n, mode,
-      (T*)out);
+      (const T*)x, (const T*)u, (const T*)v, (const T*)g, (const T*)mask, p,
+      n, mode, (T*)out);
   return (int)cudaGetLastError();
 }
 
@@ -104,15 +117,15 @@ int launch(const void* x, const void* u, const void* v, const void* g, int p,
 extern "C" {
 
 int oblique_cols_f64(const void* x, const void* u, const void* v,
-                     const void* g, int p, int n, int mode, void* out,
-                     void* stream) {
-  return launch<double>(x, u, v, g, p, n, mode, out, stream);
+                     const void* g, const void* mask, int p, int n, int mode,
+                     void* out, void* stream) {
+  return launch<double>(x, u, v, g, mask, p, n, mode, out, stream);
 }
 
 int oblique_cols_f32(const void* x, const void* u, const void* v,
-                     const void* g, int p, int n, int mode, void* out,
-                     void* stream) {
-  return launch<float>(x, u, v, g, p, n, mode, out, stream);
+                     const void* g, const void* mask, int p, int n, int mode,
+                     void* out, void* stream) {
+  return launch<float>(x, u, v, g, mask, p, n, mode, out, stream);
 }
 
 }  // extern "C"

@@ -6,7 +6,8 @@ K1 ``symcoo_spmm`` (csrc/symcoo_spmm.cu): A·M for a symmetric COO matrix
    ``hess`` of the MaxCut problem and the certificate, and ``al_hess``, the
    primal augmented-Lagrangian Hessian.
 K2 ``oblique_cols`` (csrc/oblique_cols.cu): the oblique manifold's column
-   ops ``proj``, ``retr`` and ``renormalize``.
+   ops ``proj``, ``retr`` and ``renormalize``; with a 0/1 column mask, the
+   masked product manifold of the multiblock drivers.
 K3 ``pattern_dots`` (csrc/pattern_dots.cu): the pair dots
    <Y[:, i_e], U[:, j_e]> over a column-sorted pattern (an SDDMM).
 K4 ``csr_gather`` (csrc/csr_gather.cu): y_r = base_r + alpha ·
@@ -22,6 +23,10 @@ K7 ``symdual_apply`` (csrc/symdual_apply.cu): the SOS-dual tensor
 K8 ``symdual_adjoint`` (csrc/symdual_adjoint.cu): its adjoint (mode
    ``adjoint``) and the duplicate-copy projections of a factor
    (``sym_factor``) and of a matrix (``sym_mat``).
+K9 ``symmom_apply`` (csrc/symmom_apply.cu): the BQP moment operator's rows
+   A(M) of an (n~, n~) matrix in the flat layout, don't-care slots 0.
+K10 ``symmom_adjoint`` (csrc/symmom_adjoint.cu): its exact adjoint A'(y),
+   with the fused epilogue base + alpha * A'(y).
 
 A wrapper given CPU tensors runs the plain PyTorch twin beside it; given
 CUDA tensors it launches the kernel (building it on first use) or
@@ -36,15 +41,18 @@ from .build import build
 
 LAUNCHES = {"symcoo_spmm": 0, "oblique_cols": 0, "pattern_dots": 0,
             "csr_gather": 0, "masked_sym": 0, "oa_refine": 0,
-            "symdual_apply": 0, "symdual_adjoint": 0}
+            "symdual_apply": 0, "symdual_adjoint": 0, "symmom_apply": 0,
+            "symmom_adjoint": 0}
 
 # "al_hess" is kernel mode 4, or 5 when eG selects the diag epilogue
 SPMM_MODES = {"plain": 0, "shift": 1, "cost": 2, "hess": 3, "al_hess": 4}
 # K1's launches by mode (their sum is LAUNCHES["symcoo_spmm"])
 SPMM_LAUNCHES = {mode: 0 for mode in SPMM_MODES}
 OBLIQUE_MODES = {"proj": 0, "retr": 1, "renormalize": 2}
-# K2's launches by mode; "proj_eG" is proj with the Hessian's - v o g term
-OBLIQUE_LAUNCHES = {"proj": 0, "proj_eG": 0, "retr": 0, "renormalize": 0}
+# K2's launches by mode; "proj_eG" is proj with the Hessian's - v o g term;
+# "masked" counts the launches of any mode that were given a column mask
+OBLIQUE_LAUNCHES = {"proj": 0, "proj_eG": 0, "retr": 0, "renormalize": 0,
+                    "masked": 0}
 # K4's launches by mode: "gather" (y_r at r) and "scatter_pos" (at pos_r)
 CSR_LAUNCHES = {"gather": 0, "scatter_pos": 0}
 MASKED_MODES = {"apply": 0, "aat": 1, "axpy": 2}
@@ -180,23 +188,29 @@ def symcoo_spmm(A, C, mode="plain", vals=None, z=None, B=None, eG=None,
 
 # -------------------------------------------------------------------- K2 --
 
-def oblique_cols_plain(x, u=None, mode="proj", v=None, g=None):
-    """Plain twin of K2: manifolds/oblique.py of the JAX package, and with
-    ``v``, ``g`` the oblique Hessian epilogue of solvers/dual_al.py."""
+def oblique_cols_plain(x, u=None, mode="proj", v=None, g=None, mask=None):
+    """Plain twin of K2: manifolds/oblique.py of the JAX package, with
+    ``v``, ``g`` the oblique Hessian epilogue of solvers/dual_al.py, and
+    with ``mask`` manifolds/product.py's MaskedProduct (columns with mask 0
+    are neither projected nor normalized)."""
     if mode == "proj":
-        out = u - x * torch.sum(x * u, dim=0, keepdim=True)
+        s = torch.sum(x * u, dim=0, keepdim=True)
+        out = u - x * (s if mask is None else s * mask[None, :])
         return out if v is None else out - v * g[None, :]
-    if mode == "retr":
-        xtd = x + u
-        return xtd / torch.sqrt(torch.sum(xtd * xtd, dim=0, keepdim=True))
-    if mode == "renormalize":
-        return x / torch.sqrt(torch.sum(x * x, dim=0, keepdim=True))
-    raise ValueError(f"unknown oblique_cols mode {mode!r}")
+    if mode not in ("retr", "renormalize"):
+        raise ValueError(f"unknown oblique_cols mode {mode!r}")
+    xtd = x + u if mode == "retr" else x
+    nrm = torch.sqrt(torch.sum(xtd * xtd, dim=0, keepdim=True))
+    if mask is not None:
+        nrm = torch.where(mask[None, :] > 0, nrm, torch.ones_like(nrm))
+    return xtd / nrm
 
 
-def oblique_cols(x, u=None, mode="proj", v=None, g=None):
+def oblique_cols(x, u=None, mode="proj", v=None, g=None, mask=None):
     """K2 on contiguous (p, n) ``x`` (and ``u`` for proj / retr).  proj
-    with ``v`` (p, n) and ``g`` (n,) returns u - x ∘ colsum(x ∘ u) - v ∘ g."""
+    with ``v`` (p, n) and ``g`` (n,) returns u - x ∘ colsum(x ∘ u) - v ∘ g.
+    ``mask`` (n,) 0/1 in x's dtype: columns with mask 0 skip the projection
+    (colsum ∘ mask) and the normalization (divided by 1)."""
     if mode not in OBLIQUE_MODES:
         raise ValueError(f"unknown oblique_cols mode {mode!r}")
     if (u is None) != (mode == "renormalize"):
@@ -204,26 +218,31 @@ def oblique_cols(x, u=None, mode="proj", v=None, g=None):
                          f"{'no' if mode == 'renormalize' else 'a'} u")
     if (v is None) != (g is None) or (v is not None and mode != "proj"):
         raise ValueError("v and g go together, in mode 'proj' only")
-    if not _on_cuda(x, u, v, g):
-        return oblique_cols_plain(x, u, mode, v, g)
-    _check_dtype(x.dtype, x, u, v, g)
+    if not _on_cuda(x, u, v, g, mask):
+        return oblique_cols_plain(x, u, mode, v, g, mask)
+    _check_dtype(x.dtype, x, u, v, g, mask)
     if x.dim() != 2 or any(t is not None and t.shape != x.shape
                            for t in (u, v)):
         raise ValueError("x, u and v must be the same (p, n) shape")
     p, n = x.shape
-    if g is not None and g.shape != (n,):
-        raise ValueError(f"g has shape {tuple(g.shape)}, expected ({n},)")
-    if not all(t.is_contiguous() for t in (x, u, v, g) if t is not None):
+    for name, t in (("g", g), ("mask", mask)):
+        if t is not None and t.shape != (n,):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"({n},)")
+    if not all(t.is_contiguous() for t in (x, u, v, g, mask)
+               if t is not None):
         raise ValueError("oblique_cols takes contiguous row-major tensors")
     out = torch.empty_like(x)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     fn = getattr(build(), f"oblique_cols_{_SUFFIX[x.dtype]}")
-    err = fn(x.data_ptr(), ptr(u), ptr(v), ptr(g), p, n,
+    err = fn(x.data_ptr(), ptr(u), ptr(v), ptr(g), ptr(mask), p, n,
              OBLIQUE_MODES[mode], out.data_ptr(), _stream(x))
     if err != 0:
         raise RuntimeError(f"oblique_cols launch failed: CUDA error {err}")
     LAUNCHES["oblique_cols"] += 1
     OBLIQUE_LAUNCHES["proj_eG" if v is not None else mode] += 1
+    if mask is not None:
+        OBLIQUE_LAUNCHES["masked"] += 1
     return out
 
 
@@ -600,6 +619,84 @@ def symdual_sym_mat(M, q: int):
     return out
 
 
+# ------------------------------------------------------------------- K9 --
+
+def symmom_flat_length(q: int) -> int:
+    """Length of K9's flat layout, 1 + q + 3q^2 + 2q^3 + q^4."""
+    return 1 + q + 3 * q * q + 2 * q ** 3 + q ** 4
+
+
+def symmom_apply_plain(M, q: int):
+    """Plain twin of K9: the JAX package's _apply_jit (ops/symmom.py)."""
+    from ..ops.symmom import apply_plain
+    return apply_plain(M, q)
+
+
+def symmom_apply(M, q: int):
+    """K9 on a contiguous (n~, n~) ``M``, n~ = 2 + q + q^2: the bqpmom rows
+    of Sym(M) in the flat (1 + q + 3q^2 + 2q^3 + q^4,) layout, every
+    don't-care slot 0."""
+    if not _on_cuda(M):
+        return symmom_apply_plain(M, q)
+    _check_dtype(M.dtype, M)
+    n = _qn(q)
+    if M.shape != (n, n) or not M.is_contiguous():
+        raise ValueError(f"M must be contiguous ({n}, {n}) for q = {q}, got "
+                         f"{tuple(M.shape)}")
+    m = symmom_flat_length(q)
+    if m >= 2 ** 31:
+        raise ValueError(f"q = {q}: the flat length {m} exceeds int32")
+    if q * q * M.element_size() > 227 * 1024:
+        raise ValueError(f"q = {q}: the q x q slab exceeds shared memory")
+    ct = torch.empty((q ** 4,), dtype=M.dtype, device=M.device)
+    out = torch.empty((m,), dtype=M.dtype, device=M.device)
+    fn = getattr(build(), f"symmom_apply_{_SUFFIX[M.dtype]}")
+    err = fn(M.data_ptr(), q, ct.data_ptr(), out.data_ptr(), _stream(M))
+    if err != 0:
+        raise RuntimeError(f"symmom_apply launch failed: CUDA error {err}")
+    LAUNCHES["symmom_apply"] += 1
+    return out
+
+
+# ------------------------------------------------------------------- K10 --
+
+def symmom_adjoint_plain(y, q: int, base=None, alpha=1.0):
+    """Plain twin of K10: the JAX package's _adjoint_jit (ops/symmom.py),
+    then base + alpha * A'(y)."""
+    from ..ops.symmom import adjoint_plain
+    W = adjoint_plain(y, q)
+    return alpha * W if base is None else base + alpha * W
+
+
+def symmom_adjoint(y, q: int, base=None, alpha=1.0):
+    """K10 on a contiguous flat (m,) ``y``: the (n~, n~) matrix
+    base + alpha * A'(y) (no ``base``: alpha * A'(y)); ``alpha`` is a
+    Python number.  Don't-care slots of y are never read."""
+    if not _on_cuda(y, base):
+        return symmom_adjoint_plain(y, q, base, alpha)
+    _check_dtype(y.dtype, y, base)
+    n = _qn(q)
+    if n > 65535:
+        raise ValueError(f"n~ = {n} exceeds the kernel's grid (q <= 254)")
+    m = symmom_flat_length(q)
+    if y.shape != (m,) or not y.is_contiguous():
+        raise ValueError(f"y must be contiguous ({m},) for q = {q}, got "
+                         f"{tuple(y.shape)}")
+    if base is not None and (base.shape != (n, n) or
+                             not base.is_contiguous()):
+        raise ValueError(f"base must be contiguous ({n}, {n})")
+    ws = torch.empty((1 + 2 * q + 2 * q * q,), dtype=y.dtype,
+                     device=y.device)
+    out = torch.empty((n, n), dtype=y.dtype, device=y.device)
+    fn = getattr(build(), f"symmom_adjoint_{_SUFFIX[y.dtype]}")
+    err = fn(y.data_ptr(), q, base.data_ptr() if base is not None else None,
+             float(alpha), ws.data_ptr(), out.data_ptr(), _stream(y))
+    if err != 0:
+        raise RuntimeError(f"symmom_adjoint launch failed: CUDA error {err}")
+    LAUNCHES["symmom_adjoint"] += 1
+    return out
+
+
 __all__ = ["LAUNCHES", "SPMM_LAUNCHES", "CSR_LAUNCHES", "MASKED_LAUNCHES",
            "OBLIQUE_LAUNCHES", "SYMDUAL_LAUNCHES", "reset_launches", "symcoo_spmm", "symcoo_spmm_plain",
            "oblique_cols", "oblique_cols_plain", "pattern_dots",
@@ -608,4 +705,6 @@ __all__ = ["LAUNCHES", "SPMM_LAUNCHES", "CSR_LAUNCHES", "MASKED_LAUNCHES",
            "symdual_apply", "symdual_apply_plain", "symdual_adjoint",
            "symdual_adjoint_plain", "symdual_sym_factor",
            "symdual_sym_factor_plain", "symdual_sym_mat",
-           "symdual_sym_mat_plain", "build"]
+           "symdual_sym_mat_plain", "symmom_apply", "symmom_apply_plain",
+           "symmom_flat_length",
+           "symmom_adjoint", "symmom_adjoint_plain", "build"]

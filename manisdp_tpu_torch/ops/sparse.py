@@ -210,6 +210,38 @@ class ConstraintOp(_MVecResiduals):
         return ConstraintOp.from_arrays(arrays, device)
 
     @staticmethod
+    def build_multiblock(At, b, c, ns, device) -> "ConstraintOp":
+        """Multi-block SeDuMi data: At (sum n_i^2, m) with blockwise
+        column-major vec stacking (ManiSDP_multiblock.m:67-72).  The blocks
+        collapse into one (sum n_i)-column space: entry L of block bl at
+        local (i, j) maps to global (off_bl + i, off_bl + j), so X stays
+        block-diagonal (no constraint couples two blocks)."""
+        import scipy.sparse as sp
+        ns = np.asarray(ns, dtype=np.int64)
+        off = np.concatenate([[0], np.cumsum(ns)])
+        off2 = np.concatenate([[0], np.cumsum(ns ** 2)])
+        N = int(off[-1])
+
+        def to_global(lin):
+            bl = np.searchsorted(off2, lin, side="right") - 1
+            loc = lin - off2[bl]
+            return loc % ns[bl] + off[bl], loc // ns[bl] + off[bl]
+
+        A = sp.csr_matrix(At.T) if not sp.issparse(At) else At.T.tocsr()
+        m = A.shape[0]
+        coo = A.tocoo()
+        kk = coo.row.astype(np.int64)
+        ii, jj = to_global(coo.col.astype(np.int64))
+        vv = coo.data.astype(np.float64)
+
+        c = np.asarray(c).ravel().astype(np.float64)
+        cl = np.nonzero(c)[0].astype(np.int64)
+        ci, cj = to_global(cl)
+        arrays = ConstraintOp._assemble(kk, ii, jj, vv, ci, cj, c[cl], b, N,
+                                        m)
+        return ConstraintOp.from_arrays(arrays, device)
+
+    @staticmethod
     def _assemble(kk, ii, jj, vv, ci, cj, cv, b, n, m) -> dict:
         """Host arrays of the operator (the JAX package's ``_assemble``):
         entries sorted by k, the union pattern sorted by (j, i), both

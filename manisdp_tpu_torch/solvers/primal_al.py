@@ -24,7 +24,11 @@ the Gram YᵀU and the products are GEMMs, A and its adjoint K4 gathers /
 scatters or kernel K5.  The dual certificate is a device eigh of the
 dense S at small n, the device LOBPCG class otherwise, or on a carrier
 with cert_method="dense_eigh" the f32-eigh + refinement certificate
-(``ops/dense_cert.py``, kernel K6).
+(``ops/dense_cert.py``, kernel K6).  An operator over a redundant basis
+(``ops/symmom.SymMomOp``, the BQP moment relaxation on kernels K9 and
+K10) is taken as it is: the solver projects its factor onto the
+duplicate-symmetric subspace at the JAX package's three sites and
+certifies in the compressed original basis.
 
 The constraint matrices A_k and C are assumed symmetric (SeDuMi
 semantics), as in the JAX package.
@@ -174,6 +178,32 @@ def _make_certificate(variant: ALVariant, op, n: int, k: int,
     cert(Y, sv, z, gap, pinf) -> (lam_min, lam_max, num_neg,
     neg_vecs (n, k) on the device, neg_vals)."""
     factored = isinstance(op, ConstraintOp)
+    if getattr(op, "compress_coef", None) is not None:
+        # expanded-basis operator (SymMomOp): certify the original-basis
+        # S = mat(c - A'y) - diag(z), z = colsum(S o X) (the reference's
+        # ManiSDP_unitdiag.m:65-69) with the dense f32-eigh + refinement
+        # engine; checked before use_eigh, since n~ < eig_switch_n at small q
+        dc = DenseEighCert(op.n_orig, k)
+        s2 = float(np.sqrt(2.0))
+
+        def cert(Y, sv, z, gap=np.inf, pinf=np.inf):
+            Yo = Y.index_select(1, op.dup0)
+            Xo = Yo.T @ Yo
+            So = op.compress_coef(sv)
+            Mo = So - torch.diag(torch.sum(So * Xo, dim=0))
+            Mo = 0.5 * (Mo + Mo.T)
+            far = max(gap, pinf) > max(opt.cert_cheap_eta, opt.tol)
+            res = dc.certify(Mo, far, opt.tol)
+            # a unit original eigenvector lifts to norm sqrt(2) on the
+            # duplicated basis: scale the unit lift back up, so the escape
+            # step matches the reference trajectory
+            vecs = s2 * op.lift_vecs(res.neg_vecs[:, :k])
+            vals = torch.full((k,), np.nan, dtype=vecs.dtype,
+                              device=vecs.device)
+            vals[0] = res.lam_min
+            return res.lam_min, res.lam_max, res.num_neg, vecs, vals
+        return cert
+
     if (not factored and not use_eigh and opt.eig_method == "auto" and
             n <= opt.dense_cert_max_n and opt.cert_method == "dense_eigh"):
         # the dense carrier's sv is the dense dual slack: one f32 eigh (and
@@ -304,10 +334,14 @@ def _device_rank_rebuild(variant: ALVariant, opt: SolverOptions, Y, UlT,
     return Yn, V
 
 
-def _select_operator(opt: SolverOptions, op: ConstraintOp):
+def _select_operator(opt: SolverOptions, op):
     """The JAX package's operator ladder (config.al_op_mode): the entrywise
     carrier for entrywise constraint sets at n <= entrywise_al_max_n, the
-    dense carrier at n <= dense_al_max_n, else the factored operator."""
+    dense carrier at n <= dense_al_max_n, else the factored operator.  An
+    operator that is not a ConstraintOp (SymMomOp) is already specialized
+    and is taken as it is."""
+    if not isinstance(op, ConstraintOp):
+        return op
     mode, n = opt.al_op_mode, op.n
     if mode not in ("auto", "entrywise", "dense", "sparse"):
         raise ValueError(f"unknown al_op_mode {mode!r}")
@@ -350,7 +384,10 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
     if opt.verbose:
         print(f"ManiSDP-TPU ({variant.name}, torch) is starting...",
               flush=True)
-        print(f"SDP size: n = {n}, m = {m}", flush=True)
+        # expanded operators carry an inflated flat residual length;
+        # report the true constraint count
+        print(f"SDP size: n = {n}, m = {getattr(op, 'm_true', m)}",
+              flush=True)
 
     problem, cost_only = _make_problem(variant)
     M = variant.manifold
@@ -392,6 +429,13 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
         Y = as_dev(pad_rows(Y0, p_pad))
     else:
         Y = M.rand(gen, p, n, p_pad)
+    # operators over a redundant basis (SymMomOp) supply a symmetrize hook:
+    # the initial, every inner-solved and every rebuilt factor are
+    # projected onto the duplicate-symmetric subspace, where the expanded
+    # dynamics reproduce the reference trajectory
+    symmetrize = getattr(op, "symmetrize", None)
+    if symmetrize is not None:
+        Y = symmetrize(Y)
     U_dir = None
 
     y = op.res_zeros() if y0 is None else op.res_from_mvec(y0)
@@ -419,6 +463,8 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
                               sigma=sigma) if use32 else None
             res = solve(Y, params, typdist, params_tcg=params_tcg)
             Y = res.Y
+            if symmetrize is not None:
+                Y = symmetrize(Y)
             gradnorm = float(res.norm_grad)
         total_tr += res.iters
         total_hess += res.inner_iters
@@ -505,6 +551,12 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
                 Y = as_dev(pad_rows(Y_host, p_pad))
                 U_dir = as_dev(pad_rows(U_host, p_pad)) \
                     if U_host is not None else None
+            if symmetrize is not None:
+                # renorm=False: the reference renormalizes only the
+                # stepped point
+                Y = symmetrize(Y, renorm=False)
+                if U_dir is not None:
+                    U_dir = symmetrize(U_dir, renorm=False)
 
         # ---- sigma schedule ----
         if pinf < opt.tau1 * gradnorm:

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import threadpoolctl
 import torch
 
 from manisdp_tpu import solve_sdp as j_sdp
@@ -27,6 +28,20 @@ from manisdp_tpu_torch.ops.sparse import (ConstraintOp, DenseConstraintOp,
                                           EntrywiseConstraintOp)
 from manisdp_tpu_torch.solvers import primal_al as tal
 from manisdp_tpu_torch.utils.checkpoint import resume_kwargs
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """Torch and BLAS on one thread for this module: the parallel test run
+    puts several workers on the CPU, and their thread pools then
+    oversubscribe it, so the solvers' many small ops and LAPACK calls spin
+    (a 1 s multiblock solve took minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+
 
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
 P_PAD = 8

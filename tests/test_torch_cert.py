@@ -7,6 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from manisdp_tpu.ops.eigs_rr import DeviceCertSolver as JDeviceCert
@@ -21,6 +22,21 @@ from test_maxcut import random_graph_cost
 N, K_CERT, P, DR = 300, 9, 6, 48
 # converged Ritz values agree to ~1e-12 of the spectral scale; 1e-9
 # relative leaves room for the LOBPCG stopping at a different iteration
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """Torch and BLAS on one thread for this module: the parallel test run
+    puts several workers on the CPU, and their thread pools then
+    oversubscribe it, so the solvers' many small ops and LAPACK calls spin
+    (a 1 s multiblock solve took minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-9
 
 

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import threadpoolctl
 import torch
 
 from manisdp_tpu.ops.sparse import ConstraintOp as JOp
@@ -16,6 +17,21 @@ from manisdp_tpu_torch.convert import constraint_op_from_jax
 from manisdp_tpu_torch.ops.sparse import ConstraintOp
 
 N, M, P_PAD = 12, 30, 8
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """Torch and BLAS on one thread for this module: the parallel test run
+    puts several workers on the CPU, and their thread pools then
+    oversubscribe it, so the solvers' many small ops and LAPACK calls spin
+    (a 1 s multiblock solve took minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+
+
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
 ARRAYS = ("k", "i", "j", "v", "a2p", "b", "kp", "vp", "a2p_sorted")
 

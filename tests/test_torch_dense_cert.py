@@ -6,12 +6,26 @@ step's outputs, and the driver's tiers in DenseEighCert.certify."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from manisdp_tpu.ops import dense_cert as jdc
 from manisdp_tpu_torch import kernels as K
 from manisdp_tpu_torch.ops import dense_cert as tdc
 from test_dense_cert import _planted
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """Torch and BLAS on one thread for this module: the parallel test run
+    puts several workers on the CPU, and their thread pools then
+    oversubscribe it, so the solvers' many small ops and LAPACK calls spin
+    (a 1 s multiblock solve took minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
 
 
 def _both(X, k, tier, **kw):

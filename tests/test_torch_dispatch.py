@@ -1,13 +1,16 @@
 """The port's SeDuMi dispatcher against the JAX package's: one PSD block goes
 to the general driver (the same answer as solve_sdp, and STLS through the
-dispatcher reaches the JAX optimum); an LP cone or several blocks raise,
-naming the multiblock driver the port does not have yet."""
+dispatcher reaches the JAX optimum); an LP cone or several blocks go to the
+multiblock driver with the LP part as leading 1x1 blocks, as in the JAX
+package (the solves themselves are in test_torch_multiblock.py)."""
 
 import dataclasses
 import inspect
 
 import numpy as np
 import pytest
+import threadpoolctl
+import torch
 
 from manisdp_tpu.solvers.dispatch import solve_sedumi as j_sedumi
 from manisdp_tpu_torch import recipes, solve_sdp, solve_sedumi
@@ -16,6 +19,20 @@ from manisdp_tpu_torch.frontends.stls import (extract_solution,
                                               nearest_hankel_sdp,
                                               stls_objective)
 from manisdp_tpu_torch.frontends.workloads import matrix_completion
+from manisdp_tpu_torch.solvers import dispatch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """Torch and BLAS on one thread for this module: the parallel test run
+    puts several workers on the CPU, and their thread pools then
+    oversubscribe it, so the solvers' many small ops and LAPACK calls spin
+    (a 1 s multiblock solve took minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
 
 
 def test_signature_is_the_jax_one_plus_device():
@@ -41,11 +58,19 @@ def test_one_block_equals_solve_sdp():
 
 @pytest.mark.parametrize("K", [Cone(l=2, s=[4]), Cone(s=[3, 4]),
                                Cone(l=1, s=[2, 3])])
-def test_lp_cone_or_multiblock_raises(K):
+def test_lp_cone_or_multiblock_raises(K, monkeypatch):
+    """No longer raises: K.l > 0 or several PSD blocks reach
+    solve_multiblock with ns = [1] * l + s and nob = 0."""
     data, _ = matrix_completion(2, 2, rank=1, m_samples=4, seed=0)
     data = dataclasses.replace(data, K=K)
-    with pytest.raises(NotImplementedError, match="multiblock driver"):
-        solve_sedumi(data, device="cpu", verbose=False)
+    calls = []
+    monkeypatch.setattr(dispatch, "solve_multiblock",
+                        lambda *a, **kw: calls.append((a, kw)) or "routed")
+    assert solve_sedumi(data, device="cpu", verbose=False) == "routed"
+    (args, kw), = calls
+    assert args == (data.At, data.b, data.c)
+    assert kw["ns"] == [1] * int(K.l or 0) + list(K.s) and kw["nob"] == 0
+    assert kw["device"] == "cpu" and kw["verbose"] is False
 
 
 def test_stls_through_the_dispatcher_matches_jax():

@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from manisdp_tpu import solve_dual_sdp as j_dual_sdp
@@ -32,6 +33,20 @@ from manisdp_tpu_torch.solvers import dual_al as tal
 from manisdp_tpu_torch.solvers.dual_general import build_iab
 from manisdp_tpu_torch.solvers.dual_unitdiag import solve_bqp_sos_dual
 from manisdp_tpu_torch.utils.checkpoint import load_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """Torch and BLAS on one thread for this module: the parallel test run
+    puts several workers on the CPU, and their thread pools then
+    oversubscribe it, so the solvers' many small ops and LAPACK calls spin
+    (a 1 s multiblock solve took minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+
 
 CPU = dict(device="cpu", verbose=False)
 

@@ -6,6 +6,7 @@ over the sphere (qssos, d = 4)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from manisdp_tpu.frontends.monomials import monomial_basis
@@ -17,6 +18,20 @@ from manisdp_tpu_torch.frontends.sos import assemble_bqpsos, qssos
 from manisdp_tpu_torch.ops.dualops import DualOp
 from manisdp_tpu_torch.solvers import dual_al as tal
 from manisdp_tpu_torch.solvers.dual_general import build_iab
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """Torch and BLAS on one thread for this module: the parallel test run
+    puts several workers on the CPU, and their thread pools then
+    oversubscribe it, so the solvers' many small ops and LAPACK calls spin
+    (a 1 s multiblock solve took minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+
 
 FIELDS = ("k_r", "lin_r", "v_r", "k_c", "lin_c", "v_c", "b", "cf", "C",
           "idAAt", "bA", "Ac")

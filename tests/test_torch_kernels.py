@@ -1,4 +1,4 @@
-"""Kernel build and launch plumbing of manisdp_tpu_torch, and K1-K8 on
+"""Kernel build and launch plumbing of manisdp_tpu_torch, and K1-K10 on
 the card against their plain twins.
 
 This file imports no jax, so the card tests run on a machine without it:
@@ -56,15 +56,19 @@ def test_reset_launches():
     K.MASKED_LAUNCHES["aat"] = 5
     K.OBLIQUE_LAUNCHES["proj_eG"] = 6
     K.SYMDUAL_LAUNCHES["sym_mat"] = 7
+    K.LAUNCHES["symmom_adjoint"] = 8
+    K.OBLIQUE_LAUNCHES["masked"] = 9
     K.reset_launches()
     assert K.LAUNCHES == {"symcoo_spmm": 0, "oblique_cols": 0,
                           "pattern_dots": 0, "csr_gather": 0,
                           "masked_sym": 0, "oa_refine": 0,
-                          "symdual_apply": 0, "symdual_adjoint": 0}
+                          "symdual_apply": 0, "symdual_adjoint": 0,
+                          "symmom_apply": 0, "symmom_adjoint": 0}
     assert set(K.SPMM_LAUNCHES) == set(K.SPMM_MODES)
     assert set(K.MASKED_LAUNCHES) == set(K.MASKED_MODES)
     assert set(K.CSR_LAUNCHES) == {"gather", "scatter_pos"}
-    assert set(K.OBLIQUE_LAUNCHES) == set(K.OBLIQUE_MODES) | {"proj_eG"}
+    assert set(K.OBLIQUE_LAUNCHES) == set(K.OBLIQUE_MODES) | {"proj_eG",
+                                                              "masked"}
     assert set(K.SYMDUAL_LAUNCHES) == {"adjoint", "sym_factor", "sym_mat"}
     for counts in (K.SPMM_LAUNCHES, K.CSR_LAUNCHES, K.MASKED_LAUNCHES,
                    K.OBLIQUE_LAUNCHES, K.SYMDUAL_LAUNCHES):
@@ -476,3 +480,84 @@ def test_symdual_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         K.oblique_cols(M, M.cpu(), "proj")                 # CPU / CUDA mix
     with pytest.raises(ValueError):
         K.oblique_cols(M, M, "retr", v=M, g=M[0])          # eG in proj only
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("q", [3, 7, 20])
+def test_symmom_kernels_match_twins_on_card(cuda_device, dtype, q):
+    """K9 on every slot (don't-care slots 0 in both) and K10 with and
+    without its fused base, with NaN in y's don't-care slots (never
+    read)."""
+    from manisdp_tpu_torch.ops.symmom import dontcare_mask
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    n = 2 + q + q * q
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(q)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=torch.float64,  # noqa: E731
+                                 device=cuda_device).to(dtype)
+    M, C = rnd(n, n), rnd(n, n)
+    before = dict(K.LAUNCHES)
+    got, ref = K.symmom_apply(M, q), K.symmom_apply_plain(M, q)
+    assert got.device.type == "cuda" and got.dtype == dtype
+    assert _rel(got, ref) <= tol
+    dc = torch.as_tensor(dontcare_mask(q), device=cuda_device)
+    assert not torch.any(got[dc] != 0)
+    y = rnd(got.shape[0])
+    clean = torch.where(dc, torch.zeros_like(y), y)
+    dirty = torch.where(dc, torch.full_like(y, float("nan")), y)
+    for kw in ({}, dict(base=C, alpha=-0.37)):
+        got = K.symmom_adjoint(dirty, q, **kw)
+        assert not torch.any(torch.isnan(got))
+        assert _rel(got, K.symmom_adjoint_plain(clean, q, **kw)) <= tol
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["symmom_apply"] - before["symmom_apply"] == 1
+    assert K.LAUNCHES["symmom_adjoint"] - before["symmom_adjoint"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_oblique_masked_matches_twin_on_card(cuda_device, dtype):
+    """K2's masked mode in every mode; without a mask the kernel gives
+    bit for bit what it gave before (mask all ones = no mask)."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=dtype,  # noqa: E731
+                                 device=cuda_device)
+    Y, H, U, g = rnd(24, 500), rnd(24, 500), rnd(24, 500), rnd(500)
+    mask = (torch.rand(500, generator=gen, device=cuda_device) < 0.5) \
+        .to(dtype)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    before = K.OBLIQUE_LAUNCHES["masked"]
+    for mode, u, kw in (("proj", H, {}), ("proj", H, dict(v=U, g=g)),
+                        ("retr", H, {}), ("renormalize", None, {})):
+        got = K.oblique_cols(Y, u, mode, mask=mask, **kw)
+        ref = K.oblique_cols_plain(Y, u, mode, mask=mask, **kw)
+        assert _rel(got, ref) <= tol
+        off = mask == 0
+        if mode == "proj" and not kw:
+            assert torch.equal(got[:, off], H[:, off])
+        if mode == "renormalize":
+            assert torch.equal(got[:, off], Y[:, off])
+        ones = K.oblique_cols(Y, u, mode, mask=torch.ones_like(mask), **kw)
+        assert torch.equal(ones, K.oblique_cols(Y, u, mode, **kw))
+    torch.cuda.synchronize()
+    assert K.OBLIQUE_LAUNCHES["masked"] - before == 8
+
+
+@pytest.mark.cuda
+def test_symmom_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q, n = 3, 14
+    M = torch.ones((n, n), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError):
+        K.symmom_apply(M[:, :7], q)                        # wrong shape
+    with pytest.raises(ValueError):
+        K.symmom_apply(M.T, q)                             # not contiguous
+    y = torch.ones(K.symmom_apply(M, q).shape[0] + 1, dtype=M.dtype,
+                   device=cuda_device)
+    with pytest.raises(ValueError):
+        K.symmom_adjoint(y, q)                             # wrong length
+    with pytest.raises(TypeError):
+        K.symmom_adjoint(y[:-1], q, base=M.float())        # dtype mix
+    with pytest.raises(ValueError):
+        K.oblique_cols(M, M, "proj", mask=M[0, :5])        # mask length

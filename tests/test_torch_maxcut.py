@@ -4,12 +4,26 @@ package's optimum from the same explicit Y0."""
 
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from manisdp_tpu import solve_maxcut_unitdiag as j_solve
 from manisdp_tpu_torch import SolverOptions, solve_maxcut_unitdiag
 from manisdp_tpu_torch.utils.checkpoint import resume_kwargs
 from test_maxcut import kkt_oracle, random_graph_cost
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """Torch and BLAS on one thread for this module: the parallel test run
+    puts several workers on the CPU, and their thread pools then
+    oversubscribe it, so the solvers' many small ops and LAPACK calls spin
+    (a 1 s multiblock solve took minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
 
 
 def _y0(p, n, seed):

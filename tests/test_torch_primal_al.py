@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import threadpoolctl
 import torch
 
 from manisdp_tpu import manifolds as jman
@@ -29,6 +30,20 @@ from manisdp_tpu_torch.solvers import primal_al as tal
 from manisdp_tpu_torch.utils.checkpoint import resume_kwargs
 from test_primal_al import diag_constraints, kkt_oracle, random_sym_cost
 from test_torch_constraint_op import random_sdp
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """Torch and BLAS on one thread for this module: the parallel test run
+    puts several workers on the CPU, and their thread pools then
+    oversubscribe it, so the solvers' many small ops and LAPACK calls spin
+    (a 1 s multiblock solve took minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+
 
 SPARSE = dict(al_op_mode="sparse", verbose=False)
 

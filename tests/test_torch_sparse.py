@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import threadpoolctl
 import torch
 
 from manisdp_tpu.ops.sparse import SymCOO as JSymCOO
@@ -16,6 +17,21 @@ from manisdp_tpu_torch.convert import factor_from_numpy, symcoo_from_arrays
 from manisdp_tpu_torch.ops.sparse import SymCOO, pair_dots, scatter_cols
 
 # relative to the largest entry: different summation order only
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """Torch and BLAS on one thread for this module: the parallel test run
+    puts several workers on the CPU, and their thread pools then
+    oversubscribe it, so the solvers' many small ops and LAPACK calls spin
+    (a 1 s multiblock solve took minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+
+
 TOL = {np.float64: 1e-13, np.float32: 1e-5}
 N, P, P_PAD = 40, 5, 8
 

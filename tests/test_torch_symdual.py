@@ -10,6 +10,7 @@ tests/test_symdual.py anchors the JAX one."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from manisdp_tpu.ops import symdual as jsd
@@ -17,6 +18,20 @@ from manisdp_tpu.ops.dualops import DualOp as JDualOp
 from manisdp_tpu_torch.convert import symdual_op_from_jax
 from manisdp_tpu_torch.ops import symdual as tsd
 from manisdp_tpu_torch.ops.dualops import DualOp
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """Torch and BLAS on one thread for this module: the parallel test run
+    puts several workers on the CPU, and their thread pools then
+    oversubscribe it, so the solvers' many small ops and LAPACK calls spin
+    (a 1 s multiblock solve took minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+
 
 QS = [5, 7]
 

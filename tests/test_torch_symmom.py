@@ -1,0 +1,167 @@
+"""The port's SymMomOp (the BQP moment operator on the expanded basis,
+kernels K9 / K10 through their plain twins on the CPU) against the JAX
+package's on the same numpy inputs, at q = 4, 5 and 7: apply and adjoint
+on every slot, adjointness, don't-care slots never read, the host build,
+the duplicate-copy hooks, the JAX converter, and chip_smoke.py's copy of
+the slot map that ties the flat layout to the reference's rows."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import threadpoolctl
+import torch
+
+import chip_smoke
+from manisdp_tpu.frontends.moments import bqpmom
+from manisdp_tpu.ops import symmom as jsm
+from manisdp_tpu_torch.convert import symmom_op_from_jax
+from manisdp_tpu_torch.ops import symmom as tsm
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """Torch and BLAS on one thread for this module: the parallel test run
+    puts several workers on the CPU, and their thread pools then
+    oversubscribe it, so the solvers' many small ops and LAPACK calls spin
+    (a 1 s multiblock solve took minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+
+
+QS = [4, 5, 7]
+TOL = {np.float64: 1e-12, np.float32: 1e-5}
+
+
+def _rel(got, ref):
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1e-300)
+
+
+def _bqp(q, seed=5):
+    rng = np.random.default_rng(seed)
+    Q = rng.standard_normal((q, q))
+    return (Q + Q.T) / 2, rng.standard_normal(q)
+
+
+@pytest.fixture(scope="module", params=QS)
+def ops(request):
+    q = request.param
+    Q, e = _bqp(q)
+    return q, jsm.SymMomOp.build_bqpmom(Q, e, q), \
+        tsm.SymMomOp.build_bqpmom(Q, e, q, device="cpu")
+
+
+@pytest.mark.parametrize("dt", [np.float64, np.float32])
+def test_apply_matches_jax_on_every_slot(ops, dt):
+    q, jop, top = ops
+    M = np.random.default_rng(q).standard_normal((top.n, top.n)).astype(dt)
+    got = top.apply_from_e(torch.as_tensor(M)).numpy()
+    ref = np.asarray(jsm._apply_jit(jnp.asarray(M), q))
+    assert got.dtype == dt and got.shape == (top.m,)
+    assert _rel(got, ref) <= TOL[dt]
+    dc = tsm.dontcare_mask(q)
+    assert not np.any(got[dc]) and not np.any(ref[dc])
+
+
+@pytest.mark.parametrize("dt", [np.float64, np.float32])
+def test_adjoint_and_fused_base_match_jax(ops, dt):
+    q, jop, top = ops
+    rng = np.random.default_rng(q + 1)
+    y = rng.standard_normal(top.m).astype(dt)
+    got = top.adjoint_on_pattern(torch.as_tensor(y)).numpy()
+    ref = np.asarray(jsm._adjoint_jit(jnp.asarray(y), q))
+    assert got.dtype == dt and _rel(got, ref) <= TOL[dt]
+    t32 = top.astype(torch.float32) if dt == np.float32 else top
+    jC = np.asarray(jop.C).astype(dt)
+    for sigma in (0.37, -1.0):
+        fused = (t32.es_vals(torch.as_tensor(y), sigma) if sigma > 0 else
+                 t32.s_vals(torch.as_tensor(y))).numpy()
+        assert _rel(fused, jC + sigma * ref) <= TOL[dt]
+
+
+def test_adjointness(ops):
+    q, _, top = ops
+    rng = np.random.default_rng(2 * q)
+    M = torch.as_tensor(rng.standard_normal((top.n, top.n)))
+    y = torch.as_tensor(rng.standard_normal(top.m))
+    y = torch.where(torch.as_tensor(tsm.dontcare_mask(q)),
+                    torch.zeros_like(y), y)
+    lhs = float(torch.sum(top.adjoint_on_pattern(y) * M))
+    rhs = float(torch.dot(y, top.apply_from_e(M)))
+    assert abs(lhs - rhs) <= 1e-12 * max(abs(lhs), 1.0)
+
+
+def test_dontcare_slots_are_never_read(ops):
+    q, _, top = ops
+    rng = np.random.default_rng(3 * q)
+    y = torch.as_tensor(rng.standard_normal(top.m))
+    dc = torch.as_tensor(tsm.dontcare_mask(q))
+    garbage = torch.where(dc, 1e6 * torch.as_tensor(
+        rng.standard_normal(top.m)), y)
+    np.testing.assert_array_equal(
+        top.adjoint_on_pattern(garbage).numpy(),
+        top.adjoint_on_pattern(torch.where(dc, 0.0, y)).numpy())
+
+
+def test_build_matches_jax(ops):
+    q, jop, top = ops
+    for k in ("C", "dup0", "dup1"):
+        np.testing.assert_array_equal(getattr(top, k).numpy(),
+                                      np.asarray(getattr(jop, k)))
+    np.testing.assert_array_equal(top.b.numpy(), np.asarray(jop.b))
+    for k in ("q", "m", "n", "m_true", "n_orig"):
+        assert getattr(top, k) == getattr(jop, k)
+    assert top.m == tsm.symmom_flat_length(q)
+    conv = symmom_op_from_jax(
+        {k: np.asarray(getattr(jop, k)) for k in
+         ("C", "dup0", "dup1", "q", "m", "n", "m_true", "n_orig")}, "cpu")
+    for k in ("C", "b", "dup0", "dup1"):
+        np.testing.assert_array_equal(getattr(conv, k).numpy(),
+                                      getattr(top, k).numpy())
+    assert (conv.q, conv.m, conv.n_orig) == (top.q, top.m, top.n_orig)
+
+
+def test_expanded_basis_hooks_match_jax(ops):
+    q, jop, top = ops
+    rng = np.random.default_rng(4 * q)
+    Y = rng.standard_normal((5, top.n))
+    for renorm in (True, False):
+        np.testing.assert_allclose(
+            top.symmetrize(torch.as_tensor(Y), renorm).numpy(),
+            np.asarray(jop.symmetrize(jnp.asarray(Y), renorm)),
+            rtol=1e-13, atol=1e-15)
+    M = rng.standard_normal((top.n, top.n))
+    np.testing.assert_array_equal(top.compress(torch.as_tensor(M)).numpy(),
+                                  np.asarray(jop.compress(jnp.asarray(M))))
+    np.testing.assert_array_equal(
+        top.compress_coef(torch.as_tensor(M)).numpy(),
+        np.asarray(jop.compress_coef(jnp.asarray(M))))
+    V = rng.standard_normal((top.n_orig, 3))
+    np.testing.assert_array_equal(top.lift_vecs(torch.as_tensor(V)).numpy(),
+                                  jop.lift_vecs(V))
+
+
+@pytest.mark.parametrize("q", [4, 6, 9])
+def test_chip_smoke_slot_map_ties_the_rows_to_bqpmom(q):
+    """chip_smoke.py's slot map (built without the monomial-basis loop)
+    equals tests/test_symmom.py's, and through it the port's apply gives
+    the reference's rows A(X) of frontends/moments.bqpmom on a duplicated
+    X."""
+    from test_symmom import _expand_values, _flat_slot_map
+    smap = chip_smoke.flat_slot_map(q)
+    np.testing.assert_array_equal(smap, _flat_slot_map(q))
+    Q, e = _bqp(q, seed=9)
+    data = bqpmom(q, Q, e)
+    top = tsm.SymMomOp.build_bqpmom(Q, e, q, device="cpu")
+    rng = np.random.default_rng(q)
+    Xo = rng.standard_normal((top.n_orig, top.n_orig))
+    Xo = Xo + Xo.T
+    rows = data.At.T @ Xo.flatten(order="F")
+    got = top.apply_from_e(torch.as_tensor(
+        _expand_values(Xo, top))).numpy()
+    np.testing.assert_allclose(got[smap], rows, rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(data.b, top.b.numpy()[smap])
