@@ -3,11 +3,12 @@
 CUDA GPU.
 
     python3 chip_smoke.py [--gset DIR] [--bqp DIR] [--seed 0] [--out DIR]
+                          [--phases 1-3,20-21]
 
 Phases (each prints one line; a failed check raises and the exit code is
 not 0):
   1. environment: torch / CUDA versions, the card's name and power limit;
-  2. build kernels K1-K10 from ``manisdp_tpu_torch/csrc``;
+  2. build kernels K1-K11 from ``manisdp_tpu_torch/csrc``;
   3. every K1 / K2 mode against its plain PyTorch twin on the card at the
      G67 shapes (n = 10^4, p_pad in {8, 24, 40, 48}, f64 and f32),
      with times;
@@ -70,14 +71,32 @@ not 0):
      two objectives must agree;
  19. ``solve_sedumi`` on a two-block input (a quartic over two spheres
      that share one variable: two moment blocks of 66), held to the
-     optimum of its SOS dual through ``solve_dual_multiblock``.
+     optimum of its SOS dual through ``solve_dual_multiblock``;
+ 20. the batched MaxCut path's kernels against their twins: K1's instance
+     mode (``plain``, ``cost``, ``hess``; library: one ``torch.sparse.mm``
+     of the block-diagonal CSR) and K2 with the instance stride at the
+     sparse batch's shape (8 instances, n_pad = 3,072, p_pad in {40, 48},
+     f64), and K11, the tCG vector step, in f64 and f32 there and at
+     B = 1 with the G67 shape;
+ 21. ``solve_maxcut_batch`` (p0 = 40, as phases 4-5) on 16 G1-size
+     stand-ins (one dense bucket of 1,024) and on 8 toroidal +-1 grids of
+     G48's shape (60 x 50) with 4 of 50 x 50 (sparse buckets of 3,072 and
+     2,560, K1's instance mode): every instance at status 0 with an
+     on-card KKT oracle and within 1e-6 of its single-instance solve; the
+     sparse batch solved twice must give bit-equal results;
+ 22. the clique chain at t = 5 through ``solve_multiblock`` twice: equal
+     histories (no float atomics in its reductions).
+``--phases`` selects phases (default all; 1-2 always run).  A phase runs
+with the rest of its group (3 | 4 | 5 | 6-7 | 8-11 | 12-15 | 16-19 |
+20 | 21 | 22), and 16-19 bring 12-15 (phase 17 reads phase 13's
+objective); the ``kernels`` line lists the kernels whose phases ran.
 The host builds of phases 17-18's SeDuMi data (numpy, about a minute
-each) run in three worker processes started with the script, beside
-phases 1-15.  Phases 9-11, 13-15 and 17-19 report peak device memory.  Every kernel case
-carries its time, its plain twin's, the least time the card could take
-(``bound_ms``: bytes at 3.35 TB/s or operations at the dtype's peak) and
-the time of one PyTorch library call computing the same function where
-there is one (``library_ms``).  Then one ``{"kernels": [...]}`` line and,
+each) and of phase 22's chain run in worker processes started with the
+script.  Phases 9-11, 13-15, 17-19 and 21 report peak device memory.
+Every kernel case carries its time, its plain twin's, the least time the
+card could take (``bound_ms``: bytes at 3.35 TB/s or operations at the
+dtype's peak) and the time of one PyTorch library call computing the same
+function where there is one (``library_ms``).  Then one ``{"kernels": [...]}`` line and,
 last, the result line ``{"ok": true, "device": {...}}``.
 
 ``--gset DIR`` reads G1.txt / G67.txt from a Gset directory and ``--bqp
@@ -133,6 +152,23 @@ QS2_PRIMAL_KW = dict(theta=1e-2, tau1=0.02, tau2=0.1, sigma0=1e-2,
                      sigma_min=1e-1, line_search=True, max_outer=1000)
 QS2_DUAL_KW = dict(gama=2.0, alpha=0.01, sigma0=1e-2, theta=1e-2, delta=6,
                    max_outer=1000)
+# the batched MaxCut path (phases 20-21): a dense bucket of G1-size
+# stand-ins and a sparse, ragged one of toroidal grids of G48's shape
+# (60 x 50) and of 50 x 50; K1 / K2 / K11 are checked at the first
+# sparse bucket's shape, p_pad in {40, 48} (p0 = 40 and its first growth)
+BATCH_DENSE = 16
+BATCH_GRID, BATCH_GRID_B = (60, 50), 8
+BATCH_GRID2, BATCH_GRID2_B = (50, 50), 4
+BATCH_N_PAD = 3072
+BATCH_P_PADS = (40, 48)
+# phase 22: a short clique chain solved twice (the determinism check)
+CHAIN5_T = 5
+# the phases and their groups: a phase runs with the rest of its group;
+# 16-19 read phase 13's SOS-dual objective
+LAST_PHASE = 22
+GROUPS = ((3,), (4,), (5,), (6, 7), (8, 9, 10, 11), (12, 13, 14, 15),
+          (16, 17, 18, 19), (20,), (21,), (22,))
+NEEDS = {16: (12,)}
 # the JAX package's optima on the CPU (f64), the values the port is held to
 JAX_BQP30 = -154.7359587770444
 JAX_QS30 = -7.324338872437511
@@ -165,18 +201,23 @@ def g1_standin(seed):
     return laplacian_cost(n, iu[pick], ju[pick], np.ones(m))
 
 
-def g67_standin(seed):
-    """100 x 100 toroidal grid with +-1 weights, G67's shape: n = 10^4,
-    20,000 edges."""
-    side = 100
-    a, b = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
-    v = (a * side + b).ravel()
-    right = (a * side + (b + 1) % side).ravel()
-    down = (((a + 1) % side) * side + b).ravel()
+def torus_standin(rows, cols, seed):
+    """rows x cols toroidal grid with seeded +-1 weights (the Gset toroidal
+    graphs' construction): n = rows * cols, 2n edges."""
+    a, b = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    v = (a * cols + b).ravel()
+    right = (a * cols + (b + 1) % cols).ravel()
+    down = (((a + 1) % rows) * cols + b).ravel()
     i = np.r_[v, v]
     j = np.r_[right, down]
     w = np.random.default_rng(seed + 1).choice([-1.0, 1.0], size=i.size)
-    return laplacian_cost(side * side, i, j, w)
+    return laplacian_cost(rows * cols, i, j, w)
+
+
+def g67_standin(seed):
+    """100 x 100 toroidal grid with +-1 weights, G67's shape: n = 10^4,
+    20,000 edges."""
+    return torus_standin(100, 100, seed)
 
 
 def load_graph(name, gset_dir, seed):
@@ -210,15 +251,20 @@ def time_ms(fn, reps=25, warm=3):
     return statistics.median(ts)
 
 
-def max_err(got, ref):
+def max_err(got, ref, per_output=False):
+    """The largest absolute error and the relative error: against the
+    largest reference entry of all outputs, or (``per_output``) the
+    largest of each output's own relative error."""
     import torch
     if isinstance(ref, tuple):
         pairs = list(zip(got, ref))
     else:
         pairs = [(got, ref)]
-    abs_err = max(float(torch.max(torch.abs(g - r))) for g, r in pairs)
-    scale = max(float(torch.max(torch.abs(r))) for _, r in pairs)
-    return abs_err, abs_err / max(scale, 1e-300)
+    errs = [float(torch.max(torch.abs(g - r))) for g, r in pairs]
+    scales = [max(float(torch.max(torch.abs(r))), 1e-300) for _, r in pairs]
+    if per_output:
+        return max(errs), max(e / s for e, s in zip(errs, scales))
+    return max(errs), max(errs) / max(scales)
 
 
 def kkt_oracle_on_card(C_sp, res, device):
@@ -278,18 +324,22 @@ def csr(ptr, col, val, shape):
 
 
 def check_case(rows, name, mode, fn, twin, args, kw, tol, reads=(),
-               flops=0.0, library=None, **info):
+               flops=0.0, library=None, fresh=None, per_output=False,
+               **info):
     """One kernel call against its twin on the same inputs, timed, with
     its bound (``reads``: the input tensors the function must read once;
     its outputs are written once) and the time of ``library``, one
     PyTorch call computing the same function (None where there is none;
     a call the installed PyTorch refuses is recorded as null with the
-    error)."""
+    error).  ``fresh()``, for a kernel that updates its inputs in place:
+    new copies of ``args`` for the kernel's and the twin's checked calls
+    (the timed repeats then run on drifting values).  ``per_output``:
+    each output's error relative to its own scale (max_err)."""
     import torch
-    got = fn(*args, **kw)
-    ref = twin(*args, **kw)
+    got = fn(*(fresh() if fresh else args), **kw)
+    ref = twin(*(fresh() if fresh else args), **kw)
     torch.cuda.synchronize()
-    abs_err, rel_err = max_err(got, ref)
+    abs_err, rel_err = max_err(got, ref, per_output)
     outs = got if isinstance(got, tuple) else (got,)
     b_ms, b_by = bound(nbytes(*reads, *outs), flops, info["dtype"])
     row = dict(kernel=name, mode=mode, **info, max_abs_err=abs_err,
@@ -1167,17 +1217,25 @@ def build_chain(t, q, which):
     return out, time.perf_counter() - t0
 
 
-def start_host_builds(bqp_dir):
-    """Start the host builds of phases 17-18 in three worker processes
-    (spawned, so they never touch the card); returns the pool and the
-    pending results."""
+def start_host_builds(bqp_dir, phases):
+    """Start the host builds the selected phases read (16-18: the raw q = 60
+    bqpmom triplets and the chain's two relaxations; 22: the short chain)
+    in worker processes, one each (spawned, so they never touch the card);
+    returns the pool (None when no phase needs one) and the pending
+    results."""
     import multiprocessing
-    pool = multiprocessing.get_context("spawn").Pool(3)
-    jobs = dict(bqpmom60=pool.apply_async(build_bqpmom, (BQP_Q, bqp_dir)),
-                chain_mom=pool.apply_async(build_chain,
-                                           (CHAIN_T, CHAIN_Q, "mom")),
-                chain_sos=pool.apply_async(build_chain,
-                                           (CHAIN_T, CHAIN_Q, "sos")))
+    builds = {}
+    if 16 in phases:
+        builds.update(bqpmom60=(build_bqpmom, (BQP_Q, bqp_dir)),
+                      chain_mom=(build_chain, (CHAIN_T, CHAIN_Q, "mom")),
+                      chain_sos=(build_chain, (CHAIN_T, CHAIN_Q, "sos")))
+    if 22 in phases:
+        builds["chain5"] = (build_chain, (CHAIN5_T, CHAIN_Q, "mom"))
+    if not builds:
+        return None, {}
+    pool = multiprocessing.get_context("spawn").Pool(len(builds))
+    jobs = {name: pool.apply_async(fn, fargs)
+            for name, (fn, fargs) in builds.items()}
     pool.close()
     return pool, jobs
 
@@ -1548,6 +1606,214 @@ def two_block_phase(device):
     return r
 
 
+def batch_graphs():
+    """Phase 21's instances: 16 G1-size stand-ins (dense bucket of 1,024)
+    and, sparse and ragged, 8 toroidal +-1 grids of G48's shape (60 x 50,
+    n = 3,000, bucket 3,072) and 4 of 50 x 50 (n = 2,500, bucket 2,560)."""
+    dense = [g1_standin(s) for s in range(BATCH_DENSE)]
+    sparse = [torus_standin(*BATCH_GRID, s) for s in range(BATCH_GRID_B)] + \
+        [torus_standin(*BATCH_GRID2, s) for s in range(BATCH_GRID2_B)]
+    return dense, sparse
+
+
+def k11_step(dots, update, finish):
+    """One tCG vector step through K11's three passes (or their twins)."""
+    def step(d, Hd, eta, Heta, r, sc, st):
+        part = dots(d, Hd, r, st)
+        eta, Heta, r, part2, xs = update(part, sc, st, d, Hd, eta, Heta, r)
+        w, sc2, st2 = finish(part2, sc, st, xs, r, d, 1)
+        return eta, Heta, r, w, sc2, st2
+    return step
+
+
+def phase_batch_kernels(C_b, device, seed):
+    """Phase 20: K1's instance mode and K2 with the instance stride at the
+    sparse batch's shape (8 instances, n_pad = 3,072, f64), and K11 in f64
+    and f32 there and at B = 1 with the G67 shape."""
+    import scipy.sparse as sp
+    import torch
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch.ops.sparse import BatchedSymCOO
+
+    n = BATCH_N_PAD
+    C = BatchedSymCOO.from_scipy(C_b, n, device)
+    B = C.nb
+    blocks = []
+    for M in C_b:
+        c = sp.coo_matrix(0.5 * (M + M.T))
+        blocks.append(sp.coo_matrix((c.data, (c.row, c.col)), shape=(n, n)))
+    bd = sp.block_diag(blocks, format="csr")
+    BD = csr(*(torch.as_tensor(a, device=device) for a in
+               (bd.indptr.astype(np.int64), bd.indices.astype(np.int64),
+                bd.data)), bd.shape)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                 dtype=torch.float64, device=device)
+    rows = []
+    Cr = (C.i, C.colptr, C.v)
+    nnz = int(C.i.shape[0])
+    for p in BATCH_P_PADS:
+        Y = K.oblique_cols_plain(rnd(B, p, n), None, "renormalize")
+        U = K.oblique_cols_plain(Y, rnd(B, p, n), "proj")
+        eG = K.symcoo_spmm_plain(Y, C, "cost")[1]
+        Yt = Y.transpose(1, 2).reshape(B * n, p).contiguous()
+        Yu = Y + U
+        fl = 2.0 * nnz * p
+        cases = [
+            ("symcoo_spmm", "instance_plain", (Y, C, "plain"), {},
+             (Y, *Cr), fl, lambda: torch.sparse.mm(BD, Yt)),
+            ("symcoo_spmm", "instance_cost", (Y, C, "cost"), {}, (Y, *Cr),
+             fl + 2 * B * p * n, None),
+            ("symcoo_spmm", "instance_hess", (U, C, "hess"),
+             dict(B=Y, eG=eG), (U, *Cr, Y, eG), fl + 6 * B * p * n, None),
+            ("oblique_cols", "instance_proj", (Y, U, "proj"), {}, (Y, U),
+             4 * B * p * n, None),
+            ("oblique_cols", "instance_retr", (Y, U, "retr"), {}, (Y, U),
+             5 * B * p * n, None),
+            ("oblique_cols", "instance_renormalize",
+             (Yu, None, "renormalize"), {}, (Yu,), 3 * B * p * n, None),
+        ]
+        for name, mode, args, kw, reads, flops, lib in cases:
+            check_case(rows, name, mode, getattr(K, name),
+                       getattr(K, f"{name}_plain"), args, kw, 1e-12,
+                       reads=reads, flops=flops, library=lib,
+                       dtype="float64", p_pad=p, n=n, instances=B, nnz=nnz)
+    kern = k11_step(K.tcg_dots, K.tcg_update, K.tcg_finish)
+    twin = k11_step(K.tcg_dots_plain, K.tcg_update_plain,
+                    K.tcg_finish_plain)
+    for shape in ((B, BATCH_P_PADS[-1], n), (1, HOT_P_PAD, 10 ** 4)):
+        for dt, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            # a CG start: d = r, z_r = <r, r>, an SPD-like Hd, the first
+            # trust region of an oblique solve, (pi sqrt(n) / 8)^2
+            r = rnd(*shape).to(dt)
+            Hd = r * (1.0 + rnd(*shape).abs().to(dt))
+            eta, Heta = rnd(*shape).to(dt), rnd(*shape).to(dt)
+            r_r = torch.sum(r * r, dim=(1, 2))
+            z = torch.zeros_like(r_r)
+            sc = torch.stack([z, z, r_r, r_r, z,
+                              z + np.pi ** 2 * shape[2] / 64, z, z + 1], 1)
+            st = torch.zeros((shape[0], 2), dtype=torch.int32, device=device)
+            vecs = (r, Hd, eta, Heta, r)
+
+            def fresh(vecs=vecs, sc=sc, st=st):
+                return tuple(t.clone() for t in vecs) + (sc, st)
+
+            L = shape[0] * shape[1] * shape[2]
+            check_case(rows, "tcg_step", "step", kern, twin, fresh(), {},
+                       tol, reads=(*vecs, sc, st), flops=14.0 * L,
+                       fresh=fresh, per_output=True, dtype=str(dt)[6:],
+                       p_pad=shape[1],
+                       n=shape[2], instances=shape[0])
+    return rows
+
+
+def run_batch(Cs, device):
+    """One solve_maxcut_batch call (p0 = 40, as phases 4-5), with seconds,
+    peak device memory and the launch counters of that run."""
+    import torch
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch import solve_maxcut_batch
+    K.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = solve_maxcut_batch(Cs, p0=40, device=device, verbose=False)
+    torch.cuda.synchronize()
+    return res, dict(seconds=time.perf_counter() - t0,
+                     peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                     launches=dict(K.LAUNCHES),
+                     instance_launches=dict(K.INSTANCE_LAUNCHES),
+                     tcg_launches=dict(K.TCG_LAUNCHES))
+
+
+def batch_phase(label, Cs, source, device, repeat=False):
+    """Phase 21, one group: the batch solve, an on-card KKT oracle for
+    every instance, each instance's single solve (the objectives must
+    agree to 1e-6), and with ``repeat`` a second batch solve that must give
+    bit-equal objectives and iteration counts."""
+    import torch
+    from manisdp_tpu_torch import solve_maxcut_unitdiag
+    res, run = run_batch(Cs, device)
+    buckets = {}
+    table = []
+    single_s = 0.0
+    for C, r in zip(Cs, res):
+        n = C.shape[0]
+        buckets.setdefault(int(-(-n // 256) * 256), r.time)
+        oracle = kkt_oracle_on_card(C, r, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single = solve_maxcut_unitdiag(C, p0=40, device=device,
+                                       verbose=False)
+        torch.cuda.synchronize()
+        single_s += time.perf_counter() - t0
+        table.append(dict(n=n, status=r.status, eta=r.eta,
+                          oracle_eta=oracle["eta"], obj=r.obj,
+                          single_obj=single.obj,
+                          rel_to_single=abs(r.obj - single.obj) /
+                          max(1.0, abs(single.obj)),
+                          outer=r.iterations, hess_calls=r.hess_calls,
+                          fac_size=r.fac_size[-1]))
+    out = dict(phase=label, source=source, instances=len(Cs), **run,
+               bucket_seconds=buckets, timers=res[0].timers,
+               seconds_per_instance=run["seconds"] / len(Cs),
+               single_seconds=single_s,
+               single_seconds_per_instance=single_s / len(Cs),
+               table=table)
+    if repeat:
+        res2, run2 = run_batch(Cs, device)
+        out["repeat"] = dict(
+            seconds=run2["seconds"],
+            bit_equal=all(a.obj == b.obj and a.iterations == b.iterations
+                          and a.hess_calls == b.hess_calls
+                          for a, b in zip(res, res2)))
+    emit(out)
+    for t in table:
+        if t["status"] != 0 or not t["eta"] <= 1e-8 or \
+                not t["oracle_eta"] <= 1e-8 or \
+                not t["rel_to_single"] <= 1e-6:
+            raise AssertionError(f"{label}: instance {t}")
+    if run["tcg_launches"]["dots"] <= 0 or \
+            run["instance_launches"]["oblique_cols"] <= 0:
+        raise AssertionError(f"{label} never launched K11 or K2's instance "
+                             "mode")
+    if repeat and not out["repeat"]["bit_equal"]:
+        raise AssertionError(f"{label}: the repeated batch solve differs")
+    return out
+
+
+def chain_repeat_phase(device, chain5):
+    """Phase 22: clique_chain(5, 20) through solve_multiblock twice on one
+    card; the two histories must be equal (its reductions use no float
+    atomics)."""
+    import torch
+    from manisdp_tpu_torch.solvers.multiblock import solve_multiblock
+    data, build_s = chain5
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_multiblock(data.At, data.b, data.c, ns=data.K.s,
+                               nob=data.K.nob, device=device, verbose=False,
+                               **CHAIN_PRIMAL_KW)
+        torch.cuda.synchronize()
+        runs.append((res, time.perf_counter() - t0))
+    (r1, s1), (r2, s2) = runs
+    equal = (r1.obj == r2.obj and r1.iterations == r2.iterations and
+             r1.history == r2.history)
+    out = dict(phase="chain5_repeat",
+               instance=f"clique_chain({CHAIN5_T}, {CHAIN_Q}), "
+               "RandomState(1) objective", instance_build_s=build_s,
+               seconds=[s1, s2], status=[r1.status, r2.status],
+               obj=[r1.obj, r2.obj], outer=[r1.iterations, r2.iterations],
+               histories_equal=equal)
+    emit(out)
+    if r1.status != 0 or not equal:
+        raise AssertionError(f"chain5: not repeatable: {out}")
+    return out
+
+
 def solve_phase(label, C_sp, source, device, check_oracle):
     import torch
     from manisdp_tpu_torch import kernels as K
@@ -1577,6 +1843,33 @@ def solve_phase(label, C_sp, source, device, check_oracle):
     return out
 
 
+def parse_phases(spec):
+    """``--phases``: "1-3,20-21" -> the set of phases to run.  Phases 1-2
+    always run; a phase brings the rest of its group, and a group the
+    groups its checks read (GROUPS, NEEDS)."""
+    want = {1, 2}
+    for part in spec.split(","):
+        if not part.strip():
+            continue
+        lo, _, hi = part.strip().partition("-")
+        lo, hi = int(lo), int(hi or lo)
+        if not 1 <= lo <= hi <= LAST_PHASE:
+            raise ValueError(f"phase range {part!r} is not within "
+                             f"1-{LAST_PHASE}")
+        want.update(range(lo, hi + 1))
+    while True:
+        grown = set(want)
+        for group in GROUPS:
+            if grown & set(group):
+                grown |= set(group)
+        for phase, needs in NEEDS.items():
+            if phase in grown:
+                grown |= set(needs)
+        if grown == want:
+            return want
+        want = grown
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--gset", default=None,
@@ -1587,6 +1880,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join("build", "chip_smoke"),
                     help="directory of the full JSON record")
+    ap.add_argument("--phases", type=parse_phases,
+                    default=parse_phases(f"1-{LAST_PHASE}"),
+                    help="phases to run, e.g. 1-3,20-21 (default: all; "
+                    "1-2 always run)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1594,23 +1891,28 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     import manisdp_tpu_torch  # noqa: F401  (fails outside the repository)
-    pool, jobs = start_host_builds(args.bqp)
+    pool, jobs = start_host_builds(args.bqp, args.phases)
     try:
         return run_phases(args, jobs)
     finally:
-        pool.terminate()
-        pool.join()
+        if pool is not None:
+            pool.terminate()
+            pool.join()
 
 
 def run_phases(args, jobs):
-    """Phases 1-19 and the closing lines; ``jobs`` are the pending host
-    builds of start_host_builds."""
+    """The selected phases and the closing lines; ``jobs`` are the pending
+    host builds of start_host_builds."""
     import torch
     from manisdp_tpu_torch import kernels as K
     from manisdp_tpu_torch.kernels.build import build_info
 
+    ph = args.phases
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
+    rows, al_rows, carrier_rows, dual_rows, mom_rows, batch_rows = \
+        [], [], [], [], [], []
+    rec = {}
     # -- 1. environment --
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1621,7 +1923,8 @@ def run_phases(args, jobs):
     emit(dict(phase="environment", python=sys.version.split()[0],
               torch=torch.__version__, cuda=torch.version.cuda,
               device=torch.cuda.get_device_name(0),
-              device_count=torch.cuda.device_count(), nvidia_smi=smi))
+              device_count=torch.cuda.device_count(), nvidia_smi=smi,
+              phases=sorted(ph)))
 
     # -- 2. build --
     t0 = time.perf_counter()
@@ -1632,152 +1935,200 @@ def run_phases(args, jobs):
     emit(dict(phase="build", seconds=build_s, ptxas=ptxas))
 
     # -- 3. kernels vs twins --
-    C1, src1 = load_graph("G1", args.gset, args.seed)
-    C67, src67 = load_graph("G67", args.gset, args.seed)
-    rows = phase_kernels(C67, device, args.seed)
-    worst = worst_errors(rows)
-    emit(dict(phase="kernels_vs_twins", cases=len(rows), worst=worst,
-              table=[{k: r[k] for k in ("kernel", "mode", "dtype", "p_pad",
-                                          "rel_err", "ms", "plain_ms")}
-                     for r in rows]))
+    if 3 in ph:
+        C67, _ = load_graph("G67", args.gset, args.seed)
+        rows = phase_kernels(C67, device, args.seed)
+        emit(dict(phase="kernels_vs_twins", cases=len(rows),
+                  worst=worst_errors(rows),
+                  table=[{k: r[k] for k in ("kernel", "mode", "dtype",
+                                              "p_pad", "rel_err", "ms",
+                                              "plain_ms")}
+                         for r in rows]))
 
     # -- 4. G1-size solve (dense path) --
-    g1 = solve_phase("G1_solve", C1, src1, device, check_oracle=True)
+    if 4 in ph:
+        C1, src1 = load_graph("G1", args.gset, args.seed)
+        rec["g1"] = solve_phase("G1_solve", C1, src1, device,
+                                check_oracle=True)
     # -- 5. G67-size solve: the slice --
-    g67 = solve_phase("G67_solve", C67, src67, device, check_oracle=True)
-    for name in ("symcoo_spmm", "oblique_cols"):
-        if g67["launches"][name] <= 0:
-            raise AssertionError(f"the G67 solve never launched {name}")
+    if 5 in ph:
+        C67, src67 = load_graph("G67", args.gset, args.seed)
+        g67 = rec["g67"] = solve_phase("G67_solve", C67, src67, device,
+                                       check_oracle=True)
+        for name in ("symcoo_spmm", "oblique_cols", "tcg_step"):
+            if g67["launches"][name] <= 0:
+                raise AssertionError(f"the G67 solve never launched {name}")
 
     # -- 6. K3 / K4 / K1 al_hess vs twins at the matrix-completion shapes --
     from manisdp_tpu_torch.ops.sparse import ConstraintOp
-    data, mc_build_s = mc_instance(MC)
-    t0 = time.perf_counter()
-    op_mc = ConstraintOp.build(data.At, data.b, data.c, int(data.K.s),
-                               device)
-    torch.cuda.synchronize()
-    assemble_s = time.perf_counter() - t0
-    al_rows = phase_al_kernels(op_mc, device, args.seed)
-    emit(dict(phase="al_kernels_vs_twins", cases=len(al_rows),
-              worst=worst_errors(al_rows),
-              table=[{k: r[k] for k in ("kernel", "mode", "dtype", "p_pad",
-                                          "rel_err", "ms", "plain_ms")}
-                     for r in al_rows]))
-    # -- 7. the slice's solve: matrix completion at n = 12,000 --
-    mc = al_solve_phase(data, op_mc, mc_build_s, assemble_s, device)
-    del data, op_mc
+    if 6 in ph:
+        data, mc_build_s = mc_instance(MC)
+        t0 = time.perf_counter()
+        op_mc = ConstraintOp.build(data.At, data.b, data.c, int(data.K.s),
+                                   device)
+        torch.cuda.synchronize()
+        assemble_s = time.perf_counter() - t0
+        al_rows = phase_al_kernels(op_mc, device, args.seed)
+        emit(dict(phase="al_kernels_vs_twins", cases=len(al_rows),
+                  worst=worst_errors(al_rows),
+                  table=[{k: r[k] for k in ("kernel", "mode", "dtype",
+                                              "p_pad", "rel_err", "ms",
+                                              "plain_ms")}
+                         for r in al_rows]))
+        # -- 7. the slice's solve: matrix completion at n = 12,000 --
+        rec["mc12000"] = al_solve_phase(data, op_mc, mc_build_s, assemble_s,
+                                        device)
+        del data, op_mc
 
     # -- 8. carrier kernels vs twins at the n = 4,000 matrix completion --
-    from manisdp_tpu_torch.ops.sparse import EntrywiseConstraintOp
-    data4, mc4_build_s = mc_instance(MC4)
-    setup = dict(instance_build_s=mc4_build_s)
-    t0 = time.perf_counter()
-    op4 = ConstraintOp.build(data4.At, data4.b, data4.c, int(data4.K.s),
-                             device)
-    torch.cuda.synchronize()
-    setup["assemble_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ew4 = EntrywiseConstraintOp.detect(op4)
-    torch.cuda.synchronize()
-    setup["entrywise_build_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    dense4 = op4.to_dense_op()
-    torch.cuda.synchronize()
-    setup["dense_build_s"] = time.perf_counter() - t0
-    carrier_rows = phase_carrier_kernels(ew4, dense4, device, args.seed)
-    emit(dict(phase="carrier_kernels_vs_twins", instance=MC4, n=op4.n,
-              m=op4.m, nnzA=op4.nnz, **setup, cases=len(carrier_rows),
-              worst=worst_errors(carrier_rows),
-              table=[{k: r[k] for k in ("kernel", "mode", "dtype", "rel_err",
-                                          "ms", "plain_ms")}
-                     for r in carrier_rows]))
-    del ew4, dense4
-    # -- 9-11. the carriers' solves: matrix completion at n = 4,000 --
-    mc4 = carrier_solve_phases(data4, op4, device)
-
-    del op4, data4
+    if 8 in ph:
+        from manisdp_tpu_torch.ops.sparse import EntrywiseConstraintOp
+        data4, mc4_build_s = mc_instance(MC4)
+        setup = rec["mc4000_setup"] = dict(instance_build_s=mc4_build_s)
+        t0 = time.perf_counter()
+        op4 = ConstraintOp.build(data4.At, data4.b, data4.c,
+                                 int(data4.K.s), device)
+        torch.cuda.synchronize()
+        setup["assemble_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ew4 = EntrywiseConstraintOp.detect(op4)
+        torch.cuda.synchronize()
+        setup["entrywise_build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dense4 = op4.to_dense_op()
+        torch.cuda.synchronize()
+        setup["dense_build_s"] = time.perf_counter() - t0
+        carrier_rows = phase_carrier_kernels(ew4, dense4, device, args.seed)
+        emit(dict(phase="carrier_kernels_vs_twins", instance=MC4, n=op4.n,
+                  m=op4.m, nnzA=op4.nnz, **setup, cases=len(carrier_rows),
+                  worst=worst_errors(carrier_rows),
+                  table=[{k: r[k] for k in ("kernel", "mode", "dtype",
+                                              "rel_err", "ms", "plain_ms")}
+                         for r in carrier_rows]))
+        del ew4, dense4
+        # -- 9-11. the carriers' solves: matrix completion at n = 4,000 --
+        rec["mc4000"] = carrier_solve_phases(data4, op4, device)
+        del op4, data4
 
     # -- 12. the dual path's kernels vs twins --
-    from manisdp_tpu_torch.frontends.sos import assemble_bqpsos
-    from manisdp_tpu_torch.ops.dualops import DualOp
-    from manisdp_tpu_torch.ops.symdual import SymDualOp
-    from manisdp_tpu_torch.solvers.dual_general import build_iab
-    dual_setup = {}
-    Q60, e60, bqp_label = bqp_instance(BQP_Q, args.bqp)
-    t0 = time.perf_counter()
-    top60 = SymDualOp.build_bqpsos(Q60, e60, BQP_Q, device=device)
-    torch.cuda.synchronize()
-    dual_setup["symdual_build_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    data60 = assemble_bqpsos(Q60, e60, BQP_Q)
-    dual_setup["assemble_bqpsos_s"] = time.perf_counter() - t0
-    A60, b60, c60, mb60, f60, dAAt60 = data60
-    t0 = time.perf_counter()
-    dop60 = DualOp.build(A60, b60 / np.max(np.abs(b60)), c60, mb60, f60,
-                         dAAt60, device=device)
-    torch.cuda.synchronize()
-    dual_setup["dualop_build_s"] = time.perf_counter() - t0
-    Aq, bq, cq, mbq, fq, dAAtq = qs_instance(QS_D)
-    t0 = time.perf_counter()
-    iab30 = build_iab(Aq, mbq, fq, dAAtq, device)
-    torch.cuda.synchronize()
-    dual_setup["build_iab_s"] = time.perf_counter() - t0
-    dual_rows = phase_dual_kernels(top60, dop60, iab30, device, args.seed)
-    del iab30
-    emit(dict(phase="dual_kernels_vs_twins", instance=bqp_label,
-              n_expanded=top60.n, n=mb60, m=dop60.m,
-              nnzA=int(dop60.v_r.numel()), **dual_setup,
-              cases=len(dual_rows), worst=worst_errors(dual_rows),
-              table=[{k: r[k] for k in ("kernel", "mode", "dtype", "rel_err",
-                                          "ms", "plain_ms", "bound_ms",
-                                          "library_ms")}
-                     for r in dual_rows]))
-    # -- 13-15. the dual solves --
-    dual = dual_phases(args, device, top60, dop60, (Q60, e60, data60),
-                       bqp_label)
-    del top60, dop60, data60
+    if 12 in ph:
+        from manisdp_tpu_torch.frontends.sos import assemble_bqpsos
+        from manisdp_tpu_torch.ops.dualops import DualOp
+        from manisdp_tpu_torch.ops.symdual import SymDualOp
+        from manisdp_tpu_torch.solvers.dual_general import build_iab
+        dual_setup = rec["dual_setup"] = {}
+        Q60, e60, bqp_label = bqp_instance(BQP_Q, args.bqp)
+        t0 = time.perf_counter()
+        top60 = SymDualOp.build_bqpsos(Q60, e60, BQP_Q, device=device)
+        torch.cuda.synchronize()
+        dual_setup["symdual_build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data60 = assemble_bqpsos(Q60, e60, BQP_Q)
+        dual_setup["assemble_bqpsos_s"] = time.perf_counter() - t0
+        A60, b60, c60, mb60, f60, dAAt60 = data60
+        t0 = time.perf_counter()
+        dop60 = DualOp.build(A60, b60 / np.max(np.abs(b60)), c60, mb60, f60,
+                             dAAt60, device=device)
+        torch.cuda.synchronize()
+        dual_setup["dualop_build_s"] = time.perf_counter() - t0
+        Aq, bq, cq, mbq, fq, dAAtq = qs_instance(QS_D)
+        t0 = time.perf_counter()
+        iab30 = build_iab(Aq, mbq, fq, dAAtq, device)
+        torch.cuda.synchronize()
+        dual_setup["build_iab_s"] = time.perf_counter() - t0
+        dual_rows = phase_dual_kernels(top60, dop60, iab30, device,
+                                       args.seed)
+        del iab30
+        emit(dict(phase="dual_kernels_vs_twins", instance=bqp_label,
+                  n_expanded=top60.n, n=mb60, m=dop60.m,
+                  nnzA=int(dop60.v_r.numel()), **dual_setup,
+                  cases=len(dual_rows), worst=worst_errors(dual_rows),
+                  table=[{k: r[k] for k in ("kernel", "mode", "dtype",
+                                              "rel_err", "ms", "plain_ms",
+                                              "bound_ms", "library_ms")}
+                         for r in dual_rows]))
+        # -- 13-15. the dual solves --
+        rec["dual"] = dual_phases(args, device, top60, dop60,
+                                  (Q60, e60, data60), bqp_label)
+        del top60, dop60, data60
 
     # -- 16. the moment primal's and the multiblock drivers' kernels --
-    from manisdp_tpu_torch.ops.symmom import SymMomOp
-    mom_setup = {}
-    t0 = time.perf_counter()
-    mop60 = SymMomOp.build_bqpmom(Q60, e60, BQP_Q, device=device)
-    torch.cuda.synchronize()
-    mom_setup["symmom_build_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    chain_mom = jobs["chain_mom"].get()
-    mom_setup["chain_build_wait_s"] = time.perf_counter() - t0
-    N_chain = int(np.sum(chain_mom[0].K.s))
-    mom_rows = phase_mom_kernels(mop60, N_chain, device, args.seed)
-    emit(dict(phase="mom_kernels_vs_twins", instance=bqp_label,
-              n_expanded=mop60.n, m_flat=mop60.m, chain_N=N_chain,
-              **mom_setup, cases=len(mom_rows),
-              worst=worst_errors(mom_rows),
-              table=[{k: r[k] for k in ("kernel", "mode", "dtype", "rel_err",
-                                          "ms", "plain_ms", "bound_ms")}
-                     for r in mom_rows]))
-    # -- 17. the BQP moment primal --
-    t0 = time.perf_counter()
-    raw60 = jobs["bqpmom60"].get()
-    mom_setup["bqpmom60_build_wait_s"] = time.perf_counter() - t0
-    mom = mom_phases(args, device, mop60, Q60, e60, bqp_label,
-                     dual["bqp60_expanded"]["obj"], raw60)
-    del mop60, raw60
-    # -- 18. the clique chain through both multiblock drivers --
-    t0 = time.perf_counter()
-    chain_sos = jobs["chain_sos"].get()
-    mom_setup["chain_sos_build_wait_s"] = time.perf_counter() - t0
-    chain = chain_phases(device, chain_mom, chain_sos)
-    del chain_mom, chain_sos
-    # -- 19. solve_sedumi on a two-block input --
-    two_block = two_block_phase(device)
+    if 16 in ph:
+        from manisdp_tpu_torch.ops.symmom import SymMomOp
+        mom_setup = rec["mom_setup"] = {}
+        t0 = time.perf_counter()
+        mop60 = SymMomOp.build_bqpmom(Q60, e60, BQP_Q, device=device)
+        torch.cuda.synchronize()
+        mom_setup["symmom_build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        chain_mom = jobs["chain_mom"].get()
+        mom_setup["chain_build_wait_s"] = time.perf_counter() - t0
+        N_chain = int(np.sum(chain_mom[0].K.s))
+        mom_rows = phase_mom_kernels(mop60, N_chain, device, args.seed)
+        emit(dict(phase="mom_kernels_vs_twins", instance=bqp_label,
+                  n_expanded=mop60.n, m_flat=mop60.m, chain_N=N_chain,
+                  **mom_setup, cases=len(mom_rows),
+                  worst=worst_errors(mom_rows),
+                  table=[{k: r[k] for k in ("kernel", "mode", "dtype",
+                                              "rel_err", "ms", "plain_ms",
+                                              "bound_ms")}
+                         for r in mom_rows]))
+        # -- 17. the BQP moment primal --
+        t0 = time.perf_counter()
+        raw60 = jobs["bqpmom60"].get()
+        mom_setup["bqpmom60_build_wait_s"] = time.perf_counter() - t0
+        rec["mom"] = mom_phases(args, device, mop60, Q60, e60, bqp_label,
+                                rec["dual"]["bqp60_expanded"]["obj"], raw60)
+        del mop60, raw60
+        # -- 18. the clique chain through both multiblock drivers --
+        t0 = time.perf_counter()
+        chain_sos = jobs["chain_sos"].get()
+        mom_setup["chain_sos_build_wait_s"] = time.perf_counter() - t0
+        rec["chain"] = chain_phases(device, chain_mom, chain_sos)
+        del chain_mom, chain_sos
+        # -- 19. solve_sedumi on a two-block input --
+        rec["two_block"] = two_block_phase(device)
+
+    # -- 20. the batch kernels vs twins --
+    if 20 in ph or 21 in ph:
+        dense_b, sparse_b = batch_graphs()
+    if 20 in ph:
+        batch_rows = phase_batch_kernels(sparse_b[:BATCH_GRID_B], device,
+                                         args.seed)
+        emit(dict(phase="batch_kernels_vs_twins", cases=len(batch_rows),
+                  worst=worst_errors(batch_rows),
+                  table=[{k: r[k] for k in ("kernel", "mode", "dtype",
+                                              "p_pad", "instances",
+                                              "rel_err", "ms", "plain_ms",
+                                              "bound_ms", "library_ms")}
+                         for r in batch_rows]))
+    # -- 21. the batched solves --
+    if 21 in ph:
+        rec["batch"] = dict(
+            dense=batch_phase(
+                "batch_dense", dense_b,
+                f"{BATCH_DENSE} seeded G1-size stand-ins (seeds 0-"
+                f"{BATCH_DENSE - 1})", device),
+            sparse=batch_phase(
+                "batch_sparse", sparse_b,
+                f"seeded toroidal +-1 grid stand-ins: {BATCH_GRID_B} of "
+                f"{BATCH_GRID[0]} x {BATCH_GRID[1]} (G48's shape) and "
+                f"{BATCH_GRID2_B} of {BATCH_GRID2[0]} x {BATCH_GRID2[1]}",
+                device, repeat=True))
+        if rec["batch"]["sparse"]["instance_launches"]["symcoo_spmm"] <= 0:
+            raise AssertionError("the sparse batch never launched K1's "
+                                 "instance mode")
+    # -- 22. the multiblock determinism check --
+    if 22 in ph:
+        rec["chain5"] = chain_repeat_phase(device, jobs["chain5"].get())
 
     # each kernel's hot call on its main path: the f32 tCG's Hessian and
     # projection (G67 solve), the f32 AL Hessian's products (mc solves),
     # the f64 refinement pass (dense_eigh solve), the f32 dual Hessian's
     # operator, adjoint and epilogue (bqp solves), the f32 moment
     # Hessian's operator and adjoint (bqpmom60), the f64 masked Hessian
-    # epilogue (chain primal)
+    # epilogue (chain primal), the f64 batched Hessian, projection and tCG
+    # step (sparse batch)
     def pick(table, name, mode, p_pad=None, dtype="float32"):
         return next(r for r in table if r["kernel"] == name and
                     r["mode"] == mode and r["dtype"] == dtype and
@@ -1787,88 +2138,139 @@ def run_phases(args, jobs):
         return max(r["max_abs_err"] for r in table
                    if r["kernel"] == name and r["mode"] in modes)
 
-    all_rows = rows + al_rows + carrier_rows + dual_rows + mom_rows
-    masked = mc4["entrywise"]["masked_modes"]
-    e60x, o60 = dual["bqp60_expanded"], dual["bqp60_original"]
-    qs = dual["qs30_general"]
-    sym_modes = e60x["symdual_modes"]
-    factor_modes = tuple(r["mode"] for r in dual_rows
-                         if r["mode"].startswith("sym_factor"))
-    # (name, row, modes whose worst error it reports, source, replaces,
-    #  launches on the main path)
-    entries = [
-        ("symcoo_spmm.hess", pick(rows, "symcoo_spmm", "hess", HOT_P_PAD),
-         None, "symcoo_spmm.cu", "ops/sparse.py:40",
-         g67["launches"]["symcoo_spmm"]),
-        ("oblique_cols.proj", pick(rows, "oblique_cols", "proj", HOT_P_PAD),
-         None, "oblique_cols.cu", "manifolds/oblique.py:27",
-         g67["launches"]["oblique_cols"]),
-        ("symcoo_spmm.al_hess",
-         pick(al_rows, "symcoo_spmm", "al_hess", AL_HOT_P_PAD), None,
-         "symcoo_spmm.cu", "solvers/primal_al.py:97",
-         mc["symcoo_spmm_modes"]["al_hess"]),
-        ("pattern_dots", pick(al_rows, "pattern_dots", "pair_dots",
-                              AL_HOT_P_PAD), None,
-         "pattern_dots.cu", "ops/sparse.py:240",
-         mc["launches"]["pattern_dots"]),
-        ("csr_gather", pick(al_rows, "csr_gather", "adjoint_on_pattern"),
-         ("apply_from_e", "adjoint_on_pattern", "es_vals", "s_vals"),
-         "csr_gather.cu", "ops/sparse.py:244", mc["launches"]["csr_gather"]),
-        ("masked_sym.apply", pick(carrier_rows, "masked_sym", "apply"),
-         ("apply",), "masked_sym.cu", "ops/sparse.py:551", masked["apply"]),
-        ("masked_sym.aat", pick(carrier_rows, "masked_sym", "aat"),
-         ("aat",), "masked_sym.cu", "ops/sparse.py:558", masked["aat"]),
-        ("masked_sym.axpy", pick(carrier_rows, "masked_sym", "axpy"),
-         ("axpy",), "masked_sym.cu", "ops/sparse.py:561", masked["axpy"]),
-        ("csr_gather.scatter_pos",
-         pick(carrier_rows, "csr_gather", "scatter_pos"),
-         ("scatter_pos", "scatter_pos_adjoint"), "csr_gather.cu",
-         "ops/sparse.py:401", mc4["dense"]["csr_modes"]["scatter_pos"]),
-        ("oa_refine", pick(carrier_rows, "oa_refine", "f64",
-                           dtype="float64"), ("f64",), "oa_refine.cu",
-         "ops/dense_cert.py:83",
-         mc4["dense_eigh"]["launches"]["oa_refine"]),
-        ("symdual_apply", pick(dual_rows, "symdual_apply", "apply"),
-         ("apply", "y_step"), "symdual_apply.cu", "ops/symdual.py:97",
-         e60x["launches"]["symdual_apply"]),
-        ("symdual_adjoint.adjoint",
-         pick(dual_rows, "symdual_adjoint", "adjoint"),
-         ("adjoint", "residual"), "symdual_adjoint.cu", "ops/symdual.py:174",
-         sym_modes["adjoint"]),
-        ("symdual_adjoint.sym_factor",
-         pick(dual_rows, "symdual_adjoint", "sym_factor_p192_renorm",
-              dtype="float64"), factor_modes, "symdual_adjoint.cu",
-         "ops/symdual.py:446", sym_modes["sym_factor"]),
-        ("symdual_adjoint.sym_mat",
-         pick(dual_rows, "symdual_adjoint", "sym_mat", dtype="float64"),
-         ("sym_mat",), "symdual_adjoint.cu", "ops/symdual.py:363",
-         sym_modes["sym_mat"]),
-        ("oblique_cols.proj_eG",
-         pick(dual_rows, "oblique_cols", "proj_eG", 192), ("proj_eG",),
-         "oblique_cols.cu", "solvers/dual_al.py:123",
-         e60x["oblique_modes"]["proj_eG"]),
-        ("csr_gather.dual_op", pick(dual_rows, "csr_gather", "dual_apply"),
-         ("dual_apply", "dual_y_step", "dual_adjoint"), "csr_gather.cu",
-         "ops/dualops.py:178", o60["launches"]["csr_gather"]),
-        ("csr_gather.iab", pick(dual_rows, "csr_gather", "iab_mat"),
-         ("iab_mat", "iab_rmat"), "csr_gather.cu", "solvers/dual_al.py:152",
-         qs["launches"]["csr_gather"]),
-        ("symmom_apply", pick(mom_rows, "symmom_apply", "apply"),
-         ("apply",), "symmom_apply.cu", "ops/symmom.py:291",
-         mom["bqpmom60"]["launches"]["symmom_apply"]),
-        ("symmom_adjoint", pick(mom_rows, "symmom_adjoint", "adjoint"),
-         ("adjoint", "es_vals"), "symmom_adjoint.cu", "ops/symmom.py:297",
-         mom["bqpmom60"]["launches"]["symmom_adjoint"]),
-        ("oblique_cols.masked",
-         pick(mom_rows, "oblique_cols", "masked_proj_eG", 8,
-              dtype="float64"),
-         ("masked_proj", "masked_proj_eG", "masked_retr",
-          "masked_renormalize"), "oblique_cols.cu",
-         "manifolds/product.py:52",
-         chain["primal"]["oblique_modes"]["masked"]),
+    all_rows = rows + al_rows + carrier_rows + dual_rows + mom_rows + \
+        batch_rows
+    # (phases whose results it reads, and then: name, row, modes whose
+    #  worst error it reports, source, replaces, launches on the main path)
+    specs = [
+        ((3, 5), lambda: (
+            "symcoo_spmm.hess", pick(rows, "symcoo_spmm", "hess", HOT_P_PAD),
+            None, "symcoo_spmm.cu", "ops/sparse.py:40",
+            rec["g67"]["launches"]["symcoo_spmm"])),
+        ((3, 5), lambda: (
+            "oblique_cols.proj", pick(rows, "oblique_cols", "proj",
+                                      HOT_P_PAD),
+            None, "oblique_cols.cu", "manifolds/oblique.py:27",
+            rec["g67"]["launches"]["oblique_cols"])),
+        ((6,), lambda: (
+            "symcoo_spmm.al_hess",
+            pick(al_rows, "symcoo_spmm", "al_hess", AL_HOT_P_PAD), None,
+            "symcoo_spmm.cu", "solvers/primal_al.py:97",
+            rec["mc12000"]["symcoo_spmm_modes"]["al_hess"])),
+        ((6,), lambda: (
+            "pattern_dots", pick(al_rows, "pattern_dots", "pair_dots",
+                                 AL_HOT_P_PAD), None,
+            "pattern_dots.cu", "ops/sparse.py:240",
+            rec["mc12000"]["launches"]["pattern_dots"])),
+        ((6,), lambda: (
+            "csr_gather", pick(al_rows, "csr_gather", "adjoint_on_pattern"),
+            ("apply_from_e", "adjoint_on_pattern", "es_vals", "s_vals"),
+            "csr_gather.cu", "ops/sparse.py:244",
+            rec["mc12000"]["launches"]["csr_gather"])),
+        ((8,), lambda: (
+            "masked_sym.apply", pick(carrier_rows, "masked_sym", "apply"),
+            ("apply",), "masked_sym.cu", "ops/sparse.py:551",
+            rec["mc4000"]["entrywise"]["masked_modes"]["apply"])),
+        ((8,), lambda: (
+            "masked_sym.aat", pick(carrier_rows, "masked_sym", "aat"),
+            ("aat",), "masked_sym.cu", "ops/sparse.py:558",
+            rec["mc4000"]["entrywise"]["masked_modes"]["aat"])),
+        ((8,), lambda: (
+            "masked_sym.axpy", pick(carrier_rows, "masked_sym", "axpy"),
+            ("axpy",), "masked_sym.cu", "ops/sparse.py:561",
+            rec["mc4000"]["entrywise"]["masked_modes"]["axpy"])),
+        ((8,), lambda: (
+            "csr_gather.scatter_pos",
+            pick(carrier_rows, "csr_gather", "scatter_pos"),
+            ("scatter_pos", "scatter_pos_adjoint"), "csr_gather.cu",
+            "ops/sparse.py:401",
+            rec["mc4000"]["dense"]["csr_modes"]["scatter_pos"])),
+        ((8,), lambda: (
+            "oa_refine", pick(carrier_rows, "oa_refine", "f64",
+                              dtype="float64"), ("f64",), "oa_refine.cu",
+            "ops/dense_cert.py:83",
+            rec["mc4000"]["dense_eigh"]["launches"]["oa_refine"])),
+        ((12,), lambda: (
+            "symdual_apply", pick(dual_rows, "symdual_apply", "apply"),
+            ("apply", "y_step"), "symdual_apply.cu", "ops/symdual.py:97",
+            rec["dual"]["bqp60_expanded"]["launches"]["symdual_apply"])),
+        ((12,), lambda: (
+            "symdual_adjoint.adjoint",
+            pick(dual_rows, "symdual_adjoint", "adjoint"),
+            ("adjoint", "residual"), "symdual_adjoint.cu",
+            "ops/symdual.py:174",
+            rec["dual"]["bqp60_expanded"]["symdual_modes"]["adjoint"])),
+        ((12,), lambda: (
+            "symdual_adjoint.sym_factor",
+            pick(dual_rows, "symdual_adjoint", "sym_factor_p192_renorm",
+                 dtype="float64"),
+            tuple(r["mode"] for r in dual_rows
+                  if r["mode"].startswith("sym_factor")),
+            "symdual_adjoint.cu", "ops/symdual.py:446",
+            rec["dual"]["bqp60_expanded"]["symdual_modes"]["sym_factor"])),
+        ((12,), lambda: (
+            "symdual_adjoint.sym_mat",
+            pick(dual_rows, "symdual_adjoint", "sym_mat", dtype="float64"),
+            ("sym_mat",), "symdual_adjoint.cu", "ops/symdual.py:363",
+            rec["dual"]["bqp60_expanded"]["symdual_modes"]["sym_mat"])),
+        ((12,), lambda: (
+            "oblique_cols.proj_eG",
+            pick(dual_rows, "oblique_cols", "proj_eG", 192), ("proj_eG",),
+            "oblique_cols.cu", "solvers/dual_al.py:123",
+            rec["dual"]["bqp60_expanded"]["oblique_modes"]["proj_eG"])),
+        ((12,), lambda: (
+            "csr_gather.dual_op",
+            pick(dual_rows, "csr_gather", "dual_apply"),
+            ("dual_apply", "dual_y_step", "dual_adjoint"), "csr_gather.cu",
+            "ops/dualops.py:178",
+            rec["dual"]["bqp60_original"]["launches"]["csr_gather"])),
+        ((12,), lambda: (
+            "csr_gather.iab", pick(dual_rows, "csr_gather", "iab_mat"),
+            ("iab_mat", "iab_rmat"), "csr_gather.cu",
+            "solvers/dual_al.py:152",
+            rec["dual"]["qs30_general"]["launches"]["csr_gather"])),
+        ((16,), lambda: (
+            "symmom_apply", pick(mom_rows, "symmom_apply", "apply"),
+            ("apply",), "symmom_apply.cu", "ops/symmom.py:291",
+            rec["mom"]["bqpmom60"]["launches"]["symmom_apply"])),
+        ((16,), lambda: (
+            "symmom_adjoint", pick(mom_rows, "symmom_adjoint", "adjoint"),
+            ("adjoint", "es_vals"), "symmom_adjoint.cu",
+            "ops/symmom.py:297",
+            rec["mom"]["bqpmom60"]["launches"]["symmom_adjoint"])),
+        ((16,), lambda: (
+            "oblique_cols.masked",
+            pick(mom_rows, "oblique_cols", "masked_proj_eG", 8,
+                 dtype="float64"),
+            ("masked_proj", "masked_proj_eG", "masked_retr",
+             "masked_renormalize"), "oblique_cols.cu",
+            "manifolds/product.py:52",
+            rec["chain"]["primal"]["oblique_modes"]["masked"])),
+        ((20, 21), lambda: (
+            "symcoo_spmm.instance",
+            pick(batch_rows, "symcoo_spmm", "instance_hess",
+                 BATCH_P_PADS[0], dtype="float64"),
+            ("instance_plain", "instance_cost", "instance_hess"),
+            "symcoo_spmm.cu", "solvers/batch.py:68",
+            rec["batch"]["sparse"]["instance_launches"]["symcoo_spmm"])),
+        ((20, 21), lambda: (
+            "oblique_cols.instance",
+            pick(batch_rows, "oblique_cols", "instance_proj",
+                 BATCH_P_PADS[0], dtype="float64"),
+            ("instance_proj", "instance_retr", "instance_renormalize"),
+            "oblique_cols.cu", "solvers/batch.py:78",
+            rec["batch"]["sparse"]["instance_launches"]["oblique_cols"])),
+        ((20, 21), lambda: (
+            "tcg_step", pick(batch_rows, "tcg_step", "step",
+                             BATCH_P_PADS[-1], dtype="float64"),
+            ("step",), "tcg_step.cu", "core/trustregions.py:102",
+            rec["batch"]["sparse"]["launches"]["tcg_step"])),
     ]
     kern = []
-    for name, r, modes, src, rep, launches in entries:
+    for needs, make in specs:
+        if not set(needs) <= ph:
+            continue
+        name, r, modes, src, rep, launches = make()
         base = name.split(".")[0]
         kern.append(dict(
             name=name, route="cuda", source=f"manisdp_tpu_torch/csrc/{src}",
@@ -1880,14 +2282,11 @@ def run_phases(args, jobs):
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-        json.dump(dict(nvidia_smi=smi, build_s=build_s, kernel_rows=rows,
-                       al_kernel_rows=al_rows,
+        json.dump(dict(nvidia_smi=smi, phases=sorted(ph), build_s=build_s,
+                       kernel_rows=rows, al_kernel_rows=al_rows,
                        carrier_kernel_rows=carrier_rows,
-                       dual_kernel_rows=dual_rows, dual_setup=dual_setup,
-                       mom_kernel_rows=mom_rows, mom_setup=mom_setup,
-                       g1=g1, g67=g67, mc12000=mc, mc4000=mc4,
-                       mc4000_setup=setup, dual=dual, mom=mom, chain=chain,
-                       two_block=two_block, kernels=kern,
+                       dual_kernel_rows=dual_rows, mom_kernel_rows=mom_rows,
+                       batch_kernel_rows=batch_rows, **rec, kernels=kern,
                        total_s=time.perf_counter() - t_start),
                   f, indent=1)
     emit(dict(kernels=kern))

@@ -28,6 +28,8 @@ relaxation on the expanded-basis moment operator (kernels K9 and K10).
 ``solvers.dual_multiblock.solve_dual_multiblock`` take block-diagonal
 SeDuMi data on the masked product manifold (K2 with a column mask);
 ``solve_sedumi`` sends an LP cone or several PSD blocks to the first.
+``solve_maxcut_batch`` solves B MaxCut instances together (K1 and K2 in
+instance mode); every RTR's truncated-CG step is kernel K11.
 Importing this package imports neither jax nor ``manisdp_tpu`` and
 builds nothing.
 """
@@ -38,12 +40,14 @@ from .frontends.gset import load_gset_laplacian
 from .solvers.dispatch import solve_sedumi
 from .solvers.dual_general import solve_dual_sdp
 from .solvers.dual_unitdiag import solve_dual_unitdiag
+from .solvers.batch import solve_maxcut_batch
 from .solvers.general import solve_sdp
 from .solvers.maxcut import solve_maxcut_unitdiag
 from .solvers.unitdiag import solve_unitdiag
 from .solvers.unittrace import solve_unittrace
 
-__all__ = ["SolverOptions", "recipes", "solve_maxcut_unitdiag", "solve_sdp",
+__all__ = ["SolverOptions", "recipes", "solve_maxcut_unitdiag",
+           "solve_maxcut_batch", "solve_sdp",
            "solve_sedumi", "solve_unitdiag", "solve_unittrace",
            "solve_dual_unitdiag", "solve_dual_sdp", "load_gset_laplacian"]
 

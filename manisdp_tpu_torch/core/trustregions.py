@@ -4,11 +4,20 @@ manisdp_tpu/core/trustregions.py).
 The JAX package runs both loops as ``lax.while_loop``s in one compiled
 program.  Here the outer TR loop is a Python loop with a host branch for
 accept / reject (at most ``maxiter`` host reads per solve), and the tCG
-loop keeps its scalars as 0-d device tensors: every branch of the
-reference is a ``torch.where``, and the stop flag is read on the host
-once per ``_TCG_CHUNK`` iterations.  An iteration that starts after a
-stop is a masked no-op, so the result equals the iteration-by-iteration
-semantics of the reference.
+loop keeps its scalars on the device: one scalar set per instance, every
+branch of the reference a select.  Each tCG iteration is the Hessian
+product, kernel K11's three passes (``kernels.tcg_dots`` / ``tcg_update``
+/ ``tcg_finish``: the dots, the step and the next direction) and the
+tangent re-projection; the stop flags are read on the host once per
+``_TCG_CHUNK`` iterations.  An iteration that starts after a stop is a
+masked no-op, so the result equals the iteration-by-iteration semantics
+of the reference.
+
+``make_batched_trustregions`` runs B instances of one problem at once
+(the batched MaxCut driver; the JAX package's jax.vmap of the solve): the
+factor is (B, p, n), every scalar of both loops is a (B,) tensor, and an
+instance that has stopped, in either loop, is a masked no-op, so each
+instance follows its own single-instance trajectory.
 
 Semantics (Manopt trustregions.m / tCG.m, as in the JAX package):
   - Delta_bar = typicaldist, Delta0 = Delta_bar/8
@@ -24,11 +33,17 @@ Semantics (Manopt trustregions.m / tCG.m, as in the JAX package):
 
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
+import numpy as np
 import torch
 
+from ..kernels import tcg_dots, tcg_finish, tcg_update
 from .problem import Problem, TROptions, TRResult
 
 _TCG_CHUNK = 8
+# stop code of an instance whose outer loop has stopped: its tCG is a no-op
+_IDLE = 7
 
 
 def cast_floats(obj, dtype):
@@ -48,14 +63,15 @@ def cast_floats(obj, dtype):
     return obj
 
 
-def _make_tcg(problem: Problem, opts: TROptions):
+def _make_tcg(problem: Problem, opts: TROptions, batched: bool = False):
     M = problem.manifold
-    inner = M.inner
     tcg_dt = getattr(torch, opts.tcg_dtype) if opts.tcg_dtype else None
 
-    def tcg(Y, grad, Delta, params, aux, gaux):
-        """Returns (eta, Heta, inner iterations, stop code); the last two
-        as Python ints."""
+    def tcg(Y, grad, Delta, params, aux, gaux, active=None):
+        """Returns (eta, Heta, inner iterations, stop code), the last two
+        as (B,) int32 device tensors (B = 1 unless ``batched``; a stopped
+        instance's stop code is 5 for maxinner).  ``active`` (B,) bool:
+        instances to run; the others return eta = 0 after 0 iterations."""
         out_dt = Y.dtype
         low = tcg_dt is not None and tcg_dt != out_dt
         if low:
@@ -64,10 +80,19 @@ def _make_tcg(problem: Problem, opts: TROptions):
             Y, grad, aux, gaux = (cast_floats(t, tcg_dt)
                                   for t in (Y, grad, aux, gaux))
             Delta = Delta.to(tcg_dt)
-        eta = M.zerovec(Y)
-        Heta = M.zerovec(Y)
-        r = grad
-        r_r = inner(Y, r, r)
+        # K11 takes (B, ...) vectors: a single instance is a view with B = 1
+        def bat(t):
+            return t if batched else t.unsqueeze(0)
+
+        def unb(t):
+            return t if batched else t[0]
+
+        # K11 writes into eta, Heta, r and mdelta on the card: own them
+        eta = bat(M.zerovec(Y))
+        Heta = bat(M.zerovec(Y))
+        r = bat(grad.clone())
+        mdelta = r.clone()
+        r_r = torch.sum(r * r, dim=tuple(range(1, r.dim())))
         norm_r0 = torch.sqrt(r_r)
         # no preconditioner: z = r
         kappa_bound = norm_r0 * torch.clamp(norm_r0 ** opts.theta,
@@ -77,77 +102,36 @@ def _make_tcg(problem: Problem, opts: TROptions):
             # its floor; clamp the target instead of stalling
             kappa_bound = torch.maximum(kappa_bound,
                                         norm_r0 * opts.tcg_resid_floor)
-        linear = opts.kappa < norm_r0 ** opts.theta    # stop-code 3 vs 4
-
-        zero = torch.zeros((), dtype=r_r.dtype, device=r_r.device)
-        mdelta = r
-        e_Pe, e_Pd, d_Pd, z_r, model_value = zero, zero, r_r, r_r, zero
-        j = torch.zeros((), dtype=torch.int32, device=r_r.device)
-        stop = torch.zeros((), dtype=torch.int32, device=r_r.device)
-        code = lambda c: torch.tensor(c, dtype=torch.int32,  # noqa: E731
-                                      device=r_r.device)
-        c0, c1, c2, c3, c4, c6 = (code(c) for c in (0, 1, 2, 3, 4, 6))
-        DD = Delta * Delta
+        # stop-code 3 vs 4
+        linear = (opts.kappa < norm_r0 ** opts.theta).to(r_r.dtype)
+        zero = torch.zeros_like(r_r)
+        DD = (Delta * Delta).expand(r_r.shape)
+        sc = torch.stack([zero, zero, r_r, r_r, zero, DD, kappa_bound,
+                          linear], dim=1)
+        st = torch.zeros((r_r.shape[0], 2), dtype=torch.int32,
+                         device=r_r.device)
+        if active is not None:
+            st[:, 1] = torch.where(active, 0, _IDLE)
 
         for it in range(opts.maxinner):
-            if it % _TCG_CHUNK == 0 and it and int(stop) != 0:
+            if it and it % _TCG_CHUNK == 0 and \
+                    bool(torch.all(st[:, 1] != 0)):
                 break
-            act = stop == 0
-            Hm = problem.hess(Y, mdelta, params, aux, gaux)
-            d_Hd = inner(Y, mdelta, Hm)
-            d_r = inner(Y, mdelta, r)
-            alpha = z_r / d_Hd
-            e_Pe_new = e_Pe + 2.0 * alpha * e_Pd + alpha * alpha * d_Pd
+            Hm = bat(problem.hess(Y, unb(mdelta), params, aux, gaux))
+            part = tcg_dots(mdelta, Hm, r, st)
+            eta, Heta, r, part2, xs = tcg_update(part, sc, st, mdelta, Hm,
+                                                 eta, Heta, r)
+            # r + beta mdelta, then back onto the tangent space
+            w, sc, st = tcg_finish(part2, sc, st, xs, r, mdelta,
+                                   opts.mininner)
+            mdelta = bat(M.tangent(Y, unb(w)))
 
-            boundary = (d_Hd <= 0.0) | (e_Pe_new >= DD)
-            # exact boundary solve (tCG.m:188)
-            tau = (-e_Pd + torch.sqrt(e_Pd * e_Pd + d_Pd * (DD - e_Pe))) \
-                / d_Pd
-            step = torch.where(boundary, tau, alpha)
-
-            new_eta = eta - step * mdelta
-            new_Heta = Heta - step * Hm
-            # incremental model value m(eta - t d) = m(eta) - t<d, r>
-            # + t^2/2 <d, Hd>
-            new_mv = model_value - step * d_r + 0.5 * step * step * d_Hd
-            model_inc = (~boundary) & (new_mv >= model_value)
-
-            stop_n = torch.where(
-                boundary, torch.where(d_Hd <= 0.0, c1, c2),
-                torch.where(model_inc, c6, c0))
-            # on model increase (stop 6) keep the PREVIOUS iterate
-            keep = model_inc | ~act
-            eta = torch.where(keep, eta, new_eta)
-            Heta = torch.where(keep, Heta, new_Heta)
-            model_value = torch.where(keep, model_value, new_mv)
-
-            r_n = r - alpha * Hm
-            r_r_n = inner(Y, r_n, r_n)
-            norm_r = torch.sqrt(r_r_n)
-            hit_kappa = (stop_n == 0) & (j + 1 >= opts.mininner) & \
-                (norm_r <= kappa_bound)
-            stop_n = torch.where(hit_kappa, torch.where(linear, c3, c4),
-                                 stop_n)
-
-            beta = r_r_n / z_r
-            mdelta_n = M.tangent(Y, r_n + beta * mdelta)
-            e_Pd_n = beta * (e_Pd + alpha * d_Pd)
-            d_Pd_n = r_r_n + beta * beta * d_Pd
-
-            r = torch.where(act, r_n, r)
-            mdelta = torch.where(act, mdelta_n, mdelta)
-            e_Pe = torch.where(act & ~boundary, e_Pe_new, e_Pe)
-            e_Pd = torch.where(act, e_Pd_n, e_Pd)
-            d_Pd = torch.where(act, d_Pd_n, d_Pd)
-            z_r = torch.where(act, r_r_n, z_r)
-            j = j + act.to(j.dtype)
-            stop = torch.where(act, stop_n, stop)
-
-        stop_i = int(stop)
+        stop = torch.where(st[:, 1] == 0, 5, st[:, 1])
+        eta, Heta = unb(eta), unb(Heta)
         if low:
             eta = eta.to(out_dt)
             Heta = Heta.to(out_dt)
-        return eta, Heta, int(j), (5 if stop_i == 0 else stop_i)
+        return eta, Heta, st[:, 0], stop
 
     return tcg
 
@@ -180,8 +164,9 @@ def make_trustregions(problem: Problem, opts: TROptions):
         k = total_inner = 0
 
         while k < opts.maxiter and float(norm_grad) >= opts.tolgradnorm:
-            eta, Heta, numit, stop_inner = tcg(Y, g, Delta, params_tcg,
-                                               aux, gaux)
+            eta, Heta, numit, stop = tcg(Y, g, Delta, params_tcg, aux,
+                                         gaux)
+            (numit, stop_inner), = torch.stack([numit, stop], 1).tolist()
 
             Y_prop = M.retr(Y, eta)
             f_prop, aux_prop = problem.cost(Y_prop, params)
@@ -210,5 +195,97 @@ def make_trustregions(problem: Problem, opts: TROptions):
 
         return TRResult(Y=Y, fx=fx, norm_grad=norm_grad, iters=k,
                         inner_iters=total_inner)
+
+    return solve
+
+
+class BatchedTRResult(NamedTuple):
+    Y: Any              # (B, p, n)
+    fx: Any             # (B,) tensor
+    norm_grad: Any      # (B,) tensor
+    iters: np.ndarray   # (B,) TR iterations of each instance
+    inner_iters: np.ndarray  # (B,) tCG iterations of each instance
+
+
+def _select(mask, new, old):
+    """Per-instance select over a tensor or a tuple of tensors whose
+    leading axis is the instance."""
+    if isinstance(new, tuple):
+        return tuple(_select(mask, a, b) for a, b in zip(new, old))
+    return torch.where(mask.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+def make_batched_trustregions(problem: Problem, opts: TROptions):
+    """Build the batched RTR solve: (Y0 (B, p, n), params, typicaldist) ->
+    BatchedTRResult.  ``problem`` maps a (B, p, n) stack to (B,) costs and
+    its manifold's ``inner`` / ``norm`` return (B,) values.
+
+    Both loops hold (B,) scalars on the device.  An instance leaves the
+    outer loop when its gradient norm falls below ``tolgradnorm`` or after
+    ``maxiter`` iterations, and from then on every iteration leaves it as
+    it is; the host reads "any instance still active" once per outer
+    iteration.  ``opts.tcg_dtype`` must be None (the JAX package's batch
+    runs its tCG in the ambient dtype)."""
+    if opts.tcg_dtype is not None:
+        raise ValueError("the batched RTR runs its tCG in the ambient dtype")
+    M = problem.manifold
+    tcg = _make_tcg(problem, opts, batched=True)
+
+    def solve(Y0, params, typicaldist):
+        dt, dev = Y0.dtype, Y0.device
+        B = Y0.shape[0]
+        Delta_bar = torch.tensor(typicaldist, dtype=dt, device=dev)
+        Delta = torch.full((B,), float(typicaldist), dtype=dt,
+                           device=dev) / 8.0
+        eps = torch.finfo(dt).eps
+
+        Y = Y0
+        fx, aux = problem.cost(Y, params)
+        g, gaux = problem.grad(Y, params, aux)
+        norm_grad = M.norm(Y, g)
+        k = torch.zeros((B,), dtype=torch.int32, device=dev)
+        total_inner = torch.zeros((B,), dtype=torch.int32, device=dev)
+
+        for _ in range(opts.maxiter):
+            active = (k < opts.maxiter) & (norm_grad >= opts.tolgradnorm)
+            if not bool(torch.any(active)):
+                break
+            eta, Heta, numit, stop_inner = tcg(Y, g, Delta, params, aux,
+                                               gaux, active)
+
+            Y_prop = M.retr(Y, eta)
+            f_prop, aux_prop = problem.cost(Y_prop, params)
+
+            rho_reg = torch.clamp(torch.abs(fx), min=1.0) * eps * \
+                opts.rho_regularization
+            rhonum = fx - f_prop + rho_reg
+            vecrho = g + 0.5 * Heta
+            rhoden = -M.inner(Y, eta, vecrho) + rho_reg
+            model_decreased = rhoden >= 0.0
+            rho = rhonum / rhoden
+
+            shrink = (rho < 0.25) | (~model_decreased) | torch.isnan(rho)
+            grow = (rho > 0.75) & ((stop_inner == 1) | (stop_inner == 2))
+            Delta_n = torch.where(
+                shrink, Delta / 4.0,
+                torch.where(grow, torch.minimum(2.0 * Delta, Delta_bar),
+                            Delta))
+            Delta = torch.where(active, Delta_n, Delta)
+
+            accept = active & model_decreased & (rho > opts.rho_prime)
+            g_prop, gaux_prop = problem.grad(Y_prop, params, aux_prop)
+            Y = _select(accept, Y_prop, Y)
+            fx = torch.where(accept, f_prop, fx)
+            aux = _select(accept, aux_prop, aux)
+            g = _select(accept, g_prop, g)
+            gaux = _select(accept, gaux_prop, gaux)
+            norm_grad = torch.where(accept, M.norm(Y_prop, g_prop),
+                                    norm_grad)
+            k = k + active.to(k.dtype)
+            total_inner = total_inner + numit
+
+        return BatchedTRResult(
+            Y=Y, fx=fx, norm_grad=norm_grad, iters=k.cpu().numpy(),
+            inner_iters=total_inner.cpu().numpy())
 
     return solve

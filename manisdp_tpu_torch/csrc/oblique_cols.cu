@@ -17,6 +17,10 @@
 // (its colsum is multiplied by 0) and the normalization (divided by 1),
 // as the JAX expressions do.  Without a mask every mode computes exactly
 // what it did before.
+// Instance mode (nb > 1; the batched MaxCut driver's (B, p, n) factor,
+// replacing the jax.vmap of these ops in solvers/batch.py:78-87):
+// blockIdx.y is the instance, x, u, v and out advance by p * n per
+// instance and g by n; the mask, when given, is shared.
 // Zero padding rows stay zero.  A zero column gives 0/0 = NaN, exactly
 // as the JAX expressions do.
 //
@@ -55,6 +59,12 @@ oblique_cols_kernel(const T* __restrict__ x, const T* __restrict__ u,
                     T* __restrict__ out) {
   const int j = blockIdx.x * kThreads + threadIdx.x;
   if (j >= n) return;
+  const int64_t inst = blockIdx.y, at = inst * p * n;
+  x += at;
+  out += at;
+  if (u != nullptr) u += at;
+  if (v != nullptr) v += at;
+  if (g != nullptr) g += inst * n;
   // masked mode: a column with mask 0 is Euclidean
   const bool skip = mask != nullptr && !(mask[j] > T(0));
   T s = T(0);
@@ -102,10 +112,10 @@ oblique_cols_kernel(const T* __restrict__ x, const T* __restrict__ u,
 
 template <typename T>
 int launch(const void* x, const void* u, const void* v, const void* g,
-           const void* mask, int p, int n, int mode, void* out,
+           const void* mask, int p, int n, int nb, int mode, void* out,
            void* stream) {
-  if (n <= 0 || p <= 0) return (int)cudaSuccess;
-  const dim3 grid((n + kThreads - 1) / kThreads);
+  if (n <= 0 || p <= 0 || nb <= 0) return (int)cudaSuccess;
+  const dim3 grid((n + kThreads - 1) / kThreads, nb);
   oblique_cols_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const T*)x, (const T*)u, (const T*)v, (const T*)g, (const T*)mask, p,
       n, mode, (T*)out);
@@ -117,15 +127,15 @@ int launch(const void* x, const void* u, const void* v, const void* g,
 extern "C" {
 
 int oblique_cols_f64(const void* x, const void* u, const void* v,
-                     const void* g, const void* mask, int p, int n, int mode,
-                     void* out, void* stream) {
-  return launch<double>(x, u, v, g, mask, p, n, mode, out, stream);
+                     const void* g, const void* mask, int p, int n, int nb,
+                     int mode, void* out, void* stream) {
+  return launch<double>(x, u, v, g, mask, p, n, nb, mode, out, stream);
 }
 
 int oblique_cols_f32(const void* x, const void* u, const void* v,
-                     const void* g, const void* mask, int p, int n, int mode,
-                     void* out, void* stream) {
-  return launch<float>(x, u, v, g, mask, p, n, mode, out, stream);
+                     const void* g, const void* mask, int p, int n, int nb,
+                     int mode, void* out, void* stream) {
+  return launch<float>(x, u, v, g, mask, p, n, nb, mode, out, stream);
 }
 
 }  // extern "C"

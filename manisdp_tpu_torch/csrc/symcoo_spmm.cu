@@ -45,6 +45,17 @@
 // p-vector per neighbour would be contiguous.  Whether the port should
 // keep the factor n-major is an open measurement; this kernel takes any
 // strides, so it serves both layouts and the V^T views of matvec_block.
+//
+// Instance mode (B19; replaces the jax.vmap of these products over a
+// batch of MaxCut instances, solvers/batch.py:68-98 with the padded
+// SymCOO arrays of :52-65): nb instances of one padded size n in one
+// launch, blockIdx.y the instance.  A, B and out advance by their
+// instance strides, z, eG and w by n, and each instance has its own
+// column pointer (row inst of an (nb, n+1) array, local to its entries)
+// and its first entry eoff[inst] (int64) in the concatenated rows /
+// vals / vals2.  A padding column j >= n_inst has an empty segment, so
+// its product is exactly 0.  With nb = 1 and no eoff every pointer is
+// where the single-instance call had it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,18 +119,33 @@ __device__ __forceinline__ void gather2_chunk(
 
 template <typename T, int NCH>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-symcoo_spmm_kernel(const T* __restrict__ A, int64_t sar, int64_t sac,
-                   const int* __restrict__ colptr,
+symcoo_spmm_kernel(const T* __restrict__ A, int64_t sab, int64_t sar,
+                   int64_t sac, const int* __restrict__ colptr,
+                   const int64_t* __restrict__ eoff,
                    const int* __restrict__ rows,
                    const T* __restrict__ vals, int p, int n, int mode,
                    const T* __restrict__ z,
-                   const T* __restrict__ B, int64_t sbr, int64_t sbc,
-                   const T* __restrict__ eG,
+                   const T* __restrict__ B, int64_t sbb, int64_t sbr,
+                   int64_t sbc, const T* __restrict__ eG,
                    const T* __restrict__ vals2, T c1, T c2,
                    T* __restrict__ out, T* __restrict__ w) {
   const int lane = threadIdx.x & 31;
   const int j = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (j >= n) return;  // whole warp leaves together
+  // instance mode: move every pointer to instance blockIdx.y (instance 0
+  // and the single-instance call leave them where they are)
+  const int64_t inst = blockIdx.y;
+  const int64_t eb = eoff != nullptr ? eoff[inst] : 0;
+  A += inst * sab;
+  colptr += inst * (n + 1);
+  rows += eb;
+  vals += eb;
+  out += inst * p * n;
+  if (z != nullptr) z += inst * n;
+  if (B != nullptr) B += inst * sbb;
+  if (eG != nullptr) eG += inst * n;
+  if (vals2 != nullptr) vals2 += eb;
+  if (w != nullptr) w += inst * n;
   const int e0 = colptr[j], e1 = colptr[j + 1];
   const int64_t acol = (int64_t)j * sac;
   const int rows_per_pass = 32 * NCH;
@@ -180,20 +206,22 @@ symcoo_spmm_kernel(const T* __restrict__ A, int64_t sar, int64_t sac,
 }
 
 template <typename T>
-int launch(const void* A, int64_t sar, int64_t sac, const void* colptr,
-           const void* rows, const void* vals, int p, int n, int mode,
-           const void* z, const void* B, int64_t sbr, int64_t sbc,
+int launch(const void* A, int64_t sab, int64_t sar, int64_t sac,
+           const void* colptr, const void* eoff, const void* rows,
+           const void* vals, int p, int n, int nb, int mode, const void* z,
+           const void* B, int64_t sbb, int64_t sbr, int64_t sbc,
            const void* eG, const void* vals2, double c1, double c2,
            void* out, void* w, void* stream) {
-  if (n <= 0 || p <= 0) return (int)cudaSuccess;
+  if (n <= 0 || p <= 0 || nb <= 0) return (int)cudaSuccess;
   const dim3 block(32 * kWarpsPerBlock);
-  const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock, nb);
   cudaStream_t s = (cudaStream_t)stream;
   const int nch = (p + 31) / 32;
 #define K1_ARGS                                                           \
-  (const T*)A, sar, sac, (const int*)colptr, (const int*)rows,            \
-      (const T*)vals, p, n, mode, (const T*)z, (const T*)B, sbr, sbc,     \
-      (const T*)eG, (const T*)vals2, (T)c1, (T)c2, (T*)out, (T*)w
+  (const T*)A, sab, sar, sac, (const int*)colptr, (const int64_t*)eoff,   \
+      (const int*)rows, (const T*)vals, p, n, mode, (const T*)z,          \
+      (const T*)B, sbb, sbr, sbc, (const T*)eG, (const T*)vals2, (T)c1,   \
+      (T)c2, (T*)out, (T*)w
   if (nch <= 1)
     symcoo_spmm_kernel<T, 1><<<grid, block, 0, s>>>(K1_ARGS);
   else if (nch <= 2)
@@ -208,24 +236,22 @@ int launch(const void* A, int64_t sar, int64_t sac, const void* colptr,
 
 extern "C" {
 
-int symcoo_spmm_f64(const void* A, int64_t sar, int64_t sac,
-                    const void* colptr, const void* rows, const void* vals,
-                    int p, int n, int mode, const void* z, const void* B,
-                    int64_t sbr, int64_t sbc, const void* eG,
-                    const void* vals2, double c1, double c2, void* out,
-                    void* w, void* stream) {
-  return launch<double>(A, sar, sac, colptr, rows, vals, p, n, mode, z, B,
-                        sbr, sbc, eG, vals2, c1, c2, out, w, stream);
-}
+#define K1_EXPORT(SUF, T)                                                    \
+  int symcoo_spmm_##SUF(const void* A, int64_t sab, int64_t sar,            \
+                        int64_t sac, const void* colptr, const void* eoff,  \
+                        const void* rows, const void* vals, int p, int n,   \
+                        int nb, int mode, const void* z, const void* B,     \
+                        int64_t sbb, int64_t sbr, int64_t sbc,              \
+                        const void* eG, const void* vals2, double c1,       \
+                        double c2, void* out, void* w, void* stream) {      \
+    return launch<T>(A, sab, sar, sac, colptr, eoff, rows, vals, p, n, nb,  \
+                     mode, z, B, sbb, sbr, sbc, eG, vals2, c1, c2, out, w,  \
+                     stream);                                               \
+  }
 
-int symcoo_spmm_f32(const void* A, int64_t sar, int64_t sac,
-                    const void* colptr, const void* rows, const void* vals,
-                    int p, int n, int mode, const void* z, const void* B,
-                    int64_t sbr, int64_t sbc, const void* eG,
-                    const void* vals2, double c1, double c2, void* out,
-                    void* w, void* stream) {
-  return launch<float>(A, sar, sac, colptr, rows, vals, p, n, mode, z, B,
-                       sbr, sbc, eG, vals2, c1, c2, out, w, stream);
-}
+K1_EXPORT(f64, double)
+K1_EXPORT(f32, float)
+
+#undef K1_EXPORT
 
 }  // extern "C"

@@ -27,6 +27,11 @@ K9 ``symmom_apply`` (csrc/symmom_apply.cu): the BQP moment operator's rows
    A(M) of an (n~, n~) matrix in the flat layout, don't-care slots 0.
 K10 ``symmom_adjoint`` (csrc/symmom_adjoint.cu): its exact adjoint A'(y),
    with the fused epilogue base + alpha * A'(y).
+K11 ``tcg_dots`` / ``tcg_update`` / ``tcg_finish`` (csrc/tcg_step.cu): the
+   truncated-CG vector step around one Hessian-vector product, one scalar
+   set per instance.
+K1 and K2 also take a batch of B instances of one padded size in one
+launch (instance mode): a BatchedSymCOO and (B, p, n) factors.
 
 A wrapper given CPU tensors runs the plain PyTorch twin beside it; given
 CUDA tensors it launches the kernel (building it on first use) or
@@ -42,7 +47,7 @@ from .build import build
 LAUNCHES = {"symcoo_spmm": 0, "oblique_cols": 0, "pattern_dots": 0,
             "csr_gather": 0, "masked_sym": 0, "oa_refine": 0,
             "symdual_apply": 0, "symdual_adjoint": 0, "symmom_apply": 0,
-            "symmom_adjoint": 0}
+            "symmom_adjoint": 0, "tcg_step": 0}
 
 # "al_hess" is kernel mode 4, or 5 when eG selects the diag epilogue
 SPMM_MODES = {"plain": 0, "shift": 1, "cost": 2, "hess": 3, "al_hess": 4}
@@ -60,12 +65,17 @@ MASKED_MODES = {"apply": 0, "aat": 1, "axpy": 2}
 MASKED_LAUNCHES = {mode: 0 for mode in MASKED_MODES}
 # K8's launches by mode (their sum is LAUNCHES["symdual_adjoint"])
 SYMDUAL_LAUNCHES = {"adjoint": 0, "sym_factor": 0, "sym_mat": 0}
+# K1's and K2's launches in instance mode (also counted above)
+INSTANCE_LAUNCHES = {"symcoo_spmm": 0, "oblique_cols": 0}
+# K11's launches by pass (their sum is LAUNCHES["tcg_step"])
+TCG_LAUNCHES = {"dots": 0, "update": 0, "finish": 0}
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 
 def reset_launches():
     for counts in (LAUNCHES, SPMM_LAUNCHES, CSR_LAUNCHES, MASKED_LAUNCHES,
-                   OBLIQUE_LAUNCHES, SYMDUAL_LAUNCHES):
+                   OBLIQUE_LAUNCHES, SYMDUAL_LAUNCHES, INSTANCE_LAUNCHES,
+                   TCG_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -96,12 +106,33 @@ def _stream(t):
 
 # -------------------------------------------------------------------- K1 --
 
+def _stack_like(ts):
+    """Stack equal-shaped tensors, each keeping its memory layout (so each
+    instance's sums run in the order of the single-instance twin's)."""
+    out = torch.empty_strided((len(ts),) + tuple(ts[0].shape),
+                              (ts[0].numel(),) + ts[0].stride(),
+                              dtype=ts[0].dtype, device=ts[0].device)
+    for o, t in zip(out, ts):
+        o.copy_(t)
+    return out
+
+
 def symcoo_spmm_plain(A, C, mode="plain", vals=None, z=None, B=None,
                       eG=None, vals2=None, coefs=(1.0, 1.0)):
     """Plain twin of K1: the JAX package's gather / segment-sum formulas
     (ops/sparse.py scatter_cols; solvers/maxcut.py cost and hess;
-    solvers/primal_al.py hess)."""
+    solvers/primal_al.py hess); for a BatchedSymCOO, the single-instance
+    twin on each instance."""
     from ..ops.sparse import scatter_cols
+    if C.colptr.dim() == 2:
+        at = lambda t, b: None if t is None else t[b]  # noqa: E731
+        outs = [symcoo_spmm_plain(A[b], C.instance(b), mode,
+                                  C.entries(vals, b), at(z, b), at(B, b),
+                                  at(eG, b), C.entries(vals2, b), coefs)
+                for b in range(C.nb)]
+        if mode == "cost":
+            return tuple(_stack_like(o) for o in zip(*outs))
+        return _stack_like(outs)
     v = C.v if vals is None else vals
     AM = scatter_cols(v, C.i, C.j, A, C.n)
     if mode == "al_hess":
@@ -132,7 +163,11 @@ def symcoo_spmm(A, C, mode="plain", vals=None, z=None, B=None, eG=None,
     (n,).  ``vals`` replaces C's values (same pattern).  ``al_hess``
     returns H = coefs[0]·A·M + coefs[1]·B·M2, M2 with C's pattern and the
     values ``vals2``; given ``eG`` it returns the unit-diagonal epilogue
-    H − B ∘ colsum(B ∘ H) − A ∘ eG."""
+    H − B ∘ colsum(B ∘ H) − A ∘ eG.
+
+    Instance mode: ``C`` a BatchedSymCOO of nb instances, ``A`` and ``B``
+    (nb, p, n) with any strides, ``z`` and ``eG`` (nb, n); every mode but
+    ``al_hess``, one launch for all instances."""
     if mode not in SPMM_MODES:
         raise ValueError(f"unknown symcoo_spmm mode {mode!r}")
     v = C.v if vals is None else vals
@@ -140,13 +175,19 @@ def symcoo_spmm(A, C, mode="plain", vals=None, z=None, B=None, eG=None,
             "al_hess": (B, vals2)}.get(mode, ())
     if any(t is None for t in need):
         raise ValueError(f"mode {mode!r} is missing an operand")
+    batched = C.colptr.dim() == 2
+    if batched and mode == "al_hess":
+        raise ValueError("instance mode takes plain, shift, cost or hess")
     if not _on_cuda(A, v, C.i, C.colptr, z, B, eG, vals2):
         return symcoo_spmm_plain(A, C, mode, vals, z, B, eG, vals2, coefs)
 
-    if A.dim() != 2:
-        raise ValueError(f"A must be (p, n), got {tuple(A.shape)}")
-    p, n = A.shape
-    if n != C.n or v.shape != C.i.shape or C.colptr.shape != (n + 1,):
+    lead = (C.nb,) if batched else ()
+    if A.dim() != len(lead) + 2 or tuple(A.shape[:-2]) != lead:
+        raise ValueError(f"A must be {'(nb, p, n)' if batched else '(p, n)'}"
+                         f" for this C, got {tuple(A.shape)}")
+    p, n = A.shape[-2:]
+    if n != C.n or v.shape != C.i.shape or \
+            tuple(C.colptr.shape) != lead + (n + 1,):
         raise ValueError(f"A is {tuple(A.shape)}, C is n={C.n}, "
                          f"vals {tuple(v.shape)} vs nnz {C.i.shape[0]}")
     _check_dtype(A.dtype, A, v, z, B, eG, vals2)
@@ -155,12 +196,15 @@ def symcoo_spmm(A, C, mode="plain", vals=None, z=None, B=None, eG=None,
     if not (C.colptr.is_contiguous() and C.i.is_contiguous()
             and v.is_contiguous()):
         raise ValueError("C's index and value arrays must be contiguous")
+    if batched and (C.eoff.dtype != torch.int64 or
+                    C.eoff.shape != (C.nb,) or not C.eoff.is_contiguous()):
+        raise ValueError("C.eoff must be contiguous int64 (nb,)")
     if vals2 is not None and (vals2.shape != v.shape or
                               not vals2.is_contiguous()):
         raise ValueError(f"vals2 must be contiguous of shape "
                          f"{tuple(v.shape)}")
-    for name, t, shape in (("z", z, (n,)), ("eG", eG, (n,)),
-                           ("B", B, (p, n))):
+    for name, t, shape in (("z", z, lead + (n,)), ("eG", eG, lead + (n,)),
+                           ("B", B, tuple(A.shape))):
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
@@ -168,21 +212,26 @@ def symcoo_spmm(A, C, mode="plain", vals=None, z=None, B=None, eG=None,
         raise ValueError("z must be contiguous")
     if eG is not None and not eG.is_contiguous():
         raise ValueError("eG must be contiguous")
-    out = torch.empty((p, n), dtype=A.dtype, device=A.device)
-    w = torch.empty((n,), dtype=A.dtype, device=A.device) \
+    out = torch.empty(lead + (p, n), dtype=A.dtype, device=A.device)
+    w = torch.empty(lead + (n,), dtype=A.dtype, device=A.device) \
         if mode == "cost" else None
-    sbr, sbc = B.stride() if B is not None else (0, 0)
+    sab, sar, sac = (0,) * (not batched) + tuple(A.stride())
+    sbb, sbr, sbc = ((0,) * (not batched) + tuple(B.stride())
+                     if B is not None else (0, 0, 0))
     fn = getattr(build(), f"symcoo_spmm_{_SUFFIX[A.dtype]}")
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     code = SPMM_MODES[mode] + (mode == "al_hess" and eG is not None)
-    err = fn(A.data_ptr(), A.stride(0), A.stride(1), C.colptr.data_ptr(),
-             C.i.data_ptr(), v.data_ptr(), p, n, code, ptr(z), ptr(B), sbr,
-             sbc, ptr(eG), ptr(vals2), float(coefs[0]), float(coefs[1]),
-             out.data_ptr(), ptr(w), _stream(A))
+    err = fn(A.data_ptr(), sab, sar, sac, C.colptr.data_ptr(),
+             C.eoff.data_ptr() if batched else None, C.i.data_ptr(),
+             v.data_ptr(), p, n, C.nb if batched else 1, code, ptr(z),
+             ptr(B), sbb, sbr, sbc, ptr(eG), ptr(vals2), float(coefs[0]),
+             float(coefs[1]), out.data_ptr(), ptr(w), _stream(A))
     if err != 0:
         raise RuntimeError(f"symcoo_spmm launch failed: CUDA error {err}")
     LAUNCHES["symcoo_spmm"] += 1
     SPMM_LAUNCHES[mode] += 1
+    if batched:
+        INSTANCE_LAUNCHES["symcoo_spmm"] += 1
     return (out, w) if mode == "cost" else out
 
 
@@ -192,15 +241,16 @@ def oblique_cols_plain(x, u=None, mode="proj", v=None, g=None, mask=None):
     """Plain twin of K2: manifolds/oblique.py of the JAX package, with
     ``v``, ``g`` the oblique Hessian epilogue of solvers/dual_al.py, and
     with ``mask`` manifolds/product.py's MaskedProduct (columns with mask 0
-    are neither projected nor normalized)."""
+    are neither projected nor normalized).  Columns are the last axis, so a
+    (B, p, n) stack is B instances."""
     if mode == "proj":
-        s = torch.sum(x * u, dim=0, keepdim=True)
+        s = torch.sum(x * u, dim=-2, keepdim=True)
         out = u - x * (s if mask is None else s * mask[None, :])
-        return out if v is None else out - v * g[None, :]
+        return out if v is None else out - v * g[..., None, :]
     if mode not in ("retr", "renormalize"):
         raise ValueError(f"unknown oblique_cols mode {mode!r}")
     xtd = x + u if mode == "retr" else x
-    nrm = torch.sqrt(torch.sum(xtd * xtd, dim=0, keepdim=True))
+    nrm = torch.sqrt(torch.sum(xtd * xtd, dim=-2, keepdim=True))
     if mask is not None:
         nrm = torch.where(mask[None, :] > 0, nrm, torch.ones_like(nrm))
     return xtd / nrm
@@ -210,7 +260,8 @@ def oblique_cols(x, u=None, mode="proj", v=None, g=None, mask=None):
     """K2 on contiguous (p, n) ``x`` (and ``u`` for proj / retr).  proj
     with ``v`` (p, n) and ``g`` (n,) returns u - x ∘ colsum(x ∘ u) - v ∘ g.
     ``mask`` (n,) 0/1 in x's dtype: columns with mask 0 skip the projection
-    (colsum ∘ mask) and the normalization (divided by 1)."""
+    (colsum ∘ mask) and the normalization (divided by 1).  Instance mode:
+    x, u, v (B, p, n) and g (B, n), one launch; the mask is shared."""
     if mode not in OBLIQUE_MODES:
         raise ValueError(f"unknown oblique_cols mode {mode!r}")
     if (u is None) != (mode == "renormalize"):
@@ -221,21 +272,24 @@ def oblique_cols(x, u=None, mode="proj", v=None, g=None, mask=None):
     if not _on_cuda(x, u, v, g, mask):
         return oblique_cols_plain(x, u, mode, v, g, mask)
     _check_dtype(x.dtype, x, u, v, g, mask)
-    if x.dim() != 2 or any(t is not None and t.shape != x.shape
-                           for t in (u, v)):
-        raise ValueError("x, u and v must be the same (p, n) shape")
-    p, n = x.shape
-    for name, t in (("g", g), ("mask", mask)):
-        if t is not None and t.shape != (n,):
+    if x.dim() not in (2, 3) or any(t is not None and t.shape != x.shape
+                                    for t in (u, v)):
+        raise ValueError("x, u and v must be the same (p, n) or (B, p, n) "
+                         "shape")
+    p, n = x.shape[-2:]
+    nb = x.shape[0] if x.dim() == 3 else 1
+    for name, t, shape in (("g", g, x.shape[:-2] + (n,)),
+                           ("mask", mask, (n,))):
+        if t is not None and t.shape != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"({n},)")
+                             f"{tuple(shape)}")
     if not all(t.is_contiguous() for t in (x, u, v, g, mask)
                if t is not None):
         raise ValueError("oblique_cols takes contiguous row-major tensors")
     out = torch.empty_like(x)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     fn = getattr(build(), f"oblique_cols_{_SUFFIX[x.dtype]}")
-    err = fn(x.data_ptr(), ptr(u), ptr(v), ptr(g), ptr(mask), p, n,
+    err = fn(x.data_ptr(), ptr(u), ptr(v), ptr(g), ptr(mask), p, n, nb,
              OBLIQUE_MODES[mode], out.data_ptr(), _stream(x))
     if err != 0:
         raise RuntimeError(f"oblique_cols launch failed: CUDA error {err}")
@@ -243,6 +297,8 @@ def oblique_cols(x, u=None, mode="proj", v=None, g=None, mask=None):
     OBLIQUE_LAUNCHES["proj_eG" if v is not None else mode] += 1
     if mask is not None:
         OBLIQUE_LAUNCHES["masked"] += 1
+    if x.dim() == 3:
+        INSTANCE_LAUNCHES["oblique_cols"] += 1
     return out
 
 
@@ -697,6 +753,201 @@ def symmom_adjoint(y, q: int, base=None, alpha=1.0):
     return out
 
 
+# ------------------------------------------------------------------- K11 --
+# The tCG scalar state of each instance: sc (B, 8) in the vectors' dtype,
+# columns e_Pe, e_Pd, d_Pd, z_r = <r, r>, model value, Delta^2, kappa
+# target, linear (1.0: a met target is stop code 3, else 4); st (B, 2)
+# int32, columns j (completed iterations) and stop (0 = active).  An
+# instance whose stop is not 0 is left as it is by all three passes.
+# The vectors are (B, ...) tensors, instance b at index b.  The kernels
+# update their vector arguments in place (a contiguous copy of one that
+# is not) and return them; the twins return new tensors.  Callers use
+# what is returned.
+
+def tcg_blocks(L: int) -> int:
+    """Blocks per instance of K11's three passes (a function of L only,
+    so the order of every sum is fixed)."""
+    return max(1, min(-(-L // 1024), 512))
+
+
+def _per(s, like):
+    """A (B,) scalar shaped to broadcast against the (B, ...) ``like``."""
+    return s.view((-1,) + (1,) * (like.dim() - 1))
+
+
+def _inst_sum(t):
+    return torch.sum(t, dim=tuple(range(1, t.dim())))
+
+
+def _tcg_checks(dt, B, vecs, sc=None, st=None):
+    """The vectors made contiguous (a copy only where one is not) and their
+    (B, L) views; raises on what K11 does not take."""
+    vecs = [t.contiguous() for t in vecs]
+    flat = []
+    for t in vecs:
+        if t.dtype != dt or t.dim() < 2 or t.shape[0] != B:
+            raise ValueError(f"K11 takes {dt} vectors with {B} instances, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        flat.append(t.view(B, -1))
+    if any(f.shape != flat[0].shape for f in flat):
+        raise ValueError("K11's vectors must have one shape")
+    if sc is not None and (sc.dtype != dt or sc.shape != (B, 8) or
+                           not sc.is_contiguous()):
+        raise ValueError(f"sc must be contiguous ({B}, 8) {dt}")
+    if st is not None and (st.dtype != torch.int32 or st.shape != (B, 2) or
+                           not st.is_contiguous()):
+        raise ValueError(f"st must be contiguous ({B}, 2) int32")
+    return vecs, flat
+
+
+def tcg_dots_plain(d, Hd, r, st):
+    """Plain twin of K11 ``dots``: (<d, Hd>, <d, r>) per instance, the
+    JAX package's inner products in _make_tcg, 0 for a stopped instance,
+    as one partial (B, 1, 2)."""
+    dots = torch.stack([_inst_sum(d * Hd), _inst_sum(d * r)], dim=1)
+    act = (st[:, 1] == 0)[:, None]
+    return torch.where(act, dots, torch.zeros_like(dots))[:, None, :]
+
+
+def tcg_dots(d, Hd, r, st):
+    """K11 ``dots``: per-block partial sums (B, nblk, 2) of <d, Hd> and
+    <d, r> over each instance."""
+    if not _on_cuda(d, Hd, r, st):
+        return tcg_dots_plain(d, Hd, r, st)
+    _check_dtype(d.dtype, d, Hd, r)
+    B = d.shape[0]
+    _, (df, hf, rf) = _tcg_checks(d.dtype, B, (d, Hd, r), st=st)
+    L = df.shape[1]
+    nblk = tcg_blocks(L)
+    part = torch.empty((B, nblk, 2), dtype=d.dtype, device=d.device)
+    err = getattr(build(), f"tcg_dots_{_SUFFIX[d.dtype]}")(
+        df.data_ptr(), hf.data_ptr(), rf.data_ptr(), st.data_ptr(), L, B,
+        nblk, part.data_ptr(), _stream(d))
+    if err != 0:
+        raise RuntimeError(f"tcg_dots launch failed: CUDA error {err}")
+    LAUNCHES["tcg_step"] += 1
+    TCG_LAUNCHES["dots"] += 1
+    return part
+
+
+def tcg_update_plain(part, sc, st, d, Hd, eta, Heta, r):
+    """Plain twin of K11 ``update``: the step of the JAX package's tCG body
+    (core/trustregions.py:102-139) with the scalars of each instance.
+    Returns (eta, Heta, r, part2 (B, 1) = ||r||^2, xs (B, 4) = alpha, next
+    e_Pe, next model value, stop code)."""
+    dots = torch.sum(part, dim=1)
+    d_Hd, d_r = dots[:, 0], dots[:, 1]
+    e_Pe, e_Pd, d_Pd, z_r, mv, DD = sc[:, :6].unbind(1)
+    alpha = z_r / d_Hd
+    e_Pe_new = e_Pe + 2.0 * alpha * e_Pd + alpha * alpha * d_Pd
+    boundary = (d_Hd <= 0.0) | (e_Pe_new >= DD)
+    # exact boundary solve (tCG.m:188)
+    tau = (-e_Pd + torch.sqrt(e_Pd * e_Pd + d_Pd * (DD - e_Pe))) / d_Pd
+    step = torch.where(boundary, tau, alpha)
+    # incremental model value m(eta - t d) = m(eta) - t<d, r>
+    # + t^2/2 <d, Hd>
+    new_mv = mv - step * d_r + 0.5 * step * step * d_Hd
+    model_inc = (~boundary) & (new_mv >= mv)
+    code = lambda c: torch.full_like(alpha, c)  # noqa: E731
+    stop_n = torch.where(boundary,
+                         torch.where(d_Hd <= 0.0, code(1), code(2)),
+                         torch.where(model_inc, code(6), code(0)))
+    act = st[:, 1] == 0
+    # on model increase (stop 6) keep the PREVIOUS iterate
+    keep = _per(model_inc | ~act, d)
+    eta = torch.where(keep, eta, eta - _per(step, d) * d)
+    Heta = torch.where(keep, Heta, Heta - _per(step, d) * Hd)
+    r_n = r - _per(alpha, d) * Hd
+    r_r = _inst_sum(r_n * r_n)
+    xs = torch.stack([alpha, torch.where(boundary, e_Pe, e_Pe_new),
+                      torch.where(model_inc, mv, new_mv), stop_n], dim=1)
+    return (eta, Heta, torch.where(_per(act, d), r_n, r),
+            torch.where(act, r_r, torch.zeros_like(r_r))[:, None], xs)
+
+
+def tcg_update(part, sc, st, d, Hd, eta, Heta, r):
+    """K11 ``update``: from ``dots``' partials and the scalar state, the
+    step of every active instance: eta, Heta (unless the model increased)
+    and r <- r - alpha Hd, in place.  Returns (eta, Heta, r, part2 (B,
+    nblk), the partial ||r||^2, xs (B, 4), the step's scalars)."""
+    if not _on_cuda(part, sc, st, d, Hd, eta, Heta, r):
+        return tcg_update_plain(part, sc, st, d, Hd, eta, Heta, r)
+    _check_dtype(d.dtype, part, sc, d, Hd, eta, Heta, r)
+    B = d.shape[0]
+    (_, _, eta, Heta, r), (df, hf, ef, Hef, rf) = _tcg_checks(
+        d.dtype, B, (d, Hd, eta, Heta, r), sc, st)
+    L = df.shape[1]
+    nblk = tcg_blocks(L)
+    if part.shape != (B, nblk, 2) or not part.is_contiguous():
+        raise ValueError(f"part must be contiguous ({B}, {nblk}, 2)")
+    part2 = torch.empty((B, nblk), dtype=d.dtype, device=d.device)
+    xs = torch.empty((B, 4), dtype=d.dtype, device=d.device)
+    err = getattr(build(), f"tcg_update_{_SUFFIX[d.dtype]}")(
+        part.data_ptr(), sc.data_ptr(), st.data_ptr(), df.data_ptr(),
+        hf.data_ptr(), ef.data_ptr(), Hef.data_ptr(), rf.data_ptr(), L, B,
+        nblk, part2.data_ptr(), xs.data_ptr(), _stream(d))
+    if err != 0:
+        raise RuntimeError(f"tcg_update launch failed: CUDA error {err}")
+    LAUNCHES["tcg_step"] += 1
+    TCG_LAUNCHES["update"] += 1
+    return eta, Heta, r, part2, xs
+
+
+def tcg_finish_plain(part2, sc, st, xs, r, d, mininner: int):
+    """Plain twin of K11 ``finish``: the stop codes 3 / 4, beta and the
+    e_Pd / d_Pd recurrences of the JAX package's tCG body
+    (core/trustregions.py:141-160).  Returns (r + beta d, to be
+    re-projected onto the tangent space, and the next sc, st)."""
+    r_r = torch.sum(part2, dim=1)
+    alpha, e_Pe_n, mv_n, stop_f = xs.unbind(1)
+    j, stop = st.unbind(1)
+    stop_n = stop_f.to(torch.int32)
+    hit_kappa = (stop_n == 0) & (j + 1 >= mininner) & \
+        (torch.sqrt(r_r) <= sc[:, 6])
+    stop_n = torch.where(hit_kappa,
+                         torch.where(sc[:, 7] > 0, 3, 4).to(torch.int32),
+                         stop_n)
+    beta = r_r / sc[:, 3]
+    act = (stop == 0)[:, None]
+    e_Pd_n = beta * (sc[:, 1] + alpha * sc[:, 2])
+    d_Pd_n = r_r + beta * beta * sc[:, 2]
+    sc_n = torch.stack([e_Pe_n, e_Pd_n, d_Pd_n, r_r, mv_n, sc[:, 5],
+                        sc[:, 6], sc[:, 7]], dim=1)
+    st_n = torch.stack([j + 1, stop_n], dim=1).to(torch.int32)
+    # a stopped instance's direction is never read again
+    return (r + _per(beta, d) * d, torch.where(act, sc_n, sc),
+            torch.where(act, st_n, st))
+
+
+def tcg_finish(part2, sc, st, xs, r, d, mininner: int):
+    """K11 ``finish``: sums ``update``'s partials to <r, r>, sets the stop
+    codes of a met kappa / theta target and d <- r + beta d in place.
+    Returns (d, to be re-projected onto the tangent space, and the next
+    sc, st)."""
+    if not _on_cuda(part2, sc, st, xs, r, d):
+        return tcg_finish_plain(part2, sc, st, xs, r, d, mininner)
+    _check_dtype(d.dtype, part2, sc, xs, r, d)
+    B = d.shape[0]
+    (_, d), (rf, df) = _tcg_checks(d.dtype, B, (r, d), sc, st)
+    L = df.shape[1]
+    nblk = tcg_blocks(L)
+    if part2.shape != (B, nblk) or xs.shape != (B, 4) or \
+            not (part2.is_contiguous() and xs.is_contiguous()):
+        raise ValueError(f"part2 must be contiguous ({B}, {nblk}) and xs "
+                         f"({B}, 4)")
+    sc_n = torch.empty_like(sc)
+    st_n = torch.empty_like(st)
+    err = getattr(build(), f"tcg_finish_{_SUFFIX[d.dtype]}")(
+        part2.data_ptr(), sc.data_ptr(), st.data_ptr(), xs.data_ptr(),
+        rf.data_ptr(), df.data_ptr(), L, B, nblk, int(mininner),
+        sc_n.data_ptr(), st_n.data_ptr(), _stream(d))
+    if err != 0:
+        raise RuntimeError(f"tcg_finish launch failed: CUDA error {err}")
+    LAUNCHES["tcg_step"] += 1
+    TCG_LAUNCHES["finish"] += 1
+    return d, sc_n, st_n
+
+
 __all__ = ["LAUNCHES", "SPMM_LAUNCHES", "CSR_LAUNCHES", "MASKED_LAUNCHES",
            "OBLIQUE_LAUNCHES", "SYMDUAL_LAUNCHES", "reset_launches", "symcoo_spmm", "symcoo_spmm_plain",
            "oblique_cols", "oblique_cols_plain", "pattern_dots",
@@ -707,4 +958,7 @@ __all__ = ["LAUNCHES", "SPMM_LAUNCHES", "CSR_LAUNCHES", "MASKED_LAUNCHES",
            "symdual_sym_factor_plain", "symdual_sym_mat",
            "symdual_sym_mat_plain", "symmom_apply", "symmom_apply_plain",
            "symmom_flat_length",
-           "symmom_adjoint", "symmom_adjoint_plain", "build"]
+           "symmom_adjoint", "symmom_adjoint_plain", "INSTANCE_LAUNCHES",
+           "TCG_LAUNCHES", "tcg_blocks", "tcg_dots", "tcg_dots_plain",
+           "tcg_update", "tcg_update_plain", "tcg_finish",
+           "tcg_finish_plain", "build"]

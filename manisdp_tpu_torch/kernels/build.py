@@ -24,16 +24,16 @@ BUILD_DIR = _PKG.parent / "build" / "manisdp_tpu_torch"
 SOURCES = ("symcoo_spmm.cu", "oblique_cols.cu", "pattern_dots.cu",
            "csr_gather.cu", "masked_sym.cu", "oa_refine.cu",
            "symdual_apply.cu", "symdual_adjoint.cu", "symmom_apply.cu",
-           "symmom_adjoint.cu")
+           "symmom_adjoint.cu", "tcg_step.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
     ctypes.c_double
 _SIGNATURES = {
-    "symcoo_spmm": (_P, _I64, _I64, _P, _P, _P, _I, _I, _I, _P, _P, _I64,
-                    _I64, _P, _P, _D, _D, _P, _P, _P),
-    "oblique_cols": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "symcoo_spmm": (_P, _I64, _I64, _I64, _P, _P, _P, _P, _I, _I, _I, _I,
+                    _P, _P, _I64, _I64, _I64, _P, _P, _D, _D, _P, _P, _P),
+    "oblique_cols": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "pattern_dots": (_P, _I64, _I64, _P, _I64, _I64, _P, _P, _I, _I, _P,
                      _P),
     "csr_gather": (_P, _P, _P, _P, _P, _D, _P, _I, _P, _P),
@@ -46,6 +46,10 @@ _SIGNATURES = {
     "symdual_sym_mat": (_P, _I, _P, _P),
     "symmom_apply": (_P, _I, _P, _P, _P),
     "symmom_adjoint": (_P, _I, _P, _D, _P, _P, _P),
+    "tcg_dots": (_P, _P, _P, _P, _I64, _I, _I, _P, _P),
+    "tcg_update": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P, _P,
+                   _P),
+    "tcg_finish": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _P),
 }
 # the dtypes each kernel is built for (default: both)
 _SUFFIXES = {"oa_refine": ("f64",)}

@@ -3,7 +3,9 @@
 
 The column ops go through kernel K2 (``kernels.oblique_cols``) on CUDA
 tensors and through its plain twin on CPU tensors.  Zero padding rows
-are preserved by every op.
+are preserved by every op.  A (B, p, n) stack is B points of the batched
+MaxCut driver: the column ops take it in one launch, and ``inner`` /
+``norm`` return one value per point (the last two axes are summed).
 """
 
 from __future__ import annotations
@@ -13,14 +15,18 @@ import math
 import torch
 
 from ..kernels import oblique_cols
-from .base import frob_inner, frob_norm
 
 
 class Oblique:
     name = "oblique"
 
-    inner = staticmethod(frob_inner)
-    norm = staticmethod(frob_norm)
+    @staticmethod
+    def inner(x, u, v):
+        return torch.sum(u * v, dim=(-2, -1))
+
+    @staticmethod
+    def norm(x, u):
+        return torch.sqrt(torch.sum(u * u, dim=(-2, -1)))
 
     @staticmethod
     def proj(x, u):

@@ -114,11 +114,82 @@ class SymCOO:
         return torch.sum(self.quad_cols(Y, U))
 
     def to_dense(self):
-        out = torch.zeros((self.n, self.n), dtype=self.v.dtype,
-                          device=self.v.device)
+        """The dense (n, n) C.  On the card it is K1 against the
+        identity, so duplicate entries sum in entry order (an accumulating
+        index_put_ would use atomics there)."""
+        dt, dev = self.v.dtype, self.v.device
+        if dev.type != "cpu":
+            return symcoo_spmm(torch.eye(self.n, dtype=dt, device=dev), self)
+        out = torch.zeros((self.n, self.n), dtype=dt, device=dev)
         out.index_put_((self.i.long(), self.j.long()), self.v,
                        accumulate=True)
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedSymCOO:
+    """nb symmetric sparse matrices of one padded size n (the batched
+    MaxCut driver's ragged instances).  Each instance's full COO pattern is
+    sorted by (column, row) as in SymCOO, and the instances' entries are
+    concatenated: instance b owns entries eoff[b] .. eoff[b] + nnz_b, and
+    row b of ``colptr`` (nb, n+1) delimits its columns within them.
+    Columns past an instance's own n have empty segments, so its products
+    there are exactly 0.  (The JAX package pads every instance to a common
+    nnz with (0, 0) entries of value 0; a column pointer built from those
+    would put them all in column 0's segment.)"""
+    i: torch.Tensor        # (nnz,) int32 row within the instance
+    j: torch.Tensor        # (nnz,) int32 column
+    v: torch.Tensor        # (nnz,) values
+    colptr: torch.Tensor   # (nb, n+1) int32, local to each instance
+    eoff: torch.Tensor     # (nb,) int64 first entry of each instance
+    n: int
+
+    @staticmethod
+    def from_scipy(Cs, n_pad: int, device, dtype=torch.float64
+                   ) -> "BatchedSymCOO":
+        """From nb matrices (scipy sparse or dense) of size <= n_pad:
+        each symmetrized as 0.5 (C + Cᵀ) and sorted by (column, row), as
+        the JAX package's _pad_sym_coo does."""
+        import scipy.sparse as sp
+        ii, jj, vv, ptrs = [], [], [], []
+        for C in Cs:
+            if C.shape[0] > n_pad:
+                raise ValueError(f"instance of n = {C.shape[0]} does not "
+                                 f"fit n_pad = {n_pad}")
+            coo = sp.coo_matrix(C)
+            coo = sp.coo_matrix(0.5 * (coo + coo.T))
+            order = np.lexsort((coo.row, coo.col))
+            ii.append(coo.row[order])
+            jj.append(coo.col[order])
+            vv.append(coo.data[order])
+            ptrs.append(_ptr(jj[-1].astype(np.int64), n_pad))
+        nnz = np.array([a.size for a in ii], dtype=np.int64)
+        eoff = np.concatenate([[0], np.cumsum(nnz)[:-1]])
+        as_t = lambda a, dt: torch.tensor(a, dtype=dt, device=device)  # noqa: E731
+        return BatchedSymCOO(
+            i=as_t(np.concatenate(ii), torch.int32),
+            j=as_t(np.concatenate(jj), torch.int32),
+            v=as_t(np.concatenate(vv).astype(np.float64), dtype),
+            colptr=as_t(np.stack(ptrs), torch.int32),
+            eoff=as_t(eoff, torch.int64), n=int(n_pad))
+
+    @property
+    def nb(self) -> int:
+        return int(self.colptr.shape[0])
+
+    def _span(self, b: int) -> slice:
+        e0 = int(self.eoff[b])
+        return slice(e0, e0 + int(self.colptr[b, -1]))
+
+    def entries(self, vals, b: int):
+        """Instance b's part of a per-entry array (None passes)."""
+        return None if vals is None else vals[self._span(b)]
+
+    def instance(self, b: int) -> SymCOO:
+        """Instance b as a SymCOO of size n (views of the arrays)."""
+        at = self._span(b)
+        return SymCOO(i=self.i[at], j=self.j[at], v=self.v[at], n=self.n,
+                      colptr=self.colptr[b])
 
 
 def _ptr(seg, nseg: int) -> np.ndarray:
@@ -328,10 +399,11 @@ class ConstraintOp(_MVecResiduals):
         return self.apply_from_e(self.pattern_pair_dots(Y, U))
 
     def apply_vec(self, x):
-        """A @ x for a dense vec(X) (n^2,), off the hot path."""
+        """A @ x for a dense vec(X) (n^2,), off the hot path: the gathered
+        entries summed per constraint row by K4 (no atomics)."""
         e = x[self.i.long() + self.j.long() * self.n]
-        out = torch.zeros((self.m,), dtype=e.dtype, device=e.device)
-        return out.index_add_(0, self.k.long(), self.v * e)
+        at = torch.arange(e.shape[0], dtype=torch.int32, device=e.device)
+        return csr_gather(e, self.krow_ptr, at, self.v)
 
     # -- adjoint on the pattern ------------------------------------------
     def adjoint_on_pattern(self, w):
@@ -354,10 +426,12 @@ class ConstraintOp(_MVecResiduals):
         return self.adjoint_on_pattern(self.apply_factored(Y, U))
 
     def pattern_dense(self, vals):
+        """mat(vals) as a dense (n, n) array.  Pattern positions are
+        distinct (``from_arrays`` checks it), so a plain assignment puts
+        each value in place, without atomics."""
         out = torch.zeros((self.n, self.n), dtype=vals.dtype,
                           device=vals.device)
-        return out.index_put_((self.pat.i.long(), self.pat.j.long()), vals,
-                              accumulate=True)
+        return out.index_put_((self.pat.i.long(), self.pat.j.long()), vals)
 
     def host_arrays(self) -> dict:
         """The entries (k, i, j, v), b and c on P as host numpy arrays: what
@@ -386,9 +460,10 @@ class ConstraintOp(_MVecResiduals):
         return torch.dot(u, v)
 
     def colsum_pattern(self, vals):
-        """Column sums of mat(vals) on P -> (n,)."""
-        out = torch.zeros((self.n,), dtype=vals.dtype, device=vals.device)
-        return out.index_add_(0, self.pat.j.long(), vals)
+        """Column sums of mat(vals) on P -> (n,): K4's segment sums over
+        the column pointer (no atomics)."""
+        ones = torch.ones((self.n,), dtype=vals.dtype, device=vals.device)
+        return csr_gather(ones, self.pat.colptr, self.pat.i, vals)
 
     def matmat_pattern(self, Y, vals):
         """Y @ mat(vals) for vals on P -> (p, n)."""

@@ -212,6 +212,58 @@ def make_line_search(cost_fn: Callable, renorm: Callable,
     return line_search
 
 
+def make_batched_line_search(cost_fn: Callable, renorm: Callable,
+                             max_extra: int = 45):
+    """The line search of ``make_line_search`` for B instances at once (the
+    JAX package's jax.vmap of it, solvers/batch.py:85-87).
+
+    ``cost_fn(Y, params) -> (B,)`` costs of a (B, p, n) stack; ``renorm``
+    maps a stack back onto the manifold.  Each instance keeps its own
+    alpha, trial count and accepted point on the device; a trial evaluates
+    every instance and keeps the result where the instance is still
+    searching.  The host reads "any instance still searching" once per
+    trial, at most 15 + ``max_extra`` times.  ``active`` (B,) bool: the
+    instances to search; the others keep Y."""
+    i_max = 15 + max_extra
+
+    def line_search(Y, U, params, active=None):
+        B = Y.shape[0]
+        per = lambda m: m.view(B, 1, 1)  # noqa: E731
+        if active is None:
+            active = torch.ones((B,), dtype=torch.bool, device=Y.device)
+
+        def search(alpha, i, nY, fa, going, cond):
+            """Shrink alpha by 0.8 for every instance in ``going`` while
+            cond(i, fa) holds for it."""
+            going = going & cond(i, fa)
+            while bool(torch.any(going)):
+                alpha = torch.where(going, 0.8 * alpha, alpha)
+                trial = renorm(Y + per(alpha) * U)
+                nY = torch.where(per(going), trial, nY)
+                fa = torch.where(going, cost_fn(trial, params), fa)
+                i = i + going.to(i.dtype)
+                going = going & cond(i, fa)
+            return alpha, i, nY, fa
+
+        f0 = cost_fn(Y, params)
+        alpha = torch.ones((B,), dtype=Y.dtype, device=Y.device)
+        i = torch.ones((B,), dtype=torch.int32, device=Y.device)
+        nY = renorm(Y + per(alpha) * U)
+        fa = cost_fn(nY, params)
+        alpha, i, nY, fa = search(
+            alpha, i, nY, fa, active,
+            lambda i, fa: (i <= 15) & (fa - f0 > -1e-3))
+        # no 1e-3 decrease in 15 trials: keep shrinking until the cost
+        # strictly decreases
+        done = fa - f0 <= -1e-3
+        alpha, i, nY, fa = search(alpha, i, nY, fa, active & ~done,
+                                  lambda i, fa: (i <= i_max) & (fa >= f0))
+        # if even the smallest step failed to decrease, stay put
+        return torch.where(per(active & (done | (fa < f0))), nY, Y)
+
+    return line_search
+
+
 def log_iter(verbose: bool, it: int, obj: float, *, gap=None, pinf=None,
              dinf: float, gradnorm=None, r=None, p: int, sigma=None,
              t0: float):

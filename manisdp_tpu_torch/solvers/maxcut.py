@@ -39,27 +39,29 @@ def make_maxcut_problem(dense: bool = True) -> Problem:
     """cost/grad/hess of the oblique MaxCut subproblem
     (ManiSDP_onlyunitdiag.m:117-130).  ``dense``: C is an (n, n) tensor;
     otherwise a SymCOO and the products are K1's ``cost`` and ``hess``
-    modes."""
+    modes.  The same problem serves a batch (the JAX package's vmap of it,
+    solvers/batch.py:68-98): Y (B, p, n), C (B, n, n) or a BatchedSymCOO
+    (K1's instance mode), one cost per instance."""
 
     def cost(Y, C):
         if dense:
             YC = Y @ C
-            eG = torch.sum(YC * Y, dim=0)
+            eG = torch.sum(YC * Y, dim=-2)
         else:
             YC, eG = symcoo_spmm(Y, C, "cost")
-        return 0.5 * torch.sum(eG), (YC, eG)
+        return 0.5 * torch.sum(eG, dim=-1), (YC, eG)
 
     def grad(Y, C, aux):
         YC, eG = aux
-        return YC - Y * eG[None, :], ()
+        return YC - Y * eG[..., None, :], ()
 
     def hess(Y, U, C, aux, gaux):
         _, eG = aux
         if not dense:
             return symcoo_spmm(U, C, "hess", B=Y, eG=eG)
         UC = U @ C
-        return UC - Y * torch.sum(Y * UC, dim=0, keepdim=True) \
-            - U * eG[None, :]
+        return UC - Y * torch.sum(Y * UC, dim=-2, keepdim=True) \
+            - U * eG[..., None, :]
 
     return Problem(manifold=Oblique, cost=cost, grad=grad, hess=hess)
 

@@ -296,7 +296,9 @@ def solve_multiblock(At, b, c, ns: Sequence[int], nob: int,
         pinf = torch.linalg.norm(Axb) / (1.0 + torch.linalg.norm(op.b))
         y_new = y - sigma * Axb
         sv = op.s_vals(y_new)
-        z = op.colsum_pattern(sv * e) * M.mask
+        # colsum_pattern(sv * e) = colsum(Y o Y mat(sv)): K1's cost
+        # epilogue, summed in a fixed order
+        z = symcoo_spmm(Y, op.pat, "cost", vals=sv)[1] * M.mask
         by = torch.dot(op.b, y_new) + torch.sum(z)
         gap = torch.abs(obj - by) / (torch.abs(by) + torch.abs(obj) + 1.0)
         return obj, pinf, y_new, sv, z, gap

@@ -1,0 +1,363 @@
+"""The port's batched MaxCut path on the CPU (plain twins) against the JAX
+package's solvers/batch.py: the batched SymCOO (K1's instance mode), the
+batched RTR and line search from the same explicit inputs, whole solves,
+and K11's twin against the formulas of the JAX tCG body."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import threadpoolctl
+import torch
+
+from manisdp_tpu import solve_maxcut_batch as j_batch
+from manisdp_tpu.config import merged_options as j_merged
+from manisdp_tpu.ops.sparse import SymCOO as JSymCOO
+from manisdp_tpu.solvers.batch import _batched_fns, _pad_sym_coo
+from manisdp_tpu_torch import kernels as K
+from manisdp_tpu_torch import solve_maxcut_batch
+from manisdp_tpu_torch.core import (TROptions, make_batched_trustregions,
+                                    make_trustregions)
+from manisdp_tpu_torch.manifolds import Oblique
+from manisdp_tpu_torch.ops.sparse import BatchedSymCOO
+from manisdp_tpu_torch.solvers.common import make_batched_line_search
+from manisdp_tpu_torch.solvers.maxcut import make_maxcut_problem
+from test_batch import random_sparse_cost, random_sym_cost
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """Torch and BLAS on one thread for this module: the parallel test run
+    puts several workers on the CPU, and their thread pools then
+    oversubscribe it, so the solvers' many small ops and LAPACK calls spin
+    (a 1 s multiblock solve took minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+
+
+N_PAD = 32
+TR = dict(maxiter=40, maxinner=100, tolgradnorm=1e-8)
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got), np.asarray(ref)
+    return np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1e-300)
+
+
+def _y0(B, p, p_pad, n, seed):
+    """Column-normalized factors, zero padding rows, random unit padding
+    columns (as the drivers start them)."""
+    rs = np.random.RandomState(seed)
+    Y = np.zeros((B, p_pad, n))
+    for b in range(B):
+        y = rs.randn(p, n)
+        Y[b, :p] = y / np.linalg.norm(y, axis=0)
+    return Y
+
+
+def _dense_costs(Cs, n_pad):
+    out = np.zeros((len(Cs), n_pad, n_pad))
+    for b, C in enumerate(Cs):
+        Cb = C.toarray() if sp.issparse(C) else np.asarray(C, float)
+        out[b, :C.shape[0], :C.shape[0]] = 0.5 * (Cb + Cb.T)
+    return out
+
+
+def _jax_sparse(Cs, n_pad):
+    """The JAX package's padded SymCOO batch (solvers/batch.py:160-171)."""
+    nnz_pad = max(sp.coo_matrix(C).nnz for C in Cs)
+    arrs = [_pad_sym_coo(C, n_pad, nnz_pad) for C in Cs]
+    ii, jj, vv = (np.stack([a[k] for a in arrs]) for k in range(3))
+    return JSymCOO(i=jnp.asarray(ii), j=jnp.asarray(jj), v=jnp.asarray(vv),
+                   n=n_pad)
+
+
+def _instances(dense):
+    """Dense: three n = 24 instances padded to 32; sparse: two ragged ones
+    (n = 20, 26) in a bucket of 32; and the seed of their Y0 (rank 3).
+
+    Equal tCG iteration counts are a knife-edge comparison: the kappa
+    stop compares a residual norm with its target, so a last-bit change
+    of summation order can move it by one iteration, and a long RTR run
+    (rank 6 at n = 20 took 400+ tCG iterations) amplifies that into
+    another trajectory; the port's own dense and sparse single solves then
+    differ as much as either does from JAX.  These inputs are ones where
+    the JAX package's and the port's single-instance solves take equal
+    counts, so a difference here is one of the batch."""
+    if dense:
+        return [random_sym_cost(24, s) for s in range(3)], 11
+    return [random_sparse_cost(20, 1), random_sparse_cost(26, 2)], 12
+
+
+def _params(Cs, dense):
+    """(JAX C_param, port C_param) of one bucket."""
+    if dense:
+        Cd = _dense_costs(Cs, N_PAD)
+        return jnp.asarray(Cd), torch.tensor(Cd)
+    return _jax_sparse(Cs, N_PAD), BatchedSymCOO.from_scipy(Cs, N_PAD, "cpu")
+
+
+# ----------------------------------------------------------- operators --
+
+def test_batched_symcoo_matches_jax():
+    """K1's twin in instance mode: per-instance Y·C_b, the cost and z equal
+    the JAX package's vmap over its padded SymCOO batch."""
+    Cs = [random_sparse_cost(20, 1), random_sparse_cost(26, 2)]
+    jC, tC = _params(Cs, dense=False)
+    Y = _y0(2, 6, 8, N_PAD, seed=5)
+    jY, tY = jnp.asarray(Y), torch.tensor(Y)
+    import jax
+    jYC = jax.vmap(lambda Yb, Cb: Cb.matmat(Yb))(jY, jC)
+    jz = jax.vmap(lambda Yb, Cb: Cb.quad_cols(Yb))(jY, jC)
+    tYC = K.symcoo_spmm(tY, tC, "plain")
+    tYC2, tz = K.symcoo_spmm(tY, tC, "cost")
+    assert _rel(tYC, jYC) <= 1e-12 and _rel(tYC2, jYC) <= 1e-12
+    assert _rel(tz, jz) <= 1e-12
+    f, _ = make_maxcut_problem(False).cost(tY, tC)
+    np.testing.assert_allclose(f.numpy(), 0.5 * np.asarray(jz).sum(1),
+                               rtol=1e-12)
+    # padding columns have empty segments: their products are exactly 0
+    assert not torch.any(tYC[0, :, 20:]) and not torch.any(tYC[1, :, 26:])
+    # the per-instance column pointer counts only the instance's entries
+    for b, C in enumerate(Cs):
+        nnz = sp.coo_matrix(0.5 * (C + C.T)).nnz
+        assert int(tC.colptr[b, -1]) == nnz
+    assert int(tC.eoff[1]) == int(tC.colptr[0, -1])
+
+
+def test_batched_hess_twin_is_the_per_instance_hessian():
+    Cs, _ = _instances(dense=False)
+    _, tC = _params(Cs, dense=False)
+    Y = torch.tensor(_y0(2, 6, 8, N_PAD, seed=6))
+    U = Oblique.proj(Y, torch.tensor(_y0(2, 6, 8, N_PAD, seed=7)))
+    _, eG = K.symcoo_spmm(Y, tC, "cost")
+    H = K.symcoo_spmm(U, tC, "hess", B=Y, eG=eG)
+    for b in range(2):
+        Cb = tC.instance(b)
+        ref = K.symcoo_spmm(U[b], Cb, "hess", B=Y[b],
+                            eG=K.symcoo_spmm(Y[b], Cb, "cost")[1])
+        assert torch.equal(H[b], ref)
+
+
+# ----------------------------------------------------------------- RTR --
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "sparse"])
+def test_batched_rtr_matches_jax(dense):
+    """The batched RTR against the JAX package's vmapped solve
+    (_batched_fns(opt, dense)[0]) from one explicit Y0: Y, fx and the
+    gradient norm to 1e-9, equal TR and tCG iteration counts per
+    instance."""
+    Cs, seed = _instances(dense)
+    B = len(Cs)
+    jC, tC = _params(Cs, dense)
+    Y0 = _y0(B, 3, 8, N_PAD, seed)
+    td = float(np.pi * np.sqrt(N_PAD))
+    vsolve = _batched_fns(j_merged("maxcut_unitdiag", None), dense)[0]
+    jr = vsolve(jnp.asarray(Y0), jC, td)
+    tr = make_batched_trustregions(make_maxcut_problem(dense),
+                                   TROptions(**TR))(torch.tensor(Y0), tC, td)
+    assert _rel(tr.Y, jr.Y) <= 1e-9
+    assert _rel(tr.fx, jr.fx) <= 1e-9
+    np.testing.assert_allclose(tr.norm_grad.numpy(), np.asarray(jr.norm_grad),
+                               rtol=0, atol=1e-9)
+    np.testing.assert_array_equal(tr.iters, np.asarray(jr.iters))
+    np.testing.assert_array_equal(tr.inner_iters, np.asarray(jr.inner_iters))
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "sparse"])
+def test_batched_rtr_matches_single_instances(dense):
+    """Each instance of the batched RTR follows the port's single-instance
+    RTR from the same Y0_b: an instance that stops early is left as it is
+    while the others go on."""
+    Cs, seed = _instances(dense)
+    _, tC = _params(Cs, dense)
+    Y0 = torch.tensor(_y0(len(Cs), 3, 8, N_PAD, seed))
+    td = float(np.pi * np.sqrt(N_PAD))
+    problem = make_maxcut_problem(dense)
+    br = make_batched_trustregions(problem, TROptions(**TR))(Y0, tC, td)
+    single = make_trustregions(problem, TROptions(**TR))
+    for b in range(len(Cs)):
+        sr = single(Y0[b], tC[b] if dense else tC.instance(b), td)
+        assert _rel(br.Y[b], sr.Y) <= 1e-12
+        assert abs(float(br.fx[b]) - float(sr.fx)) <= 1e-12 * abs(
+            float(sr.fx))
+        assert (br.iters[b], br.inner_iters[b]) == (sr.iters, sr.inner_iters)
+
+
+def test_batched_rtr_leaves_converged_instances_alone():
+    """An instance that starts below tolgradnorm is never touched, and one
+    with maxiter reached runs exactly maxiter iterations."""
+    Cs, seed = _instances(dense=True)
+    _, tC = _params(Cs, dense=True)
+    td = float(np.pi * np.sqrt(N_PAD))
+    problem = make_maxcut_problem(True)
+    Y0 = torch.tensor(_y0(3, 3, 8, N_PAD, seed))
+    solved = make_trustregions(problem, TROptions(**TR))(Y0[1], tC[1], td)
+    Y0[1] = solved.Y
+    br = make_batched_trustregions(problem, TROptions(
+        maxiter=3, maxinner=100, tolgradnorm=1e-8))(Y0, tC, td)
+    assert torch.equal(br.Y[1], Y0[1])
+    assert (br.iters[1], br.inner_iters[1]) == (0, 0)
+    assert br.iters[0] == br.iters[2] == 3
+
+
+def test_batched_line_search_matches_jax():
+    """The batched line search against the JAX package's vline from the
+    same Y and escape direction U."""
+    Cs, _ = _instances(dense=True)
+    jC, tC = _params(Cs, dense=True)
+    Y = _y0(3, 6, 8, N_PAD, seed=14)
+    U = np.zeros_like(Y)
+    U[:, 6:] = np.random.RandomState(15).randn(3, 2, N_PAD)
+    vline = _batched_fns(j_merged("maxcut_unitdiag", None), True)[1]
+    jY = vline(jnp.asarray(Y), jnp.asarray(U), jC)
+    problem = make_maxcut_problem(True)
+    ls = make_batched_line_search(lambda Yb, Cp: problem.cost(Yb, Cp)[0],
+                                  Oblique.renormalize)
+    tY = ls(torch.tensor(Y), torch.tensor(U), tC)
+    assert _rel(tY, jY) <= 1e-12
+    # an instance that is not searched keeps its point
+    active = torch.tensor([True, False, True])
+    tY2 = ls(torch.tensor(Y), torch.tensor(U), tC, active=active)
+    assert torch.equal(tY2[1], torch.tensor(Y[1]))
+    assert torch.equal(tY2[0], tY[0]) and torch.equal(tY2[2], tY[2])
+
+
+# -------------------------------------------------------------- solves --
+
+def _check_against_jax(Cs, tol, **kw):
+    got = solve_maxcut_batch(Cs, tol=tol, verbose=False, device="cpu", **kw)
+    ref = j_batch(Cs, tol=tol, verbose=False, **kw)
+    assert len(got) == len(Cs)
+    for b, C in enumerate(Cs):
+        r = got[b]
+        assert r.status == 0, f"instance {b} not optimal"
+        assert r.dinf < 1e-7
+        assert abs(r.obj - ref[b].obj) < 1e-5 * (1 + abs(ref[b].obj))
+        n = C.shape[0]
+        assert r.X.shape == (n, n)
+        assert np.allclose(np.diag(r.X), 1.0, atol=1e-9)
+    return got
+
+
+def test_batch_matches_jax():
+    """tests/test_batch.py::test_batch_matches_single's input."""
+    _check_against_jax([random_sym_cost(24, s) for s in range(4)], 1e-7,
+                       max_outer=40)
+
+
+def test_batch_ragged_sizes_and_sparse_match_jax():
+    """tests/test_batch.py::test_batch_ragged_sizes_and_sparse's input:
+    two buckets, dense and sparse instances, n padding stripped."""
+    Cs = [random_sym_cost(20, 0), random_sparse_cost(26, 1),
+          random_sym_cost(33, 2), random_sparse_cost(20, 3)]
+    _check_against_jax(Cs, 1e-7, max_outer=60, n_bucket=32)
+
+
+def test_batch_forced_sparse_matches_jax():
+    """tests/test_batch.py::test_batch_forced_sparse_kernels's input
+    through the sparse bucket (K1's instance mode)."""
+    Cs = [random_sparse_cost(18, 7), random_sparse_cost(18, 8)]
+    _check_against_jax(Cs, 1e-7, max_outer=60, dense_cost_max_n=0,
+                       dense_cost_nnz_factor=0)
+
+
+def test_batch_mixed_warns_and_runs_f64():
+    """tests/test_mixed_precision.py::test_batch_mixed_warns's input."""
+    from test_mixed_precision import _random_laplacian_cost
+    Cs = np.stack([_random_laplacian_cost(16, s) for s in range(2)])
+    with pytest.warns(UserWarning, match="mixed"):
+        res = solve_maxcut_batch(Cs, verbose=False, inner_dtype="mixed",
+                                 max_outer=2, p0=4, device="cpu")
+    assert all(np.isfinite(r.obj) for r in res)
+
+
+def test_batch_refuses_mesh_and_a_missing_card(monkeypatch):
+    Cs = [random_sym_cost(8, 0)]
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        solve_maxcut_batch(Cs, mesh=object(), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve_maxcut_batch(Cs)
+
+
+# ------------------------------------------------------------- K11 twin --
+
+def _tcg_reference(d, Hd, r, eta, Heta, s, j, mininner):
+    """One iteration of the JAX package's tCG body (core/trustregions.py
+    :102-160) for one instance, in numpy; s = (e_Pe, e_Pd, d_Pd, z_r, mv,
+    DD, kappa, linear)."""
+    e_Pe, e_Pd, d_Pd, z_r, mv, DD, kappa, linear = s
+    d_Hd, d_r = np.sum(d * Hd), np.sum(d * r)
+    alpha = z_r / d_Hd
+    e_Pe_new = e_Pe + 2.0 * alpha * e_Pd + alpha * alpha * d_Pd
+    boundary = (d_Hd <= 0.0) or (e_Pe_new >= DD)
+    tau = (-e_Pd + np.sqrt(e_Pd * e_Pd + d_Pd * (DD - e_Pe))) / d_Pd
+    step = tau if boundary else alpha
+    new_mv = mv - step * d_r + 0.5 * step * step * d_Hd
+    model_inc = (not boundary) and new_mv >= mv
+    stop = (1 if d_Hd <= 0 else 2) if boundary else (6 if model_inc else 0)
+    if not model_inc:
+        eta, Heta, mv = eta - step * d, Heta - step * Hd, new_mv
+    r = r - alpha * Hd
+    r_r = np.sum(r * r)
+    if stop == 0 and j + 1 >= mininner and np.sqrt(r_r) <= kappa:
+        stop = 3 if linear > 0 else 4
+    beta = r_r / z_r
+    s_next = (e_Pe if boundary else e_Pe_new, beta * (e_Pd + alpha * d_Pd),
+              r_r + beta * beta * d_Pd, r_r, mv, DD, kappa, linear)
+    return eta, Heta, r, r + beta * d, s_next, (j + 1, stop)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_tcg_twin_matches_the_formulas(dtype, tol):
+    """K11's twin on six instances: an ordinary step, a model increase
+    (stop 6 keeps the previous iterate), negative curvature (1), the
+    trust-region boundary (2), a met kappa target (3) and one stopped
+    instance that must be left as it is."""
+    rs = np.random.RandomState(0)
+    B, p, n = 6, 3, 7
+    d = rs.randn(B, p, n)
+    Hd = d * rs.uniform(1.0, 2.0, (B, p, n))
+    Hd[2] = -d[2]                                   # negative curvature
+    r, eta, Heta = (rs.randn(B, p, n) for _ in range(3))
+    r *= np.sign(np.sum(d * r, axis=(1, 2)))[:, None, None]   # <d, r> > 0
+    d_r = np.sum(d * r, axis=(1, 2))
+    sc = np.tile([0.3, 0.2, 5.0, 2.0, -1.0, 1e6, 1e-9, 1.0], (B, 1))
+    # the model decreases iff <d, r> > z_r / 2 (alpha = z_r / <d, Hd>)
+    sc[:, 3] = d_r
+    sc[1, 3] = 4.0 * d_r[1]                         # model increase
+    sc[3, :2] = 0.0
+    sc[3, 5] = 1e-8                                 # tiny trust region
+    sc[4, 6] = 1e6                                  # kappa target met
+    st = np.zeros((B, 2), dtype=np.int32)
+    st[:, 0] = 3
+    st[5, 1] = 2                                    # already stopped
+    T = lambda a: torch.tensor(a, dtype=dtype)  # noqa: E731
+    td, tHd, tr, teta, tHeta = (T(a) for a in (d, Hd, r, eta, Heta))
+    tsc, tst = T(sc), torch.tensor(st)
+    part = K.tcg_dots(td, tHd, tr, tst)
+    e2, H2, r2, part2, xs = K.tcg_update(part, tsc, tst, td, tHd, teta,
+                                         tHeta, tr)
+    w, sc2, st2 = K.tcg_finish(part2, tsc, tst, xs, r2, td, 1)
+    stops = []
+    for b in range(B):
+        if b == 5:
+            for got, ref in ((e2[b], eta[b]), (H2[b], Heta[b]),
+                             (r2[b], r[b]), (sc2[b], sc[b])):
+                np.testing.assert_array_equal(got.numpy(), T(ref).numpy())
+            assert st2[b].tolist() == [3, 2]
+            continue
+        ref = _tcg_reference(d[b], Hd[b], r[b], eta[b], Heta[b], sc[b],
+                             3, 1)
+        for got, want in zip((e2[b], H2[b], r2[b], w[b], sc2[b]), ref):
+            assert _rel(got.double().numpy(), np.asarray(want)) <= tol
+        assert tuple(st2[b].tolist()) == ref[5]
+        stops.append(ref[5][1])
+    assert stops == [0, 6, 1, 2, 3]
+    # model increase: the previous iterate is kept exactly
+    assert torch.equal(e2[1], teta[1]) and torch.equal(H2[1], tHeta[1])

@@ -58,20 +58,27 @@ def test_reset_launches():
     K.SYMDUAL_LAUNCHES["sym_mat"] = 7
     K.LAUNCHES["symmom_adjoint"] = 8
     K.OBLIQUE_LAUNCHES["masked"] = 9
+    K.INSTANCE_LAUNCHES["symcoo_spmm"] = 10
+    K.TCG_LAUNCHES["finish"] = 11
+    K.LAUNCHES["tcg_step"] = 12
     K.reset_launches()
     assert K.LAUNCHES == {"symcoo_spmm": 0, "oblique_cols": 0,
                           "pattern_dots": 0, "csr_gather": 0,
                           "masked_sym": 0, "oa_refine": 0,
                           "symdual_apply": 0, "symdual_adjoint": 0,
-                          "symmom_apply": 0, "symmom_adjoint": 0}
+                          "symmom_apply": 0, "symmom_adjoint": 0,
+                          "tcg_step": 0}
     assert set(K.SPMM_LAUNCHES) == set(K.SPMM_MODES)
     assert set(K.MASKED_LAUNCHES) == set(K.MASKED_MODES)
     assert set(K.CSR_LAUNCHES) == {"gather", "scatter_pos"}
     assert set(K.OBLIQUE_LAUNCHES) == set(K.OBLIQUE_MODES) | {"proj_eG",
                                                               "masked"}
     assert set(K.SYMDUAL_LAUNCHES) == {"adjoint", "sym_factor", "sym_mat"}
+    assert set(K.INSTANCE_LAUNCHES) == {"symcoo_spmm", "oblique_cols"}
+    assert set(K.TCG_LAUNCHES) == {"dots", "update", "finish"}
     for counts in (K.SPMM_LAUNCHES, K.CSR_LAUNCHES, K.MASKED_LAUNCHES,
-                   K.OBLIQUE_LAUNCHES, K.SYMDUAL_LAUNCHES):
+                   K.OBLIQUE_LAUNCHES, K.SYMDUAL_LAUNCHES,
+                   K.INSTANCE_LAUNCHES, K.TCG_LAUNCHES):
         assert not any(counts.values())
 
 
@@ -169,6 +176,107 @@ def test_kernels_match_twins_on_card(cuda_device, dtype, p_pad):
     torch.cuda.synchronize()
     assert K.LAUNCHES["symcoo_spmm"] - before["symcoo_spmm"] == 5
     assert K.LAUNCHES["oblique_cols"] - before["oblique_cols"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("p_pad", [8, 48, 136])
+def test_instance_modes_match_twins_on_card(cuda_device, dtype, p_pad):
+    """K1's instance mode (ragged instances of n = 30, 40, 17 in one
+    launch, padding columns with empty segments) and K2 with the instance
+    stride against their twins; K1 on the identity gives the dense C."""
+    from manisdp_tpu_torch.ops.sparse import BatchedSymCOO
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    rs = np.random.RandomState(12)
+    mats = []
+    for n in (30, N, 17):
+        A = sp.random(n, n, density=0.2, random_state=rs)
+        mats.append(A + A.T + sp.diags(rs.randn(n)))
+    C = BatchedSymCOO.from_scipy(mats, N, cuda_device, dtype)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=dtype,  # noqa: E731
+                                 device=cuda_device)
+    Y = K.oblique_cols_plain(rnd(3, p_pad, N), None, "renormalize")
+    U = K.oblique_cols_plain(Y, rnd(3, p_pad, N), "proj")
+    eG = K.symcoo_spmm_plain(Y, C, "cost")[1]
+    before = dict(K.INSTANCE_LAUNCHES)
+    cases = [(K.symcoo_spmm, K.symcoo_spmm_plain, (Y, C, m), kw)
+             for m, kw in (("plain", {}), ("shift", dict(z=rnd(3, N))),
+                           ("cost", {}), ("hess", dict(B=Y, eG=eG)))]
+    cases += [(K.oblique_cols, K.oblique_cols_plain, (Y, U, m), {})
+              for m in ("proj", "retr")]
+    cases.append((K.oblique_cols, K.oblique_cols_plain,
+                  (Y + U, None, "renormalize"), {}))
+    cases.append((K.oblique_cols, K.oblique_cols_plain, (Y, U, "proj"),
+                  dict(v=U, g=rnd(3, N))))
+    for fn, twin, args, kw in cases:
+        got, ref = fn(*args, **kw), twin(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for g, r in zip(got, ref):
+            assert g.device.type == "cuda"
+            assert _rel(g, r) <= tol
+    AC = K.symcoo_spmm(Y, C, "plain")
+    assert not torch.any(AC[0, :, 30:]) and not torch.any(AC[2, :, 17:])
+    torch.cuda.synchronize()
+    assert K.INSTANCE_LAUNCHES["symcoo_spmm"] - before["symcoo_spmm"] == 5
+    assert K.INSTANCE_LAUNCHES["oblique_cols"] - before["oblique_cols"] == 4
+    Cs = C.instance(1)
+    assert torch.equal(Cs.to_dense().cpu(),
+                       SymCOO.from_scipy(mats[1], "cpu").astype(dtype)
+                       .to_dense())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 48, 3000), (4, 8, N)])
+def test_tcg_step_matches_twin_on_card(cuda_device, dtype, shape):
+    """K11's three passes against their twins: random vectors and scalar
+    states, one instance stopped (left as it is), one with a model
+    increase; a second call on the same inputs is bitwise equal."""
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    B = shape[0]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(2)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=dtype,  # noqa: E731
+                                 device=cuda_device)
+    d, r, eta, Heta = (rnd(*shape) for _ in range(4))
+    Hd = d * (1.0 + rnd(*shape).abs())
+    d_r = torch.sum(d * r, dim=(1, 2))
+    r = r * torch.sign(d_r)[:, None, None]
+    sc = torch.tensor([0.3, 0.2, 5.0, 1.0, -1.0, 1e6, 1e-9, 1.0],
+                      dtype=dtype, device=cuda_device).repeat(B, 1)
+    sc[:, 3] = d_r.abs()
+    st = torch.zeros((B, 2), dtype=torch.int32, device=cuda_device)
+    if B > 1:
+        sc[1, 3] *= 4.0                             # model increase
+        st[B - 1, 1] = 2                            # stopped
+
+    def run(f_dots, f_update, f_finish):
+        vecs = [t.clone() for t in (d, Hd, eta, Heta, r)]
+        part = f_dots(vecs[0], vecs[1], vecs[4], st)
+        e2, H2, r2, part2, xs = f_update(part, sc, st, *vecs)
+        w, sc2, st2 = f_finish(part2, sc, st, xs, r2, vecs[0], 1)
+        return e2, H2, r2, w, sc2, st2
+
+    got = run(K.tcg_dots, K.tcg_update, K.tcg_finish)
+    ref = run(K.tcg_dots_plain, K.tcg_update_plain, K.tcg_finish_plain)
+    # a stopped instance's next direction is never read: the kernel leaves
+    # it, the twin computes it
+    act = slice(0, B - 1) if B > 1 else slice(0, 1)
+    for g, f in zip(got[:5], ref[:5]):
+        assert g.device.type == "cuda"
+        assert _rel(g[act], f[act]) <= tol
+    assert torch.equal(got[5], ref[5])
+    if B > 1:
+        for g, x in ((got[0], eta), (got[1], Heta), (got[2], r)):
+            assert torch.equal(g[B - 1], x[B - 1])
+        assert torch.equal(got[0][1], eta[1])       # stop 6 keeps eta
+    again = run(K.tcg_dots, K.tcg_update, K.tcg_finish)
+    for a, g in zip(again, got):
+        assert torch.equal(a, g)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
