@@ -16,10 +16,13 @@ not 0):
   5. the G67-size solve (n = 10^4: sparse cost through K1, f32 tCG,
      device LOBPCG certificate), with the kernels' launch counters and an
      independent KKT oracle (dense f64 eigvalsh of S on the card);
-  6. K3, K4 (both orderings, with and without base / alpha) and K1's
-     ``al_hess`` mode against their twins at the shapes of trace-min
-     matrix completion at n = 12,000 (nnzP = 9.0 M, m = 4.49 M, p_pad in
-     {8, 16, 24}, f64 and f32), with times;
+  6. K3, K4 (both orderings, with and without base / alpha, and
+     ``colsum_pattern``) and K1's ``al_hess`` mode against their twins at
+     the shapes of trace-min matrix completion at n = 12,000 (nnzP =
+     9.0 M, m = 4.49 M, p_pad in {8, 16, 24}, f64 and f32; K3 also at
+     p_pad 1, 33, 64, 130, with U = Y and with strided Y / U, and its
+     32-B sectors per entry), each K3 / K4 call repeated bit for bit, with
+     times;
   7. that matrix completion solved through ``solve_sdp`` (the primal AL
      on the factored constraint operator, f32 tCG, device LOBPCG
      certificate), with the launch counters and an independent KKT oracle
@@ -40,7 +43,10 @@ not 0):
      K8 (``adjoint``, ``sym_mat``, ``sym_factor`` at p_pad 8 / 64 / 192)
      at the BQP SOS dual's expanded shape q = 60 (n~ = 3,662), K2 ``proj``
      with the Hessian's eG term, K4 on the q = 60 original-basis DualOp
-     (n = 1,831, m = 523,686) and on the d = 30 quartic-sphere iAB pair;
+     (n = 1,831, m = 523,686; its row-length profile on a line first), on
+     the d = 30 quartic-sphere iAB pair and on skewed rows (one row of
+     10^5 entries among 10^6 rows of one; half the rows empty;
+     scatter_pos with a 10^5-entry row), each repeated bit for bit;
  13. the BQP SOS dual through ``solve_bqp_sos_dual`` (the expanded-basis
      SymDualOp: K7, K8, K2, and the compressed dense certificate, K6) at
      q = 30 against the JAX package's optimum, then at q = 60 with
@@ -98,6 +104,11 @@ card could take (``bound_ms``: bytes at 3.35 TB/s or operations at the
 dtype's peak) and the time of one PyTorch library call computing the same
 function where there is one (``library_ms``).  Then one ``{"kernels": [...]}`` line and,
 last, the result line ``{"ok": true, "device": {...}}``.
+
+``--capture-stall`` (phase 7) records the devrr certificate's calls,
+saves the first converged point it cannot certify to
+build/mc12000_stall/ and re-runs the certificate there under other
+budgets beside a dense eigvalsh (ROADMAP Queue C).
 
 ``--gset DIR`` reads G1.txt / G67.txt from a Gset directory and ``--bqp
 DIR`` bqp_Q_60_1.txt / bqp_e_60_1.txt (and the q = 30 files); without them
@@ -173,6 +184,12 @@ NEEDS = {16: (12,)}
 JAX_BQP30 = -154.7359587770444
 JAX_QS30 = -7.324338872437511
 JAX_BQPMOM30 = -154.73595877704594
+# phase 12's skewed CSR cases for K4: one row of 10^5 entries among 10^6
+# rows of one, half the rows empty, and scatter_pos with a 10^5-entry row
+SKEW_ROWS, SKEW_LONG = 1_000_000, 100_000
+# K3's extra factor widths (phase 6): below a vector, odd, and beyond one
+# chunk of 64 vectors in f64
+K3_EXTRA_P = (1, 33, 64, 130)
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, and
 # FLOP/s outside the tensor cores (f64 34 T, f32 67 T)
 PEAK_BYTES = 3.35e12
@@ -325,7 +342,7 @@ def csr(ptr, col, val, shape):
 
 def check_case(rows, name, mode, fn, twin, args, kw, tol, reads=(),
                flops=0.0, library=None, fresh=None, per_output=False,
-               **info):
+               repeat=False, scale=None, **info):
     """One kernel call against its twin on the same inputs, timed, with
     its bound (``reads``: the input tensors the function must read once;
     its outputs are written once) and the time of ``library``, one
@@ -334,12 +351,18 @@ def check_case(rows, name, mode, fn, twin, args, kw, tol, reads=(),
     error).  ``fresh()``, for a kernel that updates its inputs in place:
     new copies of ``args`` for the kernel's and the twin's checked calls
     (the timed repeats then run on drifting values).  ``per_output``:
-    each output's error relative to its own scale (max_err)."""
+    each output's error relative to its own scale (max_err).  ``repeat``:
+    a second kernel call on the same inputs must give the same bits.
+    ``scale``: per-entry error scales (a sum's sum of absolute terms) for
+    the relative error, in place of the largest reference entry."""
     import torch
     got = fn(*(fresh() if fresh else args), **kw)
     ref = twin(*(fresh() if fresh else args), **kw)
+    again = fn(*args, **kw) if repeat else None
     torch.cuda.synchronize()
     abs_err, rel_err = max_err(got, ref, per_output)
+    if scale is not None:
+        rel_err = float(torch.max(torch.abs(got - ref).double() / scale))
     outs = got if isinstance(got, tuple) else (got,)
     b_ms, b_by = bound(nbytes(*reads, *outs), flops, info["dtype"])
     row = dict(kernel=name, mode=mode, **info, max_abs_err=abs_err,
@@ -347,6 +370,8 @@ def check_case(rows, name, mode, fn, twin, args, kw, tol, reads=(),
                ms=time_ms(lambda: fn(*args, **kw)),
                plain_ms=time_ms(lambda: twin(*args, **kw)),
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    if repeat:
+        row["bit_equal"] = bool(torch.equal(got, again))
     if library is not None:
         try:
             row["library_ms"] = time_ms(library)
@@ -355,6 +380,25 @@ def check_case(rows, name, mode, fn, twin, args, kw, tol, reads=(),
     rows.append(row)
     if not rel_err <= tol:
         raise AssertionError(f"kernel disagrees with its twin: {row}")
+    if repeat and not row["bit_equal"]:
+        raise AssertionError(f"a repeated call changed the bits: {row}")
+
+
+def row_profile(ptr):
+    """Row-length profile of a CSR pointer (host numpy): rows, entries,
+    longest and mean row, the commonest lengths, K4's plan
+    (csr_gather_plan) and the rows it hands to a warp each."""
+    from manisdp_tpu_torch import kernels as K
+    lens = np.diff(ptr.cpu().numpy().astype(np.int64))
+    nnz, nrows = int(lens.sum()), int(lens.size)
+    lengths, counts = np.unique(lens, return_counts=True)
+    top = np.argsort(counts)[::-1][:4]
+    plan = K.csr_gather_plan(nnz, nrows)
+    return dict(rows=nrows, nnz=nnz, max=int(lens.max(initial=0)),
+                mean=nnz / max(nrows, 1), empty=int(np.sum(lens == 0)),
+                most_common={int(lengths[i]): int(counts[i]) for i in top},
+                plan=plan, long_rows=0 if plan == 2 else
+                int(np.sum(lens > K.CSR_LONG_ROW)))
 
 
 def phase_kernels(C_sp, device, seed):
@@ -444,7 +488,6 @@ def phase_al_kernels(op64, device, seed):
         nP = op.pat.nnz
         A_k = csr(op.krow_ptr, op.a2p, op.v, (m, nP))
         A_p = csr(op.pat_ptr, op.kp, op.vp, (nP, m))
-        fl = 2.0 * op.nnz
         # K4 does not depend on p: once per dtype, both orderings
         k4 = [("apply_from_e", (e, op.krow_ptr, op.a2p, op.v), {},
                lambda: A_k @ e),
@@ -456,18 +499,42 @@ def phase_al_kernels(op64, device, seed):
               ("s_vals", (w, op.pat_ptr, op.kp, op.vp),
                dict(base=op.pat.v, alpha=-1.0),
                lambda: torch.addmv(op.pat.v, A_p, w, alpha=-1.0))]
+        # ConstraintOp.colsum_pattern: rows = pattern columns (~750 entries)
+        sv, ones = rnd(nP), torch.ones(n, dtype=dt, device=device)
+        P_cols = csr(op.pat.colptr, op.pat.i, sv, (n, n))
+        k4.append(("colsum_pattern", (ones, op.pat.colptr, op.pat.i, sv),
+                   {}, lambda: P_cols @ ones))
         for mode, args, kw, lib in k4:
             check_case(rows, "csr_gather", mode, K.csr_gather,
                        K.csr_gather_plain, args, kw, tol[dt],
                        reads=(gathered(args[0], args[2]), *args[1:],
-                              kw.get("base")), flops=fl, library=lib,
-                       p_pad=None, **info)
+                              kw.get("base")), flops=2.0 * args[2].numel(),
+                       library=lib, repeat=True, p_pad=None,
+                       rows_profile=row_profile(args[1]), **info)
+        del P_cols
         es = K.csr_gather_plain(w, op.pat_ptr, op.kp, op.vp, base=op.pat.v,
                                 alpha=sigma)
         ayu = K.csr_gather_plain(rnd(m), op.pat_ptr, op.kp, op.vp)
         Pz = csr(op.pat.colptr, op.pat.i, torch.zeros_like(op.pat.v),
                  (n, n))
         Pr = (op.pat.i, op.pat.colptr)
+        def sectors(p):
+            """32-B sectors one entry's gather touches: N-major (the
+            kernel's (n, pp) copy) and p-major (the (p, n) factor)."""
+            pp, _ = K.pattern_dots_layout(p, dt)
+            return dict(n_major=-(-pp * op.pat.v.element_size() // 32),
+                        p_major=p)
+
+        for p in K3_EXTRA_P:
+            # K3 alone at other widths, U = Y, and strided Y / U
+            Y = K.oblique_cols_plain(rnd(p, n), None, "renormalize")
+            U = K.oblique_cols_plain(Y, rnd(p, n), "proj")
+            check_case(rows, "pattern_dots", "pair_dots", K.pattern_dots,
+                       K.pattern_dots_plain, (Y, U, op.pat), {}, tol[dt],
+                       reads=(Y, U, *Pr), flops=2.0 * nP * p,
+                       library=lambda Y=Y, U=U: torch.sparse.sampled_addmm(
+                           Pz, U.T.contiguous(), Y, beta=0.0),
+                       repeat=True, p_pad=p, sectors=sectors(p), **info)
         for p in AL_P_PADS:
             Y = K.oblique_cols_plain(rnd(p, n), None, "renormalize")
             U = K.oblique_cols_plain(Y, rnd(p, n), "proj")
@@ -477,18 +544,34 @@ def phase_al_kernels(op64, device, seed):
             # in CSR by column j is the sampling mask
             sddmm = lambda Y=Y, U=U: torch.sparse.sampled_addmm(  # noqa: E731
                 Pz, U.T.contiguous(), Y, beta=0.0)
+            # a transposed Y and a column-strided U (non-contiguous views)
+            Ys = Y.T.contiguous().T
+            Us = torch.zeros((p, 2 * n), dtype=dt, device=device)[:, ::2]
+            Us.copy_(U)
             for name, mode, args, kw, reads, flops, lib in (
                     ("pattern_dots", "pair_dots", (Y, U, op.pat), {},
                      (Y, U, *Pr), 2.0 * nP * p, sddmm),
+                    ("pattern_dots", "pair_dots_u_is_y", (Y, Y, op.pat), {},
+                     (Y, *Pr), 2.0 * nP * p,
+                     lambda Y=Y: torch.sparse.sampled_addmm(
+                         Pz, Y.T.contiguous(), Y, beta=0.0)),
+                    ("pattern_dots", "pair_dots_strided", (Ys, Us, op.pat),
+                     {}, (Ys, Us, *Pr), 2.0 * nP * p,
+                     lambda Ys=Ys, Us=Us: torch.sparse.sampled_addmm(
+                         Pz, Us.T.contiguous(), Ys.contiguous(),
+                         beta=0.0)),
                     ("symcoo_spmm", "al_hess", (U, op.pat, "al_hess"),
                      hess, (U, *Pr, es, Y, ayu), 4.0 * nP * p, None),
                     ("symcoo_spmm", "al_hess_diag", (U, op.pat, "al_hess"),
                      dict(hess, eG=YeG), (U, *Pr, es, Y, ayu, YeG),
                      4.0 * nP * p + 6 * p * n, None)):
+                k3 = name == "pattern_dots"
                 check_case(rows, name, mode, getattr(K, name),
                            getattr(K, f"{name}_plain"), args, kw, tol[dt],
                            reads=reads, flops=flops, library=lib,
-                           p_pad=p, **info)
+                           repeat=k3, p_pad=p,
+                           **(dict(sectors=sectors(p)) if k3 else {}),
+                           **info)
     return rows
 
 
@@ -544,10 +627,10 @@ def mc_options():
                 inner_dtype="tcg32")
 
 
-def al_solve_phase(data, op, build_s, assemble_s, device):
+def al_solve_phase(data, op, build_s, assemble_s, device, spy=None):
     """Matrix completion at n = 12,000 through solve_sdp (given its
     ConstraintOp, assembled in ``assemble_s``) with bench.py's mc
-    settings."""
+    settings; ``spy``: a CertSpy recording its certificate calls."""
     import torch
     from manisdp_tpu_torch import kernels as K
     from manisdp_tpu_torch import solve_sdp
@@ -556,10 +639,16 @@ def al_solve_phase(data, op, build_s, assemble_s, device):
     kw = mc_options()
     K.reset_launches()
     torch.cuda.synchronize()
+    if spy is not None:
+        spy.install()
     t0 = time.perf_counter()
-    res = solve_sdp(op, data.b, data.c, n, device=device, verbose=False,
-                    **kw)
-    torch.cuda.synchronize()
+    try:
+        res = solve_sdp(op, data.b, data.c, n, device=device,
+                        verbose=False, **kw)
+        torch.cuda.synchronize()
+    finally:
+        if spy is not None:
+            spy.remove()
     seconds = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     spmm_modes = dict(K.SPMM_LAUNCHES)
@@ -572,7 +661,11 @@ def al_solve_phase(data, op, build_s, assemble_s, device):
                fac_size=res.fac_size, rtr_iters=res.rtr_iters,
                hess_calls=res.hess_calls,
                rtr_iters_per_s=res.rtr_iters / seconds, timers=res.timers,
-               launches=launches, symcoo_spmm_modes=spmm_modes)
+               launches=launches, symcoo_spmm_modes=spmm_modes,
+               outer=[dict(gap=h["gap"], pinf=h["pinf"], dinf=h["dinf"])
+                      for h in res.history])
+    if spy is not None:
+        out["cert_calls"] = spy.history
     out["oracle"] = al_kkt_oracle_on_card(data, res, device)
     emit(out)
     if res.status != 0 or not res.eta <= 1e-8:
@@ -585,6 +678,158 @@ def al_solve_phase(data, op, build_s, assemble_s, device):
     if spmm_modes["al_hess"] <= 0:
         raise AssertionError("the mc12000 solve never launched K1 al_hess")
     return out
+
+
+class CertSpy:
+    """Records the devrr certificate calls of one solve (ROADMAP Queue C,
+    the mc-12000 devrr stall): ``install()`` swaps a recording
+    DeviceCertSolver and a wrapped certificate closure into
+    solvers.primal_al, ``remove()`` restores them; ``calls`` holds the
+    LOBPCG calls of the latest certificate (each with its operator, budget,
+    start block X0, padded deflation rows and ``last`` dict), ``point``
+    the first outer iteration whose summary ``capture(summary, opt)``
+    accepts (Y, sv and its calls; by default max(gap, pinf) <= 1e-10,
+    dinf > tol and num_neg = 0), ``history`` every certificate's summary.
+    tests/test_torch_cert.py captures its CPU point with it."""
+
+    def __init__(self, capture=None):
+        self.capture = capture or (lambda h, opt: max(
+            h["gap"], h["pinf"]) <= 1e-10 and h["dinf"] > opt.tol and
+            h["num_neg"] == 0)
+        self.calls, self.history, self.point = [], [], None
+
+    def install(self):
+        from manisdp_tpu_torch.solvers import primal_al
+        spy = self
+        base = primal_al.DeviceCertSolver
+
+        class Recording(base):
+            def solve(self, mvr, gen, X0=None, Ydefl=None, maxiter=200,
+                      tol=1e-10):
+                res = super().solve(mvr, gen, X0=X0, Ydefl=Ydefl,
+                                    maxiter=maxiter, tol=tol)
+                spy.calls.append(dict(
+                    solver=self, mvr=mvr, maxiter=maxiter, tol=tol,
+                    X0=None if X0 is None else X0.clone(),
+                    Ydefl=None if Ydefl is None else Ydefl.clone(),
+                    last=dict(self.last), lam_min=float(res.lam_min),
+                    num_neg=int(res.num_neg)))
+                return res
+
+        make = primal_al._make_certificate
+
+        def make_spy(variant, op, n, k, use_eigh, opt, gen):
+            inner = make(variant, op, n, k, use_eigh, opt, gen)
+
+            def cert(Y, sv, z, gap=np.inf, pinf=np.inf):
+                spy.calls = []
+                out = inner(Y, sv, z, gap=gap, pinf=pinf)
+                lam_min, lam_max, num_neg = out[:3]
+                dinf = max(0.0, -lam_min) / (1.0 + lam_max)
+                spy.history.append(dict(
+                    gap=gap, pinf=pinf, dinf=dinf, num_neg=num_neg,
+                    lobpcg=[dict(maxiter=c["maxiter"],
+                                 iters=c["last"]["iters"],
+                                 resid=float(c["last"]["resid"]),
+                                 lam_min=c["lam_min"])
+                            for c in spy.calls]))
+                if spy.point is None and spy.calls and \
+                        spy.capture(spy.history[-1], opt):
+                    spy.point = dict(
+                        iteration=len(spy.history), Y=Y.clone(),
+                        sv=sv.clone(), n=n, k=k, opt=opt, gen=gen,
+                        calls=list(spy.calls), dinf=dinf,
+                        lam_max=float(lam_max))
+                return out
+            return cert
+
+        self._saved = (base, make)
+        primal_al.DeviceCertSolver = Recording
+        primal_al._make_certificate = make_spy
+
+    def remove(self):
+        from manisdp_tpu_torch.solvers import primal_al
+        primal_al.DeviceCertSolver, primal_al._make_certificate = \
+            self._saved
+
+
+def stall_study(spy, op, out_dir, long_maxiter=1600):
+    """Re-run the certificate on the captured stalled point under the
+    driver's budgets, ``long_maxiter`` iterations and a block of 48,
+    beside a dense f64 eigvalsh of the same S; saves the point to
+    ``out_dir``/mc12000_stall.npz and returns the numbers."""
+    import torch
+    from manisdp_tpu_torch.ops.eigs_rr import DeviceCertSolver
+
+    def sync():
+        if op.pat.i.is_cuda:
+            torch.cuda.synchronize()
+
+    pt = spy.point
+    if pt is None:
+        return dict(captured=False)
+    first = pt["calls"][0]
+    opt, n, k = pt["opt"], pt["n"], pt["k"]
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez(os.path.join(out_dir, "mc12000_stall.npz"),
+             Y=pt["Y"].cpu().numpy(), sv=pt["sv"].cpu().numpy(),
+             X0=first["X0"].cpu().numpy(),
+             Ydefl=first["Ydefl"].cpu().numpy(),
+             pat_i=op.pat.i.cpu().numpy(), pat_j=op.pat.j.cpu().numpy())
+    mvr, X0, Yd = first["mvr"], first["X0"], first["Ydefl"]
+    dr = Yd.shape[0]
+
+    def run(label, block_cap, budgets):
+        solver = DeviceCertSolver(n, k, deflate_rows=dr, block_cap=block_cap)
+        gen = torch.Generator(device=X0.device)
+        gen.manual_seed(opt.seed)
+        sync()
+        t0 = time.perf_counter()
+        x0, steps = X0, []
+        for mi in budgets:
+            res = solver.solve(mvr, gen, X0=x0, Ydefl=Yd, maxiter=mi,
+                               tol=opt.cert_inner_tol)
+            x0 = res.neg_vecs
+            lam_max = float(res.lam_max)
+            steps.append(dict(
+                maxiter=mi, iters=solver.last["iters"],
+                resid=float(solver.last["resid"]),
+                lam_min=float(res.lam_min), num_neg=int(res.num_neg),
+                ritz0=float(res.neg_vals[0]),
+                dinf=max(0.0, -float(res.lam_min)) / (1.0 + lam_max)))
+        sync()
+        return dict(label=label, block=solver.b,
+                    seconds=time.perf_counter() - t0, steps=steps,
+                    certified=steps[-1]["dinf"] <= opt.tol)
+
+    runs = [run("driver", 24, (opt.lobpcg_maxiter_warm, opt.lobpcg_maxiter)),
+            run(f"maxiter_{long_maxiter}", 24, (long_maxiter,)),
+            run("block_cap_48", 48,
+                (opt.lobpcg_maxiter_warm, opt.lobpcg_maxiter)),
+            run(f"block_cap_48_maxiter_{long_maxiter}", 48,
+                (long_maxiter,))]
+    S = op.pattern_dense(pt["sv"])
+    S = 0.5 * (S + S.T)
+    t0 = time.perf_counter()
+    w = torch.linalg.eigvalsh(S)
+    sync()
+    eig_s = time.perf_counter() - t0
+    del S
+    wb = w[:48].cpu().numpy()
+    lam_max = float(w[-1])
+    return dict(
+        captured=True, iteration=pt["iteration"], dinf=pt["dinf"],
+        calls=[dict(maxiter=c["maxiter"], iters=c["last"]["iters"],
+                    resid=float(c["last"]["resid"]),
+                    scale=float(c["last"]["scale"]),
+                    lo=float(c["last"]["lo"]), hi=float(c["last"]["hi"]),
+                    lam_min=c["lam_min"], num_neg=c["num_neg"])
+               for c in pt["calls"]],
+        reruns=runs, eigvalsh_s=eig_s, lam_min_exact=float(w[0]),
+        lam_max_exact=lam_max,
+        dinf_exact=max(0.0, -float(w[0])) / (1.0 + lam_max),
+        bottom48=wb.tolist(),
+        below_1e_8_scaled=int(torch.sum(w < 1e-8 * (1.0 + lam_max))))
 
 
 def phase_carrier_kernels(ew, dense, device, seed):
@@ -637,13 +882,15 @@ def phase_carrier_kernels(ew, dense, device, seed):
                  (gathered(w, do.kq), *seg[1:], do.pos), 2.0 * do.nnz,
                  lambda: A_full @ w),
                 ("csr_gather", "dense_apply_from_e",
-                 (E.view(-1), do.krow_ptr, do.ij, do.v), {},
+                 (E.view(-1), do.krow_ptr, do.ij, do.v),
+                 {},
                  (gathered(E, do.ij), do.krow_ptr, do.ij, do.v),
                  2.0 * do.nnz,
                  lambda: A_dense @ E.view(-1))):
             check_case(rows, name, mode, getattr(K, name),
                        getattr(K, f"{name}_plain"), args, kw, tol[dt],
-                       reads=reads, flops=flops, library=lib, **info)
+                       reads=reads, flops=flops, library=lib,
+                       repeat=name == "csr_gather", **info)
         del A_full, counts
     S = ew.s_vals(W64)
     V = torch.linalg.eigh(S.to(torch.float32))[1].to(torch.float64)
@@ -806,6 +1053,14 @@ def phase_dual_kernels(top64, dop64, iab64, device, seed):
     M64 = rnd(n, n)
     M64 = 0.5 * (M64 + M64.T)
     B64 = rnd(n, n)
+    skew = skew_inputs(device, seed)
+    emit(dict(phase="k4_row_profiles", long_row=K.CSR_LONG_ROW,
+              dual_apply=row_profile(dop64.krow_ptr),
+              dual_adjoint=row_profile(dop64.pos_ptr),
+              iab_mat=row_profile(iab64.row_ptr),
+              iab_rmat=row_profile(iab64.col_ptr),
+              **{f"skew_{k}": row_profile(c["ptr"])
+                 for k, c in skew.items()}))
     for dt in (torch.float64, torch.float32):
         info = dict(dtype=str(dt)[6:], q=q, n=n)
         top = top64.astype(dt)
@@ -865,11 +1120,13 @@ def phase_dual_kernels(top64, dop64, iab64, device, seed):
         iinfo = dict(dtype=str(dt)[6:], nrows=iab.nrows, ncols=iab.ncols,
                      nnz=int(inz))
         for mode, args, kw, reads, flops, lib, inf in (
-                ("dual_apply", (Md, dop.krow_ptr, dop.lin_r, dop.v_r), {},
+                ("dual_apply", (Md, dop.krow_ptr, dop.lin_r, dop.v_r),
+                 {},
                  (gathered(Md, dop.lin_r), dop.krow_ptr, dop.lin_r, dop.v_r),
                  2 * nnz, lambda: A_k @ Md, dinfo),
                 ("dual_y_step", (Md, dop.krow_ptr, dop.lin_r, dop.v_r),
-                 dict(base=negAc), (gathered(Md, dop.lin_r), dop.krow_ptr,
+                 dict(base=negAc),
+                 (gathered(Md, dop.lin_r), dop.krow_ptr,
                                     dop.lin_r, dop.v_r, negAc), 2 * nnz,
                  lambda: torch.addmv(negAc, A_k, Md), dinfo),
                 ("dual_adjoint", (w, dop.pos_ptr, dop.k_c, dop.v_c),
@@ -877,19 +1134,118 @@ def phase_dual_kernels(top64, dop64, iab64, device, seed):
                  (gathered(w, dop.k_c), dop.pos_ptr, dop.k_c, dop.v_c,
                   dop.pos), 2 * nnz,
                  lambda: A_t @ w, dinfo),
-                ("iab_mat", (u, iab.row_ptr, iab.col_r, iab.val_r), {},
+                ("iab_mat", (u, iab.row_ptr, iab.col_r, iab.val_r),
+                 {},
                  (gathered(u, iab.col_r), iab.row_ptr, iab.col_r, iab.val_r),
                  2 * inz,
                  lambda: I_r @ u, iinfo),
-                ("iab_rmat", (Mi, iab.col_ptr, iab.row_c, iab.val_c), {},
+                ("iab_rmat", (Mi, iab.col_ptr, iab.row_c, iab.val_c),
+                 {},
                  (gathered(Mi, iab.row_c), iab.col_ptr, iab.row_c,
                   iab.val_c), 2 * inz,
                  lambda: I_c @ Mi, iinfo)):
             check_case(rows, "csr_gather", mode, K.csr_gather,
                        K.csr_gather_plain, args, kw, tol[dt], reads=reads,
-                       flops=flops, library=lib, **inf)
+                       flops=flops, library=lib, repeat=True,
+                       rows_profile=row_profile(args[1]), **inf)
         del A_k, A_t, I_r, I_c
+        skew_cases(rows, skew, dt, tol[dt])
     return rows
+
+
+def skew_inputs(device, seed):
+    """Phase 12's skewed CSR inputs (f64; host numpy from ``seed``): one
+    row of SKEW_LONG entries among SKEW_ROWS rows of one; the same count
+    of rows, half of them empty and the rest 1-8 long; a scatter_pos
+    operator of SKEW_ROWS / 10 positions, one with SKEW_LONG entries."""
+    import torch
+    rng = np.random.default_rng(seed)
+    i32 = lambda a: torch.as_tensor(a.astype(np.int32), device=device)  # noqa: E731
+    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64,  # noqa: E731
+                                    device=device)
+
+    def ptr_of(lens):
+        return np.concatenate([[0], np.cumsum(lens)])
+
+    out = {}
+    lens = np.ones(SKEW_ROWS, dtype=np.int64)
+    lens[SKEW_ROWS // 3] = SKEW_LONG
+    lens_e = np.where(rng.random(SKEW_ROWS) < 0.5, 0,
+                      rng.integers(1, 9, SKEW_ROWS))
+    npos = SKEW_ROWS // 10
+    lens_s = rng.integers(1, 4, npos)
+    lens_s[npos // 2] = SKEW_LONG
+    for name, ln, ncols in (("long_row", lens, SKEW_ROWS),
+                            ("empty_rows", lens_e, SKEW_ROWS),
+                            ("scatter_pos_long_row", lens_s, npos)):
+        nnz = int(ln.sum())
+        ptr = i32(ptr_of(ln))
+        out[name] = dict(ptr=ptr, col=i32(rng.integers(0, ncols, nnz)),
+                         val=f64(rng.standard_normal(nnz)),
+                         x=f64(rng.standard_normal(ncols)), nrows=ln.size,
+                         ncols=ncols)
+    sp = out["scatter_pos_long_row"]
+    size = 4 * npos
+    sp.update(pos=i32(np.sort(rng.choice(size, npos, replace=False))),
+              size=size, base=f64(rng.standard_normal(size)))
+    return out
+
+
+def sum_scale(x, ptr, col, val, base=None, alpha=1.0, pos=None,
+              size=None):
+    """Per-output error scale of K4's sums: |base| + |alpha| times the sum
+    of the row's absolute terms, in f64.  A sum of L terms in any order is
+    off by up to ~L * eps of that (10^5 terms in f32: ~1e-3 of it),
+    however it is taken, so rows of 10^5 entries are held relative to it
+    rather than to the largest output."""
+    import torch
+    from manisdp_tpu_torch import kernels as K
+    d = torch.float64
+    abs_base = None if base is None else torch.abs(base.to(d))
+    s = K.csr_gather_plain(torch.abs(x.to(d)), ptr, col,
+                           torch.abs(val.to(d)), abs_base, abs(alpha), pos,
+                           size)
+    return torch.clamp(s, min=torch.finfo(d).tiny)
+
+
+def skew_cases(rows, skew, dt, tol):
+    """K4 on the skewed inputs of skew_inputs, in ``dt``, each held to its
+    twin relative to the rows' absolute sums (sum_scale) and repeated bit
+    for bit; library: the CSR product.  The f64 case is the one that
+    catches a wrong long-row sum: 1e-12 of the 10^5-entry row's absolute
+    sum (~6.4e4) is ~6e-8, far below one term (~0.6), while the f32
+    case's 1e-5 of it (~0.64) is about one term, so a dropped or repeated
+    entry could pass in f32."""
+    import torch
+    from manisdp_tpu_torch import kernels as K
+    for name, c in skew.items():
+        x, val = c["x"].to(dt), c["val"].to(dt)
+        args = (x, c["ptr"], c["col"], val)
+        if "pos" in c:
+            base = c["base"].to(dt)
+            kw = dict(pos=c["pos"], size=c["size"], base=base, alpha=0.5)
+            # the same function as one CSR product over all output rows
+            counts = torch.zeros(c["size"] + 1, dtype=torch.int64,
+                                 device=x.device)
+            counts[c["pos"].long() + 1] = (c["ptr"][1:] -
+                                           c["ptr"][:-1]).long()
+            A = csr(torch.cumsum(counts, 0).to(torch.int32), c["col"], val,
+                    (c["size"], c["ncols"]))
+            lib = lambda A=A, base=base, x=x: torch.addmv(  # noqa: E731
+                base, A, x, alpha=0.5)
+            reads = (gathered(x, c["col"]), *args[1:], c["pos"], base)
+        else:
+            kw = {}
+            A = csr(c["ptr"], c["col"], val, (c["nrows"], c["ncols"]))
+            lib = lambda A=A, x=x: A @ x  # noqa: E731
+            reads = (gathered(x, c["col"]), *args[1:])
+        check_case(rows, "csr_gather", f"skew_{name}", K.csr_gather,
+                   K.csr_gather_plain, args, kw, tol, reads=reads,
+                   flops=2.0 * c["col"].numel(), library=lib, repeat=True,
+                   scale=sum_scale(*args, **kw),
+                   rows_profile=row_profile(c["ptr"]), dtype=str(dt)[6:],
+                   nrows=c["nrows"], nnz=int(c["col"].numel()))
+        del A
 
 
 def dual_kkt_oracle_on_card(A, b, c, n, f, res, device):
@@ -1884,6 +2240,11 @@ def main(argv=None):
                     default=parse_phases(f"1-{LAST_PHASE}"),
                     help="phases to run, e.g. 1-3,20-21 (default: all; "
                     "1-2 always run)")
+    ap.add_argument("--capture-stall", action="store_true",
+                    help="phase 7: record the devrr certificate's calls, "
+                    "save the first converged point it cannot certify to "
+                    "build/mc12000_stall/ and re-run the certificate there "
+                    "under other budgets (ROADMAP Queue C)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1971,13 +2332,20 @@ def run_phases(args, jobs):
         al_rows = phase_al_kernels(op_mc, device, args.seed)
         emit(dict(phase="al_kernels_vs_twins", cases=len(al_rows),
                   worst=worst_errors(al_rows),
-                  table=[{k: r[k] for k in ("kernel", "mode", "dtype",
-                                              "p_pad", "rel_err", "ms",
-                                              "plain_ms")}
+                  table=[{k: r.get(k) for k in ("kernel", "mode", "dtype",
+                                                "p_pad", "rel_err", "ms",
+                                                "plain_ms", "bound_ms",
+                                                "library_ms", "bit_equal")}
                          for r in al_rows]))
         # -- 7. the slice's solve: matrix completion at n = 12,000 --
+        spy = CertSpy() if args.capture_stall else None
         rec["mc12000"] = al_solve_phase(data, op_mc, mc_build_s, assemble_s,
-                                        device)
+                                        device, spy=spy)
+        if spy is not None:
+            rec["mc12000_stall"] = stall_study(spy, op_mc, os.path.join(
+                "build", "mc12000_stall"))
+            emit(dict(phase="mc12000_stall", **rec["mc12000_stall"]))
+            del spy
         del data, op_mc
 
     # -- 8. carrier kernels vs twins at the n = 4,000 matrix completion --
@@ -2002,8 +2370,9 @@ def run_phases(args, jobs):
         emit(dict(phase="carrier_kernels_vs_twins", instance=MC4, n=op4.n,
                   m=op4.m, nnzA=op4.nnz, **setup, cases=len(carrier_rows),
                   worst=worst_errors(carrier_rows),
-                  table=[{k: r[k] for k in ("kernel", "mode", "dtype",
-                                              "rel_err", "ms", "plain_ms")}
+                  table=[{k: r.get(k) for k in ("kernel", "mode", "dtype",
+                                                "rel_err", "ms", "plain_ms",
+                                                "bit_equal")}
                          for r in carrier_rows]))
         del ew4, dense4
         # -- 9-11. the carriers' solves: matrix completion at n = 4,000 --
@@ -2043,9 +2412,10 @@ def run_phases(args, jobs):
                   n_expanded=top60.n, n=mb60, m=dop60.m,
                   nnzA=int(dop60.v_r.numel()), **dual_setup,
                   cases=len(dual_rows), worst=worst_errors(dual_rows),
-                  table=[{k: r[k] for k in ("kernel", "mode", "dtype",
-                                              "rel_err", "ms", "plain_ms",
-                                              "bound_ms", "library_ms")}
+                  table=[{k: r.get(k) for k in ("kernel", "mode", "dtype",
+                                                "rel_err", "ms", "plain_ms",
+                                                "bound_ms", "library_ms",
+                                                "bit_equal")}
                          for r in dual_rows]))
         # -- 13-15. the dual solves --
         rec["dual"] = dual_phases(args, device, top60, dop60,

@@ -7,20 +7,37 @@
 //   out[e] = sum_r Y[r, i_e] * U[r, j_e]     for every pattern entry e
 //
 // The pattern is sorted by (column j, row i), so colptr[j] .. colptr[j+1]
-// delimits column j's entries.  One warp owns one column: lane l holds
-// U[l + 32c, j] (c < NCH) in registers for the whole column, gathers
-// Y[:, i_e] for each entry, and the dot is a warp-shuffle sum that lane 0
-// writes.  Every out[e] is written by one warp: no atomics, deterministic.
-// Factors wider than 32 * NCH rows take several passes; each later pass
-// adds its partial dot to out[e] (same warp, program order).
+// delimits column j's entries.
 //
-// What bounds it on an H100: at the matrix-completion n = 12,000 shape
-// (nnzP = 9.0 M, p_pad <= 24) each entry gathers one p-vector of Y,
-// p_pad * 8 B in f64; the factor is 2.3 MB and stays in L2, but it is
-// row-major (p, n), so the p rows of one gathered column sit n * 8 B apart
-// and cost p sectors, not p * 8 / 32.  Output is nnzP * 8 B = 72 MB of
-// HBM writes.  The design keeps ENTRIES_IN_FLIGHT independent gathers in
-// flight per warp so the L2 latency of one entry overlaps the next.
+// Cost model on an H100.  The factors are (p, n) with any strides; at
+// matrix completion n = 12,000 (nnzP = 9.0 M, p_pad 8-24) a factor is
+// 0.8-2.3 MB and stays in L2.  Each entry gathers one p-vector of Y.  In
+// the (p, n) row-major layout the p values of one column sit n * 8 B apart,
+// so a gather touches p separate 32-B sectors (16 per entry at p 16, ~4.6
+// GB of L2 sector traffic per call in f64); in an N-major (n, p) copy the
+// same vector is p * sizeof(T) contiguous bytes: 4 sectors in f64, 2 in
+// f32 (~1.2 / 0.6 GB).  HBM traffic is the pattern's row index (4 B) and
+// the output (8 / 4 B) per entry: 108 / 72 MB.
+//
+// Design:
+//  1. transpose_pad writes Yᵀ (and Uᵀ when U is not Y) into (n, pp)
+//     scratch the wrapper allocates, pp = p rounded up to one 16-B vector,
+//     the rows beyond p zero.  It is part of every K3 call.
+//  2. pattern_dots_kernel: one warp per column j; its lanes form 32 / G
+//     groups of G lanes, and each group takes one entry at a time.  A
+//     group loads the entry's Yᵀ row with 16-B vector loads (G = the
+//     largest power of two that leaves each lane at least two of the
+//     row's pp / vec vectors, at most 32: fewer lanes per entry keep more
+//     entries in flight), dots it with the column's Uᵀ row, held in
+//     registers for the whole column, and reduces in log2(G) xor shuffles.  EIF entries per group
+//     are in flight at once, and consecutive groups take consecutive
+//     entries, so each step's outputs are written coalesced.
+//  3. A row is walked in chunks of 2G vectors (two per lane); NCH <= 4
+//     chunks are held in registers per pass, and a later pass (rows of
+//     more than 4 chunks: p > 512 in f64 at G = 32) adds its partial dot
+//     to out[e] (same thread, program order).
+// Every out[e] has one writer and a fixed summation order: no atomics, a
+// call repeats bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,78 +45,151 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
-constexpr int kEntriesInFlight = 4;
+constexpr unsigned kFull = 0xffffffffu;
+
+template <typename T> struct Vec;
+template <> struct Vec<double> { using type = double2; };
+template <> struct Vec<float> { using type = float4; };
 
 template <typename T>
-__device__ __forceinline__ T warp_allsum(T x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+__device__ __forceinline__ T vdot(typename Vec<T>::type a,
+                                  typename Vec<T>::type b);
+template <>
+__device__ __forceinline__ double vdot<double>(double2 a, double2 b) {
+  return a.x * b.x + a.y * b.y;
+}
+template <>
+__device__ __forceinline__ float vdot<float>(float4 a, float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
-template <typename T, int NCH>
+// Y (p, n) with strides (syr, syc) -> Yt (n, pp) row-major, zero rows
+// p .. pp; 32 x 32 tiles through shared memory
+template <typename T>
+__global__ void __launch_bounds__(256)
+transpose_pad(const T* __restrict__ Y, int64_t syr, int64_t syc, int p,
+              int n, int pp, T* __restrict__ Yt) {
+  __shared__ T tile[32][33];
+  const int j0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int k = ty; k < 32; k += 8) {
+    const int r = r0 + k, j = j0 + tx;
+    tile[k][tx] = (r < p && j < n) ? Y[(int64_t)r * syr + (int64_t)j * syc]
+                                   : T(0);
+  }
+  __syncthreads();
+  for (int k = ty; k < 32; k += 8) {
+    const int j = j0 + k, r = r0 + tx;
+    if (j < n && r < pp) Yt[(int64_t)j * pp + r] = tile[tx][k];
+  }
+}
+
+template <typename T, int G, int NCH>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-pattern_dots_kernel(const T* __restrict__ Y, int64_t syr, int64_t syc,
-                    const T* __restrict__ U, int64_t sur, int64_t suc,
-                    const int* __restrict__ colptr,
-                    const int* __restrict__ rows, int p, int n,
+pattern_dots_kernel(const T* __restrict__ Yt, const T* __restrict__ Ut,
+                    int pp, const int* __restrict__ colptr,
+                    const int* __restrict__ rows, int n,
                     T* __restrict__ out) {
+  using V = typename Vec<T>::type;
+  constexpr int kVec = 16 / sizeof(T);      // scalars per vector
+  constexpr int kChunk = 2 * G;             // vectors per chunk
+  constexpr int NG = 32 / G;                // entries per warp step
+  constexpr int EIF = NCH >= 4 ? 1 : 4 / NCH;
   const int lane = threadIdx.x & 31;
   const int j = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (j >= n) return;  // whole warp leaves together
+  const int grp = lane / G, gl = lane % G;
+  const int nvec = pp / kVec;
   const int e0 = colptr[j], e1 = colptr[j + 1];
-  const int rows_per_pass = 32 * NCH;
-  const int npass = (p + rows_per_pass - 1) / rows_per_pass;
+  const V zero = {};
+  const V* __restrict__ yv = reinterpret_cast<const V*>(Yt);
+  const V* __restrict__ uv = reinterpret_cast<const V*>(Ut) +
+                             (int64_t)j * nvec;
 
-  for (int g = 0; g < npass; ++g) {
-    const int rbase = g * rows_per_pass + lane;
-    T u[NCH];
+  for (int c0 = 0; c0 * kChunk < nvec; c0 += NCH) {
+    // this lane's vectors of the column's U row: c * kChunk + gl (+ G)
+    V u[NCH][2];
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      const int r = rbase + 32 * c;
-      u[c] = r < p ? U[(int64_t)r * sur + (int64_t)j * suc] : T(0);
-    }
-    for (int e = e0; e < e1; e += kEntriesInFlight) {
-      T s[kEntriesInFlight];
+    for (int c = 0; c < NCH; ++c)
 #pragma unroll
-      for (int q = 0; q < kEntriesInFlight; ++q) {
+      for (int h = 0; h < 2; ++h) {
+        const int v = (c0 + c) * kChunk + gl + h * G;
+        u[c][h] = v < nvec ? __ldg(uv + v) : zero;
+      }
+    for (int eb = e0; eb < e1; eb += NG * EIF) {
+      T s[EIF];
+#pragma unroll
+      for (int q = 0; q < EIF; ++q) {
+        const int e = eb + q * NG + grp;
         s[q] = T(0);
-        if (e + q < e1) {
-          const int64_t col = (int64_t)rows[e + q] * syc;
+        if (e < e1) {
+          const V* __restrict__ row = yv + (int64_t)__ldg(rows + e) * nvec;
 #pragma unroll
-          for (int c = 0; c < NCH; ++c) {
-            const int r = rbase + 32 * c;
-            if (r < p) s[q] += Y[(int64_t)r * syr + col] * u[c];
-          }
+          for (int c = 0; c < NCH; ++c)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int v = (c0 + c) * kChunk + gl + h * G;
+              if (v < nvec) s[q] += vdot<T>(__ldg(row + v), u[c][h]);
+            }
         }
       }
 #pragma unroll
-      for (int q = 0; q < kEntriesInFlight; ++q) {
-        const T d = warp_allsum(s[q]);
-        if (lane == 0 && e + q < e1) out[e + q] = g == 0 ? d : out[e + q] + d;
+      for (int q = 0; q < EIF; ++q) {
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1)
+          s[q] += __shfl_xor_sync(kFull, s[q], off);
+        const int e = eb + q * NG + grp;
+        if (gl == 0 && e < e1) out[e] = c0 == 0 ? s[q] : out[e] + s[q];
       }
     }
   }
 }
 
+template <typename T, int G>
+void launch_g(const T* Yt, const T* Ut, int pp, const int* colptr,
+              const int* rows, int n, int nch, T* out, cudaStream_t s) {
+  const dim3 block(32 * kWarpsPerBlock);
+  const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  if (nch <= 1)
+    pattern_dots_kernel<T, G, 1><<<grid, block, 0, s>>>(Yt, Ut, pp, colptr,
+                                                        rows, n, out);
+  else if (nch <= 2)
+    pattern_dots_kernel<T, G, 2><<<grid, block, 0, s>>>(Yt, Ut, pp, colptr,
+                                                        rows, n, out);
+  else
+    pattern_dots_kernel<T, G, 4><<<grid, block, 0, s>>>(Yt, Ut, pp, colptr,
+                                                        rows, n, out);
+}
+
 template <typename T>
 int launch(const void* Y, int64_t syr, int64_t syc, const void* U,
            int64_t sur, int64_t suc, const void* colptr, const void* rows,
-           int p, int n, void* out, void* stream) {
+           int p, int n, int pp, int group, void* Yt, void* Ut, void* out,
+           void* stream) {
   if (n <= 0 || p <= 0) return (int)cudaSuccess;
-  const dim3 block(32 * kWarpsPerBlock);
-  const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  constexpr int kVec = 16 / sizeof(T);
+  if (pp < p || pp % kVec != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int nch = (p + 31) / 32;
-#define K3_ARGS                                                        \
-  (const T*)Y, syr, syc, (const T*)U, sur, suc, (const int*)colptr,   \
-      (const int*)rows, p, n, (T*)out
-  if (nch <= 1)
-    pattern_dots_kernel<T, 1><<<grid, block, 0, s>>>(K3_ARGS);
-  else if (nch <= 2)
-    pattern_dots_kernel<T, 2><<<grid, block, 0, s>>>(K3_ARGS);
-  else
-    pattern_dots_kernel<T, 4><<<grid, block, 0, s>>>(K3_ARGS);
+  const dim3 tb(32, 8), tg((n + 31) / 32, (pp + 31) / 32);
+  transpose_pad<T><<<tg, tb, 0, s>>>((const T*)Y, syr, syc, p, n, pp,
+                                     (T*)Yt);
+  if (U != nullptr)
+    transpose_pad<T><<<tg, tb, 0, s>>>((const T*)U, sur, suc, p, n, pp,
+                                       (T*)Ut);
+  const T* ut = U != nullptr ? (const T*)Ut : (const T*)Yt;
+  const int nvec = pp / kVec;
+  const int nch = (nvec + 2 * group - 1) / (2 * group);
+#define K3_ARGS (const T*)Yt, ut, pp, (const int*)colptr, (const int*)rows, \
+                n, nch, (T*)out, s
+  switch (group) {
+    case 1: launch_g<T, 1>(K3_ARGS); break;
+    case 2: launch_g<T, 2>(K3_ARGS); break;
+    case 4: launch_g<T, 4>(K3_ARGS); break;
+    case 8: launch_g<T, 8>(K3_ARGS); break;
+    case 16: launch_g<T, 16>(K3_ARGS); break;
+    case 32: launch_g<T, 32>(K3_ARGS); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
 #undef K3_ARGS
   return (int)cudaGetLastError();
 }
@@ -108,20 +198,21 @@ int launch(const void* Y, int64_t syr, int64_t syc, const void* U,
 
 extern "C" {
 
+// U null: U is Y (one transpose, Ut unused)
 int pattern_dots_f64(const void* Y, int64_t syr, int64_t syc, const void* U,
                      int64_t sur, int64_t suc, const void* colptr,
-                     const void* rows, int p, int n, void* out,
-                     void* stream) {
-  return launch<double>(Y, syr, syc, U, sur, suc, colptr, rows, p, n, out,
-                        stream);
+                     const void* rows, int p, int n, int pp, int group,
+                     void* Yt, void* Ut, void* out, void* stream) {
+  return launch<double>(Y, syr, syc, U, sur, suc, colptr, rows, p, n, pp,
+                        group, Yt, Ut, out, stream);
 }
 
 int pattern_dots_f32(const void* Y, int64_t syr, int64_t syc, const void* U,
                      int64_t sur, int64_t suc, const void* colptr,
-                     const void* rows, int p, int n, void* out,
-                     void* stream) {
-  return launch<float>(Y, syr, syc, U, sur, suc, colptr, rows, p, n, out,
-                       stream);
+                     const void* rows, int p, int n, int pp, int group,
+                     void* Yt, void* Ut, void* out, void* stream) {
+  return launch<float>(Y, syr, syc, U, sur, suc, colptr, rows, p, n, pp,
+                       group, Yt, Ut, out, stream);
 }
 
 }  // extern "C"

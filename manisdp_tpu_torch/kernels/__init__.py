@@ -40,6 +40,9 @@ raises.  It never falls back.  ``LAUNCHES`` counts kernel launches only.
 
 from __future__ import annotations
 
+import weakref
+
+import numpy as np
 import torch
 
 from .build import build
@@ -311,10 +314,24 @@ def pattern_dots_plain(Y, U, P):
     return pair_dots(Y, U, P.i, P.j)
 
 
+def pattern_dots_layout(p, dtype):
+    """K3's scratch row length and group size for a (p, n) factor of
+    ``dtype``: pp = p rounded up to one 16-B vector, G = the lanes that
+    share one entry, the largest power of two that leaves each lane at
+    least two of the row's pp / vec vectors (at most 32; the kernel walks
+    a row in chunks of 2G vectors, several chunks per pass)."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    pp = -(-p // vec) * vec
+    group = 1
+    while group < 32 and 4 * group <= pp // vec:
+        group *= 2
+    return pp, group
+
+
 def pattern_dots(Y, U, P):
-    """K3.  ``Y``, ``U`` (p, n) with any strides; ``P`` a column-sorted
-    SymCOO pattern (fields i, j, colptr, n).  Returns e (nnz,) with
-    e_k = <Y[:, i_k], U[:, j_k]>."""
+    """K3.  ``Y``, ``U`` (p, n) with any strides (``U`` may be ``Y``);
+    ``P`` a column-sorted SymCOO pattern (fields i, j, colptr, n).
+    Returns e (nnz,) with e_k = <Y[:, i_k], U[:, j_k]>."""
     if not _on_cuda(Y, U, P.i, P.colptr):
         return pattern_dots_plain(Y, U, P)
     _check_dtype(Y.dtype, Y, U)
@@ -327,11 +344,18 @@ def pattern_dots(Y, U, P):
             P.colptr.shape != (P.n + 1,):
         raise ValueError("P's colptr (n+1,) and rows must be contiguous")
     p, n = Y.shape
+    pp, group = pattern_dots_layout(p, Y.dtype)
+    same = U.data_ptr() == Y.data_ptr() and U.stride() == Y.stride()
+    # the N-major copies the kernel gathers from (Uᵀ only when U is not Y)
+    Yt = torch.empty((n, pp), dtype=Y.dtype, device=Y.device)
+    Ut = None if same else torch.empty_like(Yt)
     out = torch.empty((P.i.shape[0],), dtype=Y.dtype, device=Y.device)
     fn = getattr(build(), f"pattern_dots_{_SUFFIX[Y.dtype]}")
-    err = fn(Y.data_ptr(), Y.stride(0), Y.stride(1), U.data_ptr(),
-             U.stride(0), U.stride(1), P.colptr.data_ptr(), P.i.data_ptr(),
-             p, n, out.data_ptr(), _stream(Y))
+    err = fn(Y.data_ptr(), Y.stride(0), Y.stride(1),
+             None if same else U.data_ptr(), U.stride(0), U.stride(1),
+             P.colptr.data_ptr(), P.i.data_ptr(), p, n, pp, group,
+             Yt.data_ptr(), None if same else Ut.data_ptr(), out.data_ptr(),
+             _stream(Y))
     if err != 0:
         raise RuntimeError(f"pattern_dots launch failed: CUDA error {err}")
     LAUNCHES["pattern_dots"] += 1
@@ -361,12 +385,60 @@ def csr_gather_plain(x, ptr, col, val, base=None, alpha=1.0, pos=None,
     return out
 
 
+# K4's row length above which the thread-per-row plans leave a row to a
+# warp of its own (a launch argument of csrc/csr_gather.cu)
+CSR_LONG_ROW = 32
+
+# id(ptr) -> (ptr._version, csr_long_rows(ptr)), dropped with the tensor
+_LONG_ROWS = {}
+
+
+def csr_gather_plan(nnz, nrows):
+    """K4's mapping from the mean row length nnz / nrows: 0, a thread per
+    row taking two rows with 2 loads per row at a time (mean <= 2); 1, a
+    thread per row with 4 loads at a time (mean <= 16); 2, a warp per row.
+    Both counts are tensor shapes, so the choice needs no read of
+    ``ptr``."""
+    mean = nnz / max(nrows, 1)
+    return 0 if mean <= 2 else 1 if mean <= 16 else 2
+
+
+def csr_long_rows(ptr):
+    """The rows of the CSR pointer ``ptr`` longer than CSR_LONG_ROW,
+    ascending, int32 on ``ptr``'s device (empty when there are none): the
+    rows K4's thread-per-row plans hand to a warp each.  Host numpy, so it
+    reads ``ptr`` back once."""
+    lens = np.diff(ptr.cpu().numpy().astype(np.int64))
+    rows = np.flatnonzero(lens > CSR_LONG_ROW).astype(np.int32)
+    return torch.as_tensor(rows, device=ptr.device)
+
+
+def cached_long_rows(ptr):
+    """csr_long_rows(ptr), built on the first call with this tensor and
+    kept while it lives and is not written in place (its version
+    counter): an operator's pointers are read back once, not per call."""
+    key = id(ptr)
+    # an inference tensor keeps no version counter (and is read-only
+    # outside inference mode)
+    version = -1 if ptr.is_inference() else ptr._version
+    hit = _LONG_ROWS.get(key)
+    if hit is None:
+        weakref.finalize(ptr, _LONG_ROWS.pop, key, None)
+    elif hit[0] == version:
+        return hit[1]
+    rows = csr_long_rows(ptr)
+    _LONG_ROWS[key] = (version, rows)
+    return rows
+
+
 def csr_gather(x, ptr, col, val, base=None, alpha=1.0, pos=None,
                size=None):
     """K4.  ``ptr`` (R+1,) int32 delimits R segments of the entries
     (``col`` int32, ``val``); returns y (R,) with
-    y_r = base_r + alpha · sum_e val_e · x[col_e] (no ``base``: 0).
-    ``alpha`` is a Python number.
+    y_r = base_r + alpha · sum_e val_e · x[col_e] (no ``base``: 0), each
+    sum taken in entry order.  ``alpha`` is a Python number.  The rows
+    longer than CSR_LONG_ROW go to a warp each (cached_long_rows: the
+    first call with a ``ptr`` tensor reads it back on the host).
 
     Mode ``scatter_pos`` (``pos`` (R,) int32 distinct positions and the
     output length ``size``): returns out (size,) with out[pos_r] =
@@ -391,6 +463,8 @@ def csr_gather(x, ptr, col, val, base=None, alpha=1.0, pos=None,
     if not all(t.is_contiguous() for t in (x, ptr, col, val, base, pos)
                if t is not None):
         raise ValueError("csr_gather takes contiguous tensors")
+    plan = csr_gather_plan(col.shape[0], nrows)
+    long_rows = cached_long_rows(ptr) if plan < 2 and nrows > 0 else None
     if not scatter:
         out = torch.empty((nrows,), dtype=x.dtype, device=x.device)
     elif base is None:
@@ -400,8 +474,10 @@ def csr_gather(x, ptr, col, val, base=None, alpha=1.0, pos=None,
     fn = getattr(build(), f"csr_gather_{_SUFFIX[x.dtype]}")
     err = fn(x.data_ptr(), ptr.data_ptr(), col.data_ptr(), val.data_ptr(),
              base.data_ptr() if base is not None else None, float(alpha),
-             pos.data_ptr() if scatter else None, nrows, out.data_ptr(),
-             _stream(x))
+             pos.data_ptr() if scatter else None, nrows, plan, CSR_LONG_ROW,
+             long_rows.data_ptr() if long_rows is not None else None,
+             long_rows.numel() if long_rows is not None else 0,
+             out.data_ptr(), _stream(x))
     if err != 0:
         raise RuntimeError(f"csr_gather launch failed: CUDA error {err}")
     LAUNCHES["csr_gather"] += 1

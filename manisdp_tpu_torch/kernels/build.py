@@ -34,9 +34,10 @@ _SIGNATURES = {
     "symcoo_spmm": (_P, _I64, _I64, _I64, _P, _P, _P, _P, _I, _I, _I, _I,
                     _P, _P, _I64, _I64, _I64, _P, _P, _D, _D, _P, _P, _P),
     "oblique_cols": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
-    "pattern_dots": (_P, _I64, _I64, _P, _I64, _I64, _P, _P, _I, _I, _P,
-                     _P),
-    "csr_gather": (_P, _P, _P, _P, _P, _D, _P, _I, _P, _P),
+    "pattern_dots": (_P, _I64, _I64, _P, _I64, _I64, _P, _P, _I, _I, _I,
+                     _I, _P, _P, _P, _P),
+    "csr_gather": (_P, _P, _P, _P, _P, _D, _P, _I, _I, _I, _P, _I, _P,
+                   _P),
     "masked_sym": (_P, _P, _P, _P, _D, _I, _I, _P, _P),
     "oa_refine": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P),
     "symdual_apply": (_P, _I, _P, _P, _P, _P),

@@ -6,6 +6,7 @@ This file imports no jax, so the card tests run on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 
+import gc
 import importlib
 
 import numpy as np
@@ -669,3 +670,198 @@ def test_symmom_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         K.symmom_adjoint(y[:-1], q, base=M.float())        # dtype mix
     with pytest.raises(ValueError):
         K.oblique_cols(M, M, "proj", mask=M[0, :5])        # mask length
+
+
+# -- K3 / K4 redesigns: host-side choices (CPU) and the card -------------
+
+@pytest.mark.parametrize("nnz,nrows,plan", [
+    (8_988_440, 4_494_220, 0),      # mc-12000 A, k order (2 per row)
+    (8_988_440, 9_000_440, 0),      # mc-12000 Aᵀ on the pattern (0-2)
+    (9_000_440, 12_000, 2),         # colsum_pattern (~750 per row)
+    (3_355_141, 523_686, 1),        # BQP q = 60 DualOp (6, long rows)
+    (57_660, 497, 2),               # iAB columns at d = 30 (~116)
+    (0, 0, 0), (0, 10, 0), (2, 1, 0), (3, 1, 1), (16, 1, 1), (17, 1, 2)])
+def test_csr_gather_plan(nnz, nrows, plan):
+    """K4's mapping from the mean row length (a thread per row with two
+    rows or one, or a warp per row), from the two tensor shapes alone."""
+    assert K.csr_gather_plan(nnz, nrows) == plan
+
+
+def test_csr_long_rows_metadata():
+    """K4's host metadata: the rows longer than CSR_LONG_ROW, read back
+    once per pointer tensor (cached_long_rows), built anew after an
+    in-place write, dropped with the tensor, and shared by an operator's
+    astype copies, which keep its pointers."""
+    lens = np.array([0, 33, 32, 1, 500, 0, 40])
+    ptr = torch.as_tensor(np.concatenate([[0], np.cumsum(lens)]),
+                          dtype=torch.int32)
+    rows = K.csr_long_rows(ptr)
+    assert rows.dtype == torch.int32 and rows.tolist() == [1, 4, 6]
+    assert K.csr_long_rows(ptr[:3]).tolist() == [1]
+    assert K.csr_long_rows(ptr[:1]).numel() == 0
+    first = K.cached_long_rows(ptr)
+    assert torch.equal(first, rows) and K.cached_long_rows(ptr) is first
+    ptr[2:] += 10                        # row 1 now 43 long, row 2 32
+    assert K.cached_long_rows(ptr) is not first
+    assert K.cached_long_rows(ptr).tolist() == [1, 4, 6]
+    ptr[1] = 43                          # row 0 43 long, row 1 empty
+    assert K.cached_long_rows(ptr).tolist() == [0, 4, 6]
+    key = id(ptr)
+    assert key in K._LONG_ROWS
+    del ptr
+    gc.collect()
+    assert key not in K._LONG_ROWS
+    with torch.inference_mode():         # no version counter to read
+        ptr = torch.tensor([0, 40, 41], dtype=torch.int32)
+    first = K.cached_long_rows(ptr)
+    assert first.tolist() == [0] and K.cached_long_rows(ptr) is first
+    dop = _bqp_dualop(12, "cpu")
+    d32 = dop.astype(torch.float32)
+    assert d32.krow_ptr is dop.krow_ptr and d32.pos_ptr is dop.pos_ptr
+    lens = np.diff(dop.krow_ptr.numpy())
+    np.testing.assert_array_equal(K.cached_long_rows(d32.krow_ptr).numpy(),
+                                  np.flatnonzero(lens > K.CSR_LONG_ROW))
+    assert K.cached_long_rows(dop.krow_ptr) is \
+        K.cached_long_rows(d32.krow_ptr)
+    assert K.csr_long_rows(dop.pos_ptr).numel() == 0
+    op = _constraint_op("cpu")
+    o32 = op.astype(torch.float32)
+    for name in ("krow_ptr", "pat_ptr"):
+        assert getattr(o32, name) is getattr(op, name)
+    assert o32.pat.colptr is op.pat.colptr
+
+
+@pytest.mark.parametrize("p,dtype,pp,group", [
+    (16, torch.float64, 16, 4), (16, torch.float32, 16, 2),
+    (8, torch.float64, 8, 2), (8, torch.float32, 8, 1),
+    (24, torch.float64, 24, 4), (24, torch.float32, 24, 2),
+    (1, torch.float64, 2, 1), (1, torch.float32, 4, 1),
+    (33, torch.float64, 34, 8), (33, torch.float32, 36, 4),
+    (130, torch.float64, 130, 32), (130, torch.float32, 132, 16)])
+def test_pattern_dots_layout(p, dtype, pp, group):
+    """K3's N-major scratch row (p rounded up to a 16-B vector) and its
+    lanes per entry (at least two vectors each where the row has them, at
+    most 32 lanes)."""
+    assert K.pattern_dots_layout(p, dtype) == (pp, group)
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    nvec = pp // vec
+    assert pp % vec == 0 and pp - p < vec
+    assert group == 32 or 2 * group <= nvec < 4 * group or group == 1
+
+
+def _bqp_dualop(q, device):
+    from manisdp_tpu_torch.frontends.sos import assemble_bqpsos
+    from manisdp_tpu_torch.ops.dualops import DualOp
+    Q, e, _ = chip_smoke.bqp_instance(q, None)
+    A, b, c, mb, f, dAAt = assemble_bqpsos(Q, e, q)
+    return DualOp.build(A, b / np.max(np.abs(b)), c, mb, f, dAAt,
+                        device=device)
+
+
+def test_dualop_row_profile():
+    """The q-variable BQP DualOp's rows: one of n = 1 + q + q(q-1)/2
+    entries, n - 1 of 2q, the rest of 6, all the long ones first; its mean
+    (~7) puts it on K4's thread-per-row mapping, and its metadata lists
+    the n rows above 32 entries for a warp each."""
+    dop = _bqp_dualop(20, "cpu")
+    prof = chip_smoke.row_profile(dop.krow_ptr)
+    assert prof["most_common"] == {6: 5985, 40: 210, 211: 1}
+    assert prof["max"] == 211 and prof["plan"] == 1
+    assert prof["long_rows"] == 211
+    assert K.csr_long_rows(dop.krow_ptr).tolist() == list(range(211))
+    lens = np.diff(dop.krow_ptr.numpy())
+    assert np.all(lens[:211] > K.CSR_LONG_ROW)
+
+
+def _held_twice(fn, twin, args, kw, tol, scale=None):
+    """One kernel call against its twin (relative to the largest output,
+    or to ``scale`` per output), and a second call bit-equal to the
+    first."""
+    got, ref = fn(*args, **kw), twin(*args, **kw)
+    again = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    if scale is None:
+        assert _rel(got, ref) <= tol
+    else:
+        assert float(torch.max(torch.abs(got - ref).double() / scale)) <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_csr_gather_dual_operators_on_card(cuda_device, dtype):
+    """K4 on the q = 20 BQP DualOp (rows of 211, 40 and 6: threads and the
+    blocks' warps) and the d = 12 iAB pair."""
+    from manisdp_tpu_torch.solvers.dual_general import build_iab
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    dop = _bqp_dualop(20, cuda_device).astype(dtype)
+    Aq, _, _, mbq, fq, dAAtq = chip_smoke.qs_instance(12)
+    iab = build_iab(Aq, mbq, fq, dAAtq, cuda_device).astype(dtype)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=dtype,  # noqa: E731
+                                 device=cuda_device)
+    n = dop.n
+    M, w = rnd(n * n), rnd(dop.m)
+    cases = [((M, dop.krow_ptr, dop.lin_r, dop.v_r), {}),
+             ((M, dop.krow_ptr, dop.lin_r, dop.v_r), dict(base=-dop.Ac)),
+             ((w, dop.pos_ptr, dop.k_c, dop.v_c),
+              dict(pos=dop.pos, size=n * n)),
+             ((rnd(iab.ncols), iab.row_ptr, iab.col_r, iab.val_r), {}),
+             ((rnd(iab.nrows), iab.col_ptr, iab.row_c, iab.val_c), {})]
+    for args, kw in cases:
+        _held_twice(K.csr_gather, K.csr_gather_plain, args, kw, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_csr_gather_skewed_rows_on_card(cuda_device, dtype):
+    """K4 on skewed rows: one row of 10^5 entries among 10^6 rows of one
+    (a warp's walk), half the rows empty, and scatter_pos with a
+    10^5-entry row; held relative to each row's sum of absolute terms (a
+    10^5-term f32 sum is off by ~1e-3 of its largest output in any
+    order)."""
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    for c in chip_smoke.skew_inputs(cuda_device, 7).values():
+        kw = {}
+        if "pos" in c:
+            kw.update(pos=c["pos"], size=c["size"], base=c["base"].to(dtype),
+                      alpha=0.5)
+        args = (c["x"].to(dtype), c["ptr"], c["col"], c["val"].to(dtype))
+        _held_twice(K.csr_gather, K.csr_gather_plain, args, kw, tol,
+                    scale=chip_smoke.sum_scale(*args, **kw))
+
+
+def _dense_pattern(n, density, device, seed=6):
+    """A random symmetric pattern of ~density * n entries per column (K3's
+    warp walks many entries per column)."""
+    from manisdp_tpu_torch.convert import symcoo_from_arrays
+    rs = np.random.RandomState(seed)
+    M = sp.random(n, n, density=density, random_state=rs, format="coo")
+    M = (M + M.T + sp.eye(n)).tocsc()
+    M.sort_indices()
+    coo = M.tocoo()
+    return symcoo_from_arrays(coo.row.astype(np.int32),
+                              coo.col.astype(np.int32), coo.data, n, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("p", [1, 3, 8, 16, 24, 31, 33, 64, 130])
+def test_pattern_dots_widths_on_card(cuda_device, dtype, p):
+    """K3 at every lane grouping and chunk count: contiguous factors, a
+    transposed Y, a column-strided U, and U = Y; held to the twin and
+    repeated bit for bit."""
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    n = 300
+    P = _dense_pattern(n, 0.3, cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(p)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=dtype,  # noqa: E731
+                                 device=cuda_device)
+    Y, U = rnd(p, n), rnd(p, n)
+    Ys = rnd(n, p).T                               # strides (1, p)
+    Us = rnd(p, 2 * n)[:, ::2]                     # strides (2n, 2)
+    for args in ((Y, U, P), (Ys, Us, P), (Y, Y, P), (Ys, Ys, P)):
+        _held_twice(K.pattern_dots, K.pattern_dots_plain, args, {}, tol)
