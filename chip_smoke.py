@@ -123,6 +123,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -340,9 +341,31 @@ def csr(ptr, col, val, shape):
     return torch.sparse_csr_tensor(ptr, col, val, size=shape)
 
 
+def pass_times(fn, reps=20):
+    """Device ms per call of each kernel that ``fn()`` launches, by kernel
+    name: torch.profiler over ``reps`` calls after a warm one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or not evt.self_device_time_total:
+            continue
+        name = re.search(r"(\w+)(<[^(]*>)?\(", evt.key)
+        name = name.group(1) if name else evt.key[:60]
+        out[name] = out.get(name, 0.0) + evt.self_device_time_total / reps / 1e3
+    return out
+
+
 def check_case(rows, name, mode, fn, twin, args, kw, tol, reads=(),
                flops=0.0, library=None, fresh=None, per_output=False,
-               repeat=False, scale=None, **info):
+               repeat=False, scale=None, passes=False, **info):
     """One kernel call against its twin on the same inputs, timed, with
     its bound (``reads``: the input tensors the function must read once;
     its outputs are written once) and the time of ``library``, one
@@ -354,7 +377,9 @@ def check_case(rows, name, mode, fn, twin, args, kw, tol, reads=(),
     each output's error relative to its own scale (max_err).  ``repeat``:
     a second kernel call on the same inputs must give the same bits.
     ``scale``: per-entry error scales (a sum's sum of absolute terms) for
-    the relative error, in place of the largest reference entry."""
+    the relative error, in place of the largest reference entry.
+    ``passes``: also each launch's device time (pass_times).  A NaN in
+    the kernel's output fails the case."""
     import torch
     got = fn(*(fresh() if fresh else args), **kw)
     ref = twin(*(fresh() if fresh else args), **kw)
@@ -371,14 +396,18 @@ def check_case(rows, name, mode, fn, twin, args, kw, tol, reads=(),
                plain_ms=time_ms(lambda: twin(*args, **kw)),
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
     if repeat:
-        row["bit_equal"] = bool(torch.equal(got, again))
+        again = again if isinstance(again, tuple) else (again,)
+        row["bit_equal"] = all(torch.equal(g, a) for g, a in zip(outs, again))
+    if passes:
+        row["passes_ms"] = pass_times(lambda: fn(*args, **kw))
+    row["nan_free"] = not any(bool(torch.any(torch.isnan(g))) for g in outs)
     if library is not None:
         try:
             row["library_ms"] = time_ms(library)
         except (RuntimeError, NotImplementedError, TypeError) as err:
             row["library_error"] = str(err).splitlines()[0][:200]
     rows.append(row)
-    if not rel_err <= tol:
+    if not (rel_err <= tol and row["nan_free"]):
         raise AssertionError(f"kernel disagrees with its twin: {row}")
     if repeat and not row["bit_equal"]:
         raise AssertionError(f"a repeated call changed the bits: {row}")
@@ -1091,8 +1120,10 @@ def phase_dual_kernels(top64, dop64, iab64, device, seed):
                     (K.symdual_sym_factor, K.symdual_sym_factor_plain),
                     (Y, q, renorm), {}, (Y,), 4.0 * p * n))
         for name, mode, (fn, twin), args, kw, reads, flops in cases:
+            k7_case = name == "symdual_apply"
             check_case(rows, name, mode, fn, twin, args, kw, tol[dt],
-                       reads=reads, flops=flops, **info)
+                       reads=reads, flops=flops, repeat=k7_case,
+                       passes=k7_case, **info)
         del y
         # K2 proj with the Hessian's eG term at the solve's widest factor
         Y, H, U = (rnd(192, n).to(dt) for _ in range(3))
@@ -1305,9 +1336,10 @@ def profile_breakdown(fn):
     from torch.profiler import ProfilerActivity, profile
     kinds = (("K9 symmom_apply", ("namespace)::ct_kernel",
                                   "namespace)::rows_kernel")),
-             ("K10 symmom_adjoint", ("namespace)::small_kernel",
-                                     "namespace)::entry_kernel")),
-             ("K7 symdual_apply", ("symdual_low", "symdual_y4")),
+             ("K10 symmom_adjoint", ("namespace)::coef_kernel",
+                                     "namespace)::out_kernel")),
+             ("K7 symdual_apply", ("symdual_stage", "symdual_sym<",
+                                   "symdual_y4")),
              ("K8 symdual_adjoint", ("adjoint_kernel", "sym_factor_kernel",
                                      "sym_mat_kernel")),
              ("K2 oblique_cols", ("oblique_cols",)),
@@ -1651,8 +1683,12 @@ def phase_mom_kernels(mop64, N, device, seed):
     rnd = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
                                  dtype=torch.float64, device=device)
     M64, y64 = rnd(n, n), rnd(m)
-    # K10 reads only the valid slots of y; every other slot is don't-care
-    valid = m - int(np.count_nonzero(dontcare_mask(q)))
+    # K10 reads only the valid slots of y; every other slot is don't-care,
+    # and holds NaN here: neither K10 nor its twin may let it through
+    dc = torch.as_tensor(dontcare_mask(q), device=device)
+    valid = m - int(torch.count_nonzero(dc))
+    y64 = torch.where(dc, torch.full_like(y64, float("nan")), y64)
+    del dc
     k9 = (K.symmom_apply, K.symmom_apply_plain)
     k10 = (K.symmom_adjoint, K.symmom_adjoint_plain)
     q4 = float(q) ** 4
@@ -1666,8 +1702,10 @@ def phase_mom_kernels(mop64, N, device, seed):
                  40 * q4),
                 ("symmom_adjoint", "es_vals", k10, (y, q),
                  dict(base=C, alpha=0.37), (yb, C), 42 * q4)):
+            k10_case = name == "symmom_adjoint"
             check_case(rows, name, mode, fn, twin, args, kw, tol[dt],
-                       reads=reads, flops=flops, **info)
+                       reads=reads, flops=flops, repeat=k10_case,
+                       passes=k10_case, **info)
         del M, y, C
     mask64 = (torch.rand(N, generator=gen, device=device) < 0.5).double()
     for dt in (torch.float64, torch.float32):
@@ -2415,7 +2453,7 @@ def run_phases(args, jobs):
                   table=[{k: r.get(k) for k in ("kernel", "mode", "dtype",
                                                 "rel_err", "ms", "plain_ms",
                                                 "bound_ms", "library_ms",
-                                                "bit_equal")}
+                                                "bit_equal", "passes_ms")}
                          for r in dual_rows]))
         # -- 13-15. the dual solves --
         rec["dual"] = dual_phases(args, device, top60, dop60,
@@ -2439,9 +2477,10 @@ def run_phases(args, jobs):
                   n_expanded=mop60.n, m_flat=mop60.m, chain_N=N_chain,
                   **mom_setup, cases=len(mom_rows),
                   worst=worst_errors(mom_rows),
-                  table=[{k: r[k] for k in ("kernel", "mode", "dtype",
-                                              "rel_err", "ms", "plain_ms",
-                                              "bound_ms")}
+                  table=[{k: r.get(k) for k in ("kernel", "mode", "dtype",
+                                                "rel_err", "ms", "plain_ms",
+                                                "bound_ms", "bit_equal",
+                                                "passes_ms")}
                          for r in mom_rows]))
         # -- 17. the BQP moment primal --
         t0 = time.perf_counter()
@@ -2649,7 +2688,8 @@ def run_phases(args, jobs):
                          else worst_errors(rows + al_rows)[base]
                          ["max_abs_err"]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            **({"passes_ms": r["passes_ms"]} if "passes_ms" in r else {})))
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(dict(nvidia_smi=smi, phases=sorted(ph), build_s=build_s,

@@ -15,38 +15,47 @@
 // Optional epilogue (y_step): y0 <- (y0 - shift) * scale[0] and every
 // degree-d slot times scale[d].
 //
-// Two launches:
-//   symdual_low: the index-coincidence patterns of the JAX einsums; one
-//     thread per Y3 slot (24 reads), one warp per slot of y1 and Y2 (the
-//     lanes split the O(q) sums over the shared index, 8 (q - 1) and
-//     8 (q - 2) reads, then a shuffle reduction); block 0 reduces y0 over
-//     the q^2 coincidence planes of T.
-//   symdual_y4: Y4 is invariant under all 24 permutations of (i,j,k,l),
-//     so one thread owns each sorted 4-set i < j < k < l, reads the 24
-//     entries of T once and writes their sum to all 24 slots; the
-//     threads of the other slots write the don't-care zeros.  Block
-//     (i, j) walks (k, l), so the zero writes run along l.
-// What bounds it on an H100: bytes.  At q = 60 (n~ = 3,662) reading T
-// (12.96 M entries) and writing Y4 moves 207 MB in f64, 62 us at
-// 3.35 TB/s (31 us in f32); the low launch touches O(q^3) entries.  The
-// 24 reads and writes of a 4-set are scattered (strides q^3 .. 1), so a
-// sector carries one useful element: simple first, a tiled transpose
-// through shared memory is the known next step.
+// The JAX grouping read as matrix algebra on A = T as a (q^2, q^2) matrix
+// (rows (i, j), columns (k, l); r~ = (j, i) is the pair swap of r):
+//   P2[r, c] = S[r, c] + S[r, c~],  S[r, .] = A[r, .] + A[r~, .]
+//   P3 = P2 + P2^T
+//   Y4[i,j,k,l] = P3[i,j,k,l] + P3[i,k,j,l] + P3[j,k,i,l]   (distinct)
+//   Y2[a,b] = sum_{c != a,b} P3[a,c,c,b] + 16 single entries
+//   Y3[a,b,c] = S3[a,b,c] + S3[b,a,c] + S3[c,a,b],
+//     S3[e,f,g] = hk[f,g] + hk[g,f],
+//     hk[f,g] = H[e,f,g] + T[e,e,f,g] + K[f,g,e] + T[f,g,e,e]
+// P3 is symmetric within each pair and under the swap of the pairs, so
+// every P3 read above runs along l.  P2 and P3 are symmetric in the row
+// pair, so one q^4 workspace holds both: for each pair i < j, P2's row at
+// row (i, j) and P3's at row (j, i).  Three launches, each output written
+// by one thread in a fixed order (no atomics):
+//   symdual_stage  a block per e: S3[e] through shared memory; a warp per
+//                  row of y0's partial sums and per slot of y1; a block per
+//                  pair i < j: S's row through shared memory, P2's row
+//                  (the (k, l) swap read transposed) into the workspace.
+//   symdual_sym    P3 = P2 + P2^T, a block per pair of 32 x 32 tiles
+//                  through shared memory, reading P2's rows and writing
+//                  P3's, so no block reads what another writes; a block per
+//                  a: Y3[a] (S3[c, a, :] staged and read transposed); y0.
+//   symdual_y4     a block per (i, j), threads along (k, l): Y4[i, j] from
+//                  three row-contiguous reads of P3, blocks in i-major
+//                  order so the i-slabs of P3 are reused from L2; Y2, a
+//                  thread per slot, reads P3[a, c, c, :] along b.
+// What bounds it on an H100: bytes.  The function reads T (q^4 entries)
+// and writes Y4 (q^4): at q = 60, 104 MB in f32, 31 us at 3.35 TB/s.  The
+// workspace adds a q^4 / 2 write (P2), a q^4 read and a q^4 / 2 write (the
+// transpose) and a q^4 / 2 read (Y4, L2 reuse aside): about 2.25x the
+// bound's bytes.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-__constant__ unsigned char kPerm[24][4] = {
-    {0, 1, 2, 3}, {0, 1, 3, 2}, {0, 2, 1, 3}, {0, 2, 3, 1}, {0, 3, 1, 2},
-    {0, 3, 2, 1}, {1, 0, 2, 3}, {1, 0, 3, 2}, {1, 2, 0, 3}, {1, 2, 3, 0},
-    {1, 3, 0, 2}, {1, 3, 2, 0}, {2, 0, 1, 3}, {2, 0, 3, 1}, {2, 1, 0, 3},
-    {2, 1, 3, 0}, {2, 3, 0, 1}, {2, 3, 1, 0}, {3, 0, 1, 2}, {3, 0, 2, 1},
-    {3, 1, 0, 2}, {3, 1, 2, 0}, {3, 2, 0, 1}, {3, 2, 1, 0}};
+constexpr int kTile = 32;
 
 template <typename T>
 struct Blocks {
@@ -82,157 +91,300 @@ __device__ __forceinline__ T warp_sum(T v) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-symdual_low(Blocks<T> B, const T* __restrict__ scale,
-            const T* __restrict__ shift, T* __restrict__ y) {
-  const int q = B.q;
-  const int64_t q2 = (int64_t)q * q;
-  const int64_t nw = q + q2;                          // warp slots: y1, Y2
-  const int64_t nwb = (nw + kWarps - 1) / kWarps;
-  if (blockIdx.x == 0) {
-    // y0: pairs of copies of one column
-    __shared__ T red[kThreads];
-    T acc = T(0);
-    for (int64_t t = threadIdx.x; t < q2; t += kThreads) {
-      const int i = (int)(t / q), j = (int)(t % q);
-      if (i == j)
-        acc += B.G(i, i) + B.H(i, i, i) + B.K(i, i, i) + B.Tq(i, i, i, i);
-      else
-        acc += B.Tq(i, j, i, j) + B.Tq(i, j, j, i);
-    }
-    if (threadIdx.x == 0) acc += B.at(0, 0) + B.at(0, 1) + B.at(1, 0) + B.at(1, 1);
-    red[threadIdx.x] = acc;
-    __syncthreads();
-    for (int s = kThreads / 2; s > 0; s >>= 1) {
-      if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-      __syncthreads();
-    }
-    if (threadIdx.x == 0) {
-      T y0 = red[0];
-      if (shift != nullptr) y0 = y0 - shift[0];
-      if (scale != nullptr) y0 = y0 * scale[0];
-      y[0] = y0;
-    }
-    return;
-  }
-  if (blockIdx.x <= nwb) {
-    // one warp per slot of y1 and Y2: the lanes split the O(q) sum
-    const int64_t e = (int64_t)(blockIdx.x - 1) * kWarps + threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    if (e >= nw) return;                               // warp-uniform
-    if (e < q) {
-      // y1[a]: (const, x_a) over all copies and the (x_c, x_c x_a) patterns
-      const int a = (int)e;
-      T acc = T(0);
-      for (int i = lane; i < q; i += 32) {
-        if (i == a) continue;
-        acc += B.H(i, i, a) + B.H(i, a, i) + B.K(i, a, i) + B.K(a, i, i) +
-               B.Tq(i, i, i, a) + B.Tq(i, i, a, i) + B.Tq(i, a, i, i) +
-               B.Tq(a, i, i, i);
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        acc += B.at(0, 2 + a) + B.at(1, 2 + a) + B.at(2 + a, 0) +
-               B.at(2 + a, 1) + B.E(0, a, a) + B.E(1, a, a) + B.F(a, a, 0) +
-               B.F(a, a, 1);
-        y[1 + a] = scale != nullptr ? acc * scale[1] : acc;
-      }
-      return;
-    }
-    // Y2[a, b], a != b
-    const int64_t t = e - q;
-    const int a = (int)(t / q), b = (int)(t % q);
-    if (a == b) {
-      if (lane == 0) y[1 + q + t] = T(0);
-      return;
-    }
-    T acc = T(0);
-    for (int c = lane; c < q; c += 32) {
-      if (c == a || c == b) continue;
-      acc += B.Tq(a, c, b, c) + B.Tq(a, c, c, b) + B.Tq(c, a, b, c) +
-             B.Tq(c, a, c, b) + B.Tq(b, c, a, c) + B.Tq(b, c, c, a) +
-             B.Tq(c, b, a, c) + B.Tq(c, b, c, a);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      acc += B.G(a, b) + B.G(b, a) + B.E(0, a, b) + B.E(1, a, b) +
-             B.E(0, b, a) + B.E(1, b, a) + B.F(a, b, 0) + B.F(a, b, 1) +
-             B.F(b, a, 0) + B.F(b, a, 1) + B.H(a, b, b) + B.H(b, a, a) +
-             B.K(b, b, a) + B.K(a, a, b) + B.Tq(a, a, b, b) + B.Tq(b, b, a, a);
-      y[1 + q + t] = scale != nullptr ? acc * scale[2] : acc;
-    }
-    return;
-  }
-  // Y3[a, b, c], distinct: x_x times an off-diagonal slot (y, z) of the
-  // other two, first copies (H, K) and Q-diagonal copies (planes of T)
-  const int64_t t = (int64_t)(blockIdx.x - 1 - nwb) * kThreads + threadIdx.x;
-  if (t >= q2 * q) return;
-  const int a = (int)(t / q2), b = (int)((t / q) % q), c = (int)(t % q);
-  T acc = T(0);
-  if (a != b && a != c && b != c) {
-    const int idx[3] = {a, b, c};
-#pragma unroll
-    for (int x = 0; x < 3; ++x) {
-      const int ex = idx[x], ey = idx[(x + 1) % 3], ez = idx[(x + 2) % 3];
-      acc += B.H(ex, ey, ez) + B.Tq(ex, ex, ey, ez) + B.K(ey, ez, ex) +
-             B.Tq(ey, ez, ex, ex);
-      acc += B.H(ex, ez, ey) + B.Tq(ex, ex, ez, ey) + B.K(ez, ey, ex) +
-             B.Tq(ez, ey, ex, ex);
-    }
-    if (scale != nullptr) acc = acc * scale[3];
-  }
-  y[1 + q + q2 + t] = acc;
+__device__ __forceinline__ T* smem() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return reinterpret_cast<T*>(smem_raw);
+}
+
+// The workspace holds, for each pair i < j, P2's row at row (i, j) and
+// P3's row at row (j, i) (both are symmetric in the row pair); rows
+// (i, i) are never needed.  lo / hi: the storage row of P2 / P3 for the
+// logical row r = (a, b).
+__device__ __forceinline__ int lo_row(int r, int q) {
+  const int a = r / q, b = r - a * q;
+  return a < b ? r : b * q + a;
+}
+__device__ __forceinline__ int hi_row(int a, int b, int q) {
+  return a > b ? a * q + b : b * q + a;
+}
+
+// (I, J), I <= J, of entry p of the upper triangle taken column by column
+__device__ __forceinline__ void tri(int64_t p, int& I, int& J) {
+  int64_t j = (int64_t)((sqrt(8.0 * (double)p + 1.0) - 1.0) * 0.5);
+  while (j * (j + 1) / 2 > p) --j;
+  while ((j + 1) * (j + 2) / 2 <= p) ++j;
+  J = (int)j;
+  I = (int)(p - j * (j + 1) / 2);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-symdual_y4(Blocks<T> B, const T* __restrict__ scale, T* __restrict__ y4) {
-  const int q = B.q;
-  const int i = (int)(blockIdx.x / q), j = (int)(blockIdx.x % q);
+symdual_stage(Blocks<T> B, const T* __restrict__ scale, T* __restrict__ y,
+              T* __restrict__ P, T* __restrict__ S3, T* __restrict__ y0part) {
+  const int q = B.q, qp = q + 1;
   const int64_t q2 = (int64_t)q * q;
-  const int64_t base = (int64_t)blockIdx.x * q2;   // (i*q + j) * q^2
-  const T s4 = scale != nullptr ? scale[4] : T(1);
-  for (int64_t t = threadIdx.x; t < q2; t += kThreads) {
-    const int k = (int)(t / q), l = (int)(t % q);
-    const bool distinct = i != j && i != k && i != l && j != k && j != l &&
-                          k != l;
-    if (!distinct) {
-      y4[base + t] = T(0);
-      continue;
-    }
-    if (!(i < j && j < k && k < l)) continue;   // written by its sorted owner
-    const int idx[4] = {i, j, k, l};
-    T acc = T(0);
+  const int64_t nwarp = (2 * q + kWarps - 1) / kWarps;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  T* s = smem<T>();
+  int64_t bid = blockIdx.x;
+  // the short roles first, so their strided reads overlap the pair rows
+  if (bid < q) {
+    // S3[e, :, :]: rows e of H and (e, e) of T along (f, g), columns e of K
+    // and (e, e) of T down the rows (f, g)
+    const int e = (int)bid;
+    const T* rh = B.M + (int64_t)(2 + e) * B.n + B.o;
+    const T* rd = B.M + (B.o + (int64_t)e * q + e) * B.n + B.o;
+    const T* ck = B.M + (int64_t)B.o * B.n + 2 + e;
+    const T* cd = B.M + (int64_t)B.o * B.n + B.o + (int64_t)e * q + e;
 #pragma unroll 4
-    for (int p = 0; p < 24; ++p)
-      acc += B.Tq(idx[kPerm[p][0]], idx[kPerm[p][1]], idx[kPerm[p][2]],
-                  idx[kPerm[p][3]]);
-    if (scale != nullptr) acc = acc * s4;
-#pragma unroll 4
-    for (int p = 0; p < 24; ++p) {
-      const int64_t at = (((int64_t)idx[kPerm[p][0]] * q + idx[kPerm[p][1]]) * q +
-                          idx[kPerm[p][2]]) * q + idx[kPerm[p][3]];
-      y4[at] = acc;
-    }
+    for (int f = warp; f < q; f += kWarps)
+      for (int g = lane; g < q; g += 32) {
+        const int t = f * q + g;
+        s[f * qp + g] = rh[t] + rd[t] + ck[t * B.n] + cd[t * B.n];
+      }
+    __syncthreads();
+    for (int f = warp; f < q; f += kWarps)
+      for (int g = lane; g < q; g += 32)
+        S3[e * q2 + f * q + g] = s[f * qp + g] + s[g * qp + f];
+    return;
   }
+  bid -= q;
+  if (bid < nwarp) {
+    // a warp per row i of y0's partial sums, then per slot of y1
+    const int64_t w = bid * kWarps + warp;
+    if (w >= 2 * q) return;                            // warp-uniform
+    if (w < q) {
+      const int i = (int)w;
+      T acc = T(0);
+      for (int j = lane; j < q; j += 32) {
+        if (i == j)
+          acc += B.G(i, i) + B.H(i, i, i) + B.K(i, i, i) + B.Tq(i, i, i, i);
+        else
+          acc += B.Tq(i, j, i, j) + B.Tq(i, j, j, i);
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) y0part[i] = acc;
+      return;
+    }
+    // y1[a]: (const, x_a) over all copies and the (x_c, x_c x_a) patterns
+    const int a = (int)(w - q);
+    T acc = T(0);
+    for (int i = lane; i < q; i += 32) {
+      if (i == a) continue;
+      acc += B.H(i, i, a) + B.H(i, a, i) + B.K(i, a, i) + B.K(a, i, i) +
+             B.Tq(i, i, i, a) + B.Tq(i, i, a, i) + B.Tq(i, a, i, i) +
+             B.Tq(a, i, i, i);
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      acc += B.at(0, 2 + a) + B.at(1, 2 + a) + B.at(2 + a, 0) +
+             B.at(2 + a, 1) + B.E(0, a, a) + B.E(1, a, a) + B.F(a, a, 0) +
+             B.F(a, a, 1);
+      y[1 + a] = scale != nullptr ? acc * scale[1] : acc;
+    }
+    return;
+  }
+  bid -= nwarp;
+  // the P2 row of the pair i < j, at its row (i, j): S's row staged with a
+  // padded stride so the transposed read s[l][k] is free of bank
+  // conflicts; a warp per k, the lanes along l
+  int i, j;
+  tri(bid, i, j);
+  ++j;
+  const T* ra = B.M + (B.o + (int64_t)i * q + j) * B.n + B.o;
+  const T* rb = B.M + (B.o + (int64_t)j * q + i) * B.n + B.o;
+#pragma unroll 4
+  for (int k = warp; k < q; k += kWarps)
+    for (int l = lane; l < q; l += 32)
+      s[k * qp + l] = ra[k * q + l] + rb[k * q + l];
+  __syncthreads();
+  T* pa = P + ((int64_t)i * q + j) * q2;
+  for (int k = warp; k < q; k += kWarps)
+    for (int l = lane; l < q; l += 32)
+      pa[k * q + l] = s[k * qp + l] + s[l * qp + k];
+}
+
+// 8 blocks an SM (32 registers): the tile pass is latency-bound, and
+// this kernel keeps within 32 registers without spilling
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 8)
+symdual_sym(Blocks<T> B, const T* __restrict__ scale,
+            const T* __restrict__ shift, T* __restrict__ y,
+            T* __restrict__ P, const T* __restrict__ S3,
+            const T* __restrict__ y0part) {
+  const int q = B.q, qp = q + 1;
+  const int64_t q2 = (int64_t)q * q;
+  T* s = smem<T>();
+  int64_t bid = blockIdx.x;
+  const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
+  // the Y3 blocks and y0's first, the tiles after them
+  if (bid > q) {
+    bid -= q + 1;
+    // P3 = P2 + P2^T on the tile pair (I, J), (J, I): P2 read from the
+    // rows (i, j), i < j, P3 written to the rows (j, i), so no block reads
+    // what another writes
+    int I, J;
+    tri(bid, I, J);
+    T* a = s;
+    T* b = s + kTile * (kTile + 1);
+    const int n2 = (int)q2;
+    // the tiles' rows, one division each: where P2's row is read (-1 past
+    // the end) and where P3's is written (-1 unless i < j)
+    __shared__ int src[2 * kTile], dst[2 * kTile];
+    if (threadIdx.x < 2 * kTile) {
+      const int row = (threadIdx.x < kTile ? I : J) * kTile + threadIdx.x % kTile;
+      const int i = row / q, j = row - i * q;
+      src[threadIdx.x] = row >= n2 ? -1 : lo_row(row, q);
+      dst[threadIdx.x] = row < n2 && i < j ? j * q + i : -1;
+    }
+    __syncthreads();
+    for (int r = ty; r < kTile; r += kThreads / kTile) {
+      const int col = J * kTile + tx, col2 = I * kTile + tx;
+      if (src[r] >= 0 && col < n2)
+        a[r * (kTile + 1) + tx] = P[(int64_t)src[r] * n2 + col];
+      if (I != J && src[kTile + r] >= 0 && col2 < n2)
+        b[r * (kTile + 1) + tx] = P[(int64_t)src[kTile + r] * n2 + col2];
+    }
+    __syncthreads();
+    const T* bt = I == J ? a : b;
+    for (int r = ty; r < kTile; r += kThreads / kTile) {
+      const int col = J * kTile + tx, col2 = I * kTile + tx;
+      if (dst[r] >= 0 && col < n2)
+        P[(int64_t)dst[r] * n2 + col] =
+            a[r * (kTile + 1) + tx] + bt[tx * (kTile + 1) + r];
+      if (I != J && dst[kTile + r] >= 0 && col2 < n2)
+        P[(int64_t)dst[kTile + r] * n2 + col2] =
+            b[r * (kTile + 1) + tx] + a[tx * (kTile + 1) + r];
+    }
+    return;
+  }
+  if (bid < q) {
+    // Y3[a, :, :]; S3[c, a, b] (= S3[c, b, a]) staged, read transposed
+    const int a = (int)bid;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int c = warp; c < q; c += kWarps)
+      for (int b = lane; b < q; b += 32)
+        s[c * qp + b] = S3[((int64_t)c * q + a) * q + b];
+    __syncthreads();
+    T* y3 = y + 1 + q + q2 + a * q2;
+    const T s3 = scale != nullptr ? scale[3] : T(1);
+    for (int b = warp; b < q; b += kWarps)
+      for (int c = lane; c < q; c += 32) {
+        T v = T(0);
+        if (a != b && a != c && b != c) {
+          v = S3[((int64_t)a * q + b) * q + c] +
+              S3[((int64_t)b * q + a) * q + c] + s[c * qp + b];
+          if (scale != nullptr) v = v * s3;
+        }
+        y3[b * q + c] = v;
+      }
+    return;
+  }
+  // y0: the partial rows in order, then the constant block
+  if (threadIdx.x >= 32) return;
+  T acc = T(0);
+  for (int i = threadIdx.x; i < q; i += 32) acc += y0part[i];
+  acc = warp_sum(acc);
+  if (threadIdx.x == 0) {
+    T y0 = acc + B.at(0, 0) + B.at(0, 1) + B.at(1, 0) + B.at(1, 1);
+    if (shift != nullptr) y0 = y0 - shift[0];
+    if (scale != nullptr) y0 = y0 * scale[0];
+    y[0] = y0;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+symdual_y4(Blocks<T> B, const T* __restrict__ scale, T* __restrict__ y,
+           const T* __restrict__ P) {
+  const int q = B.q;
+  const int64_t q2 = (int64_t)q * q;
+  const int64_t ny2 = (q2 + kThreads - 1) / kThreads;
+  int64_t bid = blockIdx.x;
+  // the Y2 blocks first (their O(q) sums), then a block per (i, j)
+  if (bid >= ny2) {
+    bid -= ny2;
+    const int i = (int)(bid / q), j = (int)(bid % q);
+    const T* p_ij = P + (int64_t)hi_row(i, j, q) * q2;          // P3[i,j,k,l]
+    T* y4 = y + 1 + q + q2 + q2 * q + bid * q2;
+    const T s4 = scale != nullptr ? scale[4] : T(1);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    // a warp per k, the lanes along l; a k that repeats i or j skips its
+    // reads warp-wide
+#pragma unroll 2
+    for (int k = warp; k < q; k += kWarps) {
+      const T* p_ik = P + (int64_t)hi_row(i, k, q) * q2 + j * q;  // P3[i,k,j,l]
+      const T* p_jk = P + (int64_t)hi_row(j, k, q) * q2 + i * q;  // P3[j,k,i,l]
+      const bool ok = i != j && k != i && k != j;
+      for (int l = lane; l < q; l += 32) {
+        T v = T(0);
+        if (ok && l != i && l != j && l != k)
+          v = p_ij[k * q + l] + p_ik[l] + p_jk[l];
+        y4[k * q + l] = scale != nullptr ? v * s4 : v;
+      }
+    }
+    return;
+  }
+  // Y2[a, b], a != b: the shared-index pairs from P3's rows (a, c) at
+  // columns (c, b), then the single entries
+  const int64_t t = bid * kThreads + threadIdx.x;
+  if (t >= q2) return;
+  const int a = (int)(t / q), b = (int)(t % q);
+  T acc = T(0);
+  if (a != b) {
+#pragma unroll 8
+    for (int c = 0; c < q; ++c)
+      if (c != a && c != b) acc += P[(int64_t)hi_row(a, c, q) * q2 + c * q + b];
+    acc += B.G(a, b) + B.G(b, a) + B.E(0, a, b) + B.E(1, a, b) +
+           B.E(0, b, a) + B.E(1, b, a) + B.F(a, b, 0) + B.F(a, b, 1) +
+           B.F(b, a, 0) + B.F(b, a, 1) + B.H(a, b, b) + B.H(b, a, a) +
+           B.K(b, b, a) + B.K(a, a, b) + B.Tq(a, a, b, b) + B.Tq(b, b, a, a);
+    if (scale != nullptr) acc = acc * scale[2];
+  }
+  y[1 + q + t] = acc;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 template <typename T>
 int launch(const void* M, int q, const void* scale, const void* shift,
-           void* y, void* stream) {
+           void* y, void* ws, void* stream) {
   if (q <= 0) return (int)cudaSuccess;
   Blocks<T> B{(const T*)M, 2 + q + (int64_t)q * q, q, 2 + q};
   const int64_t q2 = (int64_t)q * q;
-  const int64_t nlow = q + q2 + q2 * q;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid_low((unsigned)(1 + (q + q2 + kWarps - 1) / kWarps +
-                                 (q2 * q + kThreads - 1) / kThreads));
-  symdual_low<T><<<grid_low, kThreads, 0, s>>>(B, (const T*)scale,
-                                               (const T*)shift, (T*)y);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  T* y4 = (T*)y + 1 + nlow;
-  symdual_y4<T><<<(unsigned)q2, kThreads, 0, s>>>(B, (const T*)scale, y4);
+  T* P = (T*)ws;                       // q^4: P2 and P3, a half each
+  T* S3 = P + q2 * q2;                 // q^3
+  T* y0part = S3 + q2 * q;             // q
+  const T* sc = (const T*)scale;
+  T* out = (T*)y;
+  const size_t slab = sizeof(T) * (size_t)q * (q + 1);
+  const size_t tiles = sizeof(T) * 2 * kTile * (kTile + 1);
+  const size_t smem_sym = slab > tiles ? slab : tiles;
+  cudaError_t err = allow_smem(symdual_stage<T>, slab);
+  if (err == cudaSuccess) err = allow_smem(symdual_sym<T>, smem_sym);
+  if (err != cudaSuccess) return (int)err;
+
+  const int64_t npair = (int64_t)q * (q - 1) / 2;
+  const unsigned g1 = (unsigned)(q + (2 * q + kWarps - 1) / kWarps + npair);
+  symdual_stage<T><<<g1, kThreads, slab, s>>>(B, sc, out, P, S3, y0part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int64_t nt = (q2 + kTile - 1) / kTile;
+  const unsigned g2 = (unsigned)(nt * (nt + 1) / 2 + q + 1);
+  symdual_sym<T><<<g2, kThreads, smem_sym, s>>>(B, sc, (const T*)shift, out,
+                                                P, S3, y0part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const unsigned g3 = (unsigned)(q2 + (q2 + kThreads - 1) / kThreads);
+  symdual_y4<T><<<g3, kThreads, 0, s>>>(B, sc, out, P);
   return (int)cudaGetLastError();
 }
 
@@ -241,13 +393,13 @@ int launch(const void* M, int q, const void* scale, const void* shift,
 extern "C" {
 
 int symdual_apply_f64(const void* M, int q, const void* scale,
-                      const void* shift, void* y, void* stream) {
-  return launch<double>(M, q, scale, shift, y, stream);
+                      const void* shift, void* y, void* ws, void* stream) {
+  return launch<double>(M, q, scale, shift, y, ws, stream);
 }
 
 int symdual_apply_f32(const void* M, int q, const void* scale,
-                      const void* shift, void* y, void* stream) {
-  return launch<float>(M, q, scale, shift, y, stream);
+                      const void* shift, void* y, void* ws, void* stream) {
+  return launch<float>(M, q, scale, shift, y, ws, stream);
 }
 
 }  // extern "C"

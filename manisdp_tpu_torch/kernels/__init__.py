@@ -594,6 +594,13 @@ def _qn(q: int) -> int:
     return 2 + q + q * q
 
 
+def _check_slab(q: int, t):
+    """K7 and K10 stage a q x q slab (padded to q x (q + 1)) in shared
+    memory."""
+    if q * (q + 1) * t.element_size() > 227 * 1024:
+        raise ValueError(f"q = {q}: the q x q slab exceeds shared memory")
+
+
 def symdual_apply_plain(M, q: int, scale=None, shift=None):
     """Plain twin of K7: the JAX package's _apply_tensor einsums
     (ops/symdual.py), repeated-index slots set to 0, then y0 - shift and
@@ -624,12 +631,15 @@ def symdual_apply(M, q: int, scale=None, shift=None):
                                not scale.is_contiguous())) or \
             (shift is not None and shift.numel() != 1):
         raise ValueError("scale must be contiguous (5,) and shift 0-d")
+    _check_slab(q, M)
     sizes = [1, q, q * q, q ** 3, q ** 4]
     y = torch.empty((sum(sizes),), dtype=M.dtype, device=M.device)
+    # P2 / P3 (q^4), S3 (q^3) and y0's partial rows (q)
+    ws = torch.empty((q ** 4 + q ** 3 + q,), dtype=M.dtype, device=M.device)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     fn = getattr(build(), f"symdual_apply_{_SUFFIX[M.dtype]}")
     err = fn(M.data_ptr(), q, ptr(scale), ptr(shift), y.data_ptr(),
-             _stream(M))
+             ws.data_ptr(), _stream(M))
     if err != 0:
         raise RuntimeError(f"symdual_apply launch failed: CUDA error {err}")
     LAUNCHES["symdual_apply"] += 1
@@ -808,8 +818,6 @@ def symmom_adjoint(y, q: int, base=None, alpha=1.0):
         return symmom_adjoint_plain(y, q, base, alpha)
     _check_dtype(y.dtype, y, base)
     n = _qn(q)
-    if n > 65535:
-        raise ValueError(f"n~ = {n} exceeds the kernel's grid (q <= 254)")
     m = symmom_flat_length(q)
     if y.shape != (m,) or not y.is_contiguous():
         raise ValueError(f"y must be contiguous ({m},) for q = {q}, got "
@@ -817,7 +825,9 @@ def symmom_adjoint(y, q: int, base=None, alpha=1.0):
     if base is not None and (base.shape != (n, n) or
                              not base.is_contiguous()):
         raise ValueError(f"base must be contiguous ({n}, {n})")
-    ws = torch.empty((1 + 2 * q + 2 * q * q,), dtype=y.dtype,
+    _check_slab(q, y)
+    # the small coefficient vectors (1 + 2q + 2q^2), then Tacc (q^4)
+    ws = torch.empty((1 + 2 * q + 2 * q * q + q ** 4,), dtype=y.dtype,
                      device=y.device)
     out = torch.empty((n, n), dtype=y.dtype, device=y.device)
     fn = getattr(build(), f"symmom_adjoint_{_SUFFIX[y.dtype]}")

@@ -40,7 +40,7 @@ _SIGNATURES = {
                    _P),
     "masked_sym": (_P, _P, _P, _P, _D, _I, _I, _P, _P),
     "oa_refine": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P),
-    "symdual_apply": (_P, _I, _P, _P, _P, _P),
+    "symdual_apply": (_P, _I, _P, _P, _P, _P, _P),
     "symdual_adjoint": (_P, _P, _P, _P, _P, _I, _P, _P, _D, _P, _D, _P,
                         _P),
     "symdual_sym_factor": (_P, _I, _I, _I, _P, _P),

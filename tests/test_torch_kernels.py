@@ -513,7 +513,7 @@ def _dontcare(q):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("q", [3, 7, 20])
+@pytest.mark.parametrize("q", [3, 7, 20, 33, 61])
 def test_symdual_kernels_match_twins_on_card(cuda_device, dtype, q):
     """K7 (with and without the y-step epilogue) and K8's three modes
     against their twins; K7's repeated-index slots are 0 in both."""
@@ -593,7 +593,7 @@ def test_symdual_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("q", [3, 7, 20])
+@pytest.mark.parametrize("q", [3, 7, 20, 33, 61])
 def test_symmom_kernels_match_twins_on_card(cuda_device, dtype, q):
     """K9 on every slot (don't-care slots 0 in both) and K10 with and
     without its fused base, with NaN in y's don't-care slots (never

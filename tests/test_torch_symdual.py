@@ -189,3 +189,74 @@ def test_default_device_is_the_card():
         pytest.skip("a CUDA device is present: the default device works")
     with pytest.raises(RuntimeError, match="CUDA"):
         tsd.SymDualOp.build_bqpsos(*_bqp(3), 3)
+
+
+def _k7_split(M, q):
+    """K7's decomposition (csrc/symdual_apply.cu) as plain tensor ops: P2
+    from row-pair sums S and the (k, l) swap, stored for the pairs i < j,
+    P3 = P2 + P2^T, then Y4 from three reads of P3 along l, Y2 from
+    P3[a, c, c, b], Y3 from S3 and y0 from per-row partial sums;
+    repeated-index slots 0 (selected, so the unwritten rows' NaN stays
+    out)."""
+    o, q2 = 2 + q, q * q
+    A = M[o:, o:].reshape(q, q, q, q)
+    S = A + A.transpose(0, 1)                             # rows r + r~
+    P2 = (S + S.transpose(2, 3)).reshape(q2, q2)          # the (k, l) swap
+    # the workspace keeps P2's rows (i, j), i < j, only: the rows (i, i)
+    # are never written (NaN here), the rows (j, i) read as (i, j)
+    ii, jj = np.divmod(np.arange(q2), q)
+    P2 = P2[torch.as_tensor(np.minimum(ii, jj) * q + np.maximum(ii, jj))]
+    P2[torch.as_tensor(ii == jj)] = float("nan")
+    P3 = (P2 + P2.T).reshape(q, q, q, q)
+    Y4 = (P3 + P3.permute(0, 2, 1, 3)                     # P3[i, k, j, l]
+          + torch.einsum("jkil->ijkl", P3))               # P3[j, k, i, l]
+    H = M[2:o, o:].reshape(q, q, q)
+    Kb = M[o:, 2:o].reshape(q, q, q)
+    Td = torch.einsum("eefg->efg", A)                     # T[e, e, f, g]
+    Tc = torch.einsum("fgee->efg", A)                     # T[f, g, e, e]
+    hk = H + Td + Kb.permute(2, 0, 1) + Tc                # hk[e, f, g]
+    S3 = hk + hk.transpose(1, 2)
+    Y3 = S3 + S3.transpose(0, 1) + S3.permute(1, 2, 0)       # S3[c, a, b]
+    E = M[:2, o:].reshape(2, q, q)
+    F = M[o:, :2].reshape(q, q, 2)
+    G = M[2:o, 2:o]
+    eye = torch.eye(q, dtype=torch.bool)
+    a = torch.arange(q)
+    cs = torch.einsum("acbc->acb", P3.permute(0, 1, 3, 2))  # P3[a,c,c,b]
+    cs = torch.where((a[:, None, None] != a[None, :, None]) &
+                     (a[None, :, None] != a[None, None, :]), cs, 0.0)
+    Y2 = (cs.sum(1) + G + G.T + E.sum(0) + E.sum(0).T + F.sum(2)
+          + F.sum(2).T + torch.einsum("abb->ab", H)
+          + torch.einsum("baa->ab", H) + torch.einsum("bba->ab", Kb)
+          + torch.einsum("aab->ab", Kb) + torch.einsum("aabb->ab", A)
+          + torch.einsum("bbaa->ab", A))
+    part = torch.where(eye, torch.diagonal(G)[:, None]
+                       + torch.einsum("iii->i", H)[:, None]
+                       + torch.einsum("iii->i", Kb)[:, None]
+                       + torch.einsum("iiii->i", A)[:, None],
+                       torch.einsum("ijij->ij", A)
+                       + torch.einsum("ijji->ij", A)).sum(1)
+    y0 = part.sum() + M[:2, :2].sum()
+    Hn = torch.where(~eye[None], H, 0.0)
+    Kn = torch.where(~eye[:, :, None], Kb, 0.0)
+    y1 = (M[:2, 2:o].sum(0) + M[2:o, :2].sum(1)
+          + torch.einsum("sii->i", E) + torch.einsum("iis->i", F)
+          + torch.einsum("iia->a", Hn) + torch.einsum("jaj->a", Hn)
+          + torch.einsum("iai->a", Kn) + torch.einsum("ajj->a", Kn)
+          + torch.einsum("ccca->a", A) + torch.einsum("ccac->a", A)
+          + torch.einsum("cacc->a", A) + torch.einsum("accc->a", A)
+          - 4.0 * torch.einsum("aaaa->a", A))
+    return tsd.zero_dontcare((y0, y1, Y2, Y3, Y4), q)
+
+
+@pytest.mark.parametrize("q", [5, 8])
+def test_k7_decomposition_matches_jax(q):
+    """The index algebra K7 relies on, against the JAX _apply_tensor on a
+    non-symmetric M, outside the don't-care slots (0 inside)."""
+    n = 2 + q + q * q
+    M = np.random.default_rng(11 + q).standard_normal((n, n))
+    got = tsd._flatten(*_k7_split(torch.as_tensor(M), q)).numpy()
+    ref = np.asarray(jsd._flatten(*jsd._apply_tensor(jnp.asarray(M), q)))
+    dc = tsd._dontcare_mask(q)
+    assert not np.any(got[dc])
+    assert _rel(got[~dc], ref[~dc]) <= 1e-12

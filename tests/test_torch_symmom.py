@@ -165,3 +165,70 @@ def test_chip_smoke_slot_map_ties_the_rows_to_bqpmom(q):
         _expand_values(Xo, top))).numpy()
     np.testing.assert_allclose(got[smap], rows, rtol=1e-12, atol=1e-12)
     np.testing.assert_array_equal(data.b, top.b.numpy()[smap])
+
+
+def _k10_t_block(y, q):
+    """K10's decomposition of the T block (csrc/symmom_adjoint.cu) as plain
+    tensor ops: every read of y a select on its family's mask, the E6 reads
+    in the last-axis-preserving forms, V = wT + wT[b, a], the workspace
+    rows W[ab] = (V + V^T over (c, d)) / 4, stored for a < b, and W[aa] =
+    wHs[a] plus the wG and wD diagonals, then (W + W^T) / 2 over the
+    q^2 x q^2 block."""
+    q2, q3 = q * q, q ** 3
+    offs = np.cumsum([1, q, q2, q2, q3, q2, q3])
+    a = torch.arange(q)
+    i2, j2 = a[:, None], a[None, :]
+    i3, j3, k3 = a[:, None, None], a[None, :, None], a[None, None, :]
+    i4, j4, k4, l4 = (a[:, None, None, None], a[None, :, None, None],
+                      a[None, None, :, None], a[None, None, None, :])
+    zero = torch.zeros((), dtype=y.dtype)
+    D1 = y[1:1 + q]
+    D2 = torch.where(i2 != j2, y[offs[1]:offs[2]].reshape(q, q), zero)
+    Sv = torch.where(i2 != j2, y[offs[2]:offs[3]].reshape(q, q), zero)
+    Sp = torch.where((j3 < k3) & (i3 != j3) & (i3 != k3),
+                     y[offs[3]:offs[4]].reshape(q, q, q), zero)
+    E2 = torch.where(i2 < j2, y[offs[4]:offs[5]].reshape(q, q), zero)
+    E4 = torch.where((i3 != j3) & (k3 > i3) & (k3 > j3),
+                     y[offs[5]:offs[6]].reshape(q, q, q), zero)
+    y6 = y[offs[6]:].reshape(q, q, q, q)
+    y6a = torch.where((i4 < j4) & (j4 < k4) & (k4 < l4), y6, zero)
+    y6b = torch.where((j4 < i4) & (i4 < k4) & (k4 < l4), y6, zero)
+    eye = (i2 == j2).to(y.dtype)
+    dik = eye[:, None, :, None]
+    wT = (-0.5 * D2[:, :, None, None] * dik * eye[None, :, None, :]
+          + 2.0 * Sp[:, :, None, :] * dik
+          + torch.einsum("cabd->abcd", y6a - y6b) - y6a
+          + torch.einsum("acbd->abcd", y6b))
+    wT = torch.where((i4 != j4) & (k4 != l4), wT, zero)
+    V = wT + wT.transpose(0, 1)
+    W = 0.25 * (V + V.transpose(2, 3))
+    wH = torch.where(j3 != k3, 2.0 * Sv[:, None, :] * eye[:, :, None]
+                     + E4.permute(2, 0, 1) - E4, zero)
+    wG = torch.where(i2 != j2, E2 - Sp.sum(0), zero)
+    wD = -0.5 * D1 + 0.5 * D2.sum(1)
+    Wd = (0.25 * (wH + wH.transpose(1, 2))
+          + 0.25 * torch.diag_embed(wG) + 0.25 * torch.diag_embed(
+              torch.diag_embed(wD)))
+    W = W + eye[:, :, None, None] * Wd[:, None, :, :]
+    # the workspace keeps the rows (a, b), a <= b: (b, a) reads as (a, b)
+    ii, jj = np.divmod(np.arange(q2), q)
+    Wm = W.reshape(q2, q2)[torch.as_tensor(np.minimum(ii, jj) * q +
+                                           np.maximum(ii, jj))]
+    return 0.5 * (Wm + Wm.T)
+
+
+@pytest.mark.parametrize("q", [5, 8])
+def test_k10_decomposition_matches_jax(q):
+    """The index algebra K10 relies on, against the JAX _adjoint_jit's T
+    block, with NaN in every don't-care slot of y (the selects keep it
+    out)."""
+    m = 1 + q + 3 * q * q + 2 * q ** 3 + q ** 4
+    y = np.random.default_rng(17 + q).standard_normal(m)
+    dc = tsm.dontcare_mask(q)
+    dirty = np.where(dc, np.nan, y)
+    o = 2 + q
+    got = _k10_t_block(torch.as_tensor(dirty), q).numpy()
+    ref = np.asarray(jsm._adjoint_jit(jnp.asarray(np.where(dc, 0.0, y)),
+                                      q))[o:, o:]
+    assert not np.any(np.isnan(got))
+    assert _rel(got, ref) <= 1e-12
