@@ -476,10 +476,12 @@ def phase_kernels(C_sp, device, seed):
                  {}, (Yu,), 3 * p * n, None),
             ]
             for name, mode, args, kw, reads, flops, lib in cases:
+                k1 = name == "symcoo_spmm"
                 check_case(rows, name, mode, getattr(K, name),
                            getattr(K, f"{name}_plain"), args, kw, tol[dt],
                            reads=reads, flops=flops, library=lib,
-                           dtype=str(dt)[6:], p_pad=p, n=n, nnz=C.nnz)
+                           repeat=k1, passes=k1, dtype=str(dt)[6:],
+                           p_pad=p, n=n, nnz=C.nnz)
     return rows
 
 
@@ -598,7 +600,7 @@ def phase_al_kernels(op64, device, seed):
                 check_case(rows, name, mode, getattr(K, name),
                            getattr(K, f"{name}_plain"), args, kw, tol[dt],
                            reads=reads, flops=flops, library=lib,
-                           repeat=k3, p_pad=p,
+                           repeat=True, passes=not k3, p_pad=p,
                            **(dict(sectors=sectors(p)) if k3 else {}),
                            **info)
     return rows
@@ -1334,8 +1336,8 @@ def profile_breakdown(fn):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    kinds = (("K9 symmom_apply", ("namespace)::ct_kernel",
-                                  "namespace)::rows_kernel")),
+    kinds = (("K1 symcoo_spmm", ("symcoo_spmm_kernel", "spmm_nmajor")),
+             ("K9 symmom_apply", ("mom_stage", "mom_sym<", "mom_rows")),
              ("K10 symmom_adjoint", ("namespace)::coef_kernel",
                                      "namespace)::out_kernel")),
              ("K7 symdual_apply", ("symdual_stage", "symdual_sym<",
@@ -1688,7 +1690,6 @@ def phase_mom_kernels(mop64, N, device, seed):
     dc = torch.as_tensor(dontcare_mask(q), device=device)
     valid = m - int(torch.count_nonzero(dc))
     y64 = torch.where(dc, torch.full_like(y64, float("nan")), y64)
-    del dc
     k9 = (K.symmom_apply, K.symmom_apply_plain)
     k10 = (K.symmom_adjoint, K.symmom_adjoint_plain)
     q4 = float(q) ** 4
@@ -1702,11 +1703,18 @@ def phase_mom_kernels(mop64, N, device, seed):
                  40 * q4),
                 ("symmom_adjoint", "es_vals", k10, (y, q),
                  dict(base=C, alpha=0.37), (yb, C), 42 * q4)):
-            k10_case = name == "symmom_adjoint"
             check_case(rows, name, mode, fn, twin, args, kw, tol[dt],
-                       reads=reads, flops=flops, repeat=k10_case,
-                       passes=k10_case, **info)
+                       reads=reads, flops=flops, repeat=True, passes=True,
+                       **info)
+            if name == "symmom_apply":
+                # every don't-care slot of A(M) exactly 0
+                rows[-1]["dontcare_zero"] = not bool(
+                    torch.any(fn(*args)[dc] != 0))
+                if not rows[-1]["dontcare_zero"]:
+                    raise AssertionError(f"K9 wrote a don't-care slot: "
+                                         f"{rows[-1]}")
         del M, y, C
+    del dc
     mask64 = (torch.rand(N, generator=gen, device=device) < 0.5).double()
     for dt in (torch.float64, torch.float32):
         mask = mask64.to(dt)
@@ -2069,10 +2077,12 @@ def phase_batch_kernels(C_b, device, seed):
              (Yu, None, "renormalize"), {}, (Yu,), 3 * B * p * n, None),
         ]
         for name, mode, args, kw, reads, flops, lib in cases:
+            k1 = name == "symcoo_spmm"
             check_case(rows, name, mode, getattr(K, name),
                        getattr(K, f"{name}_plain"), args, kw, 1e-12,
-                       reads=reads, flops=flops, library=lib,
-                       dtype="float64", p_pad=p, n=n, instances=B, nnz=nnz)
+                       reads=reads, flops=flops, library=lib, repeat=k1,
+                       passes=k1, dtype="float64", p_pad=p, n=n,
+                       instances=B, nnz=nnz)
     kern = k11_step(K.tcg_dots, K.tcg_update, K.tcg_finish)
     twin = k11_step(K.tcg_dots_plain, K.tcg_update_plain,
                     K.tcg_finish_plain)

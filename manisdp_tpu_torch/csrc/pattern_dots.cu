@@ -20,9 +20,10 @@
 // the output (8 / 4 B) per entry: 108 / 72 MB.
 //
 // Design:
-//  1. transpose_pad writes Yᵀ (and Uᵀ when U is not Y) into (n, pp)
-//     scratch the wrapper allocates, pp = p rounded up to one 16-B vector,
-//     the rows beyond p zero.  It is part of every K3 call.
+//  1. transpose_pad writes Yᵀ (and Uᵀ when U is not Y, in the same
+//     launch) into (n, pp) scratch the wrapper allocates, pp = p rounded
+//     up to one 16-B vector, the rows beyond p zero (nmajor.cuh, shared
+//     with K1).  It is part of every K3 call.
 //  2. pattern_dots_kernel: one warp per column j; its lanes form 32 / G
 //     groups of G lanes, and each group takes one entry at a time.  A
 //     group loads the entry's Yᵀ row with 16-B vector loads (G = the
@@ -41,6 +42,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "nmajor.cuh"
 
 namespace {
 
@@ -63,25 +66,11 @@ __device__ __forceinline__ float vdot<float>(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
-// Y (p, n) with strides (syr, syc) -> Yt (n, pp) row-major, zero rows
-// p .. pp; 32 x 32 tiles through shared memory
+// Yt (and Ut when U is not Y, blockIdx.z = 1) from the factors
 template <typename T>
 __global__ void __launch_bounds__(256)
-transpose_pad(const T* __restrict__ Y, int64_t syr, int64_t syc, int p,
-              int n, int pp, T* __restrict__ Yt) {
-  __shared__ T tile[32][33];
-  const int j0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  for (int k = ty; k < 32; k += 8) {
-    const int r = r0 + k, j = j0 + tx;
-    tile[k][tx] = (r < p && j < n) ? Y[(int64_t)r * syr + (int64_t)j * syc]
-                                   : T(0);
-  }
-  __syncthreads();
-  for (int k = ty; k < 32; k += 8) {
-    const int j = j0 + k, r = r0 + tx;
-    if (j < n && r < pp) Yt[(int64_t)j * pp + r] = tile[tx][k];
-  }
+transpose_pad(NmajorCopy<T> y, NmajorCopy<T> u, int p, int n, int pp) {
+  nmajor_tile(nmajor_pick(y, u, blockIdx.z != 0), 0, p, n, pp);
 }
 
 template <typename T, int G, int NCH>
@@ -170,12 +159,10 @@ int launch(const void* Y, int64_t syr, int64_t syc, const void* U,
   constexpr int kVec = 16 / sizeof(T);
   if (pp < p || pp % kVec != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 tb(32, 8), tg((n + 31) / 32, (pp + 31) / 32);
-  transpose_pad<T><<<tg, tb, 0, s>>>((const T*)Y, syr, syc, p, n, pp,
-                                     (T*)Yt);
-  if (U != nullptr)
-    transpose_pad<T><<<tg, tb, 0, s>>>((const T*)U, sur, suc, p, n, pp,
-                                       (T*)Ut);
+  const NmajorCopy<T> cy{(const T*)Y, 0, syr, syc, (T*)Yt};
+  const NmajorCopy<T> cu{(const T*)U, 0, sur, suc, (T*)Ut};
+  transpose_pad<T><<<nmajor_grid(n, pp, U != nullptr ? 2 : 1), dim3(32, 8),
+                     0, s>>>(cy, cu, p, n, pp);
   const T* ut = U != nullptr ? (const T*)Ut : (const T*)Yt;
   const int nvec = pp / kVec;
   const int nch = (nvec + 2 * group - 1) / (2 * group);

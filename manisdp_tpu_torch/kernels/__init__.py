@@ -156,6 +156,35 @@ def symcoo_spmm_plain(A, C, mode="plain", vals=None, z=None, B=None,
     raise ValueError(f"unknown symcoo_spmm mode {mode!r}")
 
 
+# K1 walks columns of more than this many entries on average with its
+# deep variant (the next entries' indices and values loaded ahead),
+# shorter ones with the shallow one (its one-factor walk at 64 registers,
+# two blocks an SM)
+SPMM_DEEP_MEAN = 8
+
+
+def symcoo_spmm_layout(p, dtype, views):
+    """K1's gather layout for a (p, n) product: ``views`` holds, for each
+    gathered factor (A, and B in ``al_hess``), its (stride along p, stride
+    along n, instance stride, data_ptr).  Returns (vw, pp, copy): the
+    scalars per load (1 or one 16-B vector), the gathered rows' length pp
+    (p rounded up to vw) and, per factor, whether the kernel transposes it
+    into an (n, pp) scratch first (True) or gathers it where it lies: a
+    factor with stride 1 along p (or p = 1) is N-major already, read with
+    16-B loads when its rows and instances are 16-B aligned and p fills
+    whole vectors, else with scalar loads if every factor is N-major."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    nmajor = [(sr == 1 or p == 1) and sc >= p for sr, sc, _, _ in views]
+    aligned = [ok and p % vec == 0 and sc % vec == 0 and sb % vec == 0 and
+               ptr % 16 == 0
+               for ok, (_, sc, sb, ptr) in zip(nmajor, views)]
+    if all(aligned):
+        return vec, p, [False] * len(views)
+    if all(nmajor):
+        return 1, p, [False] * len(views)
+    return vec, -(-p // vec) * vec, [not a for a in aligned]
+
+
 def symcoo_spmm(A, C, mode="plain", vals=None, z=None, B=None, eG=None,
                 vals2=None, coefs=(1.0, 1.0)):
     """K1.  ``A`` (p, n) with any strides; ``C`` a SymCOO (fields i, j, v,
@@ -170,7 +199,10 @@ def symcoo_spmm(A, C, mode="plain", vals=None, z=None, B=None, eG=None,
 
     Instance mode: ``C`` a BatchedSymCOO of nb instances, ``A`` and ``B``
     (nb, p, n) with any strides, ``z`` and ``eG`` (nb, n); every mode but
-    ``al_hess``, one launch for all instances."""
+    ``al_hess``, one launch sequence for all instances.
+
+    On the card a call is a transpose of each gathered factor that is not
+    N-major into scratch (symcoo_spmm_layout), then the product."""
     if mode not in SPMM_MODES:
         raise ValueError(f"unknown symcoo_spmm mode {mode!r}")
     v = C.v if vals is None else vals
@@ -221,6 +253,16 @@ def symcoo_spmm(A, C, mode="plain", vals=None, z=None, B=None, eG=None,
     sab, sar, sac = (0,) * (not batched) + tuple(A.stride())
     sbb, sbr, sbc = ((0,) * (not batched) + tuple(B.stride())
                      if B is not None else (0, 0, 0))
+    gathered = [(sar, sac, sab, A.data_ptr())]
+    if mode == "al_hess":
+        gathered.append((sbr, sbc, sbb, B.data_ptr()))
+    vw, pp, copy = symcoo_spmm_layout(p, A.dtype, gathered)
+    # the N-major copies the kernel transposes into (None: gathered in place)
+    scratch = lambda: torch.empty(lead + (n, pp), dtype=A.dtype,  # noqa: E731
+                                  device=A.device)
+    At = scratch() if copy[0] else None
+    Bt = scratch() if mode == "al_hess" and copy[1] else None
+    deep = v.shape[0] > SPMM_DEEP_MEAN * n * (C.nb if batched else 1)
     fn = getattr(build(), f"symcoo_spmm_{_SUFFIX[A.dtype]}")
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     code = SPMM_MODES[mode] + (mode == "al_hess" and eG is not None)
@@ -228,7 +270,8 @@ def symcoo_spmm(A, C, mode="plain", vals=None, z=None, B=None, eG=None,
              C.eoff.data_ptr() if batched else None, C.i.data_ptr(),
              v.data_ptr(), p, n, C.nb if batched else 1, code, ptr(z),
              ptr(B), sbb, sbr, sbc, ptr(eG), ptr(vals2), float(coefs[0]),
-             float(coefs[1]), out.data_ptr(), ptr(w), _stream(A))
+             float(coefs[1]), out.data_ptr(), ptr(w), ptr(At), ptr(Bt), pp,
+             vw, int(deep), _stream(A))
     if err != 0:
         raise RuntimeError(f"symcoo_spmm launch failed: CUDA error {err}")
     LAUNCHES["symcoo_spmm"] += 1
@@ -595,8 +638,9 @@ def _qn(q: int) -> int:
 
 
 def _check_slab(q: int, t):
-    """K7 and K10 stage a q x q slab (padded to q x (q + 1)) in shared
-    memory."""
+    """K7, K9 and K10 stage a q x q slab (padded to q x (q + 1)) in shared
+    memory (K9's border tiles, (2 + 2q) x 33, are smaller wherever the slab
+    is near the limit)."""
     if q * (q + 1) * t.element_size() > 227 * 1024:
         raise ValueError(f"q = {q}: the q x q slab exceeds shared memory")
 
@@ -774,6 +818,13 @@ def symmom_apply_plain(M, q: int):
     return apply_plain(M, q)
 
 
+def symmom_apply_workspace(q: int) -> int:
+    """Entries of K9's workspace: V, then cT, over the unordered pairs
+    (P^2, P = q(q - 1)/2), and the border rows of Ms ((2 + 2q) n~)."""
+    P = q * (q - 1) // 2
+    return P * P + (2 + 2 * q) * _qn(q)
+
+
 def symmom_apply(M, q: int):
     """K9 on a contiguous (n~, n~) ``M``, n~ = 2 + q + q^2: the bqpmom rows
     of Sym(M) in the flat (1 + q + 3q^2 + 2q^3 + q^4,) layout, every
@@ -788,12 +839,12 @@ def symmom_apply(M, q: int):
     m = symmom_flat_length(q)
     if m >= 2 ** 31:
         raise ValueError(f"q = {q}: the flat length {m} exceeds int32")
-    if q * q * M.element_size() > 227 * 1024:
-        raise ValueError(f"q = {q}: the q x q slab exceeds shared memory")
-    ct = torch.empty((q ** 4,), dtype=M.dtype, device=M.device)
+    _check_slab(q, M)
+    ws = torch.empty((symmom_apply_workspace(q),), dtype=M.dtype,
+                     device=M.device)
     out = torch.empty((m,), dtype=M.dtype, device=M.device)
     fn = getattr(build(), f"symmom_apply_{_SUFFIX[M.dtype]}")
-    err = fn(M.data_ptr(), q, ct.data_ptr(), out.data_ptr(), _stream(M))
+    err = fn(M.data_ptr(), q, ws.data_ptr(), out.data_ptr(), _stream(M))
     if err != 0:
         raise RuntimeError(f"symmom_apply launch failed: CUDA error {err}")
     LAUNCHES["symmom_apply"] += 1

@@ -25,6 +25,8 @@ SOURCES = ("symcoo_spmm.cu", "oblique_cols.cu", "pattern_dots.cu",
            "csr_gather.cu", "masked_sym.cu", "oa_refine.cu",
            "symdual_apply.cu", "symdual_adjoint.cu", "symmom_apply.cu",
            "symmom_adjoint.cu", "tcg_step.cu")
+# headers the sources include (their bytes are part of the library name)
+HEADERS = ("nmajor.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,7 +34,8 @@ _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
     ctypes.c_double
 _SIGNATURES = {
     "symcoo_spmm": (_P, _I64, _I64, _I64, _P, _P, _P, _P, _I, _I, _I, _I,
-                    _P, _P, _I64, _I64, _I64, _P, _P, _D, _D, _P, _P, _P),
+                    _P, _P, _I64, _I64, _I64, _P, _P, _D, _D, _P, _P, _P,
+                    _P, _I, _I, _I, _P),
     "oblique_cols": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "pattern_dots": (_P, _I64, _I64, _P, _I64, _I64, _P, _P, _I, _I, _I,
                      _I, _P, _P, _P, _P),
@@ -73,7 +76,7 @@ def _nvcc() -> str:
 
 def _lib_path() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((SRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libmanisdp_torch_kernels_{h.hexdigest()[:16]}.so"
 

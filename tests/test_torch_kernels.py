@@ -50,6 +50,16 @@ def test_library_name_tracks_sources_and_flags():
     assert path == B._lib_path()                  # deterministic
 
 
+def test_library_name_tracks_included_headers():
+    """Every header a kernel source includes is hashed into the library
+    name, so an edited header is never served from a stale build."""
+    import re
+    included = {m for name in B.SOURCES for m in re.findall(
+        r'#include "([^"]+)"', (B.SRC_DIR / name).read_text())}
+    assert included and included == set(B.HEADERS)
+    assert {p.name for p in B.SRC_DIR.glob("*.cuh")} == set(B.HEADERS)
+
+
 def test_reset_launches():
     K.LAUNCHES["symcoo_spmm"] = 3
     K.SPMM_LAUNCHES["al_hess"] = 2
@@ -140,11 +150,12 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("p_pad", [8, 48, 96, 136])
+@pytest.mark.parametrize("p_pad", [8, 16, 40, 48, 96, 136])
 def test_kernels_match_twins_on_card(cuda_device, dtype, p_pad):
     """Every K1 and K2 mode on the card against its twin on the same
-    inputs; p_pad = 8, 48 and 96 take K1's one-pass widths of 1, 2 and 4
-    chunks of 32 rows, p_pad = 136 its two-pass Hessian path."""
+    inputs; K1 takes rows in chunks of 32 vectors (64 rows f64, 128 f32),
+    so p_pad = 96 is one chunk in f32 and two in f64, and 136 takes the
+    Hessian's second gather in both."""
     tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
     rs = np.random.RandomState(11)
     A = sp.random(N, N, density=0.15, random_state=rs)
@@ -181,7 +192,47 @@ def test_kernels_match_twins_on_card(cuda_device, dtype, p_pad):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("p_pad", [8, 48, 136])
+@pytest.mark.parametrize("p", [3, 9, 16, 40, 136])
+def test_k1_layouts_are_bit_equal_on_card(cuda_device, dtype, p):
+    """K1 on a row-major factor (transposed into the kernel's N-major
+    copy) and on the same factor as an N-major view (gathered in place,
+    16-B or scalar loads), in every mode and instance mode: the same
+    bits, since every element is the same chain in entry order."""
+    from manisdp_tpu_torch.ops.sparse import BatchedSymCOO
+    rs = np.random.RandomState(13)
+    A = sp.random(N, N, density=0.15, random_state=rs)
+    A = A + A.T + sp.diags(rs.randn(N))
+    C = SymCOO.from_scipy(A, cuda_device).astype(dtype)
+    Cb = BatchedSymCOO.from_scipy([A, A[:30, :30]], N, cuda_device, dtype)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(p)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=dtype,  # noqa: E731
+                                 device=cuda_device)
+    nmajor = lambda X: X.transpose(-1, -2).contiguous().transpose(-1, -2)  # noqa: E731
+    Y, U, z, eG = rnd(p, N), rnd(p, N), rnd(N), rnd(N)
+    es, ayu = rnd(C.nnz), rnd(C.nnz)
+    Yb, Ub, zb, eGb = rnd(2, p, N), rnd(2, p, N), rnd(2, N), rnd(2, N)
+    al = dict(vals=es, vals2=ayu, coefs=(2.0, 0.3))
+    cases = [(Y, None, C, "plain", {}), (Y, None, C, "shift", dict(z=z)),
+             (Y, None, C, "cost", {}), (U, Y, C, "hess", dict(eG=eG)),
+             (U, Y, C, "al_hess", al), (U, Y, C, "al_hess", dict(al, eG=eG)),
+             (Yb, None, Cb, "plain", {}), (Yb, None, Cb, "cost", {}),
+             (Yb, None, Cb, "shift", dict(z=zb)),
+             (Ub, Yb, Cb, "hess", dict(eG=eGb))]
+    for X, B, CC, mode, kw in cases:
+        bkw = {} if B is None else dict(B=B)
+        bkt = {} if B is None else dict(B=nmajor(B))
+        got = K.symcoo_spmm(X, CC, mode, **bkw, **kw)
+        again = K.symcoo_spmm(nmajor(X), CC, mode, **bkt, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(g, a) for g, a in zip(got, again)), mode
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("p_pad", [8, 16, 40, 48, 136])
 def test_instance_modes_match_twins_on_card(cuda_device, dtype, p_pad):
     """K1's instance mode (ragged instances of n = 30, 40, 17 in one
     launch, padding columns with empty segments) and K2 with the instance
@@ -314,7 +365,7 @@ def _constraint_op(device, n=N, m=60, seed=3):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("p_pad", [8, 24, 48, 136])
+@pytest.mark.parametrize("p_pad", [8, 16, 24, 40, 48, 136])
 def test_al_kernels_match_twins_on_card(cuda_device, dtype, p_pad):
     """K3, K4 in both orderings (with and without base / alpha) and K1's
     al_hess mode (epilogues none and diag) on the card against their
@@ -610,6 +661,7 @@ def test_symmom_kernels_match_twins_on_card(cuda_device, dtype, q):
     got, ref = K.symmom_apply(M, q), K.symmom_apply_plain(M, q)
     assert got.device.type == "cuda" and got.dtype == dtype
     assert _rel(got, ref) <= tol
+    assert torch.equal(K.symmom_apply(M, q), got)        # repeats bit for bit
     dc = torch.as_tensor(dontcare_mask(q), device=cuda_device)
     assert not torch.any(got[dc] != 0)
     y = rnd(got.shape[0])
@@ -620,7 +672,7 @@ def test_symmom_kernels_match_twins_on_card(cuda_device, dtype, q):
         assert not torch.any(torch.isnan(got))
         assert _rel(got, K.symmom_adjoint_plain(clean, q, **kw)) <= tol
     torch.cuda.synchronize()
-    assert K.LAUNCHES["symmom_apply"] - before["symmom_apply"] == 1
+    assert K.LAUNCHES["symmom_apply"] - before["symmom_apply"] == 2
     assert K.LAUNCHES["symmom_adjoint"] - before["symmom_adjoint"] == 2
 
 

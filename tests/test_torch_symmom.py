@@ -232,3 +232,108 @@ def test_k10_decomposition_matches_jax(q):
                                       q))[o:, o:]
     assert not np.any(np.isnan(got))
     assert _rel(got, ref) <= 1e-12
+
+
+def _pidx(a, b, q):
+    """K9's row-major number of the unordered pair a < b."""
+    return a * (2 * q - a - 1) // 2 + (b - a - 1)
+
+
+def _k9_rows(M, q):
+    """K9's decomposition (csrc/symmom_apply.cu) as plain tensor ops: the
+    border rows of Ms (rows 0 .. o - 1 and the diagonal-pair rows), V over
+    the unordered pairs from rows ab + ba of the T block and the (c, d)
+    swap, cT = (V + V^T) / 8 kept once per unordered pair of pairs (at
+    (R, C) when R comes first in (max, min) order; the other half NaN),
+    then every family read through those arrays only, EQ6 at (pi(x, y),
+    pi(z, l))."""
+    o, n = 2 + q, 2 + q + q * q
+    P = q * (q - 1) // 2
+    u = np.concatenate([np.arange(o), o + np.arange(q) * (q + 1)])
+    Bs = 0.5 * (M[u, :] + M[:, u].T)
+    pa, pb = (torch.as_tensor(x) for x in np.triu_indices(q, 1))
+    Z = (M[o + pa * q + pb, o:] + M[o + pb * q + pa, o:]).reshape(P, q, q)
+    V = Z[:, pa, pb] + Z[:, pb, pa]
+    key = pb * q + pa
+    ct = torch.where(key[:, None] <= key[None, :], 0.125 * (V + V.T),
+                     torch.full_like(V, float("nan")))
+
+    def cT(a, b, c, d):
+        a0, b0 = np.minimum(a, b), np.maximum(a, b)
+        c0, d0 = np.minimum(c, d), np.maximum(c, d)
+        R, C = _pidx(a0, b0, q), _pidx(c0, d0, q)
+        swap = b0 * q + a0 > d0 * q + c0
+        return ct[np.where(swap, C, R), np.where(swap, R, C)]
+
+    G = lambda a, b: Bs[2 + a, 2 + b]                        # noqa: E731
+    H = lambda a, i, j: Bs[2 + a, o + i * q + j]             # noqa: E731
+    T4 = lambda a, c, d: Bs[o + a, o + c * q + d]            # noqa: E731
+    E = lambda s, i, j: Bs[s, o + i * q + j]                 # noqa: E731
+    c00 = 0.25 * (Bs[0, 0] + Bs[0, 1] + Bs[1, 0] + Bs[1, 1])
+    cA = lambda a: 0.25 * (Bs[0, 2 + a] + Bs[1, 2 + a]       # noqa: E731
+                           + E(0, a, a) + E(1, a, a))
+    cD = lambda a: 0.25 * (G(a, a) + 2.0 * H(a, a, a)        # noqa: E731
+                           + T4(a, a, a))
+    cG = lambda a, b: 0.25 * (G(a, b) + H(a, b, b)           # noqa: E731
+                              + H(b, a, a) + T4(a, b, b))
+    cP0 = lambda a, b: 0.25 * (E(0, a, b) + E(0, b, a)       # noqa: E731
+                               + E(1, a, b) + E(1, b, a))
+    cH = lambda a, b, c: 0.25 * (H(a, b, c) + H(a, c, b)     # noqa: E731
+                                 + T4(a, b, c) + T4(a, c, b))
+
+    def family(shape, valid, fn):
+        idx = np.indices(shape).reshape(len(shape), -1)
+        ok = valid(*idx)
+        out = torch.zeros(idx.shape[1], dtype=M.dtype)
+        out[torch.as_tensor(ok)] = fn(*idx[:, ok])
+        return out
+
+    a = np.arange(q)
+    D1 = 0.5 * c00 - 0.5 * cD(a)
+    D2 = family((q, q), lambda a, b: a != b,
+                lambda a, b: 0.5 * cD(a) - 0.5 * cT(a, b, a, b))
+    SUBv = family((q, q), lambda k, b: k != b,
+                  lambda k, b: 2.0 * cH(k, k, b) - 2.0 * cA(b))
+    SUBp = family((q, q, q), lambda k, b, c: (b < c) & (k != b) & (k != c),
+                  lambda k, b, c: 2.0 * cT(k, b, k, c)
+                  - (cP0(b, c) + cG(b, c)))
+    EQ2 = family((q, q), lambda a, b: a < b,
+                 lambda a, b: cG(a, b) - cP0(a, b))
+    EQ4 = family((q, q, q), lambda i, j, k: (i != j) & (k > i) & (k > j),
+                 lambda i, j, k: cH(k, i, j) - cH(i, j, k))
+
+    def eq6(i, j, k, m):
+        one = i < j
+        w1 = ct[_pidx(j, k, q), _pidx(i, m, q)]
+        other = ct[np.where(one, _pidx(i, j, q), _pidx(i, k, q)),
+                   np.where(one, _pidx(k, m, q), _pidx(j, m, q))]
+        return torch.where(torch.as_tensor(one), w1 - other, other - w1)
+
+    EQ6 = family((q,) * 4, lambda i, j, k, m: (((i < j) & (j < k)) |
+                                               ((j < i) & (i < k))) & (k < m),
+                 eq6)
+    return torch.cat([c00.reshape(1), D1, D2, SUBv, SUBp, EQ2, EQ4, EQ6])
+
+
+@pytest.mark.parametrize("q", [4, 5, 8])
+def test_k9_decomposition_matches_jax(q):
+    """The staging K9 relies on (border copy, V / (V + V^T) / 8 over the
+    unordered pairs, cT stored once per unordered pair of pairs), on a
+    non-symmetric M, against the JAX _apply_jit on every slot; no read
+    lands in the unstored half, every don't-care slot is 0."""
+    n = 2 + q + q * q
+    M = np.random.default_rng(29 + q).standard_normal((n, n))
+    got = _k9_rows(torch.as_tensor(M), q).numpy()
+    ref = np.asarray(jsm._apply_jit(jnp.asarray(M), q))
+    assert got.shape == ref.shape and not np.any(np.isnan(got))
+    assert _rel(got, ref) <= 1e-12
+    assert not np.any(got[tsm.dontcare_mask(q)])
+
+
+def test_k9_workspace_size():
+    """K9's workspace (P^2 + (2 + 2q) n~ entries) at the sizes its source
+    note states: q = 60 and q = 100."""
+    from manisdp_tpu_torch import kernels as K
+    assert K.symmom_apply_workspace(60) == 1770 ** 2 + 122 * 3662
+    assert K.symmom_apply_workspace(100) == 4950 ** 2 + 202 * 10102
+    assert K.symmom_apply_workspace(60) < 60 ** 4 // 3
