@@ -42,7 +42,8 @@ not 0):
  12. the dual path's kernels against their twins, f64 and f32: K7 and
      K8 (``adjoint``, ``sym_mat``, ``sym_factor`` at p_pad 8 / 64 / 192)
      at the BQP SOS dual's expanded shape q = 60 (n~ = 3,662), K2 ``proj``
-     with the Hessian's eG term, K4 on the q = 60 original-basis DualOp
+     with the Hessian's eG term, K11 without the projection at phase 15's
+     tCG shapes (1 x 8 / 48 x 496), K4 on the q = 60 original-basis DualOp
      (n = 1,831, m = 523,686; its row-length profile on a line first), on
      the d = 30 quartic-sphere iAB pair and on skewed rows (one row of
      10^5 entries among 10^6 rows of one; half the rows empty;
@@ -151,6 +152,11 @@ MC4 = dict(p=2000, q=2000, rank=10, m_samples=1_600_000, seed=3)
 BQP_Q = 60
 BQP_KW = dict(line_search=True, inner_dtype="tcg32", p_bucket=192)
 QS_D = 30
+# its moment side (the monomials of degree <= 2 in QS_D variables) and
+# the solve's options; its tCG runs on the Euclidean manifold at (1,
+# p_pad, QS_N), p_pad 8 ... 48, so K11 steps without the projection
+QS_N = (QS_D + 1) * (QS_D + 2) // 2
+QS_KW = dict(theta=1e-1, tau2=0.5)
 # the BQP moment primal with bench_bqp_primal's settings (bench.py:202-218)
 # and examples/example_bqp_sparse.py's chain: t cliques of CHAIN_Q
 # variables overlapping by 2, and its primal options; phase 19's sparse
@@ -375,7 +381,8 @@ def check_case(rows, name, mode, fn, twin, args, kw, tol, reads=(),
     new copies of ``args`` for the kernel's and the twin's checked calls
     (the timed repeats then run on drifting values).  ``per_output``:
     each output's error relative to its own scale (max_err).  ``repeat``:
-    a second kernel call on the same inputs must give the same bits.
+    a second kernel call on the same inputs (new copies from ``fresh()``
+    where given) must give the same bits.
     ``scale``: per-entry error scales (a sum's sum of absolute terms) for
     the relative error, in place of the largest reference entry.
     ``passes``: also each launch's device time (pass_times).  A NaN in
@@ -383,7 +390,7 @@ def check_case(rows, name, mode, fn, twin, args, kw, tol, reads=(),
     import torch
     got = fn(*(fresh() if fresh else args), **kw)
     ref = twin(*(fresh() if fresh else args), **kw)
-    again = fn(*args, **kw) if repeat else None
+    again = fn(*(fresh() if fresh else args), **kw) if repeat else None
     torch.cuda.synchronize()
     abs_err, rel_err = max_err(got, ref, per_output)
     if scale is not None:
@@ -470,6 +477,8 @@ def phase_kernels(C_sp, device, seed):
                  (V, *Cr), 18.0 * C.nnz, lambda: Ccsr @ V),
                 ("oblique_cols", "proj", (Y, U, "proj"), {}, (Y, U),
                  4 * p * n, None),
+                ("oblique_cols", "proj_eG", (Y, U, "proj"),
+                 dict(v=Yu, g=z), (Y, U, Yu, z), 6 * p * n, None),
                 ("oblique_cols", "retr", (Y, U, "retr"), {}, (Y, U),
                  5 * p * n, None),
                 ("oblique_cols", "renormalize", (Yu, None, "renormalize"),
@@ -480,7 +489,7 @@ def phase_kernels(C_sp, device, seed):
                 check_case(rows, name, mode, getattr(K, name),
                            getattr(K, f"{name}_plain"), args, kw, tol[dt],
                            reads=reads, flops=flops, library=lib,
-                           repeat=k1, passes=k1, dtype=str(dt)[6:],
+                           repeat=True, passes=k1, dtype=str(dt)[6:],
                            p_pad=p, n=n, nnz=C.nnz)
     return rows
 
@@ -1133,8 +1142,12 @@ def phase_dual_kernels(top64, dop64, iab64, device, seed):
         check_case(rows, "oblique_cols", "proj_eG", K.oblique_cols,
                    K.oblique_cols_plain, (Y, H, "proj"), dict(v=U, g=g),
                    tol[dt], reads=(Y, H, U, g), flops=6.0 * 192 * n,
-                   p_pad=192, **info)
+                   repeat=True, p_pad=192, **info)
         del M, Xm, Y, H, U
+        # K11 without the projection at the qs-d30 solve's narrowest and
+        # widest tCG shapes
+        for p in (8, 48):
+            tcg_case(rows, (1, p, QS_N), dt, tol[dt], rnd, device, "step")
         # K4 on the original-basis DualOp (q = 60) and the iAB pair
         dop, iab = dop64.astype(dt), iab64.astype(dt)
         nd, md = dop.n, dop.m
@@ -1344,7 +1357,8 @@ def profile_breakdown(fn):
                                    "symdual_y4")),
              ("K8 symdual_adjoint", ("adjoint_kernel", "sym_factor_kernel",
                                      "sym_mat_kernel")),
-             ("K2 oblique_cols", ("oblique_cols",)),
+             ("K2 oblique_cols", ("oblique_cols", "oblique_tiles")),
+             ("K11 tcg_step", ("tcg_",)),
              ("K4 csr_gather", ("csr_gather",)),
              ("K6 oa_refine", ("oa_refine",)),
              ("GEMM (cuBLAS)", ("gemm", "gemv", "sm90_xmma", "cutlass",
@@ -1410,6 +1424,7 @@ def solve_with_counts(label, call, device, check_ok=True, **extra):
                hess_calls=res.hess_calls, timers=res.timers,
                launches=dict(K.LAUNCHES), csr_modes=dict(K.CSR_LAUNCHES),
                oblique_modes=dict(K.OBLIQUE_LAUNCHES),
+               tcg_launches=dict(K.TCG_LAUNCHES),
                symdual_modes=dict(K.SYMDUAL_LAUNCHES),
                spmm_modes=dict(K.SPMM_LAUNCHES),
                cert_tiers=dict(dense_cert.COUNTS))
@@ -1542,7 +1557,7 @@ def dual_phases(args, device, top60, dop60, q60_data, bqp_label):
     A, b, c, mb, f, dAAt = qs_instance(QS_D)
     build_s = time.perf_counter() - t0
     maxb = float(np.max(np.abs(b)))
-    kw_qs = dict(theta=1e-1, tau2=0.5)
+    kw_qs = QS_KW
     iab_calls = {"mat": 0, "rmat": 0}
     mat, rmat = dual_al._iab_mat, dual_al._iab_rmat
 
@@ -1733,7 +1748,11 @@ def phase_mom_kernels(mop64, N, device, seed):
                 check_case(rows, "oblique_cols", f"masked_{mode}",
                            K.oblique_cols, K.oblique_cols_plain, args,
                            dict(kw, mask=mask), tol[dt], reads=reads,
-                           flops=flops, **info)
+                           flops=flops, repeat=True, **info)
+        # K11 with the masked product's tangent projection (the chain's
+        # tCG), p 8
+        tcg_case(rows, (1, 8, N), dt, tol[dt], rnd, device, "step_proj_masked",
+                 mask=mask)
     return rows
 
 
@@ -2018,14 +2037,123 @@ def batch_graphs():
     return dense, sparse
 
 
-def k11_step(dots, update, finish):
-    """One tCG vector step through K11's three passes (or their twins)."""
-    def step(d, Hd, eta, Heta, r, sc, st):
-        part = dots(d, Hd, r, st)
-        eta, Heta, r, part2, xs = update(part, sc, st, d, Hd, eta, Heta, r)
-        w, sc2, st2 = finish(part2, sc, st, xs, r, d, 1)
-        return eta, Heta, r, w, sc2, st2
-    return step
+def tcg_case(rows, shape, dt, tol, rnd, device, mode, mask=None):
+    """K11 (``kernels.tcg_step``) against its twin at one (B, p, n) shape:
+    a CG start (d = r, z_r = <r, r>, an SPD-like Hd, the first trust
+    region of an oblique solve, (pi sqrt(n) / 8)^2), mode "step" without
+    the tangent projection, "step_proj*" with it (Y a point of unit
+    columns; ``mask`` the masked product's).  The bound counts one read of
+    d, Hd, eta, Heta, r (and Y, mask) and one write of eta, Heta, r, d."""
+    import torch
+    from manisdp_tpu_torch import kernels as K
+    r = rnd(*shape).to(dt)
+    Hd = r * (1.0 + rnd(*shape).abs().to(dt))
+    eta, Heta = rnd(*shape).to(dt), rnd(*shape).to(dt)
+    r_r = torch.sum(r * r, dim=(1, 2))
+    z = torch.zeros_like(r_r)
+    sc = torch.stack([z, z, r_r, r_r, z, z + np.pi ** 2 * shape[2] / 64, z,
+                      z + 1], 1)
+    st = torch.zeros((shape[0], 2), dtype=torch.int32, device=device)
+    Y = None
+    if mode != "step":
+        Y = K.oblique_cols_plain(rnd(*shape).to(dt), None, "renormalize",
+                                 mask=mask)
+    vecs = (r, Hd, eta, Heta, r)
+
+    def fresh(vecs=vecs):
+        return tuple(t.clone() for t in vecs) + (sc, st, 1, Y, mask)
+
+    L = shape[0] * shape[1] * shape[2]
+    check_case(rows, "tcg_step", mode, K.tcg_step, K.tcg_step_plain,
+               fresh(), {}, tol, reads=(r, Hd, eta, Heta, r, sc, st, Y,
+                                        mask),
+               flops=(14.0 + (4.0 if Y is not None else 0.0)) * L,
+               fresh=fresh, per_output=True, repeat=True,
+               dtype=str(dt)[6:], p_pad=shape[1], n=shape[2],
+               instances=shape[0])
+
+
+def tcg_iteration_ms(Cs, Ys, p_pad, n_pad, dtype, device, reps=40):
+    """Host and device ms per tCG iteration of the MaxCut RTR at the
+    solved points ``Ys`` (numpy (p_i, n_i) factors of solve_maxcut_unitdiag
+    or solve_maxcut_batch) of the costs ``Cs`` (scipy): one instance, the
+    single solve's tCG (a SymCOO; float32 is the solve's tcg32), several,
+    the batch's (a BatchedSymCOO, float64), each factor zero-padded to
+    ``p_pad`` rows and, in the batch, to ``n_pad`` columns with unit
+    padding columns.  Host: the Python loop body (the Hessian, K11 and,
+    where it is a separate launch, the tangent projection, with their
+    wrappers and the torch ops between them), timed while a spin kernel
+    holds the card, so no call waits for it; device: CUDA events around
+    the same calls, which the card runs back to back after the spin.
+    Each is the difference of a tCG call of _TCG_CHUNK iterations (which
+    reads nothing back inside; mininner = _TCG_CHUNK) and one of 0, over
+    _TCG_CHUNK, from the medians of ``reps`` calls (the host's also from
+    the fastest call: the host's clock moves with its neighbours' load);
+    ``iterations`` says how many iterations each instance ran before a
+    stop.  Uses only core.trustregions._make_tcg, so it
+    times any tree's package."""
+    import torch
+    from manisdp_tpu_torch.core import TROptions
+    from manisdp_tpu_torch.core import trustregions as TRm
+    from manisdp_tpu_torch.ops.sparse import BatchedSymCOO, SymCOO
+    from manisdp_tpu_torch.solvers.maxcut import make_maxcut_problem
+    chunk = TRm._TCG_CHUNK
+    problem = make_maxcut_problem(False)
+    B = len(Cs)
+    Y = np.zeros((B, p_pad, n_pad))
+    for b, Yb in enumerate(Ys):
+        Y[b, :Yb.shape[0], :Yb.shape[1]] = Yb
+        Y[b, 0, Yb.shape[1]:] = 1.0
+    Y = torch.as_tensor(Y, device=device)
+    if B == 1:
+        C = SymCOO.from_scipy(Cs[0], device)
+        Y = Y[0]
+        low = dtype == torch.float32
+    else:
+        C = BatchedSymCOO.from_scipy(Cs, n_pad, device)
+        low = False
+    _, aux = problem.cost(Y, C)
+    g, gaux = problem.grad(Y, C, aux)
+    params = C.astype(torch.float32) if low else C
+    Delta = torch.tensor(np.pi * np.sqrt(n_pad) / 8, dtype=torch.float64,
+                         device=device)
+    extra = ()
+    if B > 1:
+        Delta = Delta.expand(B).clone()
+        extra = (torch.ones(B, dtype=torch.bool, device=device),)
+    tcgs = {k: TRm._make_tcg(problem, TROptions(
+        maxinner=k, mininner=max(k, 1),
+        tcg_dtype="float32" if low else None), batched=B > 1)
+        for k in (0, chunk)}
+
+    def call(k):
+        return tcgs[k](Y, g, Delta, params, aux, gaux, *extra)
+
+    for k in (0, chunk):
+        call(k)
+    torch.cuda.synchronize()
+    host, host_min, dev = {}, {}, {}
+    for k in (0, chunk):
+        hs, ds = [], []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(40_000_000)       # ~20 ms at H100 clocks
+            a.record()
+            t0 = time.perf_counter()
+            out = call(k)
+            hs.append((time.perf_counter() - t0) * 1e3)
+            b.record()
+            b.synchronize()
+            ds.append(a.elapsed_time(b))
+        host[k], dev[k] = statistics.median(hs), statistics.median(ds)
+        host_min[k] = min(hs)
+    iters = out[2].reshape(-1).tolist()
+    return dict(shape=[B, p_pad, n_pad], dtype=str(dtype)[6:],
+                host_ms=(host[chunk] - host[0]) / chunk,
+                host_min_ms=(host_min[chunk] - host_min[0]) / chunk,
+                device_ms=(dev[chunk] - dev[0]) / chunk,
+                iterations=iters, chunk=chunk)
 
 
 def phase_batch_kernels(C_b, device, seed):
@@ -2083,32 +2211,10 @@ def phase_batch_kernels(C_b, device, seed):
                        reads=reads, flops=flops, library=lib, repeat=k1,
                        passes=k1, dtype="float64", p_pad=p, n=n,
                        instances=B, nnz=nnz)
-    kern = k11_step(K.tcg_dots, K.tcg_update, K.tcg_finish)
-    twin = k11_step(K.tcg_dots_plain, K.tcg_update_plain,
-                    K.tcg_finish_plain)
     for shape in ((B, BATCH_P_PADS[-1], n), (1, HOT_P_PAD, 10 ** 4)):
         for dt, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-            # a CG start: d = r, z_r = <r, r>, an SPD-like Hd, the first
-            # trust region of an oblique solve, (pi sqrt(n) / 8)^2
-            r = rnd(*shape).to(dt)
-            Hd = r * (1.0 + rnd(*shape).abs().to(dt))
-            eta, Heta = rnd(*shape).to(dt), rnd(*shape).to(dt)
-            r_r = torch.sum(r * r, dim=(1, 2))
-            z = torch.zeros_like(r_r)
-            sc = torch.stack([z, z, r_r, r_r, z,
-                              z + np.pi ** 2 * shape[2] / 64, z, z + 1], 1)
-            st = torch.zeros((shape[0], 2), dtype=torch.int32, device=device)
-            vecs = (r, Hd, eta, Heta, r)
-
-            def fresh(vecs=vecs, sc=sc, st=st):
-                return tuple(t.clone() for t in vecs) + (sc, st)
-
-            L = shape[0] * shape[1] * shape[2]
-            check_case(rows, "tcg_step", "step", kern, twin, fresh(), {},
-                       tol, reads=(*vecs, sc, st), flops=14.0 * L,
-                       fresh=fresh, per_output=True, dtype=str(dt)[6:],
-                       p_pad=shape[1],
-                       n=shape[2], instances=shape[0])
+            for mode in ("step", "step_proj"):
+                tcg_case(rows, shape, dt, tol, rnd, device, mode)
     return rows
 
 
@@ -2128,10 +2234,25 @@ def run_batch(Cs, device):
                      peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                      launches=dict(K.LAUNCHES),
                      instance_launches=dict(K.INSTANCE_LAUNCHES),
-                     tcg_launches=dict(K.TCG_LAUNCHES))
+                     tcg_launches=dict(K.TCG_LAUNCHES),
+                     oblique_modes=dict(K.OBLIQUE_LAUNCHES))
 
 
-def batch_phase(label, Cs, source, device, repeat=False):
+def check_tcg_launches(label, run):
+    """K11 ran one launch per tCG iteration of an oblique solve and
+    projected every next direction itself: no separate K2 ``proj`` launch
+    is left in the tCG loop (the solve's other proj calls, one or two per
+    outer RTR iteration, stay below a tenth of the steps)."""
+    tl, steps = run["tcg_launches"], run["launches"]["tcg_step"]
+    if not (steps > 0 and tl["projected"] == steps):
+        raise AssertionError(f"{label}: K11 launches {tl}, {steps} steps")
+    proj = run.get("oblique_modes", {}).get("proj")
+    if proj is not None and not proj < steps / 10:
+        raise AssertionError(f"{label}: {proj} K2 proj launches against "
+                             f"{steps} tCG steps")
+
+
+def batch_phase(label, Cs, source, device, repeat=False, tcg_shape=None):
     """Phase 21, one group: the batch solve, an on-card KKT oracle for
     every instance, each instance's single solve (the objectives must
     agree to 1e-6), and with ``repeat`` a second batch solve that must give
@@ -2165,6 +2286,11 @@ def batch_phase(label, Cs, source, device, repeat=False):
                single_seconds=single_s,
                single_seconds_per_instance=single_s / len(Cs),
                table=table)
+    if tcg_shape is not None:
+        B, p_pad, n_pad = tcg_shape
+        out["tcg_iteration"] = tcg_iteration_ms(
+            Cs[:B], [r.Y for r in res[:B]], p_pad, n_pad, torch.float64,
+            device)
     if repeat:
         res2, run2 = run_batch(Cs, device)
         out["repeat"] = dict(
@@ -2178,10 +2304,9 @@ def batch_phase(label, Cs, source, device, repeat=False):
                 not t["oracle_eta"] <= 1e-8 or \
                 not t["rel_to_single"] <= 1e-6:
             raise AssertionError(f"{label}: instance {t}")
-    if run["tcg_launches"]["dots"] <= 0 or \
-            run["instance_launches"]["oblique_cols"] <= 0:
-        raise AssertionError(f"{label} never launched K11 or K2's instance "
-                             "mode")
+    if run["instance_launches"]["oblique_cols"] <= 0:
+        raise AssertionError(f"{label} never launched K2's instance mode")
+    check_tcg_launches(label, run)
     if repeat and not out["repeat"]["bit_equal"]:
         raise AssertionError(f"{label}: the repeated batch solve differs")
     return out
@@ -2218,7 +2343,11 @@ def chain_repeat_phase(device, chain5):
     return out
 
 
-def solve_phase(label, C_sp, source, device, check_oracle):
+def solve_phase(label, C_sp, source, device, check_oracle, tcg_shape=None):
+    """One solve_maxcut_unitdiag call (p0 = 40) with its launch counts;
+    with ``tcg_shape`` (p_pad, n) also the host and device ms per tCG
+    iteration at its solution (tcg_iteration_ms, float32 as the solve's
+    tcg32)."""
     import torch
     from manisdp_tpu_torch import kernels as K
     from manisdp_tpu_torch import solve_maxcut_unitdiag
@@ -2236,7 +2365,11 @@ def solve_phase(label, C_sp, source, device, check_oracle):
                outer_iters=res.iterations, fac_size=res.fac_size,
                rtr_iters=res.rtr_iters, hess_calls=res.hess_calls,
                rtr_iters_per_s=res.rtr_iters / seconds, timers=res.timers,
-               launches=launches)
+               launches=launches, tcg_launches=dict(K.TCG_LAUNCHES),
+               oblique_modes=dict(K.OBLIQUE_LAUNCHES))
+    if tcg_shape is not None:
+        out["tcg_iteration"] = tcg_iteration_ms(
+            [C_sp], [res.Y], *tcg_shape, torch.float32, device)
     if check_oracle:
         out["oracle"] = kkt_oracle_on_card(C_sp, res, device)
     emit(out)
@@ -2363,10 +2496,12 @@ def run_phases(args, jobs):
     if 5 in ph:
         C67, src67 = load_graph("G67", args.gset, args.seed)
         g67 = rec["g67"] = solve_phase("G67_solve", C67, src67, device,
-                                       check_oracle=True)
+                                       check_oracle=True,
+                                       tcg_shape=(HOT_P_PAD, 10 ** 4))
         for name in ("symcoo_spmm", "oblique_cols", "tcg_step"):
             if g67["launches"][name] <= 0:
                 raise AssertionError(f"the G67 solve never launched {name}")
+        check_tcg_launches("G67_solve", g67)
 
     # -- 6. K3 / K4 / K1 al_hess vs twins at the matrix-completion shapes --
     from manisdp_tpu_torch.ops.sparse import ConstraintOp
@@ -2533,7 +2668,8 @@ def run_phases(args, jobs):
                 f"seeded toroidal +-1 grid stand-ins: {BATCH_GRID_B} of "
                 f"{BATCH_GRID[0]} x {BATCH_GRID[1]} (G48's shape) and "
                 f"{BATCH_GRID2_B} of {BATCH_GRID2[0]} x {BATCH_GRID2[1]}",
-                device, repeat=True))
+                device, repeat=True,
+                tcg_shape=(BATCH_GRID_B, BATCH_P_PADS[-1], BATCH_N_PAD)))
         if rec["batch"]["sparse"]["instance_launches"]["symcoo_spmm"] <= 0:
             raise AssertionError("the sparse batch never launched K1's "
                                  "instance mode")
@@ -2679,10 +2815,16 @@ def run_phases(args, jobs):
             ("instance_proj", "instance_retr", "instance_renormalize"),
             "oblique_cols.cu", "solvers/batch.py:78",
             rec["batch"]["sparse"]["instance_launches"]["oblique_cols"])),
-        ((20, 21), lambda: (
-            "tcg_step", pick(batch_rows, "tcg_step", "step",
-                             BATCH_P_PADS[-1], dtype="float64"),
+        ((12, 15), lambda: (
+            "tcg_step.euclidean", pick(dual_rows, "tcg_step", "step", 48,
+                                       dtype="float64"),
             ("step",), "tcg_step.cu", "core/trustregions.py:102",
+            rec["dual"]["qs30_general"]["launches"]["tcg_step"])),
+        ((20, 21), lambda: (
+            "tcg_step", pick(batch_rows, "tcg_step", "step_proj",
+                             BATCH_P_PADS[-1], dtype="float64"),
+            ("step", "step_proj", "step_proj_masked"), "tcg_step.cu",
+            "core/trustregions.py:102",
             rec["batch"]["sparse"]["launches"]["tcg_step"])),
     ]
     kern = []

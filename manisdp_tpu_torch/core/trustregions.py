@@ -6,10 +6,12 @@ program.  Here the outer TR loop is a Python loop with a host branch for
 accept / reject (at most ``maxiter`` host reads per solve), and the tCG
 loop keeps its scalars on the device: one scalar set per instance, every
 branch of the reference a select.  Each tCG iteration is the Hessian
-product, kernel K11's three passes (``kernels.tcg_dots`` / ``tcg_update``
-/ ``tcg_finish``: the dots, the step and the next direction) and the
-tangent re-projection; the stop flags are read on the host once per
-``_TCG_CHUNK`` iterations.  An iteration that starts after a stop is a
+product and one launch of kernel K11 (``kernels.tcg_step``: the dots, the
+step and the next direction); on a manifold whose tangent map is K2's
+column projection (``tangent_cols``: the oblique and masked-product
+manifolds) K11 also re-projects the direction, elsewhere ``M.tangent``
+follows it.  The stop flags are read on the host once per ``_TCG_CHUNK``
+iterations.  An iteration that starts after a stop is a
 masked no-op, so the result equals the iteration-by-iteration semantics
 of the reference.
 
@@ -38,7 +40,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from ..kernels import tcg_dots, tcg_finish, tcg_update
+from ..kernels import tcg_step
 from .problem import Problem, TROptions, TRResult
 
 _TCG_CHUNK = 8
@@ -66,6 +68,7 @@ def cast_floats(obj, dtype):
 def _make_tcg(problem: Problem, opts: TROptions, batched: bool = False):
     M = problem.manifold
     tcg_dt = getattr(torch, opts.tcg_dtype) if opts.tcg_dtype else None
+    tangent_cols = getattr(M, "tangent_cols", None)
 
     def tcg(Y, grad, Delta, params, aux, gaux, active=None):
         """Returns (eta, Heta, inner iterations, stop code), the last two
@@ -112,19 +115,21 @@ def _make_tcg(problem: Problem, opts: TROptions, batched: bool = False):
                          device=r_r.device)
         if active is not None:
             st[:, 1] = torch.where(active, 0, _IDLE)
+        # K11 projects r + beta mdelta back onto the tangent space itself
+        # where the tangent map is K2's column projection
+        Yb = mask = None
+        if tangent_cols is not None:
+            Yb, mask = bat(Y), tangent_cols(Y)
 
         for it in range(opts.maxinner):
             if it and it % _TCG_CHUNK == 0 and \
                     bool(torch.all(st[:, 1] != 0)):
                 break
             Hm = bat(problem.hess(Y, unb(mdelta), params, aux, gaux))
-            part = tcg_dots(mdelta, Hm, r, st)
-            eta, Heta, r, part2, xs = tcg_update(part, sc, st, mdelta, Hm,
-                                                 eta, Heta, r)
-            # r + beta mdelta, then back onto the tangent space
-            w, sc, st = tcg_finish(part2, sc, st, xs, r, mdelta,
-                                   opts.mininner)
-            mdelta = bat(M.tangent(Y, unb(w)))
+            eta, Heta, r, mdelta, sc, st = tcg_step(
+                mdelta, Hm, eta, Heta, r, sc, st, opts.mininner, Yb, mask)
+            if Yb is None:
+                mdelta = bat(M.tangent(Y, unb(mdelta)))
 
         stop = torch.where(st[:, 1] == 0, 5, st[:, 1])
         eta, Heta = unb(eta), unb(Heta)

@@ -24,102 +24,94 @@
 // Zero padding rows stay zero.  A zero column gives 0/0 = NaN, exactly
 // as the JAX expressions do.
 //
-// Layout: x, u, out are contiguous row-major (p, n).  One thread owns one
-// column and walks down its p rows twice (reduce, then write), so the 32
-// lanes of a warp read 32 neighbouring columns of one row: every load and
-// store is coalesced along n.  The second walk re-reads the column from
-// L1/L2.
+// Layout: x, u, out are contiguous row-major (p, n).  A block owns a tile
+// of TC neighbouring columns of one instance (oblique_tile.cuh): its 256
+// threads stage the tile's rows of x and u in shared memory by cp.async
+// (a warp reads TC neighbouring entries of a row, so every load is
+// coalesced along n), one thread per column runs the column's sum as a
+// sequential chain over rows 0 .. p-1, and all threads write the outputs
+// from the staged rows, so x and u are read from HBM once.  The sums keep
+// the order of the earlier one-thread-a-column kernel and its bits.  The
+// launcher picks TC (32, or 16 when 32 columns of p rows do not fit) and
+// the rows R staged at a time (p, unless the tile would pass 64 KB: then
+// the rows are staged in chunks and staged again for the outputs), so at
+// least three blocks fit on an SM.  The grid is ceil(n / TC) x nb blocks:
+// 313 at G67, 768 in the batch, against 40 and 96 for n / 256.
 //
-// What bounds it on an H100: bytes.  At n = 10^4, p_pad = 48 in f64 a
-// call reads 2 * 3.8 MB and writes 3.8 MB, about 3.5 us at 3.35 TB/s (less
-// from L2), so like K1 it is near the ~5 us launch latency at this size;
-// fusing it into the tCG vector step is later work.  n / 256 blocks
-// (40 at n = 10^4) leave most SMs idle; splitting the p walk across warps
-// with a shared-memory reduction is the next step if it shows in a trace.
+// What bounds it on an H100: bytes.  At n = 10^4, p_pad = 40 in f32 a
+// call reads 2 * 1.6 MB and writes 1.6 MB, about 1.4 us at 3.35 TB/s, so
+// at G67 a call costs its latency (the launch, one staged load, the
+// chain, the stores) rather than its bytes; at p = 192 (the dual Hessian
+// epilogue) the tile also reads v once, and the 115-229 tiles of
+// n = 3,662 keep most SMs busy where n / 256 threads kept 15.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "oblique_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-
-template <typename T>
-__device__ __forceinline__ T sqrt_t(T v);
-template <>
-__device__ __forceinline__ double sqrt_t<double>(double v) { return sqrt(v); }
-template <>
-__device__ __forceinline__ float sqrt_t<float>(float v) { return sqrtf(v); }
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-oblique_cols_kernel(const T* __restrict__ x, const T* __restrict__ u,
-                    const T* __restrict__ v, const T* __restrict__ g,
-                    const T* __restrict__ mask, int p, int n, int mode,
-                    T* __restrict__ out) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= n) return;
-  const int64_t inst = blockIdx.y, at = inst * p * n;
+template <typename T, int TC>
+__global__ void __launch_bounds__(kTileThreads)
+oblique_tiles_kernel(const T* __restrict__ x, const T* __restrict__ u,
+                     const T* __restrict__ v, const T* __restrict__ g,
+                     const T* __restrict__ mask, int p, int n, int rows,
+                     int mode, T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ T ssum[TC];
+  T* sx = reinterpret_cast<T*>(smem);
+  T* su = sx + (int64_t)rows * TC;
+  const int64_t inst = blockIdx.y, at = inst * p * (int64_t)n;
   x += at;
   out += at;
   if (u != nullptr) u += at;
   if (v != nullptr) v += at;
   if (g != nullptr) g += inst * n;
-  // masked mode: a column with mask 0 is Euclidean
-  const bool skip = mask != nullptr && !(mask[j] > T(0));
-  T s = T(0);
-  if (mode == 0) {
-    for (int r = 0; r < p; ++r) {
-      const int64_t o = (int64_t)r * n + j;
-      s += x[o] * u[o];
-    }
-    if (mask != nullptr) s = s * mask[j];
-    if (v != nullptr) {
-      const T gj = g[j];
-      for (int r = 0; r < p; ++r) {
-        const int64_t o = (int64_t)r * n + j;
-        out[o] = (u[o] - x[o] * s) - v[o] * gj;
-      }
-    } else {
-      for (int r = 0; r < p; ++r) {
-        const int64_t o = (int64_t)r * n + j;
-        out[o] = u[o] - x[o] * s;
-      }
-    }
-  } else if (mode == 1) {
-    for (int r = 0; r < p; ++r) {
-      const int64_t o = (int64_t)r * n + j;
-      const T d = x[o] + u[o];
-      s += d * d;
-    }
-    const T nrm = skip ? T(1) : sqrt_t<T>(s);
-    for (int r = 0; r < p; ++r) {
-      const int64_t o = (int64_t)r * n + j;
-      out[o] = (x[o] + u[o]) / nrm;
-    }
-  } else {
-    for (int r = 0; r < p; ++r) {
-      const T xv = x[(int64_t)r * n + j];
-      s += xv * xv;
-    }
-    const T nrm = skip ? T(1) : sqrt_t<T>(s);
-    for (int r = 0; r < p; ++r) {
-      const int64_t o = (int64_t)r * n + j;
-      out[o] = x[o] / nrm;
-    }
-  }
+  const int j0 = blockIdx.x * TC;
+  const Tile t{p, n, j0, min(TC, n - j0), rows};
+  column_tile<T, TC>(
+      t, mode, x, u, [](int64_t) { return T(0); },
+      [out](int64_t o, T val) { out[o] = val; }, v, g, mask, sx, su, ssum);
 }
+
+template <typename T, int TC>
+int launch_tiles(const void* x, const void* u, const void* v, const void* g,
+                 const void* mask, int p, int n, int nb, int mode, int rows,
+                 void* out, cudaStream_t stream) {
+  auto kern = oblique_tiles_kernel<T, TC>;
+  const size_t smem = (size_t)(mode == 2 ? 1 : 2) * rows * TC * sizeof(T);
+  // the dynamic size allowed so far (the static ssum counts against the
+  // 48 KB a launch gets without the attribute)
+  static size_t allowed = 0;
+  if (smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    allowed = smem;
+  }
+  const dim3 grid((n + TC - 1) / TC, nb);
+  kern<<<grid, kTileThreads, smem, stream>>>(
+      (const T*)x, (const T*)u, (const T*)v, (const T*)g, (const T*)mask, p,
+      n, rows, mode, (T*)out);
+  return (int)cudaGetLastError();
+}
+
+// the shared memory a tile may take: at least three blocks an SM
+constexpr size_t kTileBytes = 64 << 10;
 
 template <typename T>
 int launch(const void* x, const void* u, const void* v, const void* g,
            const void* mask, int p, int n, int nb, int mode, void* out,
            void* stream) {
   if (n <= 0 || p <= 0 || nb <= 0) return (int)cudaSuccess;
-  const dim3 grid((n + kThreads - 1) / kThreads, nb);
-  oblique_cols_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)u, (const T*)v, (const T*)g, (const T*)mask, p,
-      n, mode, (T*)out);
-  return (int)cudaGetLastError();
+  int tc = 0, rows = 0;
+  tile_plan<T>(p, kTileBytes, &tc, &rows);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (tc == 16)
+    return launch_tiles<T, 16>(x, u, v, g, mask, p, n, nb, mode, rows, out,
+                               s);
+  return launch_tiles<T, 32>(x, u, v, g, mask, p, n, nb, mode, rows, out, s);
 }
 
 }  // namespace

@@ -1,68 +1,98 @@
 // K11: the vector step of truncated CG (Steihaug-Toint), one scalar set
-// per instance.
+// per instance, in one cooperative launch per tCG iteration.
 //
 // Replaces the body of the inner lax.while_loop of the JAX package's
 // core/trustregions.py _make_tcg (:102-160), and its jax.vmap over the
 // instance axis in solvers/batch.py:78.  Around one Hessian-vector
 // product Hd = H[d] an iteration needs <d, Hd>, <d, r>, the step length
 // (alpha, or the exact boundary root tau), the masked updates of eta,
-// H eta, r and the model value, ||r_new||^2, beta and the next
-// direction r_new + beta d, which the caller re-projects onto the
-// tangent space (M.tangent, kernel K2 on the oblique manifold).
+// H eta, r and the model value, ||r_new||^2, beta and the next direction
+// r_new + beta d, re-projected onto the tangent space.  On the oblique
+// and masked-product manifolds that projection is K2's proj
+// (oblique_cols.cu), and it runs here as the last phase (Y given).
 //
-// Three launches per iteration, each over the B instances (blockIdx.y)
-// and nblk blocks per instance (blockIdx.x), every block walking its
-// instance's L = p * n entries with a fixed grid stride:
-//   dots   : partial <d, Hd>, <d, r> per block -> part (B, nblk, 2)
-//   update : every block sums its instance's partials in a fixed order,
-//            evaluates the scalar logic of the reference (alpha, e_Pe,
-//            boundary, tau, step, model value, stop codes 1 / 2 / 6),
-//            updates eta, Heta (unless the model increased: stop 6 keeps
-//            the previous iterate) and r <- r - alpha Hd in place, and
-//            writes partial ||r||^2 -> part2 (B, nblk); block 0 writes
-//            the instance's step scalars -> xs (B, 4)
-//   finish : sums part2 the same way, sets stop codes 3 / 4 (kappa /
-//            theta target), beta, e_Pd, d_Pd, and d <- r + beta d in
-//            place; block 0 writes the next scalar state (sc_next,
-//            st_next), so no block reads a scalar another block writes
-//            in the same launch.
+// One launch (cudaLaunchCooperativeKernel), three phases separated by
+// grid-wide barriers:
+//   1 dots   : partial <d, Hd>, <d, r> of every virtual block -> part
+//   2 update : every virtual block sums its instance's partials in a
+//              fixed order, evaluates the scalar logic of the reference
+//              (alpha, e_Pe, boundary, tau, step, model value, stop codes
+//              1 / 2 / 6), updates eta, Heta (unless the model increased:
+//              stop 6 keeps the previous iterate) and r <- r - alpha Hd,
+//              and writes partial ||r||^2 -> part2; virtual block 0 of an
+//              instance writes its step scalars -> xs (B, 4)
+//   3 finish : sums part2 the same way, sets stop codes 3 / 4 (kappa /
+//              theta target), beta, e_Pd, d_Pd, and d <- r + beta d in
+//              place, or with Y d <- proj_Y(r + beta d) by column tiles
+//              (oblique_tile.cuh, K2's chain: s = sum_rows Y w in row
+//              order, times the mask where there is one, then w - Y s);
+//              the instance's first virtual block (or tile) writes the
+//              next scalar state (sc_next, st_next).
 // Scalar state sc (B, 8): e_Pe, e_Pd, d_Pd, z_r (= <r, r>), model value,
 // Delta^2, kappa target, linear (1: stop code 3 on the target, 0: 4);
 // st (B, 2) int32: completed iterations j and the stop code (0 = active).
 // An instance whose stop code is not 0 is left untouched: its iteration
-// is a no-op, as in the vmapped while_loop.
+// is a no-op, as in the vmapped while_loop (its direction is never read
+// again, so the projected phase skips it too).
 //
-// No float atomics: a block's partial is a warp-shuffle tree and then a
-// sum of the warp totals in warp order, and the partials are summed in
-// block order, so the result depends only on (L, nblk), which the
-// wrapper derives from L.  Every block of an instance computes the same
-// scalars from the same partials.
+// Bits independent of the grid: the work is cut into virtual blocks, the
+// (instance, blk) pairs of the earlier three-launch kernels (blk < nblk,
+// nblk = kernels.tcg_blocks(L)), and each persistent block takes a
+// contiguous range of them (and, in the projected phase, of the column
+// tiles), so its items mostly share one instance, whose scalars it then
+// computes once.  A virtual block's partial uses that kernel's
+// thread-to-element map (grid stride nblk * 256) and its block_sum tree,
+// the partials are summed in block order, and every multiply-add is an
+// explicit fma where that kernel's were contracted, so every sum has the
+// earlier order whatever grid the occupancy API allows.  No float
+// atomics.
 //
-// What bounds it on an H100: bytes.  Per iteration the three passes read
-// d, Hd, r (dots), d, Hd, eta, Heta, r and write eta, Heta, r (update),
-// read r, d and write d (finish): 14 vectors of L entries, against 9 for
-// one read of each input (d, Hd, r, eta, Heta) and one write of each
-// output (eta, Heta, r, d).  At G67 (L = 4 * 10^5, f64) that is 45 MB,
-// about 13 us at 3.35 TB/s; much of it hits the 50 MB L2.
-// Fusing the three passes needs a grid-wide barrier (a cooperative
-// launch) and is later work; so is a CUDA graph over a chunk of
-// iterations, since at these sizes each launch costs about as much as
-// its bytes.
+// What bounds it on an H100: bytes.  One read of each input (d, Hd, r,
+// eta, Heta) and one write of each output (eta, Heta, r, d): 9 vectors of
+// L entries, 10 with Y.  A thread walks its entries kChunk at a time,
+// every load of a chunk in flight before any entry is used or stored (the
+// updates are in place, so loads may not pass stores); phases 2 and 3
+// re-read d, Hd and r, mostly from L2.  At the sparse batch's shape (8 x
+// 48 x 3,072, f64) the 9 vectors are 85 MB, 25 us at 3.35 TB/s; at G67
+// (40 x 10^4, f32) 14 MB, 4.3 us, below the cost of one launch and two
+// grid barriers.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "oblique_tile.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = kTileThreads;
 constexpr int kWarps = kThreads / 32;
+// entries of one thread's walk loaded before any is used or stored
+constexpr int kChunk = 4;
 
 template <typename T>
-__device__ __forceinline__ T sqrt_t(T v);
-template <>
-__device__ __forceinline__ double sqrt_t<double>(double v) { return sqrt(v); }
-template <>
-__device__ __forceinline__ float sqrt_t<float>(float v) { return sqrtf(v); }
+struct StepArgs {
+  const T* Hd;
+  T* d;
+  T* eta;
+  T* Heta;
+  T* r;
+  const T* sc;
+  const int* st;
+  const T* Y;     // (nb, p, n) or null: no projection
+  const T* mask;  // (n,) or null
+  int64_t L;
+  int nb, nblk, p, n, rows, mininner;
+  T* part;   // (nb, nblk, 2)
+  T* part2;  // (nb, nblk)
+  T* xs;     // (nb, 4)
+  T* sc_next;
+  int* st_next;
+};
 
 // Sum of v over the block in a fixed order; every thread gets the total.
 template <typename T>
@@ -80,35 +110,69 @@ __device__ __forceinline__ T block_sum(T v, T* sh) {
   return s;
 }
 
-// Sum of the instance's nblk partials (stride `stride`) in a fixed order.
+// Sum of the instance's nblk partials (stride `stride`) in a fixed order;
+// read through L2, since other blocks wrote them in this launch.
 template <typename T>
-__device__ __forceinline__ T sum_parts(const T* __restrict__ part, int nblk,
-                                       int stride, T* sh) {
+__device__ __forceinline__ T sum_parts(const T* part, int nblk, int stride,
+                                       T* sh) {
   T v = T(0);
-  for (int k = threadIdx.x; k < nblk; k += kThreads) v += part[k * stride];
+  for (int k = threadIdx.x; k < nblk; k += kThreads)
+    v += __ldcg(part + k * stride);
   return block_sum(v, sh);
 }
 
+// This block's share [lo, hi) of `count` work items: contiguous, so the
+// virtual blocks of a block mostly share an instance (and its scalars).
+__device__ __forceinline__ void my_range(int64_t count, int64_t& lo,
+                                         int64_t& hi) {
+  lo = count * blockIdx.x / gridDim.x;
+  hi = count * (blockIdx.x + 1) / gridDim.x;
+}
+
+// One thread's walk of a virtual block: entries e0, e0 + stride, ... < L,
+// kChunk at a time; f(k, o, ok) is called twice per chunk, first to load
+// (stage 0) and then to use (stage 1), so every load of a chunk is in
+// flight before any of its entries is used or stored.
+template <class F>
+__device__ __forceinline__ void walk(int64_t base, int64_t e0, int64_t L,
+                                     int64_t stride, F f) {
+  for (int64_t e = e0; e < L; e += kChunk * stride) {
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k)
+      f(0, k, base + e + k * stride, e + k * stride < L);
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k)
+      f(1, k, base + e + k * stride, e + k * stride < L);
+  }
+}
+
+// ---------------------------------------------------------- phase 1 --
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tcg_dots_kernel(const T* __restrict__ d, const T* __restrict__ Hd,
-                const T* __restrict__ r, const int* __restrict__ st,
-                int64_t L, int nblk, T* __restrict__ part) {
-  __shared__ T sh[kWarps];
-  const int b = blockIdx.y, blk = blockIdx.x;
-  T* out = part + ((int64_t)b * nblk + blk) * 2;
-  if (st[2 * b + 1] != 0) {
+__device__ __forceinline__ void dots_vblock(const StepArgs<T>& a, int64_t v,
+                                            T* sh) {
+  const int b = (int)(v / a.nblk), blk = (int)(v % a.nblk);
+  T* out = a.part + v * 2;
+  if (a.st[2 * b + 1] != 0) {
     if (threadIdx.x == 0) out[0] = out[1] = T(0);
     return;  // the whole block leaves together
   }
-  const int64_t base = (int64_t)b * L;
+  const T* __restrict__ d = a.d;
+  const T* __restrict__ Hd = a.Hd;
+  const T* __restrict__ r = a.r;
   T a1 = T(0), a2 = T(0);
-  for (int64_t e = (int64_t)blk * kThreads + threadIdx.x; e < L;
-       e += (int64_t)nblk * kThreads) {
-    const T dv = d[base + e];
-    a1 += dv * Hd[base + e];
-    a2 += dv * r[base + e];
-  }
+  T dv[kChunk], hv[kChunk], rv[kChunk];
+  walk((int64_t)b * a.L, (int64_t)blk * kThreads + threadIdx.x, a.L,
+       (int64_t)a.nblk * kThreads, [&](int stage, int k, int64_t o, bool ok) {
+         if (!ok) return;
+         if (stage == 0) {
+           dv[k] = d[o];
+           hv[k] = Hd[o];
+           rv[k] = r[o];
+         } else {
+           a1 = fma_t(dv[k], hv[k], a1);
+           a2 = fma_t(dv[k], rv[k], a2);
+         }
+       });
   a1 = block_sum(a1, sh);
   a2 = block_sum(a2, sh);
   if (threadIdx.x == 0) {
@@ -117,177 +181,326 @@ tcg_dots_kernel(const T* __restrict__ d, const T* __restrict__ Hd,
   }
 }
 
+// ---------------------------------------------------------- phase 2 --
+// An instance's step scalars, from phase 1's partials and sc.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tcg_update_kernel(const T* __restrict__ part, const T* __restrict__ sc,
-                  const int* __restrict__ st, const T* __restrict__ d,
-                  const T* __restrict__ Hd, T* __restrict__ eta,
-                  T* __restrict__ Heta, T* __restrict__ r, int64_t L,
-                  int nblk, T* __restrict__ part2, T* __restrict__ xs) {
-  __shared__ T sh[kWarps];
-  const int b = blockIdx.y, blk = blockIdx.x;
-  if (st[2 * b + 1] != 0) {
-    if (threadIdx.x == 0) part2[(int64_t)b * nblk + blk] = T(0);
-    return;
-  }
-  const T* pb = part + (int64_t)b * nblk * 2;
-  const T d_Hd = sum_parts(pb, nblk, 2, sh);
-  const T d_r = sum_parts(pb + 1, nblk, 2, sh);
-  const T* s = sc + 8 * b;
+struct Step {
+  T alpha, step, e_Pe_next, mv_next;
+  bool keep;
+  int stop;
+};
+
+template <typename T>
+__device__ __forceinline__ Step<T> step_scalars(const StepArgs<T>& a, int b,
+                                                T* sh) {
+  const T* pb = a.part + (int64_t)b * a.nblk * 2;
+  const T d_Hd = sum_parts(pb, a.nblk, 2, sh);
+  const T d_r = sum_parts(pb + 1, a.nblk, 2, sh);
+  const T* s = a.sc + 8 * b;
   const T e_Pe = s[0], e_Pd = s[1], d_Pd = s[2], z_r = s[3], mv = s[4],
           DD = s[5];
-  const T alpha = z_r / d_Hd;
-  const T e_Pe_new = e_Pe + T(2) * alpha * e_Pd + alpha * alpha * d_Pd;
+  Step<T> x;
+  x.alpha = z_r / d_Hd;
+  const T e_Pe_new =
+      fma_t(x.alpha * x.alpha, d_Pd, fma_t(T(2) * x.alpha, e_Pd, e_Pe));
   const bool boundary = (d_Hd <= T(0)) || (e_Pe_new >= DD);
   // exact boundary solve (tCG.m:188); not read unless boundary
-  const T tau = (-e_Pd + sqrt_t<T>(e_Pd * e_Pd + d_Pd * (DD - e_Pe))) / d_Pd;
-  const T step = boundary ? tau : alpha;
+  const T tau =
+      (-e_Pd + tile_sqrt<T>(fma_t(e_Pd, e_Pd, d_Pd * (DD - e_Pe)))) / d_Pd;
+  x.step = boundary ? tau : x.alpha;
   // incremental model value m(eta - t d) = m(eta) - t<d, r> + t^2/2 <d, Hd>
-  const T new_mv = mv - step * d_r + T(0.5) * step * step * d_Hd;
-  const bool keep = !boundary && (new_mv >= mv);  // model increase
-  const int stop_n = boundary ? (d_Hd <= T(0) ? 1 : 2) : (keep ? 6 : 0);
+  const T new_mv =
+      fma_t(T(0.5) * x.step * x.step, d_Hd, fma_t(-x.step, d_r, mv));
+  x.keep = !boundary && (new_mv >= mv);  // model increase
+  x.stop = boundary ? (d_Hd <= T(0) ? 1 : 2) : (x.keep ? 6 : 0);
+  x.e_Pe_next = boundary ? e_Pe : e_Pe_new;
+  x.mv_next = x.keep ? mv : new_mv;
+  return x;
+}
 
-  const int64_t base = (int64_t)b * L;
+template <typename T>
+__device__ __forceinline__ void update_vblock(const StepArgs<T>& a,
+                                              int64_t v, const Step<T>& x,
+                                              T* sh) {
+  const int b = (int)(v / a.nblk), blk = (int)(v % a.nblk);
+  const T* __restrict__ d = a.d;
+  const T* __restrict__ Hd = a.Hd;
+  T* __restrict__ eta = a.eta;
+  T* __restrict__ Heta = a.Heta;
+  T* __restrict__ r = a.r;
+  const T step = x.step, alpha = x.alpha;
+  const bool keep = x.keep;
   T acc = T(0);
-  for (int64_t e = (int64_t)blk * kThreads + threadIdx.x; e < L;
-       e += (int64_t)nblk * kThreads) {
-    const int64_t o = base + e;
-    const T hv = Hd[o];
-    if (!keep) {
-      const T dv = d[o];
-      eta[o] = eta[o] - step * dv;
-      Heta[o] = Heta[o] - step * hv;
-    }
-    const T rn = r[o] - alpha * hv;
-    r[o] = rn;
-    acc += rn * rn;
-  }
+  T dv[kChunk], hv[kChunk], rv[kChunk], ev[kChunk], Hv[kChunk];
+  walk((int64_t)b * a.L, (int64_t)blk * kThreads + threadIdx.x, a.L,
+       (int64_t)a.nblk * kThreads, [&](int stage, int k, int64_t o, bool ok) {
+         if (!ok) return;
+         if (stage == 0) {
+           hv[k] = Hd[o];
+           rv[k] = r[o];
+           if (!keep) {
+             dv[k] = d[o];
+             ev[k] = eta[o];
+             Hv[k] = Heta[o];
+           }
+         } else {
+           if (!keep) {
+             eta[o] = fma_t(-step, dv[k], ev[k]);
+             Heta[o] = fma_t(-step, hv[k], Hv[k]);
+           }
+           const T rn = fma_t(-alpha, hv[k], rv[k]);
+           r[o] = rn;
+           acc = fma_t(rn, rn, acc);
+         }
+       });
   acc = block_sum(acc, sh);
   if (threadIdx.x == 0) {
-    part2[(int64_t)b * nblk + blk] = acc;
+    a.part2[v] = acc;
     if (blk == 0) {
-      T* x = xs + 4 * b;
-      x[0] = alpha;
-      x[1] = boundary ? e_Pe : e_Pe_new;
-      x[2] = keep ? mv : new_mv;
-      x[3] = T(stop_n);
+      T* xo = a.xs + 4 * b;
+      xo[0] = alpha;
+      xo[1] = x.e_Pe_next;
+      xo[2] = x.mv_next;
+      xo[3] = T(x.stop);
     }
   }
 }
 
+// ---------------------------------------------------------- phase 3 --
+// The instance's finishing scalars: beta, and with `lead` the next scalar
+// state.  False for a stopped instance, whose state `lead` copies.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tcg_finish_kernel(const T* __restrict__ part2, const T* __restrict__ sc,
-                  const int* __restrict__ st, const T* __restrict__ xs,
-                  const T* __restrict__ r, T* __restrict__ d, int64_t L,
-                  int nblk, int mininner, T* __restrict__ sc_next,
-                  int* __restrict__ st_next) {
-  __shared__ T sh[kWarps];
-  const int b = blockIdx.y, blk = blockIdx.x;
-  const T* s = sc + 8 * b;
-  const bool lead = blk == 0 && threadIdx.x == 0;
-  if (st[2 * b + 1] != 0) {
+__device__ __forceinline__ bool finish_scalars(const StepArgs<T>& a, int b,
+                                               bool lead, T* sh, T& beta) {
+  const T* s = a.sc + 8 * b;
+  if (a.st[2 * b + 1] != 0) {
     if (lead) {
-      for (int k = 0; k < 8; ++k) sc_next[8 * b + k] = s[k];
-      st_next[2 * b] = st[2 * b];
-      st_next[2 * b + 1] = st[2 * b + 1];
+      for (int k = 0; k < 8; ++k) a.sc_next[8 * b + k] = s[k];
+      a.st_next[2 * b] = a.st[2 * b];
+      a.st_next[2 * b + 1] = a.st[2 * b + 1];
     }
-    return;
+    return false;
   }
-  const T r_r = sum_parts(part2 + (int64_t)b * nblk, nblk, 1, sh);
-  const T* x = xs + 4 * b;
-  const T alpha = x[0];
-  const int j = st[2 * b];
-  int stop = (int)x[3];
-  if (stop == 0 && j + 1 >= mininner && sqrt_t<T>(r_r) <= s[6])
+  const T r_r = sum_parts(a.part2 + (int64_t)b * a.nblk, a.nblk, 1, sh);
+  const T* x = a.xs + 4 * b;
+  const T alpha = __ldcg(x), x1 = __ldcg(x + 1), x2 = __ldcg(x + 2);
+  const int j = a.st[2 * b];
+  int stop = (int)__ldcg(x + 3);
+  if (stop == 0 && j + 1 >= a.mininner && tile_sqrt<T>(r_r) <= s[6])
     stop = s[7] > T(0) ? 3 : 4;
-  const T beta = r_r / s[3];
-
-  const int64_t base = (int64_t)b * L;
-  for (int64_t e = (int64_t)blk * kThreads + threadIdx.x; e < L;
-       e += (int64_t)nblk * kThreads) {
-    const int64_t o = base + e;
-    d[o] = r[o] + beta * d[o];
-  }
+  beta = r_r / s[3];
   if (lead) {
-    T* n = sc_next + 8 * b;
-    n[0] = x[1];
-    n[1] = beta * (s[1] + alpha * s[2]);
-    n[2] = r_r + beta * beta * s[2];
+    T* n = a.sc_next + 8 * b;
+    n[0] = x1;
+    n[1] = beta * fma_t(alpha, s[2], s[1]);
+    n[2] = fma_t(beta * beta, s[2], r_r);
     n[3] = r_r;
-    n[4] = x[2];
+    n[4] = x2;
     n[5] = s[5];
     n[6] = s[6];
     n[7] = s[7];
-    st_next[2 * b] = j + 1;
-    st_next[2 * b + 1] = stop;
+    a.st_next[2 * b] = j + 1;
+    a.st_next[2 * b + 1] = stop;
+  }
+  return true;
+}
+
+template <typename T>
+__device__ __forceinline__ void finish_vblock(const StepArgs<T>& a,
+                                              int64_t v, T beta) {
+  const int b = (int)(v / a.nblk), blk = (int)(v % a.nblk);
+  T* __restrict__ d = a.d;
+  const T* __restrict__ r = a.r;
+  T dv[kChunk], rv[kChunk];
+  walk((int64_t)b * a.L, (int64_t)blk * kThreads + threadIdx.x, a.L,
+       (int64_t)a.nblk * kThreads, [&](int stage, int k, int64_t o, bool ok) {
+         if (!ok) return;
+         if (stage == 0) {
+           dv[k] = d[o];
+           rv[k] = __ldcg(r + o);
+         } else {
+           d[o] = fma_t(beta, dv[k], rv[k]);
+         }
+       });
+}
+
+// d <- proj_Y(r + beta d) on the column tile `tile` of instance b
+template <typename T, int TC>
+__device__ __forceinline__ void finish_tile(const StepArgs<T>& a, int b,
+                                            int tile, T beta, T* sx, T* su,
+                                            T* ssum) {
+  const int64_t at = (int64_t)b * a.L;
+  T* d = a.d + at;
+  const T* r = a.r + at;
+  const int j0 = tile * TC;
+  const Tile t{a.p, a.n, j0, min(TC, a.n - j0), a.rows};
+  column_tile<T, TC>(
+      t, 0, a.Y + at, nullptr,
+      [d, r, beta](int64_t o) {
+        return fma_t(beta, __ldcg(d + o), __ldcg(r + o));
+      },
+      [d](int64_t o, T val) { d[o] = val; }, nullptr, nullptr, a.mask, sx,
+      su, ssum);
+  __syncthreads();  // the tile's shared rows are free again
+}
+
+template <typename T, int TC>
+__global__ void __launch_bounds__(kThreads)
+tcg_step_kernel(const StepArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ T sh[kWarps];
+  __shared__ T ssum[TC];
+  cg::grid_group grid = cg::this_grid();
+  int64_t lo, hi;
+
+  my_range((int64_t)a.nb * a.nblk, lo, hi);
+  for (int64_t v = lo; v < hi; ++v) dots_vblock(a, v, sh);
+  grid.sync();
+
+  // the instance's scalars, recomputed where the instance changes
+  int cur = -1;
+  Step<T> x;
+  for (int64_t v = lo; v < hi; ++v) {
+    const int b = (int)(v / a.nblk);
+    if (a.st[2 * b + 1] != 0) {
+      if (threadIdx.x == 0) a.part2[v] = T(0);
+      continue;
+    }
+    if (b != cur) {
+      x = step_scalars(a, b, sh);
+      cur = b;
+    }
+    update_vblock(a, v, x, sh);
+  }
+  grid.sync();
+
+  // the next direction: by virtual blocks, or by column tiles with Y; the
+  // instance's first item (blk or tile 0) writes its next scalar state
+  const int per = a.Y == nullptr ? a.nblk : (a.n + TC - 1) / TC;
+  my_range((int64_t)a.nb * per, lo, hi);
+  T* sx = reinterpret_cast<T*>(smem);
+  T* su = sx + (int64_t)a.rows * TC;
+  cur = -1;
+  bool active = false;
+  T beta = T(0);
+  for (int64_t item = lo; item < hi; ++item) {
+    const int b = (int)(item / per), k = (int)(item % per);
+    if (b != cur || k == 0) {
+      active = finish_scalars(a, b, k == 0 && threadIdx.x == 0, sh, beta);
+      cur = b;
+    }
+    if (!active) continue;
+    if (a.Y == nullptr)
+      finish_vblock(a, item, beta);
+    else
+      finish_tile<T, TC>(a, b, k, beta, sx, su, ssum);
   }
 }
 
-template <typename T>
-int launch_dots(const void* d, const void* Hd, const void* r, const void* st,
-                int64_t L, int nb, int nblk, void* part, void* stream) {
-  if (nb <= 0 || nblk <= 0) return (int)cudaSuccess;
-  tcg_dots_kernel<T><<<dim3(nblk, nb), kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)d, (const T*)Hd, (const T*)r, (const int*)st, L, nblk,
-      (T*)part);
-  return (int)cudaGetLastError();
+// persistent blocks that fit on the card at once, per kernel and dynamic
+// shared memory (cached: the occupancy query is a host call)
+template <typename T, int TC>
+int resident_blocks(size_t smem, int* out) {
+  static int dev_sms = -1;
+  static size_t cached_smem = (size_t)-1;
+  static int cached_blocks = 0;
+  auto kern = tcg_step_kernel<T, TC>;
+  if (dev_sms < 0) {
+    int dev = 0, coop = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&dev_sms, cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (e != cudaSuccess) {
+      dev_sms = -1;
+      return (int)e;
+    }
+  }
+  if (smem != cached_smem) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int per_sm = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+    cached_smem = smem;
+    cached_blocks = per_sm * dev_sms;
+  }
+  *out = cached_blocks;
+  return (int)cudaSuccess;
 }
 
-template <typename T>
-int launch_update(const void* part, const void* sc, const void* st,
-                  const void* d, const void* Hd, void* eta, void* Heta,
-                  void* r, int64_t L, int nb, int nblk, void* part2,
-                  void* xs, void* stream) {
-  if (nb <= 0 || nblk <= 0) return (int)cudaSuccess;
-  tcg_update_kernel<T><<<dim3(nblk, nb), kThreads, 0,
-                         (cudaStream_t)stream>>>(
-      (const T*)part, (const T*)sc, (const int*)st, (const T*)d,
-      (const T*)Hd, (T*)eta, (T*)Heta, (T*)r, L, nblk, (T*)part2, (T*)xs);
-  return (int)cudaGetLastError();
+template <typename T, int TC>
+int launch_step(const StepArgs<T>& a, cudaStream_t stream) {
+  const size_t smem =
+      a.Y != nullptr ? (size_t)2 * a.rows * TC * sizeof(T) : 0;
+  int cap = 0;
+  const int err = resident_blocks<T, TC>(smem, &cap);
+  if (err != (int)cudaSuccess) return err;
+  int64_t work = (int64_t)a.nb * a.nblk;
+  if (a.Y != nullptr)
+    work = std::max(work, (int64_t)a.nb * ((a.n + TC - 1) / TC));
+  const int grid = (int)std::min<int64_t>(cap, work);
+  StepArgs<T> args = a;
+  void* params[] = {&args};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)tcg_step_kernel<T, TC>, dim3(grid), dim3(kThreads),
+      params, smem, stream);
+  return (int)e;
 }
 
+// the shared memory the projected phase may stage a column tile in (half
+// of K2's, so that enough persistent blocks stay resident)
+constexpr size_t kTcgTileBytes = 32 << 10;
+
 template <typename T>
-int launch_finish(const void* part2, const void* sc, const void* st,
-                  const void* xs, const void* r, void* d, int64_t L, int nb,
-                  int nblk, int mininner, void* sc_next, void* st_next,
-                  void* stream) {
-  if (nb <= 0 || nblk <= 0) return (int)cudaSuccess;
-  tcg_finish_kernel<T><<<dim3(nblk, nb), kThreads, 0,
-                         (cudaStream_t)stream>>>(
-      (const T*)part2, (const T*)sc, (const int*)st, (const T*)xs,
-      (const T*)r, (T*)d, L, nblk, mininner, (T*)sc_next, (int*)st_next);
-  return (int)cudaGetLastError();
+int launch(const void* d, const void* Hd, void* eta, void* Heta, void* r,
+           const void* sc, const void* st, const void* Y, const void* mask,
+           int64_t L, int nb, int nblk, int p, int n, int mininner,
+           void* part, void* part2, void* xs, void* sc_next, void* st_next,
+           void* stream) {
+  if (nb <= 0 || nblk <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
+  if (Y != nullptr && (p <= 0 || (int64_t)p * n != L))
+    return (int)cudaErrorInvalidValue;
+  int tc = 32, rows = 0;
+  if (Y != nullptr) tile_plan<T>(p, kTcgTileBytes, &tc, &rows);
+  const StepArgs<T> a{(const T*)Hd, (T*)d,  (T*)eta, (T*)Heta,
+                      (T*)r,        (const T*)sc, (const int*)st,
+                      (const T*)Y,  (const T*)mask, L, nb, nblk, p, n, rows,
+                      mininner,     (T*)part, (T*)part2, (T*)xs,
+                      (T*)sc_next,  (int*)st_next};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (tc == 16) return launch_step<T, 16>(a, s);
+  return launch_step<T, 32>(a, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-#define K11_EXPORTS(SUF, T)                                                  \
-  int tcg_dots_##SUF(const void* d, const void* Hd, const void* r,          \
-                     const void* st, int64_t L, int nb, int nblk,           \
-                     void* part, void* stream) {                            \
-    return launch_dots<T>(d, Hd, r, st, L, nb, nblk, part, stream);         \
-  }                                                                          \
-  int tcg_update_##SUF(const void* part, const void* sc, const void* st,    \
-                       const void* d, const void* Hd, void* eta,            \
-                       void* Heta, void* r, int64_t L, int nb, int nblk,    \
-                       void* part2, void* xs, void* stream) {               \
-    return launch_update<T>(part, sc, st, d, Hd, eta, Heta, r, L, nb, nblk, \
-                            part2, xs, stream);                             \
-  }                                                                          \
-  int tcg_finish_##SUF(const void* part2, const void* sc, const void* st,   \
-                       const void* xs, const void* r, void* d, int64_t L,   \
-                       int nb, int nblk, int mininner, void* sc_next,       \
-                       void* st_next, void* stream) {                       \
-    return launch_finish<T>(part2, sc, st, xs, r, d, L, nb, nblk, mininner, \
-                            sc_next, st_next, stream);                      \
-  }
+int tcg_step_f64(const void* d, const void* Hd, void* eta, void* Heta,
+                 void* r, const void* sc, const void* st, const void* Y,
+                 const void* mask, int64_t L, int nb, int nblk, int p, int n,
+                 int mininner, void* part, void* part2, void* xs,
+                 void* sc_next, void* st_next, void* stream) {
+  return launch<double>(d, Hd, eta, Heta, r, sc, st, Y, mask, L, nb, nblk, p,
+                        n, mininner, part, part2, xs, sc_next, st_next,
+                        stream);
+}
 
-K11_EXPORTS(f64, double)
-K11_EXPORTS(f32, float)
-
-#undef K11_EXPORTS
+int tcg_step_f32(const void* d, const void* Hd, void* eta, void* Heta,
+                 void* r, const void* sc, const void* st, const void* Y,
+                 const void* mask, int64_t L, int nb, int nblk, int p, int n,
+                 int mininner, void* part, void* part2, void* xs,
+                 void* sc_next, void* st_next, void* stream) {
+  return launch<float>(d, Hd, eta, Heta, r, sc, st, Y, mask, L, nb, nblk, p,
+                       n, mininner, part, part2, xs, sc_next, st_next,
+                       stream);
+}
 
 }  // extern "C"

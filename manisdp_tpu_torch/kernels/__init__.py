@@ -27,9 +27,10 @@ K9 ``symmom_apply`` (csrc/symmom_apply.cu): the BQP moment operator's rows
    A(M) of an (n~, n~) matrix in the flat layout, don't-care slots 0.
 K10 ``symmom_adjoint`` (csrc/symmom_adjoint.cu): its exact adjoint A'(y),
    with the fused epilogue base + alpha * A'(y).
-K11 ``tcg_dots`` / ``tcg_update`` / ``tcg_finish`` (csrc/tcg_step.cu): the
-   truncated-CG vector step around one Hessian-vector product, one scalar
-   set per instance.
+K11 ``tcg_step`` (csrc/tcg_step.cu): the truncated-CG vector step around
+   one Hessian-vector product, one scalar set per instance, in one
+   cooperative launch; on the oblique and masked-product manifolds it
+   also applies K2's tangent projection to the next direction.
 K1 and K2 also take a batch of B instances of one padded size in one
 launch (instance mode): a BatchedSymCOO and (B, p, n) factors.
 
@@ -70,8 +71,9 @@ MASKED_LAUNCHES = {mode: 0 for mode in MASKED_MODES}
 SYMDUAL_LAUNCHES = {"adjoint": 0, "sym_factor": 0, "sym_mat": 0}
 # K1's and K2's launches in instance mode (also counted above)
 INSTANCE_LAUNCHES = {"symcoo_spmm": 0, "oblique_cols": 0}
-# K11's launches by pass (their sum is LAUNCHES["tcg_step"])
-TCG_LAUNCHES = {"dots": 0, "update": 0, "finish": 0}
+# K11's launches (LAUNCHES["tcg_step"]) that also projected the next
+# direction onto the tangent space
+TCG_LAUNCHES = {"projected": 0}
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 
@@ -895,11 +897,12 @@ def symmom_adjoint(y, q: int, base=None, alpha=1.0):
 # columns e_Pe, e_Pd, d_Pd, z_r = <r, r>, model value, Delta^2, kappa
 # target, linear (1.0: a met target is stop code 3, else 4); st (B, 2)
 # int32, columns j (completed iterations) and stop (0 = active).  An
-# instance whose stop is not 0 is left as it is by all three passes.
-# The vectors are (B, ...) tensors, instance b at index b.  The kernels
-# update their vector arguments in place (a contiguous copy of one that
-# is not) and return them; the twins return new tensors.  Callers use
-# what is returned.
+# instance whose stop is not 0 is left as it is.  The vectors are
+# (B, ...) tensors, instance b at index b.  The kernel updates its vector
+# arguments in place and returns them; the twins return new tensors.
+# Callers use what is returned.  The twins of the step's three phases
+# (dots, update, finish) keep the earlier three-pass split, so each can be
+# held to the JAX tCG body on its own.
 
 def tcg_blocks(L: int) -> int:
     """Blocks per instance of K11's three passes (a function of L only,
@@ -916,27 +919,6 @@ def _inst_sum(t):
     return torch.sum(t, dim=tuple(range(1, t.dim())))
 
 
-def _tcg_checks(dt, B, vecs, sc=None, st=None):
-    """The vectors made contiguous (a copy only where one is not) and their
-    (B, L) views; raises on what K11 does not take."""
-    vecs = [t.contiguous() for t in vecs]
-    flat = []
-    for t in vecs:
-        if t.dtype != dt or t.dim() < 2 or t.shape[0] != B:
-            raise ValueError(f"K11 takes {dt} vectors with {B} instances, "
-                             f"got {tuple(t.shape)} {t.dtype}")
-        flat.append(t.view(B, -1))
-    if any(f.shape != flat[0].shape for f in flat):
-        raise ValueError("K11's vectors must have one shape")
-    if sc is not None and (sc.dtype != dt or sc.shape != (B, 8) or
-                           not sc.is_contiguous()):
-        raise ValueError(f"sc must be contiguous ({B}, 8) {dt}")
-    if st is not None and (st.dtype != torch.int32 or st.shape != (B, 2) or
-                           not st.is_contiguous()):
-        raise ValueError(f"st must be contiguous ({B}, 2) int32")
-    return vecs, flat
-
-
 def tcg_dots_plain(d, Hd, r, st):
     """Plain twin of K11 ``dots``: (<d, Hd>, <d, r>) per instance, the
     JAX package's inner products in _make_tcg, 0 for a stopped instance,
@@ -944,27 +926,6 @@ def tcg_dots_plain(d, Hd, r, st):
     dots = torch.stack([_inst_sum(d * Hd), _inst_sum(d * r)], dim=1)
     act = (st[:, 1] == 0)[:, None]
     return torch.where(act, dots, torch.zeros_like(dots))[:, None, :]
-
-
-def tcg_dots(d, Hd, r, st):
-    """K11 ``dots``: per-block partial sums (B, nblk, 2) of <d, Hd> and
-    <d, r> over each instance."""
-    if not _on_cuda(d, Hd, r, st):
-        return tcg_dots_plain(d, Hd, r, st)
-    _check_dtype(d.dtype, d, Hd, r)
-    B = d.shape[0]
-    _, (df, hf, rf) = _tcg_checks(d.dtype, B, (d, Hd, r), st=st)
-    L = df.shape[1]
-    nblk = tcg_blocks(L)
-    part = torch.empty((B, nblk, 2), dtype=d.dtype, device=d.device)
-    err = getattr(build(), f"tcg_dots_{_SUFFIX[d.dtype]}")(
-        df.data_ptr(), hf.data_ptr(), rf.data_ptr(), st.data_ptr(), L, B,
-        nblk, part.data_ptr(), _stream(d))
-    if err != 0:
-        raise RuntimeError(f"tcg_dots launch failed: CUDA error {err}")
-    LAUNCHES["tcg_step"] += 1
-    TCG_LAUNCHES["dots"] += 1
-    return part
 
 
 def tcg_update_plain(part, sc, st, d, Hd, eta, Heta, r):
@@ -1002,34 +963,6 @@ def tcg_update_plain(part, sc, st, d, Hd, eta, Heta, r):
             torch.where(act, r_r, torch.zeros_like(r_r))[:, None], xs)
 
 
-def tcg_update(part, sc, st, d, Hd, eta, Heta, r):
-    """K11 ``update``: from ``dots``' partials and the scalar state, the
-    step of every active instance: eta, Heta (unless the model increased)
-    and r <- r - alpha Hd, in place.  Returns (eta, Heta, r, part2 (B,
-    nblk), the partial ||r||^2, xs (B, 4), the step's scalars)."""
-    if not _on_cuda(part, sc, st, d, Hd, eta, Heta, r):
-        return tcg_update_plain(part, sc, st, d, Hd, eta, Heta, r)
-    _check_dtype(d.dtype, part, sc, d, Hd, eta, Heta, r)
-    B = d.shape[0]
-    (_, _, eta, Heta, r), (df, hf, ef, Hef, rf) = _tcg_checks(
-        d.dtype, B, (d, Hd, eta, Heta, r), sc, st)
-    L = df.shape[1]
-    nblk = tcg_blocks(L)
-    if part.shape != (B, nblk, 2) or not part.is_contiguous():
-        raise ValueError(f"part must be contiguous ({B}, {nblk}, 2)")
-    part2 = torch.empty((B, nblk), dtype=d.dtype, device=d.device)
-    xs = torch.empty((B, 4), dtype=d.dtype, device=d.device)
-    err = getattr(build(), f"tcg_update_{_SUFFIX[d.dtype]}")(
-        part.data_ptr(), sc.data_ptr(), st.data_ptr(), df.data_ptr(),
-        hf.data_ptr(), ef.data_ptr(), Hef.data_ptr(), rf.data_ptr(), L, B,
-        nblk, part2.data_ptr(), xs.data_ptr(), _stream(d))
-    if err != 0:
-        raise RuntimeError(f"tcg_update launch failed: CUDA error {err}")
-    LAUNCHES["tcg_step"] += 1
-    TCG_LAUNCHES["update"] += 1
-    return eta, Heta, r, part2, xs
-
-
 def tcg_finish_plain(part2, sc, st, xs, r, d, mininner: int):
     """Plain twin of K11 ``finish``: the stop codes 3 / 4, beta and the
     e_Pd / d_Pd recurrences of the JAX package's tCG body
@@ -1056,33 +989,84 @@ def tcg_finish_plain(part2, sc, st, xs, r, d, mininner: int):
             torch.where(act, st_n, st))
 
 
-def tcg_finish(part2, sc, st, xs, r, d, mininner: int):
-    """K11 ``finish``: sums ``update``'s partials to <r, r>, sets the stop
-    codes of a met kappa / theta target and d <- r + beta d in place.
-    Returns (d, to be re-projected onto the tangent space, and the next
-    sc, st)."""
-    if not _on_cuda(part2, sc, st, xs, r, d):
-        return tcg_finish_plain(part2, sc, st, xs, r, d, mininner)
-    _check_dtype(d.dtype, part2, sc, xs, r, d)
-    B = d.shape[0]
-    (_, d), (rf, df) = _tcg_checks(d.dtype, B, (r, d), sc, st)
-    L = df.shape[1]
+def tcg_step_plain(d, Hd, eta, Heta, r, sc, st, mininner: int, Y=None,
+                   mask=None):
+    """Plain twin of K11: the three phases' twins, then with ``Y`` the
+    oblique tangent projection of the next direction (K2's
+    oblique_cols_plain proj, with ``mask`` the masked product's).
+    Returns (eta, Heta, r, d, sc_next, st_next)."""
+    part = tcg_dots_plain(d, Hd, r, st)
+    eta, Heta, r, part2, xs = tcg_update_plain(part, sc, st, d, Hd, eta,
+                                               Heta, r)
+    d, sc, st = tcg_finish_plain(part2, sc, st, xs, r, d, mininner)
+    if Y is not None:
+        d = oblique_cols_plain(Y, d, "proj", mask=mask)
+    return eta, Heta, r, d, sc, st
+
+
+def tcg_step(d, Hd, eta, Heta, r, sc, st, mininner: int, Y=None,
+             mask=None):
+    """K11: one tCG iteration's vector step in one cooperative launch.
+    From d, Hd = H[d] and the scalar state: the step of every active
+    instance (eta, Heta unless the model increased, r <- r - alpha Hd),
+    the stop codes, and the next direction d <- r + beta d, or with ``Y``
+    (the (B, p, n) point; ``mask`` (n,) the masked product's column mask)
+    d <- proj_Y(r + beta d), the oblique tangent projection of K2.
+    eta, Heta, r and d ((B, ...) tensors of one shape and dtype) are
+    updated in place (a contiguous copy of one that is not) and returned:
+    (eta, Heta, r, d, sc_next, st_next)."""
+    if not _on_cuda(d, Hd, eta, Heta, r, sc, st, Y, mask):
+        return tcg_step_plain(d, Hd, eta, Heta, r, sc, st, mininner, Y,
+                              mask)
+    dt, shape = d.dtype, d.shape
+    B = shape[0]
+    d, Hd, eta, Heta, r = (t.contiguous() for t in (d, Hd, eta, Heta, r))
+    for t in (Hd, eta, Heta, r):
+        if t.dtype != dt or t.shape != shape:
+            raise ValueError(f"K11 takes {dt} vectors of shape "
+                             f"{tuple(shape)}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    if dt not in _SUFFIX or len(shape) < 2:
+        raise ValueError(f"K11 takes (B, ...) float64 or float32 vectors, "
+                         f"got {tuple(shape)} {dt}")
+    if sc.dtype != dt or sc.shape != (B, 8) or not sc.is_contiguous():
+        raise ValueError(f"sc must be contiguous ({B}, 8) {dt}")
+    if st.dtype != torch.int32 or st.shape != (B, 2) or \
+            not st.is_contiguous():
+        raise ValueError(f"st must be contiguous ({B}, 2) int32")
+    L = d.numel() // B
+    p = n = 0
+    if Y is not None:
+        if len(shape) != 3 or Y.shape != shape or Y.dtype != dt:
+            raise ValueError(f"Y must be {tuple(shape)} {dt}, like the "
+                             f"(B, p, n) vectors")
+        Y = Y.contiguous()
+        p, n = shape[1], shape[2]
+        if mask is not None and (mask.shape != (n,) or mask.dtype != dt or
+                                 not mask.is_contiguous()):
+            raise ValueError(f"mask must be contiguous ({n},) {dt}")
+    elif mask is not None:
+        raise ValueError("a mask goes with Y")
     nblk = tcg_blocks(L)
-    if part2.shape != (B, nblk) or xs.shape != (B, 4) or \
-            not (part2.is_contiguous() and xs.is_contiguous()):
-        raise ValueError(f"part2 must be contiguous ({B}, {nblk}) and xs "
-                         f"({B}, 4)")
-    sc_n = torch.empty_like(sc)
+    # partials (B, nblk, 2), (B, nblk), step scalars (B, 4), next sc (B, 8)
+    ws = torch.empty((B * (3 * nblk + 12),), dtype=dt, device=d.device)
+    part2 = ws[2 * B * nblk:]
+    xs = part2[B * nblk:]
+    sc_n = xs[4 * B:].view(B, 8)
     st_n = torch.empty_like(st)
-    err = getattr(build(), f"tcg_finish_{_SUFFIX[d.dtype]}")(
-        part2.data_ptr(), sc.data_ptr(), st.data_ptr(), xs.data_ptr(),
-        rf.data_ptr(), df.data_ptr(), L, B, nblk, int(mininner),
-        sc_n.data_ptr(), st_n.data_ptr(), _stream(d))
+    err = getattr(build(), f"tcg_step_{_SUFFIX[dt]}")(
+        d.data_ptr(), Hd.data_ptr(), eta.data_ptr(), Heta.data_ptr(),
+        r.data_ptr(), sc.data_ptr(), st.data_ptr(),
+        Y.data_ptr() if Y is not None else None,
+        mask.data_ptr() if mask is not None else None, L, B, nblk, p, n,
+        int(mininner), ws.data_ptr(), part2.data_ptr(),
+        xs.data_ptr(), sc_n.data_ptr(), st_n.data_ptr(), _stream(d))
     if err != 0:
-        raise RuntimeError(f"tcg_finish launch failed: CUDA error {err}")
+        raise RuntimeError(f"tcg_step launch failed: CUDA error {err}")
     LAUNCHES["tcg_step"] += 1
-    TCG_LAUNCHES["finish"] += 1
-    return d, sc_n, st_n
+    if Y is not None:
+        TCG_LAUNCHES["projected"] += 1
+    return eta, Heta, r, d, sc_n, st_n
 
 
 __all__ = ["LAUNCHES", "SPMM_LAUNCHES", "CSR_LAUNCHES", "MASKED_LAUNCHES",
@@ -1096,6 +1080,6 @@ __all__ = ["LAUNCHES", "SPMM_LAUNCHES", "CSR_LAUNCHES", "MASKED_LAUNCHES",
            "symdual_sym_mat_plain", "symmom_apply", "symmom_apply_plain",
            "symmom_flat_length",
            "symmom_adjoint", "symmom_adjoint_plain", "INSTANCE_LAUNCHES",
-           "TCG_LAUNCHES", "tcg_blocks", "tcg_dots", "tcg_dots_plain",
-           "tcg_update", "tcg_update_plain", "tcg_finish",
-           "tcg_finish_plain", "build"]
+           "TCG_LAUNCHES", "tcg_blocks", "tcg_dots_plain",
+           "tcg_update_plain", "tcg_finish_plain", "tcg_step",
+           "tcg_step_plain", "build"]

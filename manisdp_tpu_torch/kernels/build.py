@@ -26,7 +26,7 @@ SOURCES = ("symcoo_spmm.cu", "oblique_cols.cu", "pattern_dots.cu",
            "symdual_apply.cu", "symdual_adjoint.cu", "symmom_apply.cu",
            "symmom_adjoint.cu", "tcg_step.cu")
 # headers the sources include (their bytes are part of the library name)
-HEADERS = ("nmajor.cuh",)
+HEADERS = ("nmajor.cuh", "oblique_tile.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,10 +50,8 @@ _SIGNATURES = {
     "symdual_sym_mat": (_P, _I, _P, _P),
     "symmom_apply": (_P, _I, _P, _P, _P),
     "symmom_adjoint": (_P, _I, _P, _D, _P, _P, _P),
-    "tcg_dots": (_P, _P, _P, _P, _I64, _I, _I, _P, _P),
-    "tcg_update": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P, _P,
-                   _P),
-    "tcg_finish": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _P),
+    "tcg_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
+                 _I, _P, _P, _P, _P, _P, _P),
 }
 # the dtypes each kernel is built for (default: both)
 _SUFFIXES = {"oa_refine": ("f64",)}

@@ -36,6 +36,12 @@ class Oblique:
     tangent = proj
 
     @staticmethod
+    def tangent_cols(x):
+        """The tangent map is K2's column projection with no column mask
+        (so the tCG's vector step, K11, applies it itself)."""
+        return None
+
+    @staticmethod
     def transp(x1, x2, d):
         return oblique_cols(x2, d, "proj")
 

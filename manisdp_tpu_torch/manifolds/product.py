@@ -52,6 +52,11 @@ class MaskedProduct:
     def tangent(self, x, u):
         return self.proj(x, u)
 
+    def tangent_cols(self, x):
+        """The tangent map is K2's column projection with this column mask
+        in x's dtype (so the tCG's vector step, K11, applies it itself)."""
+        return self.mask_as(x)
+
     def transp(self, x1, x2, d):
         return self.proj(x2, d)
 

@@ -19,6 +19,7 @@ from manisdp_tpu_torch import solve_maxcut_batch
 from manisdp_tpu_torch.core import (TROptions, make_batched_trustregions,
                                     make_trustregions)
 from manisdp_tpu_torch.manifolds import Oblique
+from manisdp_tpu_torch.manifolds.product import MaskedProduct
 from manisdp_tpu_torch.ops.sparse import BatchedSymCOO
 from manisdp_tpu_torch.solvers.common import make_batched_line_search
 from manisdp_tpu_torch.solvers.maxcut import make_maxcut_problem
@@ -312,13 +313,12 @@ def _tcg_reference(d, Hd, r, eta, Heta, s, j, mininner):
     return eta, Heta, r, r + beta * d, s_next, (j + 1, stop)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
-                                       (torch.float32, 1e-5)])
-def test_tcg_twin_matches_the_formulas(dtype, tol):
-    """K11's twin on six instances: an ordinary step, a model increase
-    (stop 6 keeps the previous iterate), negative curvature (1), the
-    trust-region boundary (2), a met kappa target (3) and one stopped
-    instance that must be left as it is."""
+def _six_instances():
+    """Six tCG states (B = 6, p = 3, n = 7): an ordinary step, a model
+    increase (stop 6 keeps the previous iterate), negative curvature (1),
+    the trust-region boundary (2), a met kappa target (3) and one stopped
+    instance that must be left as it is.  Returns (d, Hd, r, eta, Heta,
+    sc, st) as numpy arrays."""
     rs = np.random.RandomState(0)
     B, p, n = 6, 3, 7
     d = rs.randn(B, p, n)
@@ -337,13 +337,20 @@ def test_tcg_twin_matches_the_formulas(dtype, tol):
     st = np.zeros((B, 2), dtype=np.int32)
     st[:, 0] = 3
     st[5, 1] = 2                                    # already stopped
+    return d, Hd, r, eta, Heta, sc, st
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_tcg_twin_matches_the_formulas(dtype, tol):
+    """K11's twin on the six instances of _six_instances."""
+    d, Hd, r, eta, Heta, sc, st = _six_instances()
+    B = d.shape[0]
     T = lambda a: torch.tensor(a, dtype=dtype)  # noqa: E731
     td, tHd, tr, teta, tHeta = (T(a) for a in (d, Hd, r, eta, Heta))
     tsc, tst = T(sc), torch.tensor(st)
-    part = K.tcg_dots(td, tHd, tr, tst)
-    e2, H2, r2, part2, xs = K.tcg_update(part, tsc, tst, td, tHd, teta,
-                                         tHeta, tr)
-    w, sc2, st2 = K.tcg_finish(part2, tsc, tst, xs, r2, td, 1)
+    e2, H2, r2, w, sc2, st2 = K.tcg_step(td, tHd, teta, tHeta, tr, tsc, tst,
+                                         1)
     stops = []
     for b in range(B):
         if b == 5:
@@ -361,3 +368,71 @@ def test_tcg_twin_matches_the_formulas(dtype, tol):
     assert stops == [0, 6, 1, 2, 3]
     # model increase: the previous iterate is kept exactly
     assert torch.equal(e2[1], teta[1]) and torch.equal(H2[1], tHeta[1])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("geometry", ["oblique", "masked", "instance",
+                                      "instance_masked"])
+def test_tcg_fused_twin_projects_the_next_direction(geometry, dtype, tol):
+    """K11's step with the tangent projection (the tCG of the oblique and
+    masked-product manifolds) against the JAX tCG body followed by the
+    projection w - Y (colsum(Y w) mask), and bit for bit against the
+    composition it replaces: the three passes' twins, then the manifold's
+    own tangent map (K2 proj).  ``instance``: the six states of
+    _six_instances with the instance stride (model increase, negative
+    curvature, boundary, met target, one stopped, whose direction is
+    never read again); otherwise B = 1, the ordinary step."""
+    d, Hd, r, eta, Heta, sc, st = _six_instances()
+    if not geometry.startswith("instance"):
+        d, Hd, r, eta, Heta, sc, st = (a[:1] for a in
+                                       (d, Hd, r, eta, Heta, sc, st))
+    B, p, n = d.shape
+    rs = np.random.RandomState(1)
+    Y = rs.randn(B, p, n)
+    Y /= np.linalg.norm(Y, axis=1, keepdims=True)
+    mask = np.ones(n)
+    if geometry.endswith("masked"):
+        mask[[1, 4, 5]] = 0.0
+    T = lambda a: torch.tensor(a, dtype=dtype)  # noqa: E731
+    tvecs = [T(a) for a in (d, Hd, eta, Heta, r)]
+    tsc, tst, tY = T(sc), torch.tensor(st), T(Y)
+    if geometry.endswith("masked"):
+        M = MaskedProduct(mask, "cpu")
+        tmask = M.tangent_cols(tY)
+    else:
+        M, tmask = Oblique, None
+        assert Oblique.tangent_cols(tY) is None
+    got = K.tcg_step(*[t.clone() for t in tvecs], tsc, tst, 1, tY, tmask)
+    # the composition: dots, update, finish, then M.tangent
+    td, tHd, teta, tHeta, tr = tvecs
+    part = K.tcg_dots_plain(td, tHd, tr, tst)
+    e2, H2, r2, part2, xs = K.tcg_update_plain(part, tsc, tst, td, tHd,
+                                               teta, tHeta, tr)
+    w, sc2, st2 = K.tcg_finish_plain(part2, tsc, tst, xs, r2, td, 1)
+    comp = (e2, H2, r2, M.tangent(tY, w), sc2, st2)
+    for g, c in zip(got, comp):
+        assert torch.equal(g, c)
+    e2, H2, r2, dn, sc2, st2 = got
+    for b in range(B):
+        if st[b, 1] != 0:
+            for g, ref in ((e2[b], eta[b]), (H2[b], Heta[b]),
+                           (r2[b], r[b]), (sc2[b], sc[b])):
+                np.testing.assert_array_equal(g.numpy(), T(ref).numpy())
+            assert st2[b].tolist() == st[b].tolist()
+            continue
+        ref = list(_tcg_reference(d[b], Hd[b], r[b], eta[b], Heta[b], sc[b],
+                                  3, 1))
+        wb = ref[3]
+        ref[3] = wb - Y[b] * (np.sum(Y[b] * wb, axis=0) * mask)
+        for g, want in zip((e2[b], H2[b], r2[b], dn[b], sc2[b]), ref):
+            assert _rel(g.double().numpy(), np.asarray(want)) <= tol
+        assert tuple(st2[b].tolist()) == ref[5]
+        # the next direction is tangent on the oblique columns
+        tang = np.sum(Y[b] * dn[b].double().numpy(), axis=0)[mask > 0]
+        assert np.max(np.abs(tang)) <= 100 * tol * max(1.0,
+                                                       np.abs(wb).max())
+        # a masked column is left as r + beta d
+        off = mask == 0
+        if off.any():
+            assert _rel(dn[b].double().numpy()[:, off], wb[:, off]) <= tol

@@ -1,4 +1,4 @@
-"""Kernel build and launch plumbing of manisdp_tpu_torch, and K1-K10 on
+"""Kernel build and launch plumbing of manisdp_tpu_torch, and K1-K11 on
 the card against their plain twins.
 
 This file imports no jax, so the card tests run on a machine without it:
@@ -70,7 +70,7 @@ def test_reset_launches():
     K.LAUNCHES["symmom_adjoint"] = 8
     K.OBLIQUE_LAUNCHES["masked"] = 9
     K.INSTANCE_LAUNCHES["symcoo_spmm"] = 10
-    K.TCG_LAUNCHES["finish"] = 11
+    K.TCG_LAUNCHES["projected"] = 11
     K.LAUNCHES["tcg_step"] = 12
     K.reset_launches()
     assert K.LAUNCHES == {"symcoo_spmm": 0, "oblique_cols": 0,
@@ -86,7 +86,7 @@ def test_reset_launches():
                                                               "masked"}
     assert set(K.SYMDUAL_LAUNCHES) == {"adjoint", "sym_factor", "sym_mat"}
     assert set(K.INSTANCE_LAUNCHES) == {"symcoo_spmm", "oblique_cols"}
-    assert set(K.TCG_LAUNCHES) == {"dots", "update", "finish"}
+    assert set(K.TCG_LAUNCHES) == {"projected"}
     for counts in (K.SPMM_LAUNCHES, K.CSR_LAUNCHES, K.MASKED_LAUNCHES,
                    K.OBLIQUE_LAUNCHES, K.SYMDUAL_LAUNCHES,
                    K.INSTANCE_LAUNCHES, K.TCG_LAUNCHES):
@@ -282,11 +282,15 @@ def test_instance_modes_match_twins_on_card(cuda_device, dtype, p_pad):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("shape", [(1, 48, 3000), (4, 8, N)])
-def test_tcg_step_matches_twin_on_card(cuda_device, dtype, shape):
-    """K11's three passes against their twins: random vectors and scalar
-    states, one instance stopped (left as it is), one with a model
-    increase; a second call on the same inputs is bitwise equal."""
+@pytest.mark.parametrize("shape", [(1, 48, 3000), (4, 8, N), (3, 192, 77)])
+@pytest.mark.parametrize("tangent", [None, "oblique", "masked"])
+def test_tcg_step_matches_twin_on_card(cuda_device, dtype, shape, tangent):
+    """K11's one-launch step against its twin (the three passes' twins,
+    then with a tangent K2's proj of the next direction): random vectors
+    and scalar states, one instance stopped (left as it is), one with a
+    model increase; a second call on the same inputs is bitwise equal.
+    At p = 192 the f64 projection stages its column tiles in two row
+    chunks."""
     tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
     B = shape[0]
     gen = torch.Generator(device=cuda_device)
@@ -304,31 +308,74 @@ def test_tcg_step_matches_twin_on_card(cuda_device, dtype, shape):
     if B > 1:
         sc[1, 3] *= 4.0                             # model increase
         st[B - 1, 1] = 2                            # stopped
+    Y = mask = None
+    if tangent is not None:
+        Y = K.oblique_cols_plain(rnd(*shape), None, "renormalize")
+    if tangent == "masked":
+        mask = (torch.rand(shape[2], generator=gen, device=cuda_device) <
+                0.5).to(dtype)
 
-    def run(f_dots, f_update, f_finish):
+    def run(step):
         vecs = [t.clone() for t in (d, Hd, eta, Heta, r)]
-        part = f_dots(vecs[0], vecs[1], vecs[4], st)
-        e2, H2, r2, part2, xs = f_update(part, sc, st, *vecs)
-        w, sc2, st2 = f_finish(part2, sc, st, xs, r2, vecs[0], 1)
-        return e2, H2, r2, w, sc2, st2
+        return step(*vecs, sc, st, 1, Y, mask)
 
-    got = run(K.tcg_dots, K.tcg_update, K.tcg_finish)
-    ref = run(K.tcg_dots_plain, K.tcg_update_plain, K.tcg_finish_plain)
+    before = (K.LAUNCHES["tcg_step"], K.TCG_LAUNCHES["projected"])
+    got = run(K.tcg_step)
+    ref = run(K.tcg_step_plain)
     # a stopped instance's next direction is never read: the kernel leaves
     # it, the twin computes it
     act = slice(0, B - 1) if B > 1 else slice(0, 1)
-    for g, f in zip(got[:5], ref[:5]):
+    for g, f in zip(got[:4], ref[:4]):
         assert g.device.type == "cuda"
         assert _rel(g[act], f[act]) <= tol
+    assert _rel(got[4], ref[4]) <= tol
     assert torch.equal(got[5], ref[5])
     if B > 1:
         for g, x in ((got[0], eta), (got[1], Heta), (got[2], r)):
             assert torch.equal(g[B - 1], x[B - 1])
+        assert torch.equal(got[4][B - 1], sc[B - 1])
         assert torch.equal(got[0][1], eta[1])       # stop 6 keeps eta
-    again = run(K.tcg_dots, K.tcg_update, K.tcg_finish)
+    again = run(K.tcg_step)
     for a, g in zip(again, got):
         assert torch.equal(a, g)
     torch.cuda.synchronize()
+    assert K.LAUNCHES["tcg_step"] - before[0] == 2
+    assert K.TCG_LAUNCHES["projected"] - before[1] == (2 if tangent else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("p", [3, 8, 40, 48, 136, 192, 520])
+def test_oblique_tiles_match_twin_on_card(cuda_device, dtype, p):
+    """K2's column tiles in every mode against the twin: n not a multiple
+    of the tile's width and odd (an f32 row pitch that is no multiple of
+    16 bytes), with and without the mask, single and with the instance
+    stride; every call repeated bit for bit.  At p = 520 the f64 tile is
+    staged in row chunks."""
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(7)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=dtype,  # noqa: E731
+                                 device=cuda_device)
+    before = K.LAUNCHES["oblique_cols"]
+    calls = 0
+    for shape in ((p, 333), (3, p, 301)):
+        n = shape[-1]
+        Y = K.oblique_cols_plain(rnd(*shape), None, "renormalize")
+        H, U, g = rnd(*shape), rnd(*shape), rnd(*shape[:-2], n)
+        mask = (torch.rand(n, generator=gen, device=cuda_device) <
+                0.5).to(dtype)
+        for m in (None, mask):
+            for mode, u, kw in (("proj", H, {}), ("proj", H, dict(v=U, g=g)),
+                                ("retr", H, {}), ("renormalize", None, {})):
+                got = K.oblique_cols(Y, u, mode, mask=m, **kw)
+                ref = K.oblique_cols_plain(Y, u, mode, mask=m, **kw)
+                assert _rel(got, ref) <= tol
+                assert torch.equal(got, K.oblique_cols(Y, u, mode, mask=m,
+                                                       **kw))
+                calls += 2
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["oblique_cols"] - before == calls
 
 
 @pytest.mark.cuda
@@ -343,6 +390,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         K.symcoo_spmm(Y, C, "hess", B=Y[:2], eG=Y[0])     # B shape
     with pytest.raises(ValueError, match="devices"):
         K.symcoo_spmm(Y.cpu(), C, "plain")                # CPU / CUDA mix
+    v = Y[None]
+    sc = torch.zeros((1, 8), dtype=torch.float64, device=cuda_device)
+    st = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
+    vecs = [v.clone() for _ in range(5)]
+    with pytest.raises(ValueError, match="vectors of shape"):
+        K.tcg_step(v.transpose(1, 2), *vecs[1:], sc, st, 1)
+    with pytest.raises(ValueError, match="mask goes with Y"):
+        K.tcg_step(*vecs, sc, st, 1, None, Y[0])
+    with pytest.raises(ValueError, match="Y must be"):
+        K.tcg_step(*vecs, sc, st, 1, Y)                   # not (B, p, n)
 
 
 def _constraint_op(device, n=N, m=60, seed=3):

@@ -1,6 +1,7 @@
 """A/B timing and bit comparison of the port's kernels K1
-(``symcoo_spmm``), K7 (``symdual_apply``), K9 (``symmom_apply``) and K10
-(``symmom_adjoint``) on one card, across source trees.
+(``symcoo_spmm``), K2 (``oblique_cols``), K7 (``symdual_apply``), K9
+(``symmom_apply``), K10 (``symmom_adjoint``) and K11 (the tCG vector
+step) on one card, across source trees.
 
 Each tree's kernels are built and run in a process of its own, in the
 order given, on inputs made from fixed seeds on the card (so every
@@ -11,8 +12,27 @@ process sees the same bits):
     at p 8 / 16 / 24, instance plain / cost / hess on the sparse batch's
     first bucket (8 grids of 60 x 50, n_pad 3,072) at p 40 / 48;
   - K9 and K7 / K10 at q = 60 (K10 with NaN in every don't-care slot);
-in f32 and f64.  Compare two trees in turns on one card, e.g. the parent
-and the change:
+  - K2: every mode (``proj``, ``proj_eG``, ``retr``, ``renormalize``) at
+    G67 (n = 10^4) at p_pad 8 / 24 / 40 / 48; the instance stride at the
+    sparse batch's shape (8 x 3,072) at p 40 / 48; every masked mode at
+    the chain's shape (p 8, N = 4,220); ``proj_eG`` at the q = 60 dual's
+    shape (p 192, n = 3,662);
+  - K11: one tCG step at the sparse batch's shape (8 x 48 x 3,072) and at
+    G67's (1 x 40 x 10^4), without and with the tangent projection (and
+    the batch with a column mask), and a batch whose instances include a
+    stopped and an idle one.  On a tree without ``kernels.tcg_step`` the
+    step is its three passes followed by K2 ``proj``.  The hash covers
+    eta, Heta, r, the scalar state and the next direction of the active
+    instances (a stopped instance's is never read);
+in f32 and f64.  Each tree also solves the G67 stand-in and the sparse
+batch's first bucket (their objectives hashed too) and reports the host
+and the device ms per tCG iteration at their solutions
+(chip_smoke.tcg_iteration_ms).  Last, it solves chip_smoke.py's phase 15
+instance (the quartic over the sphere, d = 30; K11 without the
+projection) counting its tCG steps by shape, times K11 at each of those
+shapes (``tcg_step.qs30.step``) and reports the solve's K11 ms (steps
+times ms, summed) beside the same sum of bounds.  Compare two trees in
+turns on one card, e.g. the parent and the change:
 
     git archive <parent> | (mkdir -p build/parent && tar -x -C build/parent)
     python3 tools/kernel_ab.py --trees build/parent . . build/parent \\
@@ -39,6 +59,9 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 Q = 60
+# the chain's N (clique_chain(20, 20): 20 blocks of 211) and the q = 60
+# SOS dual's expanded n
+CHAIN_N, DUAL_N = 4220, 3662
 PATTERN = os.path.join(ROOT, "build", "kernel_ab", "mc12000_pattern.npz")
 
 
@@ -96,13 +119,17 @@ def child(tree):
     cases = []
     dtypes = (torch.float32, torch.float64)
 
-    def run(name, dt, fn, twin, args, kw, **info):
+    def run(name, dt, fn, twin, args, kw, timed=None, **info):
+        """``timed``: the call to time, where ``fn`` does more than the
+        kernel (K11's fresh copies of its in-place vectors)."""
         got, ref = fn(*args, **kw), twin(*args, **kw)
         _, rel_err = cs.max_err(got, ref)
+        timed = timed or (lambda: fn(*args, **kw))
         cases.append(dict(
             case=name, dtype=str(dt)[6:], **info, rel_err=rel_err,
-            hash=digest(got), ms=cs.time_ms(lambda: fn(*args, **kw)),
-            passes_ms=cs.pass_times(lambda: fn(*args, **kw))))
+            hash=digest(got), ms=cs.time_ms(timed),
+            passes_ms=cs.pass_times(timed)))
+        return cases[-1]
 
     k1 = (K.symcoo_spmm, K.symcoo_spmm_plain)
     # K1 at G67
@@ -187,7 +214,208 @@ def child(tree):
                 ("symmom_adjoint.es_vals", K.symmom_adjoint,
                  K.symmom_adjoint_plain, (y, Q), dict(base=C, alpha=0.37))):
             run(name, dt, fn, twin, args, kw, q=Q)
-    print(json.dumps(dict(tree=tree, cases=cases)), flush=True)
+    k2_cases(cs, K, rnd, dtypes, run)
+    k11_cases(cs, K, rnd, dtypes, run, dev)
+    solves, host = solve_points(cs, dev)
+    solves["qs30"], steps = qs30_steps(cs, dev)
+    qs30 = k11_qs30_cases(cs, K, rnd, run, dev, steps)
+    print(json.dumps(dict(tree=tree, cases=cases, solves=solves,
+                          tcg_iteration=host, qs30_k11=dict(
+                              qs30, by_shape=steps))), flush=True)
+
+
+def solve_points(cs, dev):
+    """The G67 stand-in through solve_maxcut_unitdiag and the sparse
+    batch's first bucket through solve_maxcut_batch (p0 = 40): their
+    objectives (hex, to compare bits across trees) and iteration counts,
+    and the host / device ms per tCG iteration at their solutions."""
+    import torch
+    from manisdp_tpu_torch import solve_maxcut_batch, solve_maxcut_unitdiag
+    g67 = cs.g67_standin(0)
+    single = solve_maxcut_unitdiag(g67, p0=40, device=dev, verbose=False)
+    grids = cs.batch_graphs()[1][:cs.BATCH_GRID_B]
+    batch = solve_maxcut_batch(grids, p0=40, device=dev, verbose=False)
+    solves = dict(
+        g67=dict(obj=single.obj.hex(), outer=single.iterations,
+                 hess_calls=single.hess_calls),
+        batch=[dict(obj=r.obj.hex(), outer=r.iterations,
+                    hess_calls=r.hess_calls) for r in batch])
+    host = [cs.tcg_iteration_ms([g67], [single.Y], cs.HOT_P_PAD, 10 ** 4,
+                                torch.float32, dev),
+            cs.tcg_iteration_ms(grids, [r.Y for r in batch],
+                                cs.BATCH_P_PADS[-1], cs.BATCH_N_PAD,
+                                torch.float64, dev)]
+    return solves, host
+
+
+def k2_cases(cs, K, rnd, dtypes, run):
+    """K2 at the G67, batch, chain and q = 60 dual shapes."""
+    k2 = (K.oblique_cols, K.oblique_cols_plain)
+
+    def modes(Y, H, U, g, mask=None):
+        m = {} if mask is None else dict(mask=mask)
+        return (("proj", (Y, H, "proj"), m),
+                ("proj_eG", (Y, H, "proj"), dict(v=U, g=g, **m)),
+                ("retr", (Y, H, "retr"), m),
+                ("renormalize", (Y + H, None, "renormalize"), m))
+
+    def inputs(shape, dt):
+        Y = K.oblique_cols_plain(rnd(*shape).to(dt), None, "renormalize")
+        return (Y, rnd(*shape).to(dt), rnd(*shape).to(dt),
+                rnd(*shape[:-2], shape[-1]).to(dt))
+
+    for dt in dtypes:
+        for p in cs.P_PADS:
+            for mode, args, kw in modes(*inputs((p, 10 ** 4), dt)):
+                run(f"oblique_cols.g67.{mode}", dt, *k2, args, kw, p=p)
+        for p in cs.BATCH_P_PADS:
+            for mode, args, kw in modes(*inputs(
+                    (cs.BATCH_GRID_B, p, cs.BATCH_N_PAD), dt)):
+                run(f"oblique_cols.batch.instance_{mode}", dt, *k2, args,
+                    kw, p=p, instances=cs.BATCH_GRID_B)
+        n = CHAIN_N
+        Y, H, U, g = inputs((8, n), dt)
+        mask = (rnd(n) > 0).to(dt)
+        for mode, args, kw in modes(Y, H, U, g, mask):
+            run(f"oblique_cols.chain.masked_{mode}", dt, *k2, args, kw, p=8)
+        Y, H, U, g = inputs((192, DUAL_N), dt)
+        mode, args, kw = modes(Y, H, U, g)[1]
+        run("oblique_cols.q60.proj_eG", dt, *k2, args, kw, p=192)
+
+
+def k11_step(K):
+    """The tree's one tCG vector step, (d, Hd, eta, Heta, r, sc, st,
+    mininner, Y, mask) -> (eta, Heta, r, d, sc, st): ``tcg_step``, or on
+    a tree without it the three passes and K2 ``proj``."""
+    if hasattr(K, "tcg_step"):
+        return K.tcg_step, K.tcg_step_plain
+
+    def compose(dots, update, finish, proj):
+        def step(d, Hd, eta, Heta, r, sc, st, mininner, Y=None, mask=None):
+            part = dots(d, Hd, r, st)
+            eta, Heta, r, part2, xs = update(part, sc, st, d, Hd, eta, Heta,
+                                             r)
+            d, sc, st = finish(part2, sc, st, xs, r, d, mininner)
+            if Y is not None:
+                d = proj(Y, d, "proj", mask=mask)
+            return eta, Heta, r, d, sc, st
+        return step
+
+    return (compose(K.tcg_dots, K.tcg_update, K.tcg_finish,
+                    K.oblique_cols),
+            compose(K.tcg_dots_plain, K.tcg_update_plain,
+                    K.tcg_finish_plain, K.oblique_cols_plain))
+
+
+def k11_inputs(rnd, shape, dt):
+    """A tCG state at one (B, p, n) shape: d, Hd (d times a positive
+    diagonal), eta, Heta, r (with <d, r> > 0) and the scalar state sc of
+    a first trust region."""
+    import numpy as np
+    import torch
+    d = rnd(*shape).to(dt)
+    Hd = d * (1.0 + rnd(*shape).abs().to(dt))
+    r = rnd(*shape).to(dt)
+    r = r * torch.sign(torch.sum(d * r, dim=(1, 2)))[:, None, None]
+    eta, Heta = rnd(*shape).to(dt), rnd(*shape).to(dt)
+    r_r = torch.sum(r * r, dim=(1, 2))
+    z = torch.zeros_like(r_r)
+    sc = torch.stack([z, z + 0.2, r_r * 1.5, r_r, z,
+                      z + np.pi ** 2 * shape[2] / 64, z, z + 1], 1)
+    return (d, Hd, eta, Heta, r), sc
+
+
+def k11_run(run, name, kern, twin, vecs, sc, st, Y, mask, **info):
+    """One K11 case: the kernel and the twin on fresh copies of ``vecs``
+    (hashing eta, Heta, r, sc, st and the active instances' d), timed on
+    one set of buffers, whose values drift."""
+    act = st[:, 1] == 0
+    bufs = [t.clone() for t in vecs]
+
+    def call(f):
+        e2, H2, r2, d2, sc2, st2 = f(*[t.clone() for t in vecs], sc, st, 1,
+                                     Y, mask)
+        return e2, H2, r2, sc2, st2.to(e2.dtype), d2[act]
+
+    return run(name, vecs[0].dtype, lambda: call(kern), lambda: call(twin),
+               (), {}, timed=lambda: kern(*bufs, sc, st, 1, Y, mask), **info)
+
+
+def k11_cases(cs, K, rnd, dtypes, run, dev):
+    """K11 at the batch's and G67's shapes, without and with the tangent
+    projection; the vectors are fresh copies for every call."""
+    import torch
+    kern, twin = k11_step(K)
+    for shape in ((cs.BATCH_GRID_B, cs.BATCH_P_PADS[-1], cs.BATCH_N_PAD),
+                  (1, cs.HOT_P_PAD, 10 ** 4)):
+        B, p, n = shape
+        for dt in dtypes:
+            vecs, sc = k11_inputs(rnd, shape, dt)
+            Y = K.oblique_cols_plain(rnd(*shape).to(dt), None, "renormalize")
+            mask = (rnd(n) > 0).to(dt)
+            st = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+            variants = [("step", None, None, st), ("step_proj", Y, None, st)]
+            if B > 1:
+                idle = st.clone()
+                idle[1, 1], idle[B - 1, 1] = 2, 7     # stopped, idle
+                variants += [("step_proj_masked", Y, mask, st),
+                             ("step_proj_stopped", Y, None, idle)]
+            for name, Yv, mv, stv in variants:
+                k11_run(run, f"tcg_step.{'batch' if B > 1 else 'g67'}.{name}",
+                        kern, twin, vecs, sc, stv, Yv, mv, p=p, instances=B)
+
+
+def qs30_steps(cs, dev):
+    """chip_smoke's phase 15 solve, the quartic over the sphere at d = 30
+    through solve_dual_sdp (the Euclidean manifold: K11 without the
+    projection), with its tCG vector steps counted by shape: the solve's
+    objective (hex) and iterations, and [(B, p, n), dtype, steps] by
+    shape."""
+    import numpy as np
+    from manisdp_tpu_torch import solve_dual_sdp
+    from manisdp_tpu_torch.core import trustregions as TRm
+    # the tree's first kernel call of a tCG step takes d first
+    name = "tcg_step" if hasattr(TRm, "tcg_step") else "tcg_dots"
+    fn, steps = getattr(TRm, name), {}
+
+    def spy(d, *a):
+        key = (tuple(d.shape), str(d.dtype)[6:])
+        steps[key] = steps.get(key, 0) + 1
+        return fn(d, *a)
+
+    A, b, c, mb, f, dAAt = cs.qs_instance(cs.QS_D)
+    maxb = float(np.max(np.abs(b)))
+    setattr(TRm, name, spy)
+    try:
+        res = solve_dual_sdp(A, b / maxb, c, mb, f=f, dAAt=dAAt, device=dev,
+                             verbose=False, **cs.QS_KW)
+    finally:
+        setattr(TRm, name, fn)
+    return (dict(obj=res.obj.hex(), outer=res.iterations,
+                 hess_calls=res.hess_calls),
+            [[list(k[0]), k[1], v] for k, v in sorted(steps.items())])
+
+
+def k11_qs30_cases(cs, K, rnd, run, dev, steps):
+    """K11 without the projection at every tCG shape of the qs-d30 solve,
+    and the solve's K11 time: the steps at each shape times its ms, beside
+    the same sum of bounds (one read of d, Hd, eta, Heta, r and one write
+    of eta, Heta, r, d; chip_smoke.bound)."""
+    import torch
+    kern, twin = k11_step(K)
+    total = bound = 0.0
+    for shape, dtype, count in steps:
+        dt = getattr(torch, dtype)
+        vecs, sc = k11_inputs(rnd, tuple(shape), dt)
+        st = torch.zeros((shape[0], 2), dtype=torch.int32, device=dev)
+        case = k11_run(run, "tcg_step.qs30.step", kern, twin, vecs, sc, st,
+                       None, None, p=shape[1], n=shape[2], steps=count)
+        L = vecs[0].numel()
+        total += count * case["ms"]
+        bound += count * cs.bound(9.0 * L * vecs[0].element_size(),
+                                  14.0 * L, dtype)[0]
+    return dict(steps=sum(c for *_, c in steps), k11_ms=total,
+                bound_ms=bound)
 
 
 def summary(runs):
@@ -226,7 +454,15 @@ def main(argv=None):
         print(json.dumps(runs[-1]), flush=True)
     same = summary(runs)
     print(json.dumps(dict(bit_equal={k: v["equal"] for k, v in
-                                     same.items()})), flush=True)
+                                     same.items()},
+                          solves_equal=all(r["solves"] == runs[0]["solves"]
+                                           for r in runs),
+                          tcg_iteration=[[r["tree"], r["tcg_iteration"]]
+                                         for r in runs],
+                          qs30_k11=[[r["tree"], r["qs30_k11"]["k11_ms"],
+                                     r["qs30_k11"]["bound_ms"],
+                                     r["qs30_k11"]["steps"]]
+                                    for r in runs])), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
