@@ -1075,12 +1075,29 @@ def qs_instance(d):
     return qssos(d, coe)
 
 
-def phase_dual_kernels(top64, dop64, iab64, device, seed):
-    """K7, K8's three modes and K2's eG epilogue at the expanded q = 60
-    shape, K4 on the original-basis DualOp and on the iAB pair, f64 and
-    f32, against their twins."""
+def symdual_class_map(q, device):
+    """The int64 (n~, n~) map from an entry of the SOS-dual adjoint W to
+    its slot of the flat y = (y0, y1, Y2, Y3, Y4): the twin on y_flat =
+    arange, exact in f64 (the length is < 2^53).  torch.take(y_flat, map)
+    is then the unscaled adjoint: K8's library yardstick."""
     import torch
     from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch.ops.symdual import _split
+    idx = torch.arange(1 + q + q * q + q ** 3 + q ** 4, dtype=torch.float64,
+                       device=device)
+    return K.symdual_adjoint_plain(_split(idx, q), q).long()
+
+
+def phase_dual_kernels(top64, dop64, iab64, device, seed):
+    """K7, K8's modes and K2's eG epilogue at the expanded q = 60 shape,
+    K4 on the original-basis DualOp and on the iAB pair, f64 and f32,
+    against their twins.  K8 takes y as views of one flat buffer (K7's
+    output layout) with NaN in every don't-care slot; its unscaled
+    adjoint is timed beside torch.take of the class map."""
+    import torch
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch.ops.symdual import (_dontcare_mask, _flatten,
+                                               _split)
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -1101,11 +1118,15 @@ def phase_dual_kernels(top64, dop64, iab64, device, seed):
               iab_rmat=row_profile(iab64.col_ptr),
               **{f"skew_{k}": row_profile(c["ptr"])
                  for k, c in skew.items()}))
+    cls = symdual_class_map(q, device)
+    dontcare = torch.as_tensor(_dontcare_mask(q), device=device)
     for dt in (torch.float64, torch.float32):
         info = dict(dtype=str(dt)[6:], q=q, n=n)
         top = top64.astype(dt)
         M, Xm = M64.to(dt), B64.to(dt)
-        y = K.symdual_apply_plain(M, q)
+        y_flat = _flatten(*K.symdual_apply_plain(M, q))
+        y_flat[dontcare] = float("nan")
+        y = _split(y_flat, q)
         n2 = float(n * n)
         k7 = (K.symdual_apply, K.symdual_apply_plain)
         k8 = (K.symdual_adjoint, K.symdual_adjoint_plain)
@@ -1113,7 +1134,8 @@ def phase_dual_kernels(top64, dop64, iab64, device, seed):
             ("symdual_apply", "apply", k7, (M, q), {}, (M,), n2),
             ("symdual_apply", "y_step", k7, (M, q),
              dict(scale=top.idAAt, shift=top.Ac), (M,), n2),
-            ("symdual_adjoint", "adjoint", k8, (y, q),
+            ("symdual_adjoint", "adjoint", k8, (y, q), {}, y, 0.0),
+            ("symdual_adjoint", "adjoint_scaled", k8, (y, q),
              dict(scale=top.idAAt), y, n2),
             ("symdual_adjoint", "residual", k8, (y, q),
              dict(B1=M, c1=-1.0, B2=Xm, c2=-1.0 / sigma), (*y, M, Xm),
@@ -1132,10 +1154,22 @@ def phase_dual_kernels(top64, dop64, iab64, device, seed):
                     (Y, q, renorm), {}, (Y,), 4.0 * p * n))
         for name, mode, (fn, twin), args, kw, reads, flops in cases:
             k7_case = name == "symdual_apply"
+            take = mode == "adjoint"
             check_case(rows, name, mode, fn, twin, args, kw, tol[dt],
-                       reads=reads, flops=flops, repeat=k7_case,
-                       passes=k7_case, **info)
-        del y
+                       reads=reads, flops=flops, repeat=True,
+                       passes=k7_case,
+                       library=(lambda: torch.take(y_flat, cls)) if take
+                       else None, **info)
+            if take:
+                # the gather reads the 8-byte index map besides
+                rows[-1].update(
+                    library_index_mb=cls.numel() * cls.element_size() / 1e6,
+                    library_bit_equal=bool(torch.equal(
+                        torch.take(y_flat, cls), fn(*args, **kw))))
+                if not rows[-1]["library_bit_equal"]:
+                    raise AssertionError("K8 adjoint differs from "
+                                         f"torch.take: {rows[-1]}")
+        del y, y_flat
         # K2 proj with the Hessian's eG term at the solve's widest factor
         Y, H, U = (rnd(192, n).to(dt) for _ in range(3))
         g = rnd(n).to(dt)
@@ -1356,7 +1390,8 @@ def profile_breakdown(fn):
              ("K7 symdual_apply", ("symdual_stage", "symdual_sym<",
                                    "symdual_y4")),
              ("K8 symdual_adjoint", ("adjoint_kernel", "sym_factor_kernel",
-                                     "sym_mat_kernel")),
+                                     "sym_mat_pair_kernel",
+                                     "sym_mat_tile_kernel")),
              ("K2 oblique_cols", ("oblique_cols", "oblique_tiles")),
              ("K11 tcg_step", ("tcg_",)),
              ("K4 csr_gather", ("csr_gather",)),
@@ -1502,6 +1537,10 @@ def dual_phases(args, device, top60, dop60, q60_data, bqp_label):
         if r["launches"][key] <= 0:
             raise AssertionError(f"the bqp60 expanded solve never launched "
                                  f"{key}")
+    for mode in ("adjoint", "residual"):
+        if r["symdual_modes"][mode] <= 0:
+            raise AssertionError(f"the bqp60 expanded solve never launched "
+                                 f"K8 {mode}")
     _, prof = profile_breakdown(
         lambda: solve_bqp_sos_dual(Q, e, q, device=device, verbose=False,
                                    **BQP_KW))
@@ -2752,9 +2791,14 @@ def run_phases(args, jobs):
         ((12,), lambda: (
             "symdual_adjoint.adjoint",
             pick(dual_rows, "symdual_adjoint", "adjoint"),
-            ("adjoint", "residual"), "symdual_adjoint.cu",
+            ("adjoint", "adjoint_scaled"), "symdual_adjoint.cu",
             "ops/symdual.py:174",
             rec["dual"]["bqp60_expanded"]["symdual_modes"]["adjoint"])),
+        ((12,), lambda: (
+            "symdual_adjoint.residual",
+            pick(dual_rows, "symdual_adjoint", "residual", dtype="float64"),
+            ("residual",), "symdual_adjoint.cu", "ops/symdual.py:174",
+            rec["dual"]["bqp60_expanded"]["symdual_modes"]["residual"])),
         ((12,), lambda: (
             "symdual_adjoint.sym_factor",
             pick(dual_rows, "symdual_adjoint", "sym_factor_p192_renorm",

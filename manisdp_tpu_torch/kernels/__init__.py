@@ -67,8 +67,10 @@ CSR_LAUNCHES = {"gather": 0, "scatter_pos": 0}
 MASKED_MODES = {"apply": 0, "aat": 1, "axpy": 2}
 # K5's launches by mode
 MASKED_LAUNCHES = {mode: 0 for mode in MASKED_MODES}
-# K8's launches by mode (their sum is LAUNCHES["symdual_adjoint"])
-SYMDUAL_LAUNCHES = {"adjoint": 0, "sym_factor": 0, "sym_mat": 0}
+# K8's launches by mode (their sum is LAUNCHES["symdual_adjoint"]);
+# "residual" is the adjoint given B1 or B2
+SYMDUAL_LAUNCHES = {"adjoint": 0, "residual": 0, "sym_factor": 0,
+                    "sym_mat": 0}
 # K1's and K2's launches in instance mode (also counted above)
 INSTANCE_LAUNCHES = {"symcoo_spmm": 0, "oblique_cols": 0}
 # K11's launches (LAUNCHES["tcg_step"]) that also projected the next
@@ -726,8 +728,6 @@ def symdual_adjoint(y, q: int, scale=None, B1=None, c1=0.0, B2=None,
     dt = y[4].dtype
     _check_dtype(dt, *y, scale, B1, B2)
     n = _qn(q)
-    if n > 65535:
-        raise ValueError(f"n~ = {n} exceeds the kernel's grid (q <= 254)")
     shapes = [(), (q,), (q, q), (q, q, q), (q, q, q, q)]
     if any(t.numel() != max(1, q ** d) or (d and tuple(t.shape) != s)
            for d, (t, s) in enumerate(zip(y, shapes))):
@@ -747,7 +747,8 @@ def symdual_adjoint(y, q: int, scale=None, B1=None, c1=0.0, B2=None,
     if err != 0:
         raise RuntimeError(f"symdual_adjoint launch failed: CUDA error {err}")
     LAUNCHES["symdual_adjoint"] += 1
-    SYMDUAL_LAUNCHES["adjoint"] += 1
+    SYMDUAL_LAUNCHES["adjoint" if B1 is None and B2 is None
+                     else "residual"] += 1
     return out
 
 
@@ -795,8 +796,6 @@ def symdual_sym_mat(M, q: int):
     if M.shape != (n, n) or not M.is_contiguous():
         raise ValueError(f"M must be contiguous ({n}, {n}), got "
                          f"{tuple(M.shape)}")
-    if n > 65535:
-        raise ValueError(f"n~ = {n} exceeds the kernel's grid (q <= 254)")
     out = torch.empty_like(M)
     fn = getattr(build(), f"symdual_sym_mat_{_SUFFIX[M.dtype]}")
     err = fn(M.data_ptr(), q, out.data_ptr(), _stream(M))

@@ -84,7 +84,8 @@ def test_reset_launches():
     assert set(K.CSR_LAUNCHES) == {"gather", "scatter_pos"}
     assert set(K.OBLIQUE_LAUNCHES) == set(K.OBLIQUE_MODES) | {"proj_eG",
                                                               "masked"}
-    assert set(K.SYMDUAL_LAUNCHES) == {"adjoint", "sym_factor", "sym_mat"}
+    assert set(K.SYMDUAL_LAUNCHES) == {"adjoint", "residual", "sym_factor",
+                                       "sym_mat"}
     assert set(K.INSTANCE_LAUNCHES) == {"symcoo_spmm", "oblique_cols"}
     assert set(K.TCG_LAUNCHES) == {"projected"}
     for counts in (K.SPMM_LAUNCHES, K.CSR_LAUNCHES, K.MASKED_LAUNCHES,
@@ -621,10 +622,15 @@ def _dontcare(q):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("q", [3, 7, 20, 33, 61])
+@pytest.mark.parametrize("q", [3, 7, 18, 20, 33, 60, 61])
 def test_symdual_kernels_match_twins_on_card(cuda_device, dtype, q):
     """K7 (with and without the y-step epilogue) and K8's three modes
-    against their twins; K7's repeated-index slots are 0 in both."""
+    against their twins; K7's repeated-index slots are 0 in both.  q takes
+    every residue mod 4 (so every 16-byte phase of Y4's rows, the output
+    rows and B1 / B2's), and 60, the solves' own; y carries NaN in every
+    don't-care slot, both as views of one flat buffer (K7's output, Y4 at
+    an odd offset) and as separate tensors.  Every K8 call is one launch
+    and repeats bit for bit."""
     from manisdp_tpu_torch.ops.symdual import _flatten
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     n = 2 + q + q * q
@@ -641,21 +647,36 @@ def test_symdual_kernels_match_twins_on_card(cuda_device, dtype, q):
         assert got.device.type == "cuda" and got.dtype == dtype
         assert _rel(got, ref) <= tol
         assert not torch.any(got.cpu()[_dontcare(q)] != 0)
-    y = tuple(rnd(*s) for s in ((), (q,), (q, q), (q, q, q), (q,) * 4))
-    for kw in ({}, dict(scale=scale), dict(B1=B1, c1=-1.0),
-               dict(scale=scale, B1=B1, c1=-1.0, B2=B2, c2=-0.3)):
-        assert _rel(K.symdual_adjoint(y, q, **kw),
-                    K.symdual_adjoint_plain(y, q, **kw)) <= tol
-    for p in (1, 8, 13):
+    assert K.LAUNCHES["symdual_apply"] - before["symdual_apply"] == 2
+    flat = rnd(1 + q + q * q + q ** 3 + q ** 4)
+    flat[_dontcare(q).to(cuda_device)] = float("nan")
+    sizes = [1, q, q * q, q ** 3, q ** 4]
+    parts = torch.split(flat, sizes)
+    views = (parts[0].reshape(()), parts[1], parts[2].view(q, q),
+             parts[3].view(q, q, q), parts[4].view(q, q, q, q))
+    separate = tuple(t.clone() for t in views)
+
+    def once(fn, *args, **kw):
+        start = K.LAUNCHES["symdual_adjoint"]
+        got, again = fn(*args, **kw), fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["symdual_adjoint"] - start == 2
+        assert torch.equal(got, again) and not torch.any(torch.isnan(got))
+        return got
+
+    for y in (views, separate):
+        for kw in ({}, dict(scale=scale), dict(B1=B1, c1=-1.0),
+                   dict(B1=B1, c1=-1.0, B2=B2, c2=-1.0 / 0.37),
+                   dict(scale=scale, B1=B1, c1=-1.0, B2=B2, c2=-0.3)):
+            assert _rel(once(K.symdual_adjoint, y, q, **kw),
+                        K.symdual_adjoint_plain(y, q, **kw)) <= tol
+    for p in (1, 8, 13, 192):
         Y = rnd(p, n)
         for renorm in (True, False):
-            assert _rel(K.symdual_sym_factor(Y, q, renorm),
+            assert _rel(once(K.symdual_sym_factor, Y, q, renorm),
                         K.symdual_sym_factor_plain(Y, q, renorm)) <= tol
-    assert _rel(K.symdual_sym_mat(M, q), K.symdual_sym_mat_plain(M, q)) \
-        <= tol
-    torch.cuda.synchronize()
-    assert K.LAUNCHES["symdual_apply"] - before["symdual_apply"] == 2
-    assert K.LAUNCHES["symdual_adjoint"] - before["symdual_adjoint"] == 11
+    assert _rel(once(K.symdual_sym_mat, M, q),
+                K.symdual_sym_mat_plain(M, q)) <= tol
 
 
 @pytest.mark.cuda

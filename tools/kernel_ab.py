@@ -1,7 +1,7 @@
 """A/B timing and bit comparison of the port's kernels K1
-(``symcoo_spmm``), K2 (``oblique_cols``), K7 (``symdual_apply``), K9
-(``symmom_apply``), K10 (``symmom_adjoint``) and K11 (the tCG vector
-step) on one card, across source trees.
+(``symcoo_spmm``), K2 (``oblique_cols``), K7 (``symdual_apply``), K8
+(``symdual_adjoint``), K9 (``symmom_apply``), K10 (``symmom_adjoint``)
+and K11 (the tCG vector step) on one card, across source trees.
 
 Each tree's kernels are built and run in a process of its own, in the
 order given, on inputs made from fixed seeds on the card (so every
@@ -12,6 +12,9 @@ process sees the same bits):
     at p 8 / 16 / 24, instance plain / cost / hess on the sparse batch's
     first bucket (8 grids of 60 x 50, n_pad 3,072) at p 40 / 48;
   - K9 and K7 / K10 at q = 60 (K10 with NaN in every don't-care slot);
+  - K8 at q = 60: ``adjoint`` plain, scaled and as the residual (B1,
+    B2), y with NaN in every don't-care slot; ``sym_mat``;
+    ``sym_factor`` at p 8 / 64 / 192, with and without renorm;
   - K2: every mode (``proj``, ``proj_eG``, ``retr``, ``renormalize``) at
     G67 (n = 10^4) at p_pad 8 / 24 / 40 / 48; the instance stride at the
     sparse batch's shape (8 x 3,072) at p 40 / 48; every masked mode at
@@ -214,6 +217,7 @@ def child(tree):
                 ("symmom_adjoint.es_vals", K.symmom_adjoint,
                  K.symmom_adjoint_plain, (y, Q), dict(base=C, alpha=0.37))):
             run(name, dt, fn, twin, args, kw, q=Q)
+    k8_cases(K, rnd, dtypes, run, dev)
     k2_cases(cs, K, rnd, dtypes, run)
     k11_cases(cs, K, rnd, dtypes, run, dev)
     solves, host = solve_points(cs, dev)
@@ -246,6 +250,38 @@ def solve_points(cs, dev):
                                 cs.BATCH_P_PADS[-1], cs.BATCH_N_PAD,
                                 torch.float64, dev)]
     return solves, host
+
+
+def k8_cases(K, rnd, dtypes, run, dev):
+    """K8 at q = 60: adjoint plain, scaled and as the dual cost's residual
+    (B1, c1 = -1, B2, c2 = -1/sigma), y as views of one flat buffer (K7's
+    output layout) with NaN in every don't-care slot; sym_mat; sym_factor
+    at p 8 / 64 / 192 with and without renorm."""
+    import torch
+    from manisdp_tpu_torch.ops.symdual import _dontcare_mask, _split
+    n = 2 + Q + Q * Q
+    flat64 = rnd(1 + Q + Q * Q + Q ** 3 + Q ** 4)
+    flat64[torch.as_tensor(_dontcare_mask(Q), device=dev)] = float("nan")
+    M64, X64 = rnd(n, n), rnd(n, n)
+    scale64 = rnd(5).abs() + 0.5
+    Ys64 = {p: rnd(p, n) for p in (8, 64, 192)}
+    adj = (K.symdual_adjoint, K.symdual_adjoint_plain)
+    for dt in dtypes:
+        y = _split(flat64.to(dt), Q)
+        M, X, scale = M64.to(dt), X64.to(dt), scale64.to(dt)
+        for mode, kw in (("adjoint", {}),
+                         ("adjoint_scaled", dict(scale=scale)),
+                         ("residual", dict(B1=M, c1=-1.0, B2=X,
+                                           c2=-1.0 / 0.37))):
+            run(f"symdual_adjoint.{mode}", dt, *adj, (y, Q), kw, q=Q)
+        run("symdual_adjoint.sym_mat", dt, K.symdual_sym_mat,
+            K.symdual_sym_mat_plain, (M, Q), {}, q=Q)
+        for p, Y64 in Ys64.items():
+            for renorm in (True, False):
+                run(f"symdual_adjoint.sym_factor_"
+                    f"{'renorm' if renorm else 'plain'}", dt,
+                    K.symdual_sym_factor, K.symdual_sym_factor_plain,
+                    (Y64.to(dt), Q, renorm), {}, p=p)
 
 
 def k2_cases(cs, K, rnd, dtypes, run):
