@@ -92,14 +92,31 @@ not 0):
      on-card KKT oracle and within 1e-6 of its single-instance solve; the
      sparse batch solved twice must give bit-equal results;
  22. the clique chain at t = 5 through ``solve_multiblock`` twice: equal
-     histories (no float atomics in its reductions).
+     histories (no float atomics in its reductions);
+ 23. the options that run whole solves or LOBPCG stages in float32, each
+     held to the objective of the path without them (phase 5, 7, 9, 13 or
+     22's, or solved here when that phase did not run) and to that
+     phase's on-card oracle, with the f32 launches of every kernel: the
+     G67 stand-in with ``inner_dtype="mixed"`` and with
+     ``cert_method="lobpcg", cert_pre_dtype="float32"`` (1e-7);
+     mc-12000 through ``solve_sdp`` with ``inner_dtype="mixed"``; mc-4000
+     through ``solve_sedumi`` with ``cert_method="rowrr"`` (its f32
+     LOBPCG stage at ``cert_pre_dtype="auto"``); bqp-q60 expanded with
+     ``inner_dtype="mixed"``; bqp-q60 in the original basis with rowrr and
+     with lobpcg plus the f32 stage (1e-6); the chain at t = 5 through
+     both multiblock drivers with ``inner_dtype="mixed"`` (primal and dual
+     within 1e-6).  The LOBPCG solves also time one certificate call at
+     their final point with the f32 stage and without it, with both
+     stages' iteration counts.
 ``--phases`` selects phases (default all; 1-2 always run).  A phase runs
 with the rest of its group (3 | 4 | 5 | 6-7 | 8-11 | 12-15 | 16-19 |
-20 | 21 | 22), and 16-19 bring 12-15 (phase 17 reads phase 13's
-objective); the ``kernels`` line lists the kernels whose phases ran.
+20 | 21 | 22 | 23), and 16-19 bring 12-15 (phase 17 reads phase 13's
+objective); the ``kernels`` line lists the kernels whose phases ran
+(with phase 23, each kernel's f32 launches there).
 The host builds of phases 17-18's SeDuMi data (numpy, about a minute
-each) and of phase 22's chain run in worker processes started with the
-script.  Phases 9-11, 13-15, 17-19 and 21 report peak device memory.
+each) and of phases 22-23's chain run in worker processes started with
+the script.  Phases 9-11, 13-15, 17-19, 21 and 23 report peak device
+memory.
 Every kernel case carries its time, its plain twin's, the least time the
 card could take (``bound_ms``: bytes at 3.35 TB/s or operations at the
 dtype's peak) and the time of one PyTorch library call computing the same
@@ -182,10 +199,11 @@ BATCH_P_PADS = (40, 48)
 # phase 22: a short clique chain solved twice (the determinism check)
 CHAIN5_T = 5
 # the phases and their groups: a phase runs with the rest of its group;
-# 16-19 read phase 13's SOS-dual objective
-LAST_PHASE = 22
+# 16-19 read phase 13's SOS-dual objective; 23 reads the objectives of 5,
+# 7, 9, 13 and 22 where they ran (and solves them itself where not)
+LAST_PHASE = 23
 GROUPS = ((3,), (4,), (5,), (6, 7), (8, 9, 10, 11), (12, 13, 14, 15),
-          (16, 17, 18, 19), (20,), (21,), (22,))
+          (16, 17, 18, 19), (20,), (21,), (22,), (23,))
 NEEDS = {16: (12,)}
 # the JAX package's optima on the CPU (f64), the values the port is held to
 JAX_BQP30 = -154.7359587770444
@@ -745,9 +763,9 @@ class CertSpy:
 
         class Recording(base):
             def solve(self, mvr, gen, X0=None, Ydefl=None, maxiter=200,
-                      tol=1e-10):
+                      tol=1e-10, **kw):
                 res = super().solve(mvr, gen, X0=X0, Ydefl=Ydefl,
-                                    maxiter=maxiter, tol=tol)
+                                    maxiter=maxiter, tol=tol, **kw)
                 spy.calls.append(dict(
                     solver=self, mvr=mvr, maxiter=maxiter, tol=tol,
                     X0=None if X0 is None else X0.clone(),
@@ -1457,7 +1475,8 @@ def solve_with_counts(label, call, device, check_ok=True, **extra):
                pinf=res.pinf, dinf=res.dinf, iterations=res.iterations,
                fac_size=res.fac_size, rtr_iters=res.rtr_iters,
                hess_calls=res.hess_calls, timers=res.timers,
-               launches=dict(K.LAUNCHES), csr_modes=dict(K.CSR_LAUNCHES),
+               launches=dict(K.LAUNCHES), f32_launches=dict(K.F32_LAUNCHES),
+               csr_modes=dict(K.CSR_LAUNCHES),
                oblique_modes=dict(K.OBLIQUE_LAUNCHES),
                tcg_launches=dict(K.TCG_LAUNCHES),
                symdual_modes=dict(K.SYMDUAL_LAUNCHES),
@@ -1663,7 +1682,8 @@ def build_chain(t, q, which):
 
 def start_host_builds(bqp_dir, phases):
     """Start the host builds the selected phases read (16-18: the raw q = 60
-    bqpmom triplets and the chain's two relaxations; 22: the short chain)
+    bqpmom triplets and the chain's two relaxations; 22: the short chain;
+    23: both relaxations of the short chain)
     in worker processes, one each (spawned, so they never touch the card);
     returns the pool (None when no phase needs one) and the pending
     results."""
@@ -1673,8 +1693,10 @@ def start_host_builds(bqp_dir, phases):
         builds.update(bqpmom60=(build_bqpmom, (BQP_Q, bqp_dir)),
                       chain_mom=(build_chain, (CHAIN_T, CHAIN_Q, "mom")),
                       chain_sos=(build_chain, (CHAIN_T, CHAIN_Q, "sos")))
-    if 22 in phases:
+    if 22 in phases or 23 in phases:
         builds["chain5"] = (build_chain, (CHAIN5_T, CHAIN_Q, "mom"))
+    if 23 in phases:
+        builds["chain5_sos"] = (build_chain, (CHAIN5_T, CHAIN_Q, "sos"))
     if not builds:
         return None, {}
     pool = multiprocessing.get_context("spawn").Pool(len(builds))
@@ -2382,6 +2404,302 @@ def chain_repeat_phase(device, chain5):
     return out
 
 
+def cert_call_ms(kind, mv64, mv32, n, k, Ydefl, opt, device):
+    """The certificate at a solve's final point with its f32 stage
+    (``mv32``) and without it: ``cold``, from a random start with the
+    first call's budget (lobpcg_maxiter); ``warm``, from the cold f64
+    call's vectors with the warm budget (lobpcg_maxiter_warm), as the
+    driver calls it after its first outer iteration.  ``kind`` "lobpcg"
+    is ops/eigs.lobpcg_certificate (then lobpcg_refine f64 iterations);
+    "rowrr" the drivers' DeviceCertSolver with the linear bound (one
+    budget for both stages).  Each call is timed once, host clock around
+    a synchronize."""
+    import torch
+    from manisdp_tpu_torch.ops.eigs import lobpcg_certificate
+    from manisdp_tpu_torch.ops.eigs_rr import DeviceCertSolver
+
+    def call(mv32_or_none, X0, maxiter):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        info = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "lobpcg":
+            res = lobpcg_certificate(
+                mv64, n, k, gen, maxiter=maxiter, deflate=Ydefl, X0=X0,
+                matvec32=mv32_or_none, refine_iters=opt.lobpcg_refine,
+                info=info)
+        else:
+            solver = DeviceCertSolver(
+                n, k, deflate_rows=0 if Ydefl is None else Ydefl.shape[0],
+                bound="linear")
+            res = solver.solve(mv64, gen, X0=X0, Ydefl=Ydefl,
+                               maxiter=maxiter, tol=opt.cert_inner_tol,
+                               matvec32_rows=mv32_or_none)
+            info = solver.last
+        lam_min, lam_max = float(res.lam_min), float(res.lam_max)
+        torch.cuda.synchronize()
+        return res, dict(
+            ms=(time.perf_counter() - t0) * 1e3, iters=int(info["iters"]),
+            iters32=int(info.get("iters32", 0)),
+            iters64=int(info.get("iters64", info["iters"])),
+            resid=float(info["resid"]), lam_min=lam_min, lam_max=lam_max,
+            dinf=max(0.0, -lam_min) / (1.0 + abs(lam_max)))
+
+    out, X0 = {}, None
+    for start, maxiter in (("cold", opt.lobpcg_maxiter),
+                           ("warm", opt.lobpcg_maxiter_warm)):
+        res64, f64 = call(None, X0, maxiter)
+        _, f32 = call(mv32, X0, maxiter)
+        out[start] = dict(f32=f32, f64=f64,
+                          f32_over_f64=f32["ms"] / f64["ms"])
+        X0 = res64.neg_vecs
+    return out
+
+
+def f32_solve(label, call, ref, rtol, device, oracle, needs=(), cert=None,
+              **extra):
+    """One phase-23 solve through solve_with_counts, held to ``ref``
+    (dict(obj=..., source=...), the objective of the path without the f32
+    stage) to ``rtol`` relative and to ``oracle(res)``'s eta <= 1e-8;
+    ``needs``: kernels that must have launched in f32 in this solve;
+    ``cert(res)``: the certificate call with and without its f32 stage at
+    the final point (cert_call_ms)."""
+    r, res = solve_with_counts(label, call, device, **extra)
+    r["ref"] = ref
+    r["rel_to_ref"] = abs(res.obj - ref["obj"]) / abs(ref["obj"])
+    r["oracle"] = oracle(res)
+    if cert is not None:
+        r["cert_call"] = cert(res)
+    emit(r)
+    if not r["rel_to_ref"] <= rtol:
+        raise AssertionError(f"{label}: objective {res.obj} is "
+                             f"{r['rel_to_ref']} from {ref}")
+    if not r["oracle"]["eta"] <= 1e-8:
+        raise AssertionError(f"{label}: KKT oracle {r['oracle']}")
+    for name in needs:
+        if r["f32_launches"][name] <= 0:
+            raise AssertionError(f"{label}: {name} never launched in f32")
+    return r, res
+
+
+def f32_phases(args, device, rec, keep, jobs):
+    """Phase 23: the options that run whole RTR solves or LOBPCG stages in
+    float32 (``inner_dtype="mixed"``, ``cert_method="lobpcg"``,
+    ``cert_pre_dtype``), each held to the objective of its phase's f64
+    path (taken from that phase when it ran, else solved here) and to its
+    phase's on-card oracle.  ``keep`` holds the instances earlier phases
+    built (rebuilt here when they did not run)."""
+    import torch
+    from manisdp_tpu_torch import (solve_dual_unitdiag, solve_maxcut_unitdiag,
+                                   solve_sdp, solve_sedumi)
+    from manisdp_tpu_torch.config import merged_options
+    from manisdp_tpu_torch.frontends.sos import assemble_bqpsos
+    from manisdp_tpu_torch.kernels import symcoo_spmm
+    from manisdp_tpu_torch.ops.dualops import DualOp
+    from manisdp_tpu_torch.ops.sparse import ConstraintOp
+    from manisdp_tpu_torch.solvers.dual_multiblock import \
+        solve_dual_multiblock
+    from manisdp_tpu_torch.solvers.dual_unitdiag import solve_bqp_sos_dual
+    from manisdp_tpu_torch.solvers.maxcut import _symcoo
+    from manisdp_tpu_torch.solvers.multiblock import solve_multiblock
+
+    t_phase = time.perf_counter()
+    f64 = dict(dtype=torch.float64, device=device)
+    out = {}
+
+    def reference(found, label, solve):
+        """The objective of the path without the f32 stage: ``found`` (its
+        phase's record), else one solve here with that phase's options."""
+        if found is not None:
+            return dict(obj=found, source=f"phase {label}")
+        t0 = time.perf_counter()
+        res = solve()
+        if res.status != 0:
+            raise AssertionError(f"reference of phase {label}: status "
+                                 f"{res.status}")
+        return dict(obj=res.obj, source=f"phase {label}'s options, "
+                    "solved in phase 23", seconds=time.perf_counter() - t0)
+
+    # -- G67 stand-in: mixed, then lobpcg with the f32 stage --
+    C67, src67 = load_graph("G67", args.gset, args.seed)
+    ref = reference(rec.get("g67", {}).get("obj"), "5",
+                    lambda: solve_maxcut_unitdiag(
+        C67, p0=40, device=device, verbose=False))
+    g67_oracle = lambda res: kkt_oracle_on_card(C67, res, device)  # noqa
+    out["g67_mixed"], _ = f32_solve(
+        "G67_mixed", lambda: solve_maxcut_unitdiag(
+            C67, p0=40, device=device, verbose=False, inner_dtype="mixed"),
+        ref, 1e-7, device, g67_oracle,
+        needs=("symcoo_spmm", "oblique_cols", "tcg_step"), instance=src67,
+        options=dict(p0=40, inner_dtype="mixed"))
+    kw_lob = dict(p0=40, cert_method="lobpcg", cert_pre_dtype="float32")
+    opt = merged_options("maxcut_unitdiag", **kw_lob)
+    Cs = _symcoo(C67, device)
+    Cs32 = Cs.astype(torch.float32)
+
+    def g67_cert(res):
+        Y = torch.as_tensor(res.Y, **f64)
+        z = Cs.quad_cols(Y)
+        z32 = z.to(torch.float32)
+        return cert_call_ms(
+            "lobpcg", lambda V: symcoo_spmm(V, Cs, "shift", z=z),
+            lambda V: symcoo_spmm(V, Cs32, "shift", z=z32), Cs.n,
+            opt.delta + 1, Y, opt, device)
+    out["g67_lobpcg"], _ = f32_solve(
+        "G67_lobpcg_f32", lambda: solve_maxcut_unitdiag(
+            C67, device=device, verbose=False, **kw_lob),
+        ref, 1e-7, device, g67_oracle, needs=("symcoo_spmm",),
+        cert=g67_cert, instance=src67, options=kw_lob)
+    if out["g67_lobpcg"]["spmm_modes"]["shift"] <= 0:
+        raise AssertionError("the G67 lobpcg solve never launched K1 shift")
+    del Cs, Cs32
+
+    # -- mc-12000 through solve_sdp with the mixed pre-stage --
+    if "mc12000" in keep:
+        data, op_mc = keep.pop("mc12000")
+    else:
+        data, _ = mc_instance(MC)
+        op_mc = ConstraintOp.build(data.At, data.b, data.c, int(data.K.s),
+                                   device)
+    n = int(data.K.s)
+    ref = reference(rec.get("mc12000", {}).get("obj"), "7", lambda: solve_sdp(
+        op_mc, data.b, data.c, n, device=device, verbose=False,
+        **mc_options()))
+    kw = dict(mc_options(), inner_dtype="mixed")
+    out["mc12000_mixed"], _ = f32_solve(
+        "mc12000_mixed", lambda: solve_sdp(op_mc, data.b, data.c, n,
+                                           device=device, verbose=False,
+                                           **kw),
+        ref, 1e-6, device,
+        lambda res: al_kkt_oracle_on_card(data, res, device),
+        needs=("pattern_dots", "csr_gather", "symcoo_spmm"), instance=MC,
+        options=kw)
+    del data, op_mc
+
+    # -- mc-4000 through solve_sedumi with rowrr (its f32 stage at "auto")
+    if "mc4000" in keep:
+        data4 = keep.pop("mc4000")
+    else:
+        data4, _ = mc_instance(MC4)
+    ref = reference(
+        rec["mc4000"]["entrywise"]["obj"] if "mc4000" in rec else None, "9",
+        lambda: solve_sedumi(data4, device=device, verbose=False,
+                             **mc_options()))
+    kw = dict(mc_options(), cert_method="rowrr")
+    opt = merged_options("general", **kw)
+
+    def mc4_cert(res):
+        S = torch.as_tensor(res.S, **f64)
+        S32 = S.to(torch.float32)
+        return cert_call_ms("rowrr", lambda V: V @ S, lambda V: V @ S32,
+                            S.shape[0], opt.delta + 1,
+                            torch.as_tensor(res.Y, **f64), opt, device)
+    out["mc4000_rowrr"], _ = f32_solve(
+        "mc4000_rowrr", lambda: solve_sedumi(data4, device=device,
+                                             verbose=False, **kw),
+        ref, 1e-6, device,
+        lambda res: al_kkt_oracle_on_card(data4, res, device),
+        needs=("masked_sym",), cert=mc4_cert, instance=MC4, options=kw)
+    del data4
+
+    # -- bqp-q60: expanded with the mixed pre-stage; original basis with
+    #    rowrr (f32 stage at "auto") and lobpcg with the f32 stage --
+    if "bqp60" in keep:
+        Q, e, data60, dop60, bqp_label = keep.pop("bqp60")
+    else:
+        Q, e, bqp_label = bqp_instance(BQP_Q, args.bqp)
+        data60 = assemble_bqpsos(Q, e, BQP_Q)
+        A, b, c, mb, f, dAAt = data60
+        dop60 = DualOp.build(A, b / np.max(np.abs(b)), c, mb, f, dAAt,
+                             device=device)
+    q = Q.shape[0]
+    ref = reference(
+        rec["dual"]["bqp60_expanded"]["obj"] if "dual" in rec else None,
+        "13", lambda: solve_bqp_sos_dual(Q, e, q, device=device,
+                                         verbose=False, **BQP_KW))
+    kw = dict(BQP_KW, inner_dtype="mixed")
+
+    def expanded_oracle(res):
+        wv = torch.linalg.eigvalsh(torch.as_tensor(res.X, **f64))
+        lam_min, lam_max = float(wv[0]), float(wv[-1])
+        dinf = max(0.0, -lam_min) / (1.0 + abs(lam_max))
+        return dict(dinf=dinf, eta=dinf, lam_min=lam_min, lam_max=lam_max)
+    out["bqp60_expanded_mixed"], _ = f32_solve(
+        "bqp60_expanded_mixed", lambda: solve_bqp_sos_dual(
+            Q, e, q, device=device, verbose=False, **kw),
+        ref, 1e-6, device, expanded_oracle,
+        needs=("symdual_apply", "symdual_adjoint", "oblique_cols"),
+        instance=bqp_label, options=kw)
+    A, b, c, mb, f, dAAt = data60
+    maxb = float(np.max(np.abs(b)))
+    ref = dict(ref, obj=ref["obj"] / maxb, unscaled=ref["obj"])
+    for name, extra in (("rowrr", dict(cert_method="rowrr")),
+                        ("lobpcg", dict(cert_method="lobpcg",
+                                        cert_pre_dtype="float32"))):
+        kw = dict(line_search=True, inner_dtype="tcg32", **extra)
+        opt = merged_options("dual_unitdiag", **kw)
+
+        def orig_cert(res, kind=name):
+            X = torch.as_tensor(res.X, **f64)
+            X32 = X.to(torch.float32)
+            return cert_call_ms(kind, lambda V: V @ X, lambda V: V @ X32,
+                                mb, opt.delta + 1, None, opt, device)
+        out[f"bqp60_original_{name}"], _ = f32_solve(
+            f"bqp60_original_{name}", lambda: solve_dual_unitdiag(
+                dop60, None, None, mb, device=device, verbose=False, **kw),
+            ref, 1e-6, device,
+            lambda res: dual_kkt_oracle_on_card(A, b / maxb, c, mb, f, res,
+                                                device),
+            needs=("csr_gather",), cert=orig_cert, instance=bqp_label,
+            options=kw)
+    del dop60, data60
+
+    # -- chain-t5 through both multiblock drivers with the mixed stage --
+    (data, _), ((A, b, c, mbs, f, dAAt), _) = (jobs["chain5"].get(),
+                                              jobs["chain5_sos"].get())
+    ns = [int(s) for s in data.K.s]
+    kw = dict(CHAIN_PRIMAL_KW, inner_dtype="mixed")
+    label = f"clique_chain({CHAIN5_T}, {CHAIN_Q}), RandomState(1) objective"
+    ref = reference(
+        rec["chain5"]["obj"][0] if "chain5" in rec else None, "22",
+        lambda: solve_multiblock(data.At, data.b, data.c, ns=ns,
+                                 nob=data.K.nob, device=device,
+                                 verbose=False, **CHAIN_PRIMAL_KW))
+    out["chain5_primal_mixed"], rp = f32_solve(
+        "chain5_primal_mixed", lambda: solve_multiblock(
+            data.At, data.b, data.c, ns=ns, nob=data.K.nob, device=device,
+            verbose=False, **kw),
+        ref, 1e-6, device,
+        lambda res: block_kkt_oracle_on_card(data, res, device),
+        needs=("pattern_dots", "csr_gather", "symcoo_spmm", "oblique_cols"),
+        instance=label, options=kw)
+    maxb = float(np.max(np.abs(b)))
+    out["chain5_dual_mixed"], rd = solve_with_counts(
+        "chain5_dual_mixed", lambda: solve_dual_multiblock(
+            A, b / maxb, c, ns=mbs, nob=len(mbs), f=f, dAAt=dAAt,
+            device=device, verbose=False, inner_dtype="mixed"),
+        device, instance=label, options=dict(inner_dtype="mixed"))
+    r = out["chain5_dual_mixed"]
+    r["obj_unscaled"] = rd.obj * maxb
+    r["rel_to_primal"] = abs(rd.obj * maxb - rp.obj) / max(1.0, abs(rp.obj))
+    emit(r)
+    if not r["rel_to_primal"] <= 1e-6:
+        raise AssertionError(f"chain5 mixed: primal {rp.obj} and dual "
+                             f"{r['obj_unscaled']} disagree")
+    for name in ("csr_gather", "oblique_cols"):
+        if r["f32_launches"][name] <= 0:
+            raise AssertionError(f"chain5 dual mixed: {name} never "
+                                 "launched in f32")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(dict(phase="f32_options", seconds=out["seconds"],
+              solves={k: dict(status=v["status"], seconds=v["seconds"],
+                              rel_to_ref=v.get("rel_to_ref",
+                                               v.get("rel_to_primal")))
+                      for k, v in out.items() if isinstance(v, dict)}))
+    return out
+
+
 def solve_phase(label, C_sp, source, device, check_oracle, tcg_shape=None):
     """One solve_maxcut_unitdiag call (p0 = 40) with its launch counts;
     with ``tcg_shape`` (p_pad, n) also the host and device ms per tCG
@@ -2494,6 +2812,7 @@ def run_phases(args, jobs):
     rows, al_rows, carrier_rows, dual_rows, mom_rows, batch_rows = \
         [], [], [], [], [], []
     rec = {}
+    keep = {}       # instances of earlier phases that phase 23 solves again
     # -- 1. environment --
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2568,6 +2887,8 @@ def run_phases(args, jobs):
                 "build", "mc12000_stall"))
             emit(dict(phase="mc12000_stall", **rec["mc12000_stall"]))
             del spy
+        if 23 in ph:
+            keep["mc12000"] = (data, op_mc)
         del data, op_mc
 
     # -- 8. carrier kernels vs twins at the n = 4,000 matrix completion --
@@ -2599,6 +2920,8 @@ def run_phases(args, jobs):
         del ew4, dense4
         # -- 9-11. the carriers' solves: matrix completion at n = 4,000 --
         rec["mc4000"] = carrier_solve_phases(data4, op4, device)
+        if 23 in ph:
+            keep["mc4000"] = data4
         del op4, data4
 
     # -- 12. the dual path's kernels vs twins --
@@ -2642,6 +2965,8 @@ def run_phases(args, jobs):
         # -- 13-15. the dual solves --
         rec["dual"] = dual_phases(args, device, top60, dop60,
                                   (Q60, e60, data60), bqp_label)
+        if 23 in ph:
+            keep["bqp60"] = (Q60, e60, data60, dop60, bqp_label)
         del top60, dop60, data60
 
     # -- 16. the moment primal's and the multiblock drivers' kernels --
@@ -2715,6 +3040,11 @@ def run_phases(args, jobs):
     # -- 22. the multiblock determinism check --
     if 22 in ph:
         rec["chain5"] = chain_repeat_phase(device, jobs["chain5"].get())
+    # -- 23. the float32 options: mixed, the lobpcg certificate, the f32
+    #    LOBPCG stage --
+    if 23 in ph:
+        rec["f32"] = f32_phases(args, device, rec, keep, jobs)
+        keep.clear()
 
     # each kernel's hot call on its main path: the f32 tCG's Hessian and
     # projection (G67 solve), the f32 AL Hessian's products (mc solves),
@@ -2885,7 +3215,10 @@ def run_phases(args, jobs):
                          ["max_abs_err"]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            **({"passes_ms": r["passes_ms"]} if "passes_ms" in r else {})))
+            **({"passes_ms": r["passes_ms"]} if "passes_ms" in r else {}),
+            **({"f32_launches_phase23": sum(
+                v["f32_launches"][base] for v in rec["f32"].values()
+                if isinstance(v, dict))} if "f32" in rec else {})))
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(dict(nvidia_smi=smi, phases=sorted(ph), build_s=build_s,

@@ -79,12 +79,22 @@ TCG_LAUNCHES = {"projected": 0}
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 
+# each kernel's float32 launches (also counted in LAUNCHES)
+F32_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
+
+
 def reset_launches():
-    for counts in (LAUNCHES, SPMM_LAUNCHES, CSR_LAUNCHES, MASKED_LAUNCHES,
-                   OBLIQUE_LAUNCHES, SYMDUAL_LAUNCHES, INSTANCE_LAUNCHES,
-                   TCG_LAUNCHES):
+    for counts in (LAUNCHES, F32_LAUNCHES, SPMM_LAUNCHES, CSR_LAUNCHES,
+                   MASKED_LAUNCHES, OBLIQUE_LAUNCHES, SYMDUAL_LAUNCHES,
+                   INSTANCE_LAUNCHES, TCG_LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+def _launched(name: str, dtype):
+    """Count one launch of kernel ``name`` in ``dtype``."""
+    LAUNCHES[name] += 1
+    F32_LAUNCHES[name] += dtype == torch.float32
 
 
 def _on_cuda(*tensors) -> bool:
@@ -278,7 +288,7 @@ def symcoo_spmm(A, C, mode="plain", vals=None, z=None, B=None, eG=None,
              vw, int(deep), _stream(A))
     if err != 0:
         raise RuntimeError(f"symcoo_spmm launch failed: CUDA error {err}")
-    LAUNCHES["symcoo_spmm"] += 1
+    _launched("symcoo_spmm", A.dtype)
     SPMM_LAUNCHES[mode] += 1
     if batched:
         INSTANCE_LAUNCHES["symcoo_spmm"] += 1
@@ -343,7 +353,7 @@ def oblique_cols(x, u=None, mode="proj", v=None, g=None, mask=None):
              OBLIQUE_MODES[mode], out.data_ptr(), _stream(x))
     if err != 0:
         raise RuntimeError(f"oblique_cols launch failed: CUDA error {err}")
-    LAUNCHES["oblique_cols"] += 1
+    _launched("oblique_cols", x.dtype)
     OBLIQUE_LAUNCHES["proj_eG" if v is not None else mode] += 1
     if mask is not None:
         OBLIQUE_LAUNCHES["masked"] += 1
@@ -405,7 +415,7 @@ def pattern_dots(Y, U, P):
              _stream(Y))
     if err != 0:
         raise RuntimeError(f"pattern_dots launch failed: CUDA error {err}")
-    LAUNCHES["pattern_dots"] += 1
+    _launched("pattern_dots", Y.dtype)
     return out
 
 
@@ -527,7 +537,7 @@ def csr_gather(x, ptr, col, val, base=None, alpha=1.0, pos=None,
              out.data_ptr(), _stream(x))
     if err != 0:
         raise RuntimeError(f"csr_gather launch failed: CUDA error {err}")
-    LAUNCHES["csr_gather"] += 1
+    _launched("csr_gather", x.dtype)
     CSR_LAUNCHES["scatter_pos" if scatter else "gather"] += 1
     return out
 
@@ -578,7 +588,7 @@ def masked_sym(E, aval, dfac=None, mode="apply", C=None, alpha=1.0):
              n, MASKED_MODES[mode], out.data_ptr(), _stream(E))
     if err != 0:
         raise RuntimeError(f"masked_sym launch failed: CUDA error {err}")
-    LAUNCHES["masked_sym"] += 1
+    _launched("masked_sym", E.dtype)
     MASKED_LAUNCHES[mode] += 1
     return out
 
@@ -631,7 +641,7 @@ def oa_refine(S, B, mu, mu_min, mu_max):
                                 g2.data_ptr(), _stream(S))
     if err != 0:
         raise RuntimeError(f"oa_refine launch failed: CUDA error {err}")
-    LAUNCHES["oa_refine"] += 1
+    _launched("oa_refine", S.dtype)
     return E, bsum, g1, g2
 
 
@@ -690,7 +700,7 @@ def symdual_apply(M, q: int, scale=None, shift=None):
              ws.data_ptr(), _stream(M))
     if err != 0:
         raise RuntimeError(f"symdual_apply launch failed: CUDA error {err}")
-    LAUNCHES["symdual_apply"] += 1
+    _launched("symdual_apply", M.dtype)
     parts = torch.split(y, sizes)
     return (parts[0].reshape(()), parts[1], parts[2].view(q, q),
             parts[3].view(q, q, q), parts[4].view(q, q, q, q))
@@ -746,7 +756,7 @@ def symdual_adjoint(y, q: int, scale=None, B1=None, c1=0.0, B2=None,
              ptr(B2), float(c2), out.data_ptr(), _stream(out))
     if err != 0:
         raise RuntimeError(f"symdual_adjoint launch failed: CUDA error {err}")
-    LAUNCHES["symdual_adjoint"] += 1
+    _launched("symdual_adjoint", dt)
     SYMDUAL_LAUNCHES["adjoint" if B1 is None and B2 is None
                      else "residual"] += 1
     return out
@@ -774,7 +784,7 @@ def symdual_sym_factor(Y, q: int, renorm: bool = True):
              _stream(Y))
     if err != 0:
         raise RuntimeError(f"symdual_adjoint launch failed: CUDA error {err}")
-    LAUNCHES["symdual_adjoint"] += 1
+    _launched("symdual_adjoint", Y.dtype)
     SYMDUAL_LAUNCHES["sym_factor"] += 1
     return out
 
@@ -801,7 +811,7 @@ def symdual_sym_mat(M, q: int):
     err = fn(M.data_ptr(), q, out.data_ptr(), _stream(M))
     if err != 0:
         raise RuntimeError(f"symdual_adjoint launch failed: CUDA error {err}")
-    LAUNCHES["symdual_adjoint"] += 1
+    _launched("symdual_adjoint", M.dtype)
     SYMDUAL_LAUNCHES["sym_mat"] += 1
     return out
 
@@ -848,7 +858,7 @@ def symmom_apply(M, q: int):
     err = fn(M.data_ptr(), q, ws.data_ptr(), out.data_ptr(), _stream(M))
     if err != 0:
         raise RuntimeError(f"symmom_apply launch failed: CUDA error {err}")
-    LAUNCHES["symmom_apply"] += 1
+    _launched("symmom_apply", M.dtype)
     return out
 
 
@@ -887,7 +897,7 @@ def symmom_adjoint(y, q: int, base=None, alpha=1.0):
              float(alpha), ws.data_ptr(), out.data_ptr(), _stream(y))
     if err != 0:
         raise RuntimeError(f"symmom_adjoint launch failed: CUDA error {err}")
-    LAUNCHES["symmom_adjoint"] += 1
+    _launched("symmom_adjoint", y.dtype)
     return out
 
 
@@ -1062,7 +1072,7 @@ def tcg_step(d, Hd, eta, Heta, r, sc, st, mininner: int, Y=None,
         xs.data_ptr(), sc_n.data_ptr(), st_n.data_ptr(), _stream(d))
     if err != 0:
         raise RuntimeError(f"tcg_step launch failed: CUDA error {err}")
-    LAUNCHES["tcg_step"] += 1
+    _launched("tcg_step", dt)
     if Y is not None:
         TCG_LAUNCHES["projected"] += 1
     return eta, Heta, r, d, sc_n, st_n

@@ -1,14 +1,18 @@
-"""Dual-certificate result and the Lanczos spectral bound (PyTorch port
-of manisdp_tpu/ops/eigs.py, MaxCut slice).
+"""Dual-certificate result, the Lanczos spectral bound and the LOBPCG
+certificate of ``cert_method="lobpcg"`` (PyTorch port of
+manisdp_tpu/ops/eigs.py).
 
 The JAX package carries four copies of the Lanczos pass (ops/eigs.py:65,
 ops/eigs_rr.py:105, :285 and :439); the port has this one, in the row
-layout of the certificate.
+layout of the certificate.  The JAX ``lobpcg_certificate`` runs the
+library routine ``lobpcg_standard`` in the (n, k) column layout; the port
+gives the same certificate from its one LOBPCG class
+(``eigs_rr.DeviceCertSolver``) in the row layout.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -53,3 +57,48 @@ def lanczos_bounds(matvec_rows: Callable, v0: torch.Tensor,
     ritz = torch.linalg.eigvalsh(T)
     slack = torch.abs(b[-1]) if iters > 1 else torch.zeros_like(a[0])
     return ritz[0] - slack, ritz[-1] + slack
+
+
+def lobpcg_certificate(matvec_rows: Callable, n: int, k: int,
+                       gen: torch.Generator, maxiter: int = 400,
+                       tol: float = 1e-10, deflate=None, X0=None,
+                       matvec32: Callable = None,
+                       refine_iters: int = 16,
+                       info: Optional[dict] = None) -> CertResult:
+    """Bottom-k eigenpairs of a symmetric S from ``matvec_rows(V) = V S``
+    on (rows, n) V, with the semantics of the JAX package's
+    ``lobpcg_certificate`` (ops/eigs.py:94):
+
+    - Lanczos bounds of 48 iterations; ``lam_max`` is their upper end;
+    - a block of k rows, random (from ``gen``) or ``X0`` (rows or (n, k)
+      columns) with 1e-9 noise, augmented with ``deflate``'s (the factor
+      Y, (p, n)) whitened strong directions under the budget
+      min((n-1)//5 - k, 24 - k); the factor only seeds the block, nothing
+      is projected out;
+    - with ``matvec32`` (the same product in float32) the bulk of the
+      iterations, up to ``maxiter``, run in f32, then up to
+      ``refine_iters`` in f64; otherwise up to ``maxiter`` in f64.  The
+      f32 stage ends once the first k residuals fall below 1e-5 of the
+      spectral scale, near the f32 floor (the JAX routine's own test,
+      relative to 10 n |A x|, ends it sooner);
+    - ``lam_min`` = ritz_0 - ||r_0|| from f64 residuals (the linear
+      bound), ``num_neg`` counts the block's negative Ritz values, and
+      the bottom-k Ritz vectors and values.
+
+    The bound holds for the eigenvalue nearest the bottom Ritz value: an
+    eigenvalue the block never found is not bounded, so an unconverged run
+    can miss the true lambda_min.  ``info``, when given, receives the
+    solve's iteration counts (``iters``, and ``iters32`` / ``iters64``
+    with the f32 stage), residual and spectral scale."""
+    from .eigs_rr import DeviceCertSolver
+    rows = 0 if deflate is None else deflate.shape[0]
+    solver = DeviceCertSolver(n, k, deflate_rows=rows, bound="linear",
+                              lanczos_iters=48)
+    res = solver.solve(
+        matvec_rows, gen, X0=X0, Ydefl=deflate, maxiter=maxiter, tol=tol,
+        matvec32_rows=matvec32,
+        refine_iters=refine_iters if matvec32 is not None else None,
+        jitter=1e-9 if X0 is not None else 0.0)
+    if info is not None:
+        info.update(solver.last)
+    return res

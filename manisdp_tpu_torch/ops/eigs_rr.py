@@ -1,13 +1,24 @@
 """Row-layout LOBPCG dual certificate on the device (PyTorch port of
 manisdp_tpu/ops/eigs_rr.py DeviceCertSolver, MaxCut slice).
 
-One class serves the three certificate calls of the MaxCut driver:
+One class serves every LOBPCG certificate of the drivers:
 
   - the warm call (block cap 24, Kato-Temple witness bound),
   - the accuracy-deciding big-block retry (cap ``cert_big_block`` = 96,
     linear bound; the JAX package runs it as RowCertSolver with a host
     Rayleigh-Ritz),
-  - the small-n fallback (cap 24, linear bound; RowCertSolver there).
+  - the rowrr path and the small-n fallback of devrr (cap 24, linear
+    bound; RowCertSolver there), with its optional f32 stage,
+  - ``cert_method="lobpcg"`` (``ops/eigs.lobpcg_certificate``; the JAX
+    package's ``lobpcg_standard`` path).
+
+The f32 stage (``matvec32_rows``) follows RowCertSolver's: f32 products
+and contractions down to residuals of max(tol, 1e-5) times the spectral
+scale, its Rayleigh-Ritz in f64 as the JAX host one is, then the f64
+stage from the f32 block with A X recomputed in f64 and the search
+directions restarted.  The port also ends the f32 stage when its largest
+residual has not halved in 10 iterations (the f32 floor can sit above
+the exit tolerance) or a step is not finite.
 
 Every (block, n) array is kept in row layout and S = C - diag(z) is
 applied as ``matvec_rows(V) = V S`` (kernel K1's ``shift`` mode for a
@@ -66,10 +77,11 @@ class DeviceCertSolver:
     """
 
     BIG = 1e30       # Ritz value given to dropped basis directions
-    LANCZOS_ITERS = 32
+    F32_PATIENCE = 10  # f32 iterations allowed without halving the residual
 
     def __init__(self, n: int, k: int, deflate_rows: int = 0,
-                 block_cap: int = 24, bound: str = "kato"):
+                 block_cap: int = 24, bound: str = "kato",
+                 lanczos_iters: int = 32):
         if bound not in ("kato", "linear"):
             raise ValueError(f"bound must be 'kato' or 'linear', "
                              f"got {bound!r}")
@@ -78,6 +90,7 @@ class DeviceCertSolver:
                        deflate_rows)
         self.b = k + self.aug
         self.bound = bound
+        self.lanczos_iters = lanczos_iters
         # the last solve's iterations, residual and spectral scale, for
         # reading a certificate's convergence after the fact
         self.last: dict = {}
@@ -85,11 +98,28 @@ class DeviceCertSolver:
     def solve(self, matvec_rows: Callable, gen: torch.Generator,
               X0: Optional[torch.Tensor] = None,
               Ydefl: Optional[torch.Tensor] = None,
-              maxiter: int = 200, tol: float = 1e-10) -> CertResult:
+              maxiter: int = 200, tol: float = 1e-10,
+              matvec32_rows: Optional[Callable] = None,
+              switch_tol: float = 1e-5,
+              refine_iters: Optional[int] = None,
+              jitter: float = 0.0) -> CertResult:
         """``matvec_rows(V) = V S`` for (rows, n) V.  ``X0``: start block,
         (k, n) rows or (n, k) columns; random when None.  ``Ydefl``:
         (rows, n) deflation factor (needed when ``aug`` > 0).  Random
-        draws come from ``gen``, which must live on the solve's device."""
+        draws come from ``gen``, which must live on the solve's device.
+
+        ``matvec32_rows``: the same product in float32.  Given it, an f32
+        stage runs first, until the first k residuals fall below
+        max(tol, switch_tol) * scale (its Rayleigh-Ritz drops directions
+        at 1e-6; a start block whose bottom pair is already below that
+        skips it), then the f64 stage from the f32 block, with A X
+        recomputed in f64 and the search directions restarted.  The two stages share the budget
+        ``maxiter``, unless ``refine_iters`` gives the f64 stage a budget
+        of its own (the f32 stage then has all of ``maxiter``).  A
+        non-finite f32 step ends the f32 stage with the last good block.
+        ``jitter``: scale of the Gaussian noise added to a given X0.  The
+        reported bounds always come from f64 residuals (``_finish``), so a
+        weak f32 stage can only make them more conservative."""
         n, k, b, aug = self.n, self.k, self.b, self.aug
         dev, dt = gen.device, torch.float64
         tiny = torch.finfo(dt).tiny
@@ -97,7 +127,7 @@ class DeviceCertSolver:
             (rows, n), generator=gen, dtype=dt, device=dev)
 
         # -- Lanczos spectral-interval bounds --
-        lo, hi = lanczos_bounds(matvec_rows, randn(1), self.LANCZOS_ITERS)
+        lo, hi = lanczos_bounds(matvec_rows, randn(1), self.lanczos_iters)
         scale = torch.clamp(torch.maximum(torch.abs(lo), torch.abs(hi)),
                             min=tiny)
 
@@ -109,6 +139,8 @@ class DeviceCertSolver:
             if X0.shape[0] == n and (X0.dim() == 1 or X0.shape[1] != n):
                 X0 = X0.T
             X0 = X0[:k]
+            if jitter:
+                X0 = X0 + jitter * randn(X0.shape[0])
         blocks = [X0]
         if aug:
             if Ydefl is None or Ydefl.shape[0] < aug:
@@ -132,44 +164,109 @@ class DeviceCertSolver:
         AX = matvec_rows(X)
         theta = torch.sum(X * AX, dim=1)
         rn = torch.linalg.norm(AX - theta[:, None] * X, dim=1)
-        thresh = tol * float(scale)
-
-        # -- LOBPCG --
         P = torch.zeros_like(X)
         AP = torch.zeros_like(AX)
-        pmask = torch.cat([torch.zeros((b, b), dtype=dt, device=dev),
-                           torch.ones((b, 2 * b), dtype=dt, device=dev)],
-                          dim=1)
+
+        # -- LOBPCG, stage by stage: (matvec, dtype, exit tolerance,
+        #    Rayleigh-Ritz drop tolerance, last iteration) --
+        stages = []
+        if matvec32_rows is not None:
+            stages.append((matvec32_rows, torch.float32,
+                           max(tol, switch_tol), 1e-6, maxiter))
+        stages.append((matvec_rows, dt, tol, 1e-12, maxiter))
         j = 0
-        while j < maxiter and float(torch.max(rn[:k])) >= thresh:
+        counts = []
+        for mv, sdt, stol, drop, last in stages:
+            thresh = stol * float(scale)
+            if sdt != dt:
+                if float(rn[0]) < thresh:
+                    # a warm start whose bottom pair is already past the
+                    # f32 exit keeps its f64 accuracy: rounding it to f32
+                    # would cost the bound more than f32 iterations give
+                    counts.append(0)
+                    continue
+                X, AX, P, AP, theta, rn = (t.to(sdt) for t in
+                                           (X, AX, P, AP, theta, rn))
+            elif X.dtype != dt:
+                # entering f64 from f32: the carried products hold f32
+                # error, so recompute A X and the residuals; the f64 stage
+                # restarts its search directions from the f32 block
+                X, theta = X.to(sdt), theta.to(sdt)
+                AX = mv(X)
+                P, AP = torch.zeros_like(X), torch.zeros_like(AX)
+                rn = torch.linalg.norm(AX - theta[:, None] * X, dim=1)
+            if sdt == dt and refine_iters is not None and counts:
+                last = j + refine_iters
+            j0 = j
+            X, AX, P, AP, theta, rn, j = self._iterate(
+                mv, X, AX, P, AP, theta, rn, j, last, thresh, drop,
+                patience=self.F32_PATIENCE if sdt != dt else None)
+            counts.append(j - j0)
+
+        lam_min, num_neg, Xk, th_k, resid_k = self._finish(
+            matvec_rows, X.to(dt))
+        self.last = dict(iters=j, resid=resid_k, scale=scale, lo=lo, hi=hi)
+        if matvec32_rows is not None:
+            self.last.update(iters32=counts[0], iters64=counts[1])
+        return CertResult(lam_min=lam_min, lam_max=hi, num_neg=num_neg,
+                          neg_vecs=Xk.T, neg_vals=th_k)
+
+    def _iterate(self, mv, X, AX, P, AP, theta, rn, j, last, thresh,
+                 drop, patience=None):
+        """LOBPCG iterations in X's dtype, counted on from ``j``, until
+        the first k residuals fall below ``thresh`` or ``j`` reaches
+        ``last``; with ``patience``, also once the largest of them has not
+        halved for that many iterations (the f32 stage: its residuals can
+        stall above the exit tolerance at the f32 floor).  A step whose
+        Rayleigh-Ritz fails or whose block, Ritz values or residuals are
+        not finite is not taken and ends the stage: once the residuals
+        grind past the dtype's floor the whitened basis can go
+        non-finite."""
+        k, b = self.k, self.b
+        dt, dev = X.dtype, X.device
+        f64 = torch.float64
+        tiny = torch.finfo(dt).tiny
+        pmask = torch.cat([torch.zeros((b, b), dtype=f64, device=dev),
+                           torch.ones((b, 2 * b), dtype=f64, device=dev)],
+                          dim=1)
+        best, j_best = float("inf"), j
+        while j < last:
+            cur = float(torch.max(rn[:k]))
+            if cur < thresh:
+                break
+            if cur < 0.5 * best:
+                best, j_best = cur, j
+            elif patience is not None and j - j_best >= patience:
+                break
             R = AX - theta[:, None] * X
             R = R / torch.clamp(rn, min=tiny)[:, None]
-            AR = matvec_rows(R)
+            AR = mv(R)
             Z = torch.cat([X, R, P])
             AZ = torch.cat([AX, AR, AP])
-            G = Z @ Z.T
-            th, C = _rayleigh_ritz(G, Z @ AZ.T, 1e-12, b, self.BIG)
+            # the Rayleigh-Ritz runs in f64 in either stage (the JAX
+            # package's f32 stage takes its Grams to a host f64 one): an f32
+            # eigh of Grams conditioned up to 1/drop loses the whitening
+            G = (Z @ Z.T).to(f64)
+            try:
+                th, C = _rayleigh_ritz(G, (Z @ AZ.T).to(f64), drop, b,
+                                       self.BIG)
+            except torch.linalg.LinAlgError:
+                break          # an eigh of non-finite or degenerate input
             Cx = C.T                                           # (b, 3b)
             Cp = Cx * pmask
             pn = torch.sqrt(torch.clamp(torch.sum((Cp @ G) * Cp, dim=1),
-                                        min=tiny))
-            Cp = Cp / pn[:, None]
+                                        min=torch.finfo(f64).tiny))
+            Cp = (Cp / pn[:, None]).to(dt)
+            Cx, th = Cx.to(dt), th.to(dt)
             Xn, AXn = Cx @ Z, Cx @ AZ
             rn_n = torch.linalg.norm(AXn - th[:, None] * Xn, dim=1)
-            # stability guard: once the residuals grind past the f64
-            # floor the whitened basis can go non-finite; keep the last
-            # good block and stop
             if not bool(torch.isfinite(torch.sum(Xn) + torch.sum(th)
                                        + torch.sum(rn_n))):
                 break
             X, AX, P, AP = Xn, AXn, Cp @ Z, Cp @ AZ
             theta, rn = th, rn_n
             j += 1
-
-        lam_min, num_neg, Xk, th_k, resid_k = self._finish(matvec_rows, X)
-        self.last = dict(iters=j, resid=resid_k, scale=scale, lo=lo, hi=hi)
-        return CertResult(lam_min=lam_min, lam_max=hi, num_neg=num_neg,
-                          neg_vecs=Xk.T, neg_vals=th_k)
+        return X, AX, P, AP, theta, rn, j
 
     def _finish(self, matvec_rows, X):
         """Honest epilogue: recompute A X (the loop's AX is a linear

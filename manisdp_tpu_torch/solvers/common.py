@@ -17,6 +17,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from ..core import TROptions, make_trustregions
 from ..core.trustregions import cast_floats
 
 
@@ -158,6 +159,25 @@ class SlowProgress:
             return True
         self.prev = tuple(residuals)
         return False
+
+
+def mixed_prestage(problem, budget: TROptions, opt, gradnorm: float, Y,
+                   params32, typicaldist: float):
+    """``inner_dtype="mixed"``: an f32 RTR of ``budget``'s schedule on the
+    f32 cost (``params32``), down to the looser of ``mixed_tolgradnorm``
+    and ``budget``'s tolerance, then the problem manifold's renormalize of
+    the upcast factor.  Returns (Y in f64, TR iterations, tCG iterations);
+    the stage is skipped (Y, 0, 0) once the previous f64 ``gradnorm`` sits
+    at or below its target: below the f32 noise floor it would burn its
+    budget without progress."""
+    if np.isfinite(gradnorm) and gradnorm <= opt.mixed_tolgradnorm:
+        return Y, 0, 0
+    solve32 = make_trustregions(problem, TROptions(
+        maxiter=budget.maxiter, maxinner=budget.maxinner,
+        tolgradnorm=max(opt.mixed_tolgradnorm, budget.tolgradnorm)))
+    res = solve32(Y.to(torch.float32), params32, typicaldist)
+    return (problem.manifold.renormalize(res.Y.to(torch.float64)),
+            res.iters, res.inner_iters)
 
 
 def make_line_search(cost_fn: Callable, renorm: Callable,

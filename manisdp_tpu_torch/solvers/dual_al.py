@@ -37,9 +37,11 @@ from ..kernels import oblique_cols
 from ..manifolds import Euclidean, Oblique
 from ..ops.dense_cert import DenseEighCert
 from ..ops.dualops import SparseMat
+from ..ops.eigs import lobpcg_certificate
 from ..ops.eigs_rr import DeviceCertSolver
 from .common import (PhaseTimers, RankController, SDPResult, SlowProgress,
-                     bucketed, log_iter, make_line_search, pad_rows)
+                     bucketed, log_iter, make_line_search, mixed_prestage,
+                     pad_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,10 +226,6 @@ def _make_certificate(op, n: int, k_cert: int, use_eigh: bool,
                     vecs[:, :k_cert].cpu().numpy())
         return cert
 
-    if opt.cert_method not in ("devrr", "rowrr"):
-        raise NotImplementedError(
-            f"cert_method={opt.cert_method!r} (the legacy lobpcg "
-            "certificate) is not ported yet; use 'devrr' or 'rowrr'")
     warm = {"X0": None}
 
     def decides(res):
@@ -262,25 +260,55 @@ def _make_certificate(op, n: int, k_cert: int, use_eigh: bool,
             return finish(res)
         return cert
 
-    if opt.cert_pre_dtype == "float32":
-        raise NotImplementedError(
-            "cert_pre_dtype='float32' (the f32 LOBPCG pre-stage) is not "
-            "ported yet; the certificate runs in float64")
-    # rowrr (and devrr at n <= 3 k): the same class with the linear bound;
-    # the first call pays the full budget
-    solver = DeviceCertSolver(n, k_cert, bound="linear")
+    # the f32 LOBPCG stage, V @ Xp in f32: at cert_pre_dtype "auto" or
+    # "float32" on the rowrr path (and devrr at n <= 3 k), at "float32" on
+    # the lobpcg path
+    rowrr = opt.cert_method in ("devrr", "rowrr")
+    cert32 = opt.cert_pre_dtype == "float32" or (
+        rowrr and opt.cert_pre_dtype == "auto")
+
+    def mv32_for(Xp):
+        if not cert32:
+            return None
+        Xp32 = Xp.to(torch.float32)
+        return lambda V: V @ Xp32
+
+    if rowrr:
+        # rowrr (and devrr at n <= 3 k): the same class with the linear
+        # bound; the first call pays the full budget
+        solver = DeviceCertSolver(n, k_cert, bound="linear")
+
+        def cert(Xp, gap, pinf):
+            mv, mv32 = (lambda V: V @ Xp), mv32_for(Xp)
+            first = warm["X0"] is None
+            res = solver.solve(mv, gen, X0=warm["X0"],
+                               maxiter=(opt.lobpcg_maxiter if first
+                                        else opt.lobpcg_maxiter_warm),
+                               tol=opt.cert_inner_tol, matvec32_rows=mv32)
+            if not first and decides(res) and gap < opt.tol and \
+                    pinf < opt.tol:
+                res = solver.solve(mv, gen, X0=res.neg_vecs,
+                                   maxiter=opt.lobpcg_maxiter,
+                                   tol=opt.cert_inner_tol,
+                                   matvec32_rows=mv32)
+            return finish(res)
+        return cert
+
+    # any other cert_method: the lobpcg certificate (ops/eigs.py), with no
+    # deflation factor; the same budgets and retry as rowrr
+    def lob(mv, mv32, X0, maxiter):
+        return lobpcg_certificate(mv, n, k_cert, gen, maxiter=maxiter,
+                                  X0=X0, matvec32=mv32,
+                                  refine_iters=opt.lobpcg_refine)
 
     def cert(Xp, gap, pinf):
-        mv = lambda V: V @ Xp  # noqa: E731
-        first = warm["X0"] is None
-        res = solver.solve(mv, gen, X0=warm["X0"],
-                           maxiter=(opt.lobpcg_maxiter if first
-                                    else opt.lobpcg_maxiter_warm),
-                           tol=opt.cert_inner_tol)
-        if not first and decides(res) and gap < opt.tol and pinf < opt.tol:
-            res = solver.solve(mv, gen, X0=res.neg_vecs,
-                               maxiter=opt.lobpcg_maxiter,
-                               tol=opt.cert_inner_tol)
+        mv, mv32 = (lambda V: V @ Xp), mv32_for(Xp)
+        if warm["X0"] is None:
+            res = lob(mv, mv32, None, opt.lobpcg_maxiter)
+        else:
+            res = lob(mv, mv32, warm["X0"], opt.lobpcg_maxiter_warm)
+            if decides(res) and gap < opt.tol and pinf < opt.tol:
+                res = lob(mv, mv32, res.neg_vecs, opt.lobpcg_maxiter)
         return finish(res)
     return cert
 
@@ -299,10 +327,6 @@ def solve_dual_al(variant_name: str, op,
     opt = merged_options(variant.name, options, **overrides)
     n, m = op.n, op.m
     device = op.device
-    if opt.inner_dtype == "mixed":
-        raise NotImplementedError(
-            "inner_dtype='mixed' (the f32 RTR pre-stage) is not ported "
-            "yet; use 'tcg32' or 'float64'")
     use_eigh = (opt.eig_method == "eigh") or \
         (opt.eig_method == "auto" and n < opt.eig_switch_n)
     k_cert = opt.delta + 1
@@ -330,9 +354,12 @@ def solve_dual_al(variant_name: str, op,
     line_search = make_line_search(
         cost_only, M.renormalize,
         ls_dtype="float32" if opt.inner_dtype == "tcg32" else None)
-    # f32 copies for the tcg32 inner loop, built once per solve
+    # f32 copies for the tcg32 inner loop and the mixed pre-stage, built
+    # once per solve (iAB travels in params, so one problem serves both
+    # dtypes)
+    mixed = opt.inner_dtype == "mixed"
     op32 = iab32 = None
-    if opt.inner_dtype == "tcg32":
+    if opt.inner_dtype == "tcg32" or mixed:
         op32 = op.astype(torch.float32)
         iab32 = iAB.astype(torch.float32) if iAB is not None else None
     stats_fn = _make_stats(variant)
@@ -403,9 +430,18 @@ def solve_dual_al(variant_name: str, op,
             if U_dir is not None:
                 Y = line_search(Y, U_dir, params)
             typdist = float(M.typicaldist(p, n))
-            params_tcg = dict(op=op32, Xm=Xm.to(torch.float32),
-                              w=w.to(torch.float32), sigma=sigma,
-                              iAB=iab32) if use32 else None
+            params32 = dict(op=op32, Xm=Xm.to(torch.float32),
+                            w=w.to(torch.float32), sigma=sigma,
+                            iAB=iab32) if use32 or mixed else None
+            # the f32 pre-stage runs in tier 0 only; the multiplier
+            # updates, the y-step and the certificates stay f64
+            if mixed and tier == 0:
+                Y, tr32, hv32 = mixed_prestage(
+                    problem, budget(tier, False), opt, gradnorm, Y,
+                    params32, typdist)
+                total_tr += tr32
+                total_hess += hv32
+            params_tcg = params32 if use32 else None
             res = solve(Y, params, typdist, params_tcg=params_tcg)
             Y = res.Y
             if symmetrize is not None:

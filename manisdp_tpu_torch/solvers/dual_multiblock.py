@@ -31,7 +31,8 @@ from ..kernels import oblique_cols
 from ..manifolds.product import MaskedProduct
 from ..ops.dualops import DualOp, SparseMat
 from .common import (PhaseTimers, SDPResult, SlowProgress, bucketed,
-                     log_iter, make_line_search, pad_rows, resolve_device)
+                     log_iter, make_line_search, mixed_prestage, pad_rows,
+                     resolve_device)
 from .dual_al import _B_rmatvec, _iab_mat, _iab_rmat
 from .multiblock import (BlockEigh, block_rank_update, budgets, column_mask,
                          initial_factor)
@@ -131,10 +132,6 @@ def solve_dual_multiblock(A, b, c, ns: Sequence[int], nob: int,
     (the default) raises when no GPU is present."""
     device = resolve_device(device)
     opt = merged_options("dual_multiblock", options, **overrides)
-    if opt.inner_dtype == "mixed":
-        raise NotImplementedError(
-            "inner_dtype='mixed' (the f32 RTR pre-stage) is not ported "
-            "yet; use 'tcg32' or 'float64'")
     ns = [int(x) for x in ns]
     nb = len(ns)
     pure = (nob == nb)
@@ -158,8 +155,9 @@ def solve_dual_multiblock(A, b, c, ns: Sequence[int], nob: int,
     line_search = make_line_search(
         cost_only, M.renormalize,
         ls_dtype="float32" if opt.inner_dtype == "tcg32" else None)
+    mixed = opt.inner_dtype == "mixed"
     op32 = iab32 = None
-    if opt.inner_dtype == "tcg32":
+    if opt.inner_dtype == "tcg32" or mixed:
         op32 = op.astype(torch.float32)
         iab32 = iAB.astype(torch.float32) if iAB is not None else None
 
@@ -225,9 +223,17 @@ def solve_dual_multiblock(A, b, c, ns: Sequence[int], nob: int,
             if U_dir is not None:
                 Y = line_search(Y, U_dir, params)
             typdist = MaskedProduct.typicaldist(ns, ps, nob)
-            params_tcg = dict(op=op32, Xm=Xm.to(torch.float32),
-                              w=w.to(torch.float32), sigma=sigma,
-                              iAB=iab32) if use32 else None
+            params32 = dict(op=op32, Xm=Xm.to(torch.float32),
+                            w=w.to(torch.float32), sigma=sigma,
+                            iAB=iab32) if use32 or mixed else None
+            # the f32 pre-stage runs in tier 0 only, not in the endgame
+            if mixed and tier == 0:
+                Y, tr32, hv32 = mixed_prestage(
+                    problem, budget(tier, False), opt, gradnorm, Y,
+                    params32, typdist)
+                total_tr += tr32
+                total_hess += hv32
+            params_tcg = params32 if use32 else None
             res = solve(Y, params, typdist, params_tcg=params_tcg)
             Y = res.Y
             gradnorm = float(res.norm_grad)

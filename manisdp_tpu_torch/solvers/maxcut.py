@@ -12,7 +12,10 @@ alternates [RTR inner solve -> dual certificate -> rank update]:
 with Y a zero-padded (p_pad, n) factor.  A sparse C (a SymCOO) runs the
 cost, Hessian, z and the certificate matvec through kernel K1; every
 oblique column op runs through kernel K2.  A dense C (n <=
-``dense_cost_max_n``) uses ``torch.matmul``.
+``dense_cost_max_n``) uses ``torch.matmul``.  ``inner_dtype="mixed"``
+runs an f32 RTR on C's f32 copy before each f64 solve
+(``common.mixed_prestage``); the certificate's f32 LOBPCG stage
+(``cert_pre_dtype``) applies S = C - diag(z) through that copy.
 """
 
 from __future__ import annotations
@@ -28,11 +31,12 @@ from ..config import SolverOptions, merged_options
 from ..core import Problem, TROptions, make_trustregions
 from ..kernels import symcoo_spmm
 from ..manifolds import Oblique
+from ..ops.eigs import lobpcg_certificate
 from ..ops.eigs_rr import DeviceCertSolver
 from ..ops.sparse import SymCOO
 from .common import (PhaseTimers, RankController, SDPResult, SlowProgress,
-                     bucketed, log_iter, make_line_search, pad_rows,
-                     resolve_device)
+                     bucketed, log_iter, make_line_search, mixed_prestage,
+                     pad_rows, resolve_device)
 
 
 def make_maxcut_problem(dense: bool = True) -> Problem:
@@ -76,10 +80,11 @@ def _make_cert(opt: SolverOptions, n: int, k: int, use_eigh: bool,
                dense: bool, gen: torch.Generator):
     """Dual certificate for S = C - diag(z): a dense eigh for moderate n,
     the device LOBPCG class otherwise.  Returns
-    cert(Y, C) -> (z, obj, dinf, num_neg, neg_vecs (n, k) host, neg_vals).
-    """
+    cert(Y, C, C32) -> (z, obj, dinf, num_neg, neg_vecs (n, k) host,
+    neg_vals); ``cert.reads_f32`` says whether it runs an f32 LOBPCG stage
+    on ``C32``, C in float32 (the caller passes None otherwise)."""
     if use_eigh:
-        def cert(Y, C):
+        def cert(Y, C, C32=None):
             z, obj = _z_obj(Y, C, dense)
             Cd = C if dense else C.to_dense()
             vals, vecs = torch.linalg.eigh(Cd - torch.diag(z))
@@ -87,21 +92,18 @@ def _make_cert(opt: SolverOptions, n: int, k: int, use_eigh: bool,
             dinf = max(0.0, -lam_min) / (1.0 + lam_max)
             return (z, obj, dinf, int(torch.sum(vals < 0)),
                     vecs[:, :k].cpu().numpy(), vals[:k].cpu().numpy())
+        cert.reads_f32 = False
         return cert
-
-    if opt.cert_method not in ("devrr", "rowrr"):
-        raise NotImplementedError(
-            f"cert_method={opt.cert_method!r} is not ported yet; use "
-            "'devrr' or 'rowrr'")
-    if opt.cert_pre_dtype == "float32":
-        raise NotImplementedError(
-            "cert_pre_dtype='float32' (the f32 LOBPCG pre-stage) is not "
-            "ported yet; the certificate runs in float64")
 
     def mvr_for(C, z):
         if dense:
             return lambda V: V @ C - z[None, :] * V
         return lambda V: symcoo_spmm(V, C, "shift", z=z)
+
+    def mvr32_for(C32, z):
+        """The f32 row matvec (K1 ``shift`` on C's f32 values, z in f32);
+        None without C32."""
+        return None if C32 is None else mvr_for(C32, z.to(torch.float32))
 
     warm = {"X0": None}
 
@@ -124,10 +126,10 @@ def _make_cert(opt: SolverOptions, n: int, k: int, use_eigh: bool,
     if opt.cert_method == "devrr" and n > 3 * b_cert:
         # warm call: Kato-Temple bound, deflation factor padded to
         # cert_p_bucket rows; retry: big block, linear bound, the active
-        # rows of Y
+        # rows of Y; both f64
         solvers = {}
 
-        def cert(Y, C):
+        def cert(Y, C, C32=None):
             z, obj = _z_obj(Y, C, dense)
             mvr = mvr_for(C, z)
             dr = bucketed(Y.shape[0], opt.cert_p_bucket)
@@ -150,27 +152,59 @@ def _make_cert(opt: SolverOptions, n: int, k: int, use_eigh: bool,
                                   tol=opt.cert_inner_tol)
             return finish(z, obj, res)
 
+        cert.reads_f32 = False
         return cert
 
-    # small n (devrr needs n > 3 * block) or cert_method="rowrr": the
-    # same class with the linear bound and the whole padded factor as
-    # deflation rows; the first call pays the full budget
-    def cert(Y, C):
+    # the f32 LOBPCG stage: at cert_pre_dtype "auto" or "float32" on the
+    # rowrr path (and devrr at small n), at "float32" on the lobpcg path
+    rowrr = opt.cert_method in ("devrr", "rowrr")
+    cert32 = opt.cert_pre_dtype == "float32" or (
+        rowrr and opt.cert_pre_dtype == "auto")
+    if rowrr:
+        # small n (devrr needs n > 3 * block) or cert_method="rowrr": the
+        # same class with the linear bound, the whole padded factor as
+        # deflation rows and, at cert_pre_dtype "auto" / "float32", an f32
+        # stage; the first call pays the full budget
+        def cert(Y, C, C32=None):
+            z, obj = _z_obj(Y, C, dense)
+            mvr, mvr32 = mvr_for(C, z), mvr32_for(C32, z)
+            solver = DeviceCertSolver(n, k, deflate_rows=Y.shape[0],
+                                      bound="linear")
+            first = warm["X0"] is None
+            res = solver.solve(mvr, gen, X0=warm["X0"], Ydefl=Y,
+                               maxiter=(opt.lobpcg_maxiter if first
+                                        else opt.lobpcg_maxiter_warm),
+                               tol=opt.cert_inner_tol, matvec32_rows=mvr32)
+            if not first and decides(res):
+                res = solver.solve(mvr, gen, X0=res.neg_vecs, Ydefl=Y,
+                                   maxiter=opt.lobpcg_maxiter,
+                                   tol=opt.cert_inner_tol,
+                                   matvec32_rows=mvr32)
+            return finish(z, obj, res)
+
+        cert.reads_f32 = cert32
+        return cert
+
+    # any other cert_method: the lobpcg certificate (ops/eigs.py), f32 bulk
+    # iterations at cert_pre_dtype="float32"; full budget on the first
+    # call, warm budget after, the full one again when accuracy decides
+    def lob(Y, mvr, mvr32, X0, maxiter):
+        return lobpcg_certificate(mvr, n, k, gen, maxiter=maxiter, deflate=Y,
+                                  X0=X0, matvec32=mvr32,
+                                  refine_iters=opt.lobpcg_refine)
+
+    def cert(Y, C, C32=None):
         z, obj = _z_obj(Y, C, dense)
-        mvr = mvr_for(C, z)
-        solver = DeviceCertSolver(n, k, deflate_rows=Y.shape[0],
-                                  bound="linear")
-        first = warm["X0"] is None
-        res = solver.solve(mvr, gen, X0=warm["X0"], Ydefl=Y,
-                           maxiter=(opt.lobpcg_maxiter if first
-                                    else opt.lobpcg_maxiter_warm),
-                           tol=opt.cert_inner_tol)
-        if not first and decides(res):
-            res = solver.solve(mvr, gen, X0=res.neg_vecs, Ydefl=Y,
-                               maxiter=opt.lobpcg_maxiter,
-                               tol=opt.cert_inner_tol)
+        mvr, mvr32 = mvr_for(C, z), mvr32_for(C32, z)
+        if warm["X0"] is None:
+            res = lob(Y, mvr, mvr32, None, opt.lobpcg_maxiter)
+        else:
+            res = lob(Y, mvr, mvr32, warm["X0"], opt.lobpcg_maxiter_warm)
+            if decides(res):
+                res = lob(Y, mvr, mvr32, res.neg_vecs, opt.lobpcg_maxiter)
         return finish(z, obj, res)
 
+    cert.reads_f32 = cert32
     return cert
 
 
@@ -201,10 +235,6 @@ def solve_maxcut_unitdiag(C, options: Optional[SolverOptions] = None,
         from ..utils.checkpoint import resume_kwargs
         Y0 = resume_kwargs(resume).get("Y0", Y0)
     opt = merged_options("maxcut_unitdiag", options, **overrides)
-    if opt.inner_dtype == "mixed":
-        raise NotImplementedError(
-            "inner_dtype='mixed' (the f32 RTR pre-stage) is not ported "
-            "yet; use 'tcg32' or 'float64'")
     C = _symcoo(C, device)
     n = C.n
     use_eigh = (opt.eig_method == "eigh") or \
@@ -212,9 +242,6 @@ def solve_maxcut_unitdiag(C, options: Optional[SolverOptions] = None,
     dense = (n <= opt.dense_cost_max_n or
              n * n <= opt.dense_cost_nnz_factor * C.nnz)
     C_param = C.to_dense() if dense else C
-    # tcg32 applies to the sparse cost path only; C's f32 values are
-    # built once per solve
-    C32 = None if dense else C.astype(torch.float32)
     k_cert = opt.delta + 1
 
     if opt.verbose:
@@ -228,6 +255,15 @@ def solve_maxcut_unitdiag(C, options: Optional[SolverOptions] = None,
     cost_only = lambda Y, Cp: problem.cost(Y, Cp)[0]  # noqa: E731
     line_search = make_line_search(cost_only, Oblique.renormalize)
     cert_fn = _make_cert(opt, n, k_cert, use_eigh, dense, gen)
+    # C in f32, built once per solve where an f32 stage reads it: the
+    # sparse path's tcg32 loop, the mixed pre-stage's RTR and the
+    # certificate's f32 LOBPCG stage
+    mixed = opt.inner_dtype == "mixed"
+    C32 = None
+    if mixed or cert_fn.reads_f32 or (opt.inner_dtype == "tcg32" and
+                                      not dense):
+        C32 = C_param.to(torch.float32) if dense else \
+            C.astype(torch.float32)
     rank = RankController(opt.theta, opt.delta, opt.alpha,
                           nne_floor=True, bucket=opt.p_bucket)
     slow = SlowProgress(period=20, warmup=50)
@@ -260,13 +296,18 @@ def solve_maxcut_unitdiag(C, options: Optional[SolverOptions] = None,
     for it in range(1, opt.max_outer + 1):
         fac_size.append(p)
         tcg32 = use32 and not dense
-        solve = make_trustregions(problem, TROptions(
-            maxiter=opt.tr_maxiter, maxinner=opt.tr_maxinner,
-            tolgradnorm=opt.tolgradnorm,
-            tcg_dtype="float32" if tcg32 else None))
+        budget = TROptions(maxiter=opt.tr_maxiter, maxinner=opt.tr_maxinner,
+                           tolgradnorm=opt.tolgradnorm,
+                           tcg_dtype="float32" if tcg32 else None)
+        solve = make_trustregions(problem, budget)
         with timers.timed("rtr"):
             if U_dir is not None:
                 Y = line_search(Y, as_dev(U_dir), C_param)
+            if mixed:
+                Y, tr32, hv32 = mixed_prestage(problem, budget, opt,
+                                               gradnorm, Y, C32, typdist)
+                total_tr += tr32
+                total_hess += hv32
             res = solve(Y, C_param, typdist,
                         params_tcg=C32 if tcg32 else None)
             Y = res.Y
@@ -276,7 +317,7 @@ def solve_maxcut_unitdiag(C, options: Optional[SolverOptions] = None,
 
         with timers.timed("cert"):
             z_dev, obj, dinf, num_neg, neg_vecs, neg_vals = cert_fn(
-                Y, C_param)
+                Y, C_param, C32 if cert_fn.reads_f32 else None)
 
         with timers.timed("rank"):
             r, e, Ul = rank.truncation(Y, p)

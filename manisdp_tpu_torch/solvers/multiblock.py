@@ -31,7 +31,8 @@ from ..kernels import oblique_cols, symcoo_spmm
 from ..manifolds.product import MaskedProduct
 from ..ops.sparse import ConstraintOp
 from .common import (PhaseTimers, SDPResult, SlowProgress, bucketed,
-                     log_iter, make_line_search, pad_rows, resolve_device)
+                     log_iter, make_line_search, mixed_prestage, pad_rows,
+                     resolve_device)
 
 
 def _make_problem(M: MaskedProduct):
@@ -261,10 +262,6 @@ def solve_multiblock(At, b, c, ns: Sequence[int], nob: int,
         if "sigma0" in rk:
             overrides.setdefault("sigma0", rk["sigma0"])
     opt = merged_options("multiblock", options, **overrides)
-    if opt.inner_dtype == "mixed":
-        raise NotImplementedError(
-            "inner_dtype='mixed' (the f32 RTR pre-stage) is not ported "
-            "yet; use 'tcg32' or 'float64'")
     ns = [int(x) for x in ns]
     nb = len(ns)
     if isinstance(At, ConstraintOp):
@@ -287,7 +284,9 @@ def solve_multiblock(At, b, c, ns: Sequence[int], nob: int,
     line_search = make_line_search(
         cost_only, M.renormalize,
         ls_dtype="float32" if opt.inner_dtype == "tcg32" else None)
-    op32 = op.astype(torch.float32) if opt.inner_dtype == "tcg32" else None
+    mixed = opt.inner_dtype == "mixed"
+    op32 = op.astype(torch.float32) \
+        if opt.inner_dtype == "tcg32" or mixed else None
 
     def stats(Y, y, sigma):
         e = op.pattern_pair_dots(Y)
@@ -352,8 +351,16 @@ def solve_multiblock(At, b, c, ns: Sequence[int], nob: int,
             if U_dir is not None:
                 Y = line_search(Y, U_dir, params)
             typdist = MaskedProduct.typicaldist(ns, ps, nob)
-            params_tcg = dict(op=op32, y=y.to(torch.float32),
-                              sigma=sigma) if use32 else None
+            params32 = dict(op=op32, y=y.to(torch.float32),
+                            sigma=sigma) if use32 or mixed else None
+            # the f32 pre-stage runs in tier 0 only, not in the endgame
+            if mixed and tier == 0:
+                Y, tr32, hv32 = mixed_prestage(
+                    problem, budget(tier, False), opt, gradnorm, Y,
+                    params32, typdist)
+                total_tr += tr32
+                total_hess += hv32
+            params_tcg = params32 if use32 else None
             res = solve(Y, params, typdist, params_tcg=params_tcg)
             Y = res.Y
             gradnorm = float(res.norm_grad)

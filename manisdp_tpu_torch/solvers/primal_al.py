@@ -48,11 +48,12 @@ from ..core import Problem, TROptions, make_trustregions
 from ..kernels import symcoo_spmm
 from ..manifolds import Euclidean, Oblique, Sphere
 from ..ops.dense_cert import DenseEighCert
+from ..ops.eigs import lobpcg_certificate
 from ..ops.eigs_rr import DeviceCertSolver
 from ..ops.sparse import ConstraintOp, EntrywiseConstraintOp
 from .common import (PhaseTimers, RankController, SDPResult, SlowProgress,
-                     bucketed, log_iter, make_line_search, pad_rows,
-                     resolve_device)
+                     bucketed, log_iter, make_line_search, mixed_prestage,
+                     pad_rows, resolve_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,29 +229,28 @@ def _make_certificate(variant: ALVariant, op, n: int, k: int,
                     int(torch.sum(vals < 0)), vecs[:, :k], vals[:k])
         return cert
 
-    if opt.cert_method not in ("devrr", "rowrr"):
-        raise NotImplementedError(
-            f"cert_method={opt.cert_method!r} here takes the legacy lobpcg "
-            "certificate (dense_eigh needs a dense carrier, eig_method="
-            "'auto' and n <= dense_cert_max_n), which is not ported yet; "
-            "use 'devrr' or 'rowrr'")
-    if opt.cert_pre_dtype == "float32":
-        raise NotImplementedError(
-            "cert_pre_dtype='float32' (the f32 LOBPCG pre-stage) is not "
-            "ported yet; the certificate runs in float64")
-
-    def mvr_for(sv, z):
-        """V -> V S for (rows, n) V: K1 with S's values on P, or a GEMM
-        with the dense S on a carrier."""
+    def mvr_for(sv, z, dtype=torch.float64):
+        """V -> V S for (rows, n) V in ``dtype`` (sv and z cast to it): K1
+        with S's values on P, or a GEMM with the dense S on a carrier."""
+        sv = sv.to(dtype)
         if variant.shift == "none":
             if not factored:
                 return lambda V: V @ sv
             return lambda V: symcoo_spmm(V, op.pat, "plain", vals=sv)
-        zv = z if variant.shift == "diag" else \
-            z.reshape(1).expand(n).contiguous()
+        zv = (z if variant.shift == "diag" else
+              z.reshape(1).expand(n).contiguous()).to(dtype)
         if not factored:
             return lambda V: V @ sv - zv[None, :] * V
         return lambda V: symcoo_spmm(V, op.pat, "shift", vals=sv, z=zv)
+
+    # the f32 LOBPCG stage: at cert_pre_dtype "auto" or "float32" on the
+    # rowrr path (and devrr at small n), at "float32" on the lobpcg path
+    rowrr = opt.cert_method in ("devrr", "rowrr")
+    cert32 = opt.cert_pre_dtype == "float32" or (
+        rowrr and opt.cert_pre_dtype == "auto")
+
+    def mvr32_for(sv, z):
+        return mvr_for(sv, z, torch.float32) if cert32 else None
 
     def decides(res):
         """The conservative bound fails tol while the optimistic Ritz
@@ -297,22 +297,44 @@ def _make_certificate(variant: ALVariant, op, n: int, k: int,
 
         return cert
 
-    # small n (devrr needs n > 3 * block) or cert_method="rowrr": the same
-    # class with the linear bound and the whole factor as deflation rows;
-    # the first call pays the full budget
+    if rowrr:
+        # small n (devrr needs n > 3 * block) or cert_method="rowrr": the
+        # same class with the linear bound, the whole factor as deflation
+        # rows and the f32 stage; the first call pays the full budget
+        def cert(Y, sv, z, gap=np.inf, pinf=np.inf):
+            mvr, mvr32 = mvr_for(sv, z), mvr32_for(sv, z)
+            solver = DeviceCertSolver(n, k, deflate_rows=Y.shape[0],
+                                      bound="linear")
+            first = warm["X0"] is None
+            res = solver.solve(mvr, gen, X0=warm["X0"], Ydefl=Y,
+                               maxiter=(opt.lobpcg_maxiter if first
+                                        else opt.lobpcg_maxiter_warm),
+                               tol=opt.cert_inner_tol, matvec32_rows=mvr32)
+            if not first and decides(res):
+                res = solver.solve(mvr, gen, X0=res.neg_vecs, Ydefl=Y,
+                                   maxiter=opt.lobpcg_maxiter,
+                                   tol=opt.cert_inner_tol,
+                                   matvec32_rows=mvr32)
+            return finish(res)
+
+        return cert
+
+    # any other cert_method (dense_eigh where its carrier conditions fail
+    # included): the lobpcg certificate (ops/eigs.py); full budget on the
+    # first call, warm after, full again when accuracy decides
+    def lob(Y, mvr, mvr32, X0, maxiter):
+        return lobpcg_certificate(mvr, n, k, gen, maxiter=maxiter, deflate=Y,
+                                  X0=X0, matvec32=mvr32,
+                                  refine_iters=opt.lobpcg_refine)
+
     def cert(Y, sv, z, gap=np.inf, pinf=np.inf):
-        mvr = mvr_for(sv, z)
-        solver = DeviceCertSolver(n, k, deflate_rows=Y.shape[0],
-                                  bound="linear")
-        first = warm["X0"] is None
-        res = solver.solve(mvr, gen, X0=warm["X0"], Ydefl=Y,
-                           maxiter=(opt.lobpcg_maxiter if first
-                                    else opt.lobpcg_maxiter_warm),
-                           tol=opt.cert_inner_tol)
-        if not first and decides(res):
-            res = solver.solve(mvr, gen, X0=res.neg_vecs, Ydefl=Y,
-                               maxiter=opt.lobpcg_maxiter,
-                               tol=opt.cert_inner_tol)
+        mvr, mvr32 = mvr_for(sv, z), mvr32_for(sv, z)
+        if warm["X0"] is None:
+            res = lob(Y, mvr, mvr32, None, opt.lobpcg_maxiter)
+        else:
+            res = lob(Y, mvr, mvr32, warm["X0"], opt.lobpcg_maxiter_warm)
+            if decides(res):
+                res = lob(Y, mvr, mvr32, res.neg_vecs, opt.lobpcg_maxiter)
         return finish(res)
 
     return cert
@@ -370,10 +392,6 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
     opt = merged_options(variant.name, options, **overrides)
     n, m = op.n, op.m
     device = op.device
-    if opt.inner_dtype == "mixed":
-        raise NotImplementedError(
-            "inner_dtype='mixed' (the f32 RTR pre-stage) is not ported "
-            "yet; use 'tcg32' or 'float64'")
     timers = PhaseTimers()
     with timers.timed("operator"):
         op = _select_operator(opt, op)
@@ -405,9 +423,12 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
     line_search = make_line_search(
         cost_only, M.renormalize,
         ls_dtype="float32" if opt.inner_dtype == "tcg32" else None)
-    # f32 copy of the operator for the tcg32 inner loop (index arrays
-    # shared; only float arrays are cast), built once per solve
-    op32 = op.astype(torch.float32) if opt.inner_dtype == "tcg32" else None
+    # f32 copy of the operator for the tcg32 inner loop and the mixed
+    # pre-stage (index arrays shared; only float arrays are cast), built
+    # once per solve
+    mixed = opt.inner_dtype == "mixed"
+    op32 = op.astype(torch.float32) \
+        if opt.inner_dtype == "tcg32" or mixed else None
     stats_fn = _make_stats(variant)
     gen = torch.Generator(device=device)
     gen.manual_seed(opt.seed)
@@ -459,6 +480,14 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
             if U_dir is not None:
                 Y = line_search(Y, U_dir, params)
             typdist = float(M.typicaldist(p, n))
+            # the f32 pre-stage runs in tier 0 only, not in the endgame
+            if mixed and tier == 0:
+                Y, tr32, hv32 = mixed_prestage(
+                    problem, budget(tier, False), opt, gradnorm, Y,
+                    dict(op=op32, y=y.to(torch.float32), sigma=sigma),
+                    typdist)
+                total_tr += tr32
+                total_hess += hv32
             params_tcg = dict(op=op32, y=y.to(torch.float32),
                               sigma=sigma) if use32 else None
             res = solve(Y, params, typdist, params_tcg=params_tcg)

@@ -1,10 +1,12 @@
 """The port's copied host modules (config, Gset loader, checkpoint,
-recipes, SeDuMi container, workload generators) agree with the JAX
-package's originals, and importing the port loads no jax."""
+recipes, SeDuMi container, workload generators, the IPM oracle) agree
+with the JAX package's originals, the port reads every solver option the
+JAX package reads, and importing the port loads no jax."""
 
 import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -32,7 +34,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
                                  "frontends/lasserre.py",
                                  "frontends/monomials.py",
                                  "frontends/sos.py",
-                                 "frontends/sparse_moments.py"])
+                                 "frontends/sparse_moments.py",
+                                 "utils/ipm.py"])
 def test_copied_module_is_identical(rel):
     with open(os.path.join(REPO, "manisdp_tpu", rel)) as f:
         original = f.read()
@@ -56,6 +59,35 @@ def test_variant_defaults_match(variant):
     to = dataclasses.asdict(tcfg.merged_options(variant, tol=1e-7))
     assert to == jo
     assert dataclasses.asdict(options_from_dict(jo)) == jo
+
+
+# SolverOptions fields that only the JAX package's TPU workarounds read
+# (ROADMAP "North star": device_retry, the jit closure caches, the block cap
+# and host Rayleigh-Ritz of its certificate); none of them takes an option
+# today, so the list is empty
+WORKAROUND_FIELDS = frozenset()
+
+
+def _options_read(package):
+    """Every ``opt.<field>`` read in a package's sources."""
+    names = set()
+    for dirpath, _, files in os.walk(os.path.join(REPO, package)):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    names |= set(re.findall(r"\bopt\.([A-Za-z_]\w*)",
+                                            fh.read()))
+    return names
+
+
+def test_port_reads_every_option_jax_reads():
+    fields = {f.name for f in dataclasses.fields(tcfg.SolverOptions)}
+    jax_read = _options_read("manisdp_tpu") & fields
+    assert len(jax_read) > 40
+    assert WORKAROUND_FIELDS <= fields
+    missing = jax_read - _options_read("manisdp_tpu_torch") - \
+        WORKAROUND_FIELDS
+    assert not missing, sorted(missing)
 
 
 def test_options_from_dict_rejects_unknown_field():

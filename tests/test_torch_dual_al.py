@@ -254,18 +254,25 @@ def test_checkpoint_and_resume_round_trip(tmp_path):
 
 
 def test_unported_options_raise():
-    Q, e = _bqp(4, 5)
-    A, b, c, mb, f, dAAt = assemble_bqpsos(Q, e, 4)
+    """The three options that raised NotImplementedError before the port
+    had them (the name is kept) now run and reach the JAX package's
+    optimum from the same Y0; a CUDA solve without a card and an operator
+    on another device still raise.  At q = 9 (n = 46): the JAX lobpcg
+    routine needs n > 5 times its block of 9."""
+    Q, e = _bqp(9, 5)
+    A, b, c, mb, f, dAAt = assemble_bqpsos(Q, e, 9)
     kw = dict(f=f, dAAt=dAAt, **CPU)
-    with pytest.raises(NotImplementedError, match="mixed"):
-        solve_dual_unitdiag(A, b, c, mb, inner_dtype="mixed", **kw)
-    with pytest.raises(NotImplementedError, match="lobpcg"):
-        solve_dual_unitdiag(A, b, c, mb, eig_method="lobpcg",
-                            cert_method="lobpcg", **kw)
-    with pytest.raises(NotImplementedError, match="float32"):
-        solve_dual_unitdiag(A, b, c, mb, eig_method="lobpcg",
-                            cert_method="rowrr", cert_pre_dtype="float32",
-                            **kw)
+    b = b / np.max(np.abs(b))
+    Y0 = _unit_cols(np.random.RandomState(5).randn(3, mb))
+    for opts in (dict(inner_dtype="mixed"),
+                 dict(eig_method="lobpcg", cert_method="lobpcg"),
+                 dict(eig_method="lobpcg", cert_method="rowrr",
+                      cert_pre_dtype="float32")):
+        tr = solve_dual_unitdiag(A, b, c, mb, Y0=Y0, **kw, **opts)
+        jr = j_dual_unitdiag(A, b, c, mb, f=f, dAAt=dAAt, Y0=Y0,
+                             verbose=False, **opts)
+        assert tr.status == 0 and jr.status == 0 and tr.eta < 1e-8, opts
+        np.testing.assert_allclose(tr.obj, jr.obj, rtol=1e-6)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             solve_dual_unitdiag(A, b, c, mb, f=f, dAAt=dAAt, verbose=False)

@@ -121,8 +121,42 @@ def test_cuda_without_gpu_raises(monkeypatch):
      "cert_pre_dtype='float32'"),
 ])
 def test_unported_options_raise(kw, name):
-    with pytest.raises(NotImplementedError, match=name):
-        _solve(random_graph_cost(80, 400, seed=1), **kw)
+    """These options raised NotImplementedError before the port had them
+    (the name is kept); each now runs, certifies by the external oracle and
+    reaches the JAX package's optimum from the same Y0."""
+    C = random_graph_cost(80, 400, seed=1)
+    Y0 = _y0(2, 80, 1)
+    res = _solve(C, Y0=Y0, **kw)
+    assert res.status == 0 and kkt_oracle(C.toarray(), res, 1e-8)[0] < 1e-8
+    ref = j_solve(C, verbose=False, Y0=Y0, **kw)
+    assert ref.status == 0
+    np.testing.assert_allclose(res.obj, ref.obj, rtol=1e-7)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cert_method="lobpcg", cert_pre_dtype="float32"),
+    dict(cert_method="rowrr"),
+    dict(cert_method="rowrr", cert_pre_dtype="float64"),
+    dict(cert_method="lobpcg", dense_cost_max_n=0, dense_cost_nnz_factor=0),
+    dict(cert_method="lobpcg", cert_pre_dtype="float32", dense_cost_max_n=0,
+         dense_cost_nnz_factor=0),
+    dict(inner_dtype="mixed", dense_cost_max_n=0, dense_cost_nnz_factor=0),
+], ids=["lobpcg_f32", "rowrr_auto_f32", "rowrr_f64", "sparse_lobpcg",
+        "sparse_lobpcg_f32", "sparse_mixed"])
+def test_certificate_options_match_jax(kw):
+    """cert_method="lobpcg" (f64, or f32 bulk iterations at
+    cert_pre_dtype="float32") and rowrr with and without its f32 stage, on
+    the dense cost and on K1's twin (the sparse cost), and the mixed
+    pre-stage on the sparse cost, against the JAX package from the same
+    Y0."""
+    C = random_graph_cost(90, 450, seed=4)
+    Y0 = _y0(3, 90, 4)
+    kw = dict(kw, eig_method="lobpcg")
+    res = _solve(C, Y0=Y0, **kw)
+    assert res.status == 0 and kkt_oracle(C.toarray(), res, 1e-8)[0] < 1e-8
+    ref = j_solve(C, verbose=False, Y0=Y0, **kw)
+    assert ref.status == 0
+    np.testing.assert_allclose(res.obj, ref.obj, rtol=1e-7)
 
 
 def test_options_object_is_used_as_given():

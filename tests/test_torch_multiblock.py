@@ -277,14 +277,27 @@ def test_solve_sedumi_routes_two_blocks_like_jax(quartic_primal):
 
 @pytest.mark.parametrize("driver", ["primal", "dual"])
 def test_mixed_inner_dtype_is_not_ported_yet(driver):
-    At, b, c, ns = _two_bqp_blocks()
-    with pytest.raises(NotImplementedError, match="mixed"):
-        if driver == "primal":
-            solve_multiblock(At, b, c, ns=ns, nob=2, device="cpu",
-                             inner_dtype="mixed")
-        else:
-            solve_dual_multiblock(At.T.tocsr(), b, c, ns=ns, nob=2,
-                                  device="cpu", inner_dtype="mixed")
+    """inner_dtype="mixed" raised NotImplementedError before the port had
+    it (the name is kept); it now runs on test_two_oblique_blocks's data
+    and reaches the JAX package's optimum (the dual driver on the SOS dual
+    of a BQP of size 5, as test_single_block_dual_matches_jax)."""
+    if driver == "primal":
+        At, b, c, ns = _two_bqp_blocks()
+        kw = dict(verbose=False, sigma0=1e-3, sigma_min=1e-2, tau1=1, tau2=1,
+                  inner_dtype="mixed")
+        jr = jax_multiblock(At, b, c, ns=ns, nob=2, **kw)
+        tr = solve_multiblock(At, b, c, ns=ns, nob=2, device="cpu", **kw)
+    else:
+        rs = np.random.RandomState(2)
+        Q = rs.randn(5, 5)
+        A, b, c, mb, f, dAAt = assemble_bqpsos(0.5 * (Q + Q.T), rs.randn(5),
+                                               5)
+        kw = dict(ns=[mb], nob=1, f=f, dAAt=dAAt, verbose=False,
+                  inner_dtype="mixed")
+        b = b / np.max(np.abs(b))
+        jr = jax_dual_multiblock(A, b, c, **kw)
+        tr = solve_dual_multiblock(A, b, c, device="cpu", **kw)
+    _agree(tr, jr)
 
 
 def test_checkpoint_and_resume_match_jax(tmp_path):
