@@ -107,12 +107,32 @@ not 0):
      both multiblock drivers with ``inner_dtype="mixed"`` (primal and dual
      within 1e-6).  The LOBPCG solves also time one certificate call at
      their final point with the f32 stage and without it, with both
-     stages' iteration counts.
+     stages' iteration counts;
+ 24. the sharded paths (``parallel/``), each rank a process started by
+     ``parallel.spawn_ranks``: mc-12000 (phase 7's instance and options)
+     through ``solve_sdp(mesh=)`` over the constraint operator sharded by
+     pattern id (K3 / K4 / K1 per shard, all-reduces between) on NCCL at
+     world size 1 (24a), then on gloo at world size 2 with both ranks on
+     card 0 (24b; first each shard's apply_factored, adjoint_on_pattern,
+     matmat_pattern, matvec_pattern and AL Hessian against the unsharded
+     operator's, and each shard's K3 / K4 / K1 against its plain twin at
+     the shard's shapes, 1e-12 f64 / 1e-5 f32), each at status 0 with
+     the on-card oracle <= 1e-8, within 1e-6 of phase 7's (24a) and
+     24a's (24b) objective, every rank bit-equal and launching K1, K3, K4
+     and K11;
+     phase 21's sparse batch through ``solve_maxcut_batch(mesh=)`` over a
+     2-rank batch axis on gloo (24c), every instance within 1e-6 of phase
+     21's; with two or more cards, 24a again on NCCL across min(4, cards)
+     cards (24d; otherwise one line says why it did not run).  Gloo
+     stages CUDA all-reduces through the host, so its times are labelled
+     host-staged.
 ``--phases`` selects phases (default all; 1-2 always run).  A phase runs
 with the rest of its group (3 | 4 | 5 | 6-7 | 8-11 | 12-15 | 16-19 |
-20 | 21 | 22 | 23), and 16-19 bring 12-15 (phase 17 reads phase 13's
+20 | 21 | 22 | 23 | 24), and 16-19 bring 12-15 (phase 17 reads phase 13's
 objective); the ``kernels`` line lists the kernels whose phases ran
-(with phase 23, each kernel's f32 launches there).
+(with phase 23, each kernel's f32 launches there; with phase 24, rank
+0's launches in 24b of the row's kernel, or of its mode where the mode
+has a counter of its own).
 The host builds of phases 17-18's SeDuMi data (numpy, about a minute
 each) and of phases 22-23's chain run in worker processes started with
 the script.  Phases 9-11, 13-15, 17-19, 21 and 23 report peak device
@@ -198,12 +218,19 @@ BATCH_N_PAD = 3072
 BATCH_P_PADS = (40, 48)
 # phase 22: a short clique chain solved twice (the determinism check)
 CHAIN5_T = 5
+# phase 24 (the sharded paths): its ranks on gloo share card 0, its NCCL
+# runs put one rank on each of up to SHARD_NCCL_MAX cards; the protocol
+# checks' inputs are SHARD_P x n factors, an n x SHARD_K block and sigma
+SHARD_GLOO_WORLD = 2
+SHARD_NCCL_MAX = 4
+SHARD_P, SHARD_K, SHARD_SIGMA = AL_HOT_P_PAD, 11, 0.37
 # the phases and their groups: a phase runs with the rest of its group;
 # 16-19 read phase 13's SOS-dual objective; 23 reads the objectives of 5,
-# 7, 9, 13 and 22 where they ran (and solves them itself where not)
-LAST_PHASE = 23
+# 7, 9, 13 and 22 where they ran (and solves them itself where not), 24
+# those of 7 and 21
+LAST_PHASE = 24
 GROUPS = ((3,), (4,), (5,), (6, 7), (8, 9, 10, 11), (12, 13, 14, 15),
-          (16, 17, 18, 19), (20,), (21,), (22,), (23,))
+          (16, 17, 18, 19), (20,), (21,), (22,), (23,), (24,))
 NEEDS = {16: (12,)}
 # the JAX package's optima on the CPU (f64), the values the port is held to
 JAX_BQP30 = -154.7359587770444
@@ -2557,7 +2584,7 @@ def f32_phases(args, device, rec, keep, jobs):
 
     # -- mc-12000 through solve_sdp with the mixed pre-stage --
     if "mc12000" in keep:
-        data, op_mc = keep.pop("mc12000")
+        data, op_mc = keep["mc12000"]
     else:
         data, _ = mc_instance(MC)
         op_mc = ConstraintOp.build(data.At, data.b, data.c, int(data.K.s),
@@ -2697,6 +2724,442 @@ def f32_phases(args, device, rec, keep, jobs):
                               rel_to_ref=v.get("rel_to_ref",
                                                v.get("rel_to_primal")))
                       for k, v in out.items() if isinstance(v, dict)}))
+    return out
+
+
+def _rel_err(got, ref):
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.max(np.abs(got - ref)) /
+                 max(float(np.max(np.abs(ref))), 1e-300))
+
+
+def _digest(*arrays):
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def shard_inputs(op, device, seed):
+    """Phase 24b's protocol inputs at mc-12000 (a (SHARD_P, n) factor Y, a
+    tangent U, w (m,), V (n, SHARD_K), eG (n,)) and the unsharded
+    operator's outputs on them in f64 and f32, as host arrays."""
+    import torch
+    from manisdp_tpu_torch import kernels as K
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                 dtype=torch.float64, device=device)
+    Y = K.oblique_cols_plain(rnd(SHARD_P, op.n), None, "renormalize")
+    U = K.oblique_cols_plain(Y, rnd(SHARD_P, op.n), "proj")
+    ins = dict(Y=Y, U=U, w=rnd(op.m), V=rnd(op.n, SHARD_K), eG=rnd(op.n))
+    out = {f"in_{k}": v.cpu().numpy() for k, v in ins.items()}
+    for dt in (torch.float64, torch.float32):
+        o = op.astype(dt)
+        Y, U, w, V, eG = (ins[k].to(dt) for k in ("Y", "U", "w", "V", "eG"))
+        es, sv = o.es_vals(w, SHARD_SIGMA), o.s_vals(w)
+        ayu = o.normal_factored(Y, U)
+        coefs = (2.0, 4.0 * SHARD_SIGMA)
+        ref = dict(apply_factored=o.apply_factored(Y, U),
+                   adjoint_on_pattern=o.adjoint_on_pattern(w),
+                   matmat_pattern=o.matmat_pattern(Y, es),
+                   matvec_pattern=o.matvec_pattern(V, sv),
+                   al_hess=o.al_hess(U, Y, es, ayu, coefs),
+                   al_hess_diag=o.al_hess(U, Y, es, ayu, coefs, eG=eG))
+        out.update({f"{str(dt)[6:]}_{k}": v.cpu().numpy()
+                    for k, v in ref.items()})
+    return out
+
+
+def shard_checks(sop, path):
+    """Each method of this rank's shard against the unsharded operator's
+    outputs (``shard_inputs``, saved at ``path``): relative errors, f64
+    and f32 (the adjoint on this rank's slice of the pattern)."""
+    import torch
+    dev = sop.device
+    with np.load(path) as z:
+        ref = {k: z[k] for k in z.files}
+    errs = {}
+    for dt in (torch.float64, torch.float32):
+        o = sop.astype(dt)
+        Y, U, w, V, eG = (torch.as_tensor(ref[f"in_{k}"], device=dev).to(dt)
+                          for k in ("Y", "U", "w", "V", "eG"))
+        es, sv = o.es_vals(w, SHARD_SIGMA), o.s_vals(w)
+        ayu = o.normal_factored(Y, U)
+        coefs = (2.0, 4.0 * SHARD_SIGMA)
+        got = dict(apply_factored=o.apply_factored(Y, U),
+                   adjoint_on_pattern=o.adjoint_on_pattern(w),
+                   matmat_pattern=o.matmat_pattern(Y, es),
+                   matvec_pattern=o.matvec_pattern(V, sv),
+                   al_hess=o.al_hess(U, Y, es, ayu, coefs),
+                   al_hess_diag=o.al_hess(U, Y, es, ayu, coefs, eG=eG))
+        name = str(dt)[6:]
+        for k, v in got.items():
+            want = ref[f"{name}_{k}"]
+            if k == "adjoint_on_pattern":
+                want = want[sop.lo:sop.lo + v.shape[0]]
+            errs[f"{name}_{k}"] = _rel_err(v.cpu().numpy(), want)
+    return errs
+
+
+def shard_times(sop, path):
+    """Phase 24b's per-shard kernel times (ranks in turns, one at a time on
+    the card): K3 pair dots, K4 A(·) and Aᵀ on the slice, K1 ``al_hess`` on
+    the slice, each against its plain twin at the shard's own shapes (its
+    errors) and its bound, f32 (the tCG's) and f64; then the all-reduces
+    of the solve's shapes ((m,), (p, n), (k, n)), both ranks together,
+    host clock around a synchronize (gloo stages them through the
+    host)."""
+    import torch
+    import torch.distributed as dist
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch.parallel.distributed import all_reduce
+    dev = sop.device
+    with np.load(path) as z:
+        ins = {k: z[f"in_{k}"] for k in ("Y", "U", "w")}
+    rows = []
+    for turn in range(dist.get_world_size()):
+        dist.barrier()
+        if turn != dist.get_rank():
+            continue
+        for dt in (torch.float32, torch.float64):
+            o = sop.local.astype(dt)
+            Y, U, w = (torch.as_tensor(ins[k], device=dev).to(dt)
+                       for k in ("Y", "U", "w"))
+            p, n = Y.shape
+            e = o.pattern_pair_dots(Y, U)
+            es = o.es_vals(w, SHARD_SIGMA)
+            ayu = o.adjoint_on_pattern(w)
+            nP, nA, m = o.pat.nnz, o.nnz, o.m
+            coefs = (2.0, 4.0 * SHARD_SIGMA)
+            pat = (o.pat.i, o.pat.colptr)
+            name = str(dt)[6:]
+            for kern, fn, twin, reads, writes, flops in (
+                    ("pattern_dots", lambda: o.pattern_pair_dots(Y, U),
+                     lambda: K.pattern_dots_plain(Y, U, o.pat),
+                     (Y, U, *pat), e, 2.0 * nP * p),
+                    ("csr_gather.apply_from_e", lambda: o.apply_from_e(e),
+                     lambda: K.csr_gather_plain(e, o.krow_ptr, o.a2p, o.v),
+                     (gathered(e, o.a2p), o.krow_ptr, o.a2p, o.v),
+                     torch.empty(m, dtype=dt), 2.0 * nA),
+                    ("csr_gather.adjoint_on_pattern",
+                     lambda: o.adjoint_on_pattern(w),
+                     lambda: K.csr_gather_plain(w, o.pat_ptr, o.kp, o.vp),
+                     (gathered(w, o.kp), o.pat_ptr, o.kp, o.vp), e,
+                     2.0 * nA),
+                    ("symcoo_spmm.al_hess",
+                     lambda: o.al_hess(U, Y, es, ayu, coefs),
+                     lambda: K.symcoo_spmm_plain(U, o.pat, "al_hess",
+                                                 vals=es, B=Y, vals2=ayu,
+                                                 coefs=coefs),
+                     (U, Y, *pat, es, ayu), U, 4.0 * nP * p)):
+                b_ms, b_by = bound(nbytes(*reads, writes), flops, name)
+                err, rel_err = max_err(fn(), twin())
+                rows.append(dict(rank=dist.get_rank(), kernel=kern,
+                                 dtype=name, p=p, nnzP_local=nP,
+                                 nnzA_local=nA, max_abs_err=err,
+                                 rel_err=rel_err, ms=time_ms(fn),
+                                 plain_ms=time_ms(twin), bound_ms=b_ms,
+                                 bound_by=b_by))
+        torch.cuda.synchronize()
+    dist.barrier()
+    p, n = ins["Y"].shape
+    reduces = []
+    for label, shape, dt in (("m_f64", (sop.m,), torch.float64),
+                             ("m_f32", (sop.m,), torch.float32),
+                             ("pn_f64", (p, n), torch.float64),
+                             ("pn_f32", (p, n), torch.float32),
+                             ("kn_f64", (SHARD_K, n), torch.float64)):
+        t = torch.ones(shape, dtype=dt, device=dev)
+        ts = []
+        for it in range(13):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            all_reduce(t, sop.group)
+            torch.cuda.synchronize()
+            if it >= 3:
+                ts.append((time.perf_counter() - t0) * 1e3)
+        reduces.append(dict(shape=label, bytes=t.numel() * t.element_size(),
+                            ms=statistics.median(ts)))
+    return dict(kernels=rows, all_reduce=reduces)
+
+
+def launches_24b(name, rank):
+    """A ``kernels``-line row's launches in one 24b rank's solve: the
+    kernel's count for a row named by the kernel alone, its mode's count
+    for a row of a mode with a counter of its own (K1 / K2 / K4 modes, the
+    instance modes), else None (the row gets no 24b count)."""
+    base, _, mode = name.partition(".")
+    if not mode:
+        return rank["launches"][base]
+    if mode == "instance":
+        return rank["instance_launches"][base]
+    modes = {"symcoo_spmm": "symcoo_spmm_modes", "oblique_cols":
+             "oblique_modes", "csr_gather": "csr_modes"}.get(base)
+    return rank[modes].get(mode) if modes else None
+
+
+def shard_rank(paths, check_path, kw):
+    """One rank of phase 24a / 24b / 24d (parallel.spawn_ranks): this
+    rank's shard of mc-12000 from its piece at ``paths[rank]`` (saved by
+    shard_phases), the protocol checks when ``check_path`` is given, then
+    solve_sdp on the 1-D model mesh over all ranks; returns the result's
+    scalars, digests of its arrays (the factor and multipliers too on rank
+    0), seconds, launches and collectives."""
+    import torch
+    import torch.distributed as dist
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch import solve_sdp
+    from manisdp_tpu_torch.parallel.mesh import make_mesh, mesh_axis
+    from manisdp_tpu_torch.parallel.sharded_ops import ShardedConstraintOp
+    world, rank = dist.get_world_size(), dist.get_rank()
+    device = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    mesh = make_mesh(world, "model", "cuda")
+    with np.load(paths[rank]) as z:
+        piece = {k: z[k] for k in z.files}
+    glob = {k: piece.pop(k) for k in ("pat_i_all", "pat_j_all", "b", "m",
+                                      "n")}
+    glob["pat_i"], glob["pat_j"] = glob.pop("pat_i_all"), \
+        glob.pop("pat_j_all")
+    sop = ShardedConstraintOp.from_piece(piece, glob, rank, world, device,
+                                         mesh_axis(mesh, "model")[2])
+    torch.cuda.synchronize()
+    out = dict(rank=rank, world=world, device=str(device),
+               backend=dist.get_backend(), load_s=time.perf_counter() - t0,
+               local_nnzP=sop.local.pat.nnz, local_nnzA=sop.local.nnz)
+    if check_path is not None:
+        out["checks"] = shard_checks(sop, check_path)
+        out["times"] = shard_times(sop, check_path)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    res = solve_sdp(sop, None, None, int(glob["n"]), mesh=mesh,
+                    device=device, verbose=False, **kw)
+    torch.cuda.synchronize()
+    out.update(seconds=time.perf_counter() - t0, status=res.status,
+               obj=res.obj, eta=res.eta, gap=res.gap, pinf=res.pinf,
+               dinf=res.dinf, iterations=res.iterations,
+               fac_size=res.fac_size, rtr_iters=res.rtr_iters,
+               hess_calls=res.hess_calls, sigma=res.sigma,
+               timers=res.timers, launches=dict(K.LAUNCHES),
+               symcoo_spmm_modes=dict(K.SPMM_LAUNCHES),
+               oblique_modes=dict(K.OBLIQUE_LAUNCHES),
+               csr_modes=dict(K.CSR_LAUNCHES),
+               instance_launches=dict(K.INSTANCE_LAUNCHES),
+               collectives=dict(K.COLLECTIVES),
+               history=[dict(gap=h["gap"], pinf=h["pinf"], dinf=h["dinf"])
+                        for h in res.history],
+               digest=_digest(res.Y, res.y, res.S, res.z, res.X))
+    if rank == 0:
+        out.update(Y=res.Y, y=res.y)
+    return out
+
+
+def batch_rank(Cs):
+    """Phase 24c's rank: solve_maxcut_batch (p0 = 40) with its bucket
+    split over a 1-D batch mesh of all ranks."""
+    import torch
+    import torch.distributed as dist
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch import solve_maxcut_batch
+    from manisdp_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(dist.get_world_size(), "batch", "cuda")
+    device = torch.device("cuda", torch.cuda.current_device())
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve_maxcut_batch(Cs, p0=40, mesh=mesh, device=device,
+                             verbose=False)
+    torch.cuda.synchronize()
+    return dict(seconds=time.perf_counter() - t0,
+                objs=[r.obj for r in res], status=[r.status for r in res],
+                eta=[r.eta for r in res],
+                outer=[r.iterations for r in res],
+                digest=_digest(*[r.Y for r in res]),
+                launches=dict(K.LAUNCHES),
+                instance_launches=dict(K.INSTANCE_LAUNCHES),
+                collectives=dict(K.COLLECTIVES))
+
+
+def _save_pieces(arrays, world, out_dir):
+    """partition() of the operator's host arrays into ``world`` pieces,
+    one .npz a rank with the global pattern, b, m and n; returns the
+    paths."""
+    from manisdp_tpu_torch.parallel.sharded_ops import partition
+    paths = []
+    for r, piece in enumerate(partition(arrays, world)):
+        path = os.path.join(out_dir, f"mc12000_w{world}_r{r}.npz")
+        np.savez(path, pat_i_all=arrays["pat_i"], pat_j_all=arrays["pat_j"],
+                 b=arrays["b"], m=arrays["m"], n=arrays["n"], **piece)
+        paths.append(path)
+    return paths
+
+
+def shard_phases(device, rec, keep):
+    """Phase 24: mc-12000 through ``solve_sdp(mesh=)`` over its sharded
+    constraint operator (24a: NCCL at world size 1; 24b: gloo at world
+    size 2 with both ranks on card 0, after the protocol checks; 24d:
+    NCCL over min(4, cards) cards where there are two or more), held to
+    phase 7's objective and the on-card oracle, and phase 21's sparse
+    batch through ``solve_maxcut_batch(mesh=)`` over a 2-rank batch axis
+    (24c), held to phase 21's objectives.  Gloo stages every CUDA
+    all-reduce through the host: its times are not NCCL's."""
+    import shutil
+    import tempfile
+    import torch
+    from types import SimpleNamespace
+    from manisdp_tpu_torch import solve_maxcut_batch, solve_sdp
+    from manisdp_tpu_torch.ops.sparse import ConstraintOp
+    from manisdp_tpu_torch.parallel import spawn_ranks
+
+    t_phase = time.perf_counter()
+    out = {}
+    if "mc12000" in keep:
+        data, op_mc = keep["mc12000"]
+    else:
+        data, _ = mc_instance(MC)
+        op_mc = ConstraintOp.build(data.At, data.b, data.c, int(data.K.s),
+                                   device)
+    n = int(data.K.s)
+    kw = mc_options()
+    ref_obj = rec.get("mc12000", {}).get("obj")
+    ref_src = "phase 7"
+    if ref_obj is None:
+        ref = solve_sdp(op_mc, data.b, data.c, n, device=device,
+                        verbose=False, **kw)
+        if ref.status != 0:
+            raise AssertionError(f"phase 24's reference: status {ref.status}")
+        ref_obj, ref_src = ref.obj, "phase 7's options, solved in phase 24"
+    t0 = time.perf_counter()
+    arrays = op_mc.host_arrays(full=True)
+    tmp = tempfile.mkdtemp(prefix="shard24_", dir="build")
+    cards = torch.cuda.device_count()
+    nccl_world = min(SHARD_NCCL_MAX, cards)
+    try:
+        pieces = {w: _save_pieces(arrays, w, tmp)
+                  for w in sorted({1, SHARD_GLOO_WORLD, nccl_world})}
+        check_path = os.path.join(tmp, "checks.npz")
+        np.savez(check_path, **shard_inputs(op_mc, device, 24))
+        out["setup_s"] = time.perf_counter() - t0
+        del arrays
+
+        def rel(a, b):
+            return abs(a - b) / max(1.0, abs(b))
+
+        def run(label, world, backend, dev, check):
+            t0 = time.perf_counter()
+            ranks = spawn_ranks(shard_rank, world, backend, dev,
+                                args=(pieces[world],
+                                      check_path if check else None, kw))
+            r0 = ranks[0]
+            oracle = al_kkt_oracle_on_card(
+                data, SimpleNamespace(Y=r0.pop("Y"), y=r0.pop("y")), device)
+            res = dict(phase=f"mc12000_sharded_{label}", world=world,
+                       backend=backend, ranks_on=dev,
+                       all_reduce_staging=("host (gloo)" if backend == "gloo"
+                                           else "device (NCCL)"),
+                       call_s=time.perf_counter() - t0, oracle=oracle,
+                       ranks=ranks)
+            emit(dict(res, ranks=[{k: v for k, v in r.items()
+                                   if k != "history"} for r in ranks]))
+            for r in ranks:
+                if r["status"] != 0 or not r["eta"] <= 1e-8:
+                    raise AssertionError(f"24{label}: rank {r['rank']} "
+                                         f"status {r['status']}, eta "
+                                         f"{r['eta']}")
+                for name in ("symcoo_spmm", "pattern_dots", "csr_gather",
+                             "tcg_step"):
+                    if r["launches"][name] <= 0:
+                        raise AssertionError(f"24{label}: rank {r['rank']} "
+                                             f"never launched {name}")
+            if not oracle["eta"] <= 1e-8:
+                raise AssertionError(f"24{label}: KKT oracle {oracle}")
+            for r in ranks[1:]:
+                if r["digest"] != r0["digest"] or r["obj"] != r0["obj"] or \
+                        r["iterations"] != r0["iterations"]:
+                    raise AssertionError(f"24{label}: rank {r['rank']}'s "
+                                         "result differs from rank 0's")
+            return res
+
+        # -- 24a: NCCL, one rank --
+        a = out["a"] = run("a", 1, "nccl", "cuda", False)
+        a["rel_to_phase7"] = rel(a["ranks"][0]["obj"], ref_obj)
+        a["reference"] = ref_src
+        if not a["rel_to_phase7"] <= 1e-6:
+            raise AssertionError(f"24a: objective {a['ranks'][0]['obj']} "
+                                 f"against {ref_src}'s {ref_obj}")
+        # -- 24b: gloo, two ranks on card 0, protocol checks first --
+        b = out["b"] = run("b", SHARD_GLOO_WORLD, "gloo", "cuda:0", True)
+        b["rel_to_24a"] = rel(b["ranks"][0]["obj"], a["ranks"][0]["obj"])
+        for r in b["ranks"]:
+            for k, e in r["checks"].items():
+                if not e <= (1e-12 if k.startswith("float64") else 1e-5):
+                    raise AssertionError(f"24b: rank {r['rank']} {k} "
+                                         f"relative error {e}")
+            for t in r["times"]["kernels"]:
+                if not t["rel_err"] <= (1e-12 if t["dtype"] == "float64"
+                                        else 1e-5):
+                    raise AssertionError(
+                        f"24b: rank {t['rank']}'s {t['kernel']} "
+                        f"({t['dtype']}) against its twin on the shard: "
+                        f"relative error {t['rel_err']}")
+        if not b["rel_to_24a"] <= 1e-6:
+            raise AssertionError(f"24b: objective against 24a's: "
+                                 f"{b['rel_to_24a']}")
+        # -- 24c: the sparse batch over a 2-rank batch axis (gloo) --
+        _, sparse_b = batch_graphs()
+        found = rec.get("batch", {}).get("sparse")
+        if found is not None:
+            ref_objs, bsrc = [t["obj"] for t in found["table"]], "phase 21"
+        else:
+            ref_objs = [r.obj for r in solve_maxcut_batch(
+                sparse_b, p0=40, device=device, verbose=False)]
+            bsrc = "phase 21's batch, solved in phase 24"
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(batch_rank, SHARD_GLOO_WORLD, "gloo", "cuda:0",
+                            args=(sparse_b,))
+        c = out["c"] = dict(
+            phase="batch_sparse_sharded_c", world=SHARD_GLOO_WORLD,
+            backend="gloo", all_reduce_staging="host (gloo)",
+            call_s=time.perf_counter() - t0, reference=bsrc,
+            rel_to_phase21=[rel(o, r) for o, r in zip(ranks[0]["objs"],
+                                                       ref_objs)],
+            ranks=ranks)
+        emit(c)
+        if not (all(s == 0 for s in ranks[0]["status"]) and
+                max(c["rel_to_phase21"]) <= 1e-6):
+            raise AssertionError(f"24c: {c['rel_to_phase21']}, status "
+                                 f"{ranks[0]['status']}")
+        if any(r["digest"] != ranks[0]["digest"] or
+               r["objs"] != ranks[0]["objs"] for r in ranks[1:]):
+            raise AssertionError("24c: the ranks' batch results differ")
+        if any(r["instance_launches"]["symcoo_spmm"] <= 0 for r in ranks):
+            raise AssertionError("24c: a rank never launched K1's instance "
+                                 "mode")
+        # -- 24d: NCCL across cards --
+        if cards >= 2:
+            d = out["d"] = run("d", nccl_world, "nccl", "cuda", False)
+            d["rel_to_24a"] = rel(d["ranks"][0]["obj"],
+                                  a["ranks"][0]["obj"])
+            if not d["rel_to_24a"] <= 1e-6:
+                raise AssertionError(f"24d: objective against 24a's: "
+                                     f"{d['rel_to_24a']}")
+        else:
+            out["d"] = dict(phase="mc12000_sharded_d", run=False,
+                            reason=f"{cards} CUDA device: NCCL needs one "
+                            "card per rank, so the cross-card run needs "
+                            "two or more")
+            emit(out["d"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(dict(phase="sharded_summary", seconds=out["seconds"],
+              setup_s=out["setup_s"]))
     return out
 
 
@@ -2887,7 +3350,7 @@ def run_phases(args, jobs):
                 "build", "mc12000_stall"))
             emit(dict(phase="mc12000_stall", **rec["mc12000_stall"]))
             del spy
-        if 23 in ph:
+        if 23 in ph or 24 in ph:
             keep["mc12000"] = (data, op_mc)
         del data, op_mc
 
@@ -3044,7 +3507,10 @@ def run_phases(args, jobs):
     #    LOBPCG stage --
     if 23 in ph:
         rec["f32"] = f32_phases(args, device, rec, keep, jobs)
-        keep.clear()
+    # -- 24. the sharded primal AL and the data-parallel batch --
+    if 24 in ph:
+        rec["sharded"] = shard_phases(device, rec, keep)
+    keep.clear()
 
     # each kernel's hot call on its main path: the f32 tCG's Hessian and
     # projection (G67 solve), the f32 AL Hessian's products (mc solves),
@@ -3218,7 +3684,10 @@ def run_phases(args, jobs):
             **({"passes_ms": r["passes_ms"]} if "passes_ms" in r else {}),
             **({"f32_launches_phase23": sum(
                 v["f32_launches"][base] for v in rec["f32"].values()
-                if isinstance(v, dict))} if "f32" in rec else {})))
+                if isinstance(v, dict))} if "f32" in rec else {}),
+            **({"launches_phase24b_rank0": n24} if (n24 := launches_24b(
+                name, rec["sharded"]["b"]["ranks"][0]) if "sharded" in rec
+                else None) is not None else {})))
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(dict(nvidia_smi=smi, phases=sorted(ph), build_s=build_s,

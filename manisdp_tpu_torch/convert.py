@@ -2,8 +2,9 @@
 
 The tests feed both packages from the same numpy data through these:
 the arrays of a JAX ``SymCOO``, ``ConstraintOp``, ``DenseConstraintOp``,
-``EntrywiseConstraintOp``, ``SparseMat``, ``DualOp``, ``SymDualOp`` or
-``SymMomOp`` (``np.asarray`` of their fields), the
+``EntrywiseConstraintOp``, ``SparseMat``, ``DualOp``, ``SymDualOp``,
+``SymMomOp`` or ``ShardedConstraintOp`` (``np.asarray`` of their fields),
+the
 ``dataclasses.asdict`` of a JAX ``SolverOptions``, and a factor Y.
 """
 
@@ -20,6 +21,7 @@ from .ops.symdual import SymDualOp
 from .ops.symmom import SymMomOp
 from .ops.sparse import (ConstraintOp, DenseConstraintOp,
                          EntrywiseConstraintOp, SymCOO)
+from .parallel.sharded_ops import ShardedConstraintOp
 from .solvers.common import pad_rows
 
 
@@ -35,6 +37,32 @@ def constraint_op_from_jax(arrays: dict, device) -> ConstraintOp:
     The same arrays plus the derived colptr, krow_ptr and pat_ptr."""
     a = {key.replace("pat.", "pat_"): val for key, val in arrays.items()}
     return ConstraintOp.from_arrays(a, device)
+
+
+def sharded_op_from_jax(sharded: dict, arrays: dict, rank: int, device,
+                        group=None) -> ShardedConstraintOp:
+    """Rank ``rank``'s shard from the arrays of the JAX
+    ``ShardedConstraintOp.build(op, D)`` as numpy (keys pat_i, pat_j,
+    pat_c, kp, vp, locp, ks, vs, locps, each (D, L) and padded) and of
+    the JAX ConstraintOp ``op`` (as constraint_op_from_jax takes them):
+    the padding is cut off at the slice lengths ``op``'s pattern size and
+    a2p_sorted give, which the padded arrays do not record."""
+    world = sharded["pat_i"].shape[0]
+    nnzP = np.asarray(arrays["pat.i"]).shape[0]
+    Lp = -(-nnzP // world)
+    lo, hi = rank * Lp, min((rank + 1) * Lp, nnzP)
+    a2ps = np.asarray(arrays["a2p_sorted"])
+    s, e = np.searchsorted(a2ps, [lo, lo + Lp])
+    npat, nent = max(hi - lo, 0), int(e - s)
+    at = lambda key, cnt: np.asarray(sharded[key])[rank, :cnt]  # noqa: E731
+    piece = dict(lo=lo, pat_i=at("pat_i", npat), pat_j=at("pat_j", npat),
+                 pat_v=at("pat_c", npat),
+                 **{key: at(key, nent) for key in ("kp", "vp", "locp", "ks",
+                                                   "vs", "locps")})
+    glob = dict(pat_i=arrays["pat.i"], pat_j=arrays["pat.j"],
+                b=arrays["b"], m=arrays["m"], n=arrays["n"])
+    return ShardedConstraintOp.from_piece(piece, glob, rank, world, device,
+                                          group)
 
 
 def dense_op_from_jax(arrays: dict, device) -> DenseConstraintOp:

@@ -81,12 +81,16 @@ _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 # each kernel's float32 launches (also counted in LAUNCHES)
 F32_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
+# the collectives of the sharded paths (parallel/distributed.py): calls
+# and bytes of this rank's tensors (not kernels; reset with them)
+COLLECTIVES = {"all_reduce": 0, "all_reduce_bytes": 0, "broadcast": 0,
+               "broadcast_bytes": 0}
 
 
 def reset_launches():
     for counts in (LAUNCHES, F32_LAUNCHES, SPMM_LAUNCHES, CSR_LAUNCHES,
                    MASKED_LAUNCHES, OBLIQUE_LAUNCHES, SYMDUAL_LAUNCHES,
-                   INSTANCE_LAUNCHES, TCG_LAUNCHES):
+                   INSTANCE_LAUNCHES, TCG_LAUNCHES, COLLECTIVES):
         for k in counts:
             counts[k] = 0
 

@@ -262,6 +262,13 @@ class ConstraintOp(_MVecResiduals):
     @staticmethod
     def build(At, b, c, n: int, device) -> "ConstraintOp":
         """From SeDuMi data: At (n^2, m) sparse, b (m,), c (n^2,)."""
+        return ConstraintOp.from_arrays(ConstraintOp.assemble(At, b, c, n),
+                                        device)
+
+    @staticmethod
+    def assemble(At, b, c, n: int) -> dict:
+        """The host arrays of ``build`` (as ``_assemble`` returns them),
+        nothing uploaded."""
         import scipy.sparse as sp
         A = sp.csr_matrix(At.T) if not sp.issparse(At) else At.T.tocsr()
         m = A.shape[0]
@@ -274,11 +281,10 @@ class ConstraintOp(_MVecResiduals):
 
         c = np.asarray(c).ravel().astype(np.float64)
         c_sp = sp.coo_matrix(c.reshape(n, n, order="F"))
-        arrays = ConstraintOp._assemble(
+        return ConstraintOp._assemble(
             kk, ii, jj, vv,
             c_sp.row.astype(np.int64), c_sp.col.astype(np.int64),
             c_sp.data.astype(np.float64), b, n, m)
-        return ConstraintOp.from_arrays(arrays, device)
 
     @staticmethod
     def build_multiblock(At, b, c, ns, device) -> "ConstraintOp":
@@ -433,10 +439,12 @@ class ConstraintOp(_MVecResiduals):
                           device=vals.device)
         return out.index_put_((self.pat.i.long(), self.pat.j.long()), vals)
 
-    def host_arrays(self) -> dict:
+    def host_arrays(self, full: bool = False) -> dict:
         """The entries (k, i, j, v), b and c on P as host numpy arrays: what
-        the carriers are built from."""
-        names = ("k", "i", "j", "v", "b")
+        the carriers are built from; ``full`` adds a2p and the a2p-sorted
+        ordering (kp, vp, a2p_sorted), the keys ``_assemble`` returns."""
+        names = ("k", "i", "j", "v", "b") + \
+            (("a2p", "kp", "vp", "a2p_sorted") if full else ())
         out = {name: getattr(self, name).cpu().numpy() for name in names}
         out.update(pat_i=self.pat.i.cpu().numpy(),
                    pat_j=self.pat.j.cpu().numpy(),
@@ -473,6 +481,23 @@ class ConstraintOp(_MVecResiduals):
         """mat(vals) @ V for a dense (n, k) block (certificate matvec)."""
         return self.pat.matvec_block(V, vals)
 
+    def matmat_shift(self, V, vals, z):
+        """V·(mat(vals) − diag(z)) -> (rows, n): K1's ``shift`` epilogue
+        (the certificate's matvec)."""
+        return symcoo_spmm(V, self.pat, "shift", vals=vals, z=z)
+
+    def al_hess(self, U, Y, es, ayu, coefs, eG=None):
+        """The AL Hessian's products coefs[0]·U·mat(es) +
+        coefs[1]·Y·mat(ayu), K1's ``al_hess``; with ``eG`` its fused
+        unit-diagonal epilogue H − Y ∘ colsum(Y ∘ H) − U ∘ eG."""
+        return symcoo_spmm(U, self.pat, "al_hess", vals=es, B=Y, vals2=ayu,
+                           coefs=coefs, eG=eG)
+
+    def quad_cols(self, Y, vals):
+        """colsum(Y ∘ Y·mat(vals)) -> (n,), K1's ``cost`` epilogue (the
+        stats' z = colsum_pattern(vals ∘ e_P))."""
+        return symcoo_spmm(Y, self.pat, "cost", vals=vals)[1]
+
 
 class _DenseCarrier:
     """The operator-protocol methods both dense carriers share: pattern
@@ -500,6 +525,9 @@ class _DenseCarrier:
 
     def matvec_pattern(self, V, vals):
         return vals @ V
+
+    def matmat_shift(self, V, vals, z):
+        return V @ vals - z[None, :] * V
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,7 +3,8 @@ manisdp_tpu/solvers/batch.py): B independent unit-diagonal SDPs
 
     min <C_b, X_b>  s.t.  diag(X_b) = 1,  X_b >= 0
 
-solved together on one card.
+solved together on one card, or data-parallel over the ``batch`` axis
+of a device mesh.
 
 Instances are grouped into n-buckets (n rounded up to ``n_bucket``); a
 bucket's factors are one (B, p_pad, n_pad) tensor.  In an instance of
@@ -23,6 +24,15 @@ update (truncation by a factor SVD, escape along the negative
 eigenvectors of S) runs on the host per instance, as in the JAX package.
 A sparse bucket's cost is a BatchedSymCOO (K1); a dense one a (B, n_pad,
 n_pad) tensor and ``torch.matmul``.
+
+With ``mesh=`` (a DeviceMesh with a ``batch`` axis of D ranks) each rank
+solves a contiguous B / D of a bucket whose B the D divides (from the
+random starts the whole bucket would get, so each instance follows its
+unsharded trajectory), and the per-instance results are assembled on
+every rank, one broadcast from each; a bucket D does not divide is
+solved whole on every rank, as the JAX package leaves it unsharded.  The
+dense-or-sparse decision and the first p_pad are taken on the whole
+bucket.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from ..core import TROptions, make_batched_trustregions
 from ..kernels import symcoo_spmm
 from ..manifolds import Oblique
 from ..ops.sparse import BatchedSymCOO
+from ..parallel.mesh import batch_rows, gather_rows, mesh_axis
 from .common import (PhaseTimers, SDPResult, bucketed,
                      make_batched_line_search, resolve_device)
 from .maxcut import make_maxcut_problem
@@ -54,17 +65,19 @@ def solve_maxcut_batch(Cs, options: Optional[SolverOptions] = None,
     scipy sparse, of any sizes.  Instances are grouped into n-buckets (n
     rounded up to ``n_bucket``) and each bucket is solved as one batch; the
     dense or sparse cost follows the single-instance rule on the bucket's
-    padded n.  ``mesh`` (sharding the batch over several cards) is not
-    ported and raises.  ``device``: "cuda" (the default) raises without a
-    card; "cpu" runs the kernels' plain twins.
+    padded n.  ``mesh``: a DeviceMesh this process is a rank of; a bucket
+    is split over its ``batch`` axis when the axis size divides the
+    bucket's size (a mesh without that axis: every rank solves the whole
+    batch).  ``device``: "cuda" (the default) raises without a card;
+    "cpu" runs the kernels' plain twins; under a mesh, this rank's
+    device.
 
     Returns a list of B SDPResult, index-aligned with ``Cs``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "solve_maxcut_batch(mesh=...) shards the batch over several "
-            "cards: that is the multi-GPU slice (slice 6), not ported yet")
     device = resolve_device(device)
+    axis = None
+    if mesh is not None and "batch" in (mesh.mesh_dim_names or ()):
+        axis = mesh_axis(mesh, "batch")
     opt = merged_options("maxcut_unitdiag", options, **overrides)
     if opt.inner_dtype == "mixed":
         warnings.warn(
@@ -86,22 +99,42 @@ def solve_maxcut_batch(Cs, options: Optional[SolverOptions] = None,
     for nb in sorted(buckets):
         idxs = buckets[nb]
         results = _solve_group([Cs[i] for i in idxs], [ns[i] for i in idxs],
-                               nb, opt, device)
+                               nb, opt, device, axis)
         for i, r in zip(idxs, results):
             out[i] = r
     return out
 
 
-def _solve_group(Cs, ns, n: int, opt: SolverOptions, device) -> list:
-    B = len(Cs)
-    as_dev = lambda a: torch.as_tensor(  # noqa: E731
-        a, dtype=torch.float64, device=device)
-
+def _solve_group(Cs, ns, n: int, opt: SolverOptions, device, axis=None
+                 ) -> list:
+    """One bucket; ``axis`` = (D, this rank's index, group) of the mesh's
+    batch axis, or None."""
     # dense vs sparse on the padded bucket size (the single-instance rule)
     nnzs = [sp.coo_matrix(C).nnz if sp.issparse(C)
             else int(np.count_nonzero(C)) for C in Cs]
     dense = (n <= opt.dense_cost_max_n or
              n * n <= opt.dense_cost_nnz_factor * max(max(nnzs), 1))
+    # every instance's random start, drawn as for the whole bucket
+    gen = torch.Generator(device=device)
+    gen.manual_seed(opt.seed)
+    p_pad = bucketed(opt.p0, opt.p_bucket)
+    Y = torch.stack([Oblique.rand(gen, opt.p0, n, p_pad) for _ in Cs])
+    if axis is None or len(Cs) % axis[0]:
+        return _solve_instances(Cs, ns, n, opt, device, dense, Y)
+    D, me, group = axis
+    rows = batch_rows(len(Cs), D, me)
+    mine = _solve_instances(Cs[rows], ns[rows], n, opt, device, dense,
+                            Y[rows].contiguous())
+    return gather_rows(mine, group, device)
+
+
+def _solve_instances(Cs, ns, n: int, opt: SolverOptions, device,
+                     dense: bool, Y) -> list:
+    """Solve the instances ``Cs`` of a bucket of padded size n from the
+    (B, p_pad, n) starts ``Y``."""
+    B = len(Cs)
+    as_dev = lambda a: torch.as_tensor(  # noqa: E731
+        a, dtype=torch.float64, device=device)
 
     # the zero-padded dense cost: the certificate's S, and the dense cost
     Cs_dense = np.zeros((B, n, n))
@@ -125,12 +158,9 @@ def _solve_group(Cs, ns, n: int, opt: SolverOptions, device) -> list:
             return torch.sum(Y * (Y @ C_dense), dim=-2)
         return symcoo_spmm(Y, C_param, "cost")[1]
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(opt.seed)
     p = np.full(B, opt.p0, dtype=np.int64)
-    p_pad = bucketed(int(p.max()), opt.p_bucket)
+    p_pad = Y.shape[1]
     typdist = float(np.pi * np.sqrt(n))
-    Y = torch.stack([Oblique.rand(gen, opt.p0, n, p_pad) for _ in range(B)])
     U_dir = None
     k_cert = opt.delta + 1
 

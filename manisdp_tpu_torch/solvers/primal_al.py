@@ -42,15 +42,19 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import SolverOptions, merged_options
 from ..core import Problem, TROptions, make_trustregions
-from ..kernels import symcoo_spmm
 from ..manifolds import Euclidean, Oblique, Sphere
 from ..ops.dense_cert import DenseEighCert
 from ..ops.eigs import lobpcg_certificate
 from ..ops.eigs_rr import DeviceCertSolver
 from ..ops.sparse import ConstraintOp, EntrywiseConstraintOp
+from ..parallel.distributed import broadcast
+from ..parallel.mesh import mesh_axis
+from ..parallel.sharded_ops import (ShardedConstraintOp, build_on_mesh,
+                                    model_axis)
 from .common import (PhaseTimers, RankController, SDPResult, SlowProgress,
                      bucketed, log_iter, make_line_search, mixed_prestage,
                      pad_rows, resolve_device)
@@ -71,6 +75,9 @@ VARIANTS = {
     "unittrace": ALVariant("unittrace", Sphere, "trace", False, 20, 50),
     "general": ALVariant("general", Euclidean, "none", False, 20, 50),
 }
+
+# the factored operators: one card's, and its shards over a mesh axis
+FACTORED = (ConstraintOp, ShardedConstraintOp)
 
 
 def _make_problem(variant: ALVariant):
@@ -106,23 +113,23 @@ def _make_problem(variant: ALVariant):
     def hess(Y, U, params, aux, gaux):
         # eH = 2 U mat(es) + 4 sigma Y mat(A'A vec(Y'U)), then the shift
         # epilogue.  On the factored operator K1's al_hess mode fuses both
-        # products (and the diag epilogue); on a carrier they are two
-        # GEMMs.  The trace epilogue's global sum stays in torch.
+        # products (and, on one card, the diag epilogue; sharded, the
+        # epilogue follows the sum of the shards); on a carrier they are
+        # two GEMMs.  The trace epilogue's global sum stays in torch.
         op, sigma = params["op"], params["sigma"]
         es, extra = gaux
         ayu = op.normal_factored(Y, U)
         coefs = (2.0, 4.0 * sigma)
-        if not isinstance(op, ConstraintOp):
+        diag = variant.shift == "diag"
+        if isinstance(op, FACTORED):
+            eH = op.al_hess(U, Y, es, ayu, coefs, eG=extra if diag else None)
+            if diag:
+                return eH
+        else:
             eH = torch.addmm(U @ es, Y, ayu, beta=coefs[0], alpha=coefs[1])
-            if variant.shift == "diag":
+            if diag:
                 return eH - Y * torch.sum(Y * eH, dim=0, keepdim=True) \
                     - U * extra[None, :]
-        elif variant.shift == "diag":
-            return symcoo_spmm(U, op.pat, "al_hess", vals=es, B=Y,
-                               vals2=ayu, coefs=coefs, eG=extra)
-        else:
-            eH = symcoo_spmm(U, op.pat, "al_hess", vals=es, B=Y, vals2=ayu,
-                             coefs=coefs)
         if variant.shift == "trace":
             return eH - torch.sum(eH * Y) * Y - 2.0 * extra * U
         return eH
@@ -148,8 +155,7 @@ def _make_stats(variant: ALVariant):
         if variant.shift == "diag":
             # colsum_pattern(sv * e); on the factored operator that is
             # colsum(Y o Y mat(sv)), K1's cost epilogue
-            z = symcoo_spmm(Y, op.pat, "cost", vals=sv)[1] \
-                if isinstance(op, ConstraintOp) else \
+            z = op.quad_cols(Y, sv) if isinstance(op, FACTORED) else \
                 op.colsum_pattern(sv * e)
             by = by + torch.sum(z)
         elif variant.shift == "trace":
@@ -166,7 +172,7 @@ def _make_stats(variant: ALVariant):
 def _dense_s(variant: ALVariant, op, sv, z):
     """The dense S = mat(sv) - shift(z) as a new (n, n) array (on a carrier
     sv already is mat(sv))."""
-    S = op.pattern_dense(sv) if isinstance(op, ConstraintOp) else sv.clone()
+    S = op.pattern_dense(sv) if isinstance(op, FACTORED) else sv.clone()
     if variant.shift != "none":
         S.diagonal().sub_(z)
     return S
@@ -177,8 +183,16 @@ def _make_certificate(variant: ALVariant, op, n: int, k: int,
                       gen: torch.Generator):
     """Eigen-certificate of S = mat(sv) - shift(z).  Returns
     cert(Y, sv, z, gap, pinf) -> (lam_min, lam_max, num_neg,
-    neg_vecs (n, k) on the device, neg_vals)."""
-    factored = isinstance(op, ConstraintOp)
+    neg_vecs (n, k) on the device, neg_vals).
+
+    On a ShardedConstraintOp (``mesh=``): at ``use_eigh`` the dense S of
+    the all-reduced sv, eigh'd on the axis's first rank and broadcast;
+    otherwise ``cert_method``'s certificate as on one card, on the
+    all-reduced matvec, ``gen`` seeded alike on every rank (the JAX
+    sharded path always takes the lobpcg certificate, which does not
+    certify matrix completion: ROADMAP Queue C)."""
+    factored = isinstance(op, FACTORED)
+    sharded = isinstance(op, ShardedConstraintOp)
     if getattr(op, "compress_coef", None) is not None:
         # expanded-basis operator (SymMomOp): certify the original-basis
         # S = mat(c - A'y) - diag(z), z = colsum(S o X) (the reference's
@@ -222,6 +236,23 @@ def _make_certificate(variant: ALVariant, op, n: int, k: int,
                     vals)
         return cert
 
+    if use_eigh and sharded:
+        kk = min(k, n)
+
+        def cert(Y, sv, z, gap=np.inf, pinf=np.inf):
+            S = _dense_s(variant, op, sv, z)
+            vals = torch.empty((n,), dtype=S.dtype, device=S.device)
+            vecs = torch.empty((n, kk), dtype=S.dtype, device=S.device)
+            if op.rank == 0:
+                w, V = torch.linalg.eigh(S)
+                vals.copy_(w)
+                vecs.copy_(V[:, :kk])
+            broadcast(vals, op.group)
+            broadcast(vecs, op.group)
+            return (float(vals[0]), float(vals[-1]),
+                    int(torch.sum(vals < 0)), vecs, vals[:k])
+        return cert
+
     if use_eigh:
         def cert(Y, sv, z, gap=np.inf, pinf=np.inf):
             vals, vecs = torch.linalg.eigh(_dense_s(variant, op, sv, z))
@@ -231,17 +262,14 @@ def _make_certificate(variant: ALVariant, op, n: int, k: int,
 
     def mvr_for(sv, z, dtype=torch.float64):
         """V -> V S for (rows, n) V in ``dtype`` (sv and z cast to it): K1
-        with S's values on P, or a GEMM with the dense S on a carrier."""
+        with S's values on P (sharded: the all-reduced K1 ``plain``, then
+        the shift), or a GEMM with the dense S on a carrier."""
         sv = sv.to(dtype)
         if variant.shift == "none":
-            if not factored:
-                return lambda V: V @ sv
-            return lambda V: symcoo_spmm(V, op.pat, "plain", vals=sv)
+            return lambda V: op.matmat_pattern(V, sv)
         zv = (z if variant.shift == "diag" else
               z.reshape(1).expand(n).contiguous()).to(dtype)
-        if not factored:
-            return lambda V: V @ sv - zv[None, :] * V
-        return lambda V: symcoo_spmm(V, op.pat, "shift", vals=sv, z=zv)
+        return lambda V: op.matmat_shift(V, sv, zv)
 
     # the f32 LOBPCG stage: at cert_pre_dtype "auto" or "float32" on the
     # rowrr path (and devrr at small n), at "float32" on the lobpcg path
@@ -380,21 +408,56 @@ def _select_operator(opt: SolverOptions, op):
     return op
 
 
+def _ranks(group) -> list:
+    """The global ranks of ``group`` (None: the default group)."""
+    return dist.get_process_group_ranks(group or dist.group.WORLD)
+
+
 def solve_primal_al(variant_name: str, op: ConstraintOp,
                     options: Optional[SolverOptions] = None,
                     Y0: Optional[np.ndarray] = None,
                     y0: Optional[np.ndarray] = None,
+                    mesh=None,
                     **overrides) -> SDPResult:
     """The AL outer loop [RTR inner solve -> stats -> certificate -> rank
     update -> sigma schedule] on ``op``'s device, on the operator the
-    ladder picks (timed as ``timers["operator"]``)."""
+    ladder picks (timed as ``timers["operator"]``).
+
+    ``mesh`` (a DeviceMesh; this process one of its ranks): the operator
+    is sharded by pattern id over the mesh's model axis
+    (parallel/sharded_ops.py: ``op`` a ConstraintOp, sharded here, or this
+    rank's ShardedConstraintOp) and every rank runs this loop on the
+    replicated factor; no ladder and the host rank update, as in the JAX
+    package (the certificate: _make_certificate).  Every rank returns the
+    same result (all but the wall-clock ``time`` and ``timers``)."""
     variant = VARIANTS[variant_name]
     opt = merged_options(variant.name, options, **overrides)
     n, m = op.n, op.m
     device = op.device
     timers = PhaseTimers()
     with timers.timed("operator"):
-        op = _select_operator(opt, op)
+        if mesh is None:
+            if isinstance(op, ShardedConstraintOp):
+                raise ValueError("a ShardedConstraintOp needs the mesh it "
+                                 "was built on (mesh=)")
+            op = _select_operator(opt, op)
+        else:
+            if device.type != mesh.device_type:
+                raise ValueError(f"the operator lives on {device}, the mesh "
+                                 f"on {mesh.device_type}")
+            if isinstance(op, ConstraintOp):
+                op = build_on_mesh(op.host_arrays(full=True), mesh, device)
+            elif not isinstance(op, ShardedConstraintOp):
+                raise TypeError("mesh= takes a ConstraintOp or its "
+                                "ShardedConstraintOp")
+            elif _ranks(op.group) != \
+                    _ranks(mesh_axis(mesh, model_axis(mesh))[2]):
+                raise ValueError("the ShardedConstraintOp was built on "
+                                 "another group of ranks than mesh='s "
+                                 "model axis")
+            if opt.verbose and dist.get_rank() != 0:
+                opt = dataclasses.replace(opt, verbose=False)
+    sharded = isinstance(op, ShardedConstraintOp)
     use_eigh = (opt.eig_method == "eigh") or \
         (opt.eig_method == "auto" and n < opt.eig_switch_n)
     k_cert = opt.delta + 1
@@ -543,7 +606,7 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
         nne = rank.num_escape(num_neg) if dinf > opt.tol else 0
         p_new = (r if r <= p - 1 else p) + nne
         with timers.timed("rank"):
-            if variant.manifold is not Sphere:
+            if variant.manifold is not Sphere and not sharded:
                 p_pad_new = max(p_pad, bucketed(p_new, opt.p_bucket))
                 UlT = np.zeros((p_pad_new, p_pad), dtype=np.float64)
                 if r <= p - 1:
@@ -560,7 +623,8 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
             else:
                 # the sphere family keeps the host update: its sigma
                 # controller (tau1 = 1e-5) makes the trajectory sensitive
-                # to device-vs-numpy rounding, and its instances are small
+                # to device-vs-numpy rounding, and its instances are small;
+                # so does the sharded path, as in the JAX package
                 Y_host = Y.cpu().numpy()
                 if r <= p - 1:
                     Y_host = Ul[:, :r].T @ Y_host
@@ -574,7 +638,11 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
                 else:
                     U_host = None
                     Y_host = np.vstack([Y_host, opt.alpha * vs.T])
-                    Y_host = Y_host / np.linalg.norm(Y_host)
+                    if variant.manifold is Oblique:
+                        Y_host = Y_host / np.sqrt(np.sum(Y_host ** 2,
+                                                         axis=0))
+                    elif variant.manifold is Sphere:
+                        Y_host = Y_host / np.linalg.norm(Y_host)
                 p = p + nne
                 p_pad = max(p_pad, bucketed(p, opt.p_bucket))
                 Y = as_dev(pad_rows(Y_host, p_pad))
@@ -609,7 +677,8 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
         # checkpoint after the sigma update, so resuming with
         # sigma0=st["sigma"] continues the same trajectory
         if opt.checkpoint_every and opt.checkpoint_path and \
-                it % opt.checkpoint_every == 0:
+                it % opt.checkpoint_every == 0 and \
+                not (sharded and dist.get_rank() != 0):
             from ..utils.checkpoint import save_state
             save_state(opt.checkpoint_path, Y=Y.cpu().numpy()[:p],
                        y=op.res_to_mvec(y), sigma=sigma, tier=tier,
@@ -629,17 +698,8 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
 
     Y_act = Y.cpu().numpy()[:p]
     X = Y_act.T @ Y_act
-    S_host = None
-    if sv_dev is not None:
-        if isinstance(op, ConstraintOp):
-            # pattern entries are unique, so assignment is the scatter-add
-            S_host = np.zeros((n, n))
-            S_host[op.pat.i.cpu().numpy(), op.pat.j.cpu().numpy()] = \
-                sv_dev.cpu().numpy()
-        else:
-            S_host = sv_dev.cpu().numpy().copy()
-        if variant.shift != "none":
-            S_host[np.arange(n), np.arange(n)] -= z_dev.cpu().numpy()
+    S_host = _dense_s(variant, op, sv_dev, z_dev).cpu().numpy() \
+        if sv_dev is not None else None
     return SDPResult(
         X=X, obj=obj, Y=Y_act,
         y=op.res_to_mvec(y_dev) if y_dev is not None else None,
@@ -652,12 +712,13 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
 
 
 def solve_sedumi_al(variant_name: str, At, b, c, n: int,
-                    options: Optional[SolverOptions], Y0, y0,
+                    options: Optional[SolverOptions], Y0, y0, mesh,
                     resume: Optional[str], device, overrides: dict
                     ) -> SDPResult:
     """The public entry points' shared body: SeDuMi data (or a
     ConstraintOp already on ``device``) and an optional checkpoint to
-    resume from -> solve_primal_al."""
+    resume from -> solve_primal_al.  With ``mesh`` SeDuMi data is
+    assembled on the host and only this rank's shard is uploaded."""
     device = resolve_device(device)
     if resume:
         from ..utils.checkpoint import resume_kwargs
@@ -666,12 +727,14 @@ def solve_sedumi_al(variant_name: str, At, b, c, n: int,
         y0 = rk.get("y0", y0)
         if "sigma0" in rk:
             overrides.setdefault("sigma0", rk["sigma0"])
-    if isinstance(At, ConstraintOp):
+    if isinstance(At, (ConstraintOp, ShardedConstraintOp)):
         op = At
         if op.device.type != device.type:
-            raise ValueError(f"the ConstraintOp lives on {op.device}, the "
+            raise ValueError(f"the operator lives on {op.device}, the "
                              f"solve was asked for {device}")
+    elif mesh is not None:
+        op = build_on_mesh(ConstraintOp.assemble(At, b, c, n), mesh, device)
     else:
         op = ConstraintOp.build(At, b, c, n, device)
     return solve_primal_al(variant_name, op, options, Y0=Y0, y0=y0,
-                           **overrides)
+                           mesh=mesh, **overrides)

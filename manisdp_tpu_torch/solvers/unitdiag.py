@@ -18,6 +18,7 @@ def solve_unitdiag(At, b, c, n: int,
                    options: Optional[SolverOptions] = None,
                    Y0: Optional[np.ndarray] = None,
                    y0: Optional[np.ndarray] = None,
+                   mesh=None,
                    resume: Optional[str] = None,
                    device="cuda",
                    **overrides) -> SDPResult:
@@ -26,7 +27,10 @@ def solve_unitdiag(At, b, c, n: int,
 
     ``resume``: path of a checkpoint_every snapshot; loads the
     factor/multipliers/penalty and continues that trajectory.
-    ``device``: where the solve runs; "cuda" (the default) raises when no
-    GPU is present."""
-    return solve_sedumi_al("unitdiag", At, b, c, n, options, Y0, y0, resume,
-                           device, overrides)
+    ``mesh``: a DeviceMesh this process is a rank of; the constraint
+    operator is sharded over its ``model`` axis (or its last) and every
+    rank returns the same result (parallel/sharded_ops.py).
+    ``device``: where the solve runs (under a mesh, this rank's device);
+    "cuda" (the default) raises when no GPU is present."""
+    return solve_sedumi_al("unitdiag", At, b, c, n, options, Y0, y0, mesh,
+                           resume, device, overrides)

@@ -1,0 +1,151 @@
+"""What the sharded-path tests run on each rank.
+
+``manisdp_tpu_torch.parallel.spawn_ranks`` pickles these functions by
+name into spawned processes, so they live in a module of their own that
+imports neither jax nor the JAX package (a rank needs only torch).
+``run_jobs`` runs a list of jobs on one set of ranks, so a test module
+pays for one spawn.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from manisdp_tpu_torch import kernels as K
+
+RESULT_FIELDS = ("X", "obj", "Y", "y", "S", "z", "gap", "pinf", "dinf",
+                 "eta", "gradnorm", "status", "iterations", "fac_size",
+                 "rtr_iters", "hess_calls", "history", "sigma", "tier")
+
+
+def result_dict(res) -> dict:
+    """An SDPResult's fields but the wall-clock ``time`` and ``timers``."""
+    d = dataclasses.asdict(res)
+    return {k: d[k] for k in RESULT_FIELDS}
+
+
+def run_jobs(jobs):
+    """``jobs``: a list of (name, function name in this module, kwargs).
+    Returns {name: result}, each job's kernel launches and collectives
+    counted from 0 (``counts``)."""
+    out = {}
+    for name, fn, kw in jobs:
+        K.reset_launches()
+        res = globals()[fn](**kw)
+        out[name] = dict(result=res, launches=dict(K.LAUNCHES),
+                         collectives=dict(K.COLLECTIVES))
+    return out
+
+
+def _mesh(kind, nodes=None):
+    """A CPU mesh over all ranks: 1-D "model" or "batch", "2d" (batch 2,
+    model the rest) or "host" (make_host_mesh over ``nodes``)."""
+    from manisdp_tpu_torch.parallel.distributed import make_host_mesh
+    from manisdp_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+    if kind in ("model", "batch"):
+        return make_mesh(None, kind, "cpu")
+    if kind == "2d":
+        return make_mesh_2d(2, dist.get_world_size() // 2, "cpu")
+    return make_host_mesh(nodes, device_type="cpu")
+
+
+def protocol(sharded, arrays, inputs):
+    """Every protocol method of this rank's shard (built from the JAX
+    ShardedConstraintOp's padded arrays), in f64 and f32; per-shard values
+    are assembled into the whole pattern's.  The shards live on the first
+    D ranks (D = the arrays' leading size, a group of its own); the other
+    ranks return None."""
+    from manisdp_tpu_torch.convert import sharded_op_from_jax
+    world = sharded["pat_i"].shape[0]
+    group = dist.new_group(list(range(world)))
+    if dist.get_rank() >= world:
+        return None
+    sop64 = sharded_op_from_jax(sharded, arrays, dist.get_rank(), "cpu",
+                                group)
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        sop = sop64.astype(dt)
+        t = {k: torch.as_tensor(v).to(dt) for k, v in inputs.items()
+             if k != "sigma"}
+        Y, U, w, V, eG = t["Y"], t["U"], t["w"], t["V"], t["eG"]
+        sigma = inputs["sigma"]
+        es, sv = sop.es_vals(w, sigma), sop.s_vals(w)
+        ayu = sop.normal_factored(Y, U)
+        whole = sop.global_values
+        r = dict(
+            pair_dots=whole(sop.pattern_pair_dots(Y, U)),
+            apply_factored=sop.apply_factored(Y, U),
+            apply_factored_yy=sop.apply_factored(Y),
+            adjoint=whole(sop.adjoint_on_pattern(w)),
+            es_vals=whole(es), s_vals=whole(sv),
+            normal=whole(ayu),
+            matmat=sop.matmat_pattern(Y, es),
+            matvec=sop.matvec_pattern(V, sv),
+            colsum=sop.colsum_pattern(sop.c_pattern *
+                                      sop.pattern_pair_dots(Y, U)),
+            dot=sop.dot_pattern(sop.c_pattern, sop.pattern_pair_dots(Y)),
+            al_hess=sop.al_hess(U, Y, es, ayu, (2.0, 4.0 * sigma)),
+            al_hess_diag=sop.al_hess(U, Y, es, ayu, (2.0, 4.0 * sigma),
+                                     eG=eG),
+            quad_cols=sop.quad_cols(Y, sv))
+        out[str(dt)[6:]] = {k: v.numpy() for k, v in r.items()}
+    out["local_nnz"] = (sop64.local.pat.nnz, sop64.local.nnz)
+    return out
+
+
+def al_solve(entry, At, b, c, n, kw, mesh="model", nodes=None):
+    """One AL entry point (solve_sdp / solve_unitdiag / solve_unittrace) on
+    the CPU under a mesh."""
+    import manisdp_tpu_torch
+    res = getattr(manisdp_tpu_torch, entry)(
+        At, b, c, n, mesh=_mesh(mesh, nodes), device="cpu", **kw)
+    return result_dict(res)
+
+
+def meshes():
+    """Shapes and axis names of the port's meshes at this world size, and
+    the errors of the meshes it cannot build."""
+    from manisdp_tpu_torch.parallel.distributed import (init_distributed,
+                                                        make_batch_host_mesh,
+                                                        make_host_mesh)
+    from manisdp_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+    world = dist.get_world_size()
+    out = {}
+    for name, mk in (
+            ("model", lambda: make_mesh(None, "model", "cpu")),
+            ("model_n", lambda: make_mesh(world, "model", "cpu")),
+            ("batch", lambda: make_mesh(world, "batch", "cpu")),
+            ("2d", lambda: make_mesh_2d(2, world // 2, "cpu")),
+            ("host", lambda: make_host_mesh(device_type="cpu")),
+            ("host2", lambda: make_host_mesh(2, device_type="cpu")),
+            ("batch_host", lambda: make_batch_host_mesh(2, "cpu"))):
+        m = mk()
+        out[name] = (tuple(m.shape), tuple(m.mesh_dim_names),
+                     tuple(m.get_local_rank(a) for a in m.mesh_dim_names))
+    try:
+        make_mesh(world - 1, "model", "cpu")
+    except ValueError as e:
+        out["wrong_count"] = str(e)
+    out["init_again"] = init_distributed()
+    return out
+
+
+def batched_rtr(Ys, Cs, typdist, tr):
+    """parallel.batched_maxcut_solve on the batch axis of all ranks."""
+    from manisdp_tpu_torch.core import TROptions
+    from manisdp_tpu_torch.parallel import batched_maxcut_solve
+    solve, shard = batched_maxcut_solve(_mesh("batch"), TROptions(**tr))
+    res = solve(*shard(Ys, Cs), typdist)
+    return dict(Y=res.Y.numpy(), fx=res.fx.numpy(),
+                norm_grad=res.norm_grad.numpy(), iters=res.iters,
+                inner_iters=res.inner_iters)
+
+
+def maxcut_batch(Cs, kw, mesh="batch"):
+    """solve_maxcut_batch under a mesh (its batch axis, or none)."""
+    from manisdp_tpu_torch import solve_maxcut_batch
+    res = solve_maxcut_batch(Cs, mesh=_mesh(mesh), device="cpu", **kw)
+    return [dict(obj=r.obj, dinf=r.dinf, status=r.status, Y=r.Y,
+                 iterations=r.iterations, history=r.history) for r in res]

@@ -277,9 +277,18 @@ def test_batch_mixed_warns_and_runs_f64():
 
 
 def test_batch_refuses_mesh_and_a_missing_card(monkeypatch):
+    """A mesh is taken (one gloo rank, its batch axis of one place: the
+    result equals the unsharded call's); no card still raises."""
+    from manisdp_tpu_torch.parallel import spawn_ranks
+    import _torch_rank_workers as W
     Cs = [random_sym_cost(8, 0)]
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        solve_maxcut_batch(Cs, mesh=object(), device="cpu")
+    kw = dict(max_outer=10, verbose=False)
+    out = spawn_ranks(W.run_jobs, 1, "gloo", "cpu", threads=1, args=(
+        [("b", "maxcut_batch", dict(Cs=Cs, kw=kw))],))
+    got = out[0]["b"]["result"][0]
+    ref = solve_maxcut_batch(Cs, device="cpu", **kw)[0]
+    assert got["obj"] == ref.obj and got["status"] == ref.status
+    np.testing.assert_array_equal(got["Y"], ref.Y)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         solve_maxcut_batch(Cs)

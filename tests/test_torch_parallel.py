@@ -1,0 +1,306 @@
+"""The port's meshes, its data-parallel MaxCut batch and the (dcn, model)
+host mesh under the sharded AL (PyTorch port of manisdp_tpu/parallel/
+{mesh,distributed}.py), against tests/test_parallel.py's checks, the
+unsharded port and the JAX package's sharded functions on the same
+inputs.
+
+Four ranks on gloo (``parallel.spawn_ranks``, one thread each) run every
+rank-side job in one spawn (``tests/_torch_rank_workers.py``); JAX runs
+on the first four devices of the virtual CPU mesh (tests/conftest.py)."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import threadpoolctl
+import torch
+import torch.distributed as dist
+from jax.sharding import Mesh
+
+import _torch_rank_workers as W
+from manisdp_tpu import solve_maxcut_batch as j_batch
+from manisdp_tpu import solve_unitdiag as j_unitdiag
+from manisdp_tpu.core import TROptions as JTROptions
+from manisdp_tpu.parallel.distributed import _device_grid
+from manisdp_tpu.parallel.distributed import make_host_mesh as jhost_mesh
+from manisdp_tpu.parallel.mesh import batched_maxcut_solve as jbatched
+from manisdp_tpu.parallel.mesh import make_mesh as jmake_mesh
+from manisdp_tpu.parallel.mesh import make_mesh_2d as jmake_mesh_2d
+from manisdp_tpu_torch import solve_maxcut_batch, solve_unitdiag
+from manisdp_tpu_torch.core import TROptions, make_batched_trustregions
+from manisdp_tpu_torch.parallel import init_distributed, spawn_ranks
+from manisdp_tpu_torch.parallel.distributed import make_host_mesh, rank_grid
+from manisdp_tpu_torch.parallel.mesh import _maxcut_problem, make_mesh
+from test_batch import random_sparse_cost, random_sym_cost
+
+WORLD = 4
+N_HOST = 12
+BATCH_N, BATCH_P = 32, 4
+BATCH_TR = dict(maxiter=2, maxinner=6, tolgradnorm=1e-10)
+BATCH_KW = dict(p0=4, max_outer=30, verbose=False)
+# the host-mesh solves' explicit start, the same for both packages
+HOST_Y0 = np.random.RandomState(21).randn(3, N_HOST)
+HOST_Y0 /= np.sqrt((HOST_Y0 ** 2).sum(axis=0))
+HOST_KW = dict(verbose=False, max_outer=4, Y0=HOST_Y0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """Torch and BLAS on one thread for this module (the ranks get one
+    thread each from spawn_ranks)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+
+
+def host_problem():
+    """test_parallel.py:test_host_mesh_layout's instance: diag(X) = 1 at
+    n = 12 with a random zero-diagonal cost."""
+    n = N_HOST
+    rows = np.arange(n) * n + np.arange(n)
+    At = sp.coo_matrix((np.ones(n), (rows, np.arange(n))),
+                       shape=(n * n, n)).tocsc()
+    rs = np.random.RandomState(0)
+    Cb = rs.randn(n, n)
+    C = 0.5 * (Cb + Cb.T)
+    np.fill_diagonal(C, 0.0)
+    return At, np.ones(n), C.reshape(-1, order="F")
+
+
+def rtr_batch():
+    """test_parallel.py:_tiny's factors and costs, one instance per seed."""
+    Ys, Cs = [], []
+    for s in range(WORLD):
+        rs = np.random.RandomState(s)
+        B = rs.randn(BATCH_N, BATCH_N)
+        C = 0.5 * (B + B.T)
+        np.fill_diagonal(C, 0.0)
+        Y = rs.randn(BATCH_P, BATCH_N)
+        Ys.append(Y / np.sqrt((Y ** 2).sum(axis=0)))
+        Cs.append(C)
+    return np.stack(Ys), np.stack(Cs)
+
+
+def maxcut_instances():
+    """A bucket of 4 dense costs (split over the batch axis) and a bucket
+    of 3 scipy-sparse ones (which 4 ranks do not divide: solved whole)."""
+    dense = [random_sym_cost(20, s) for s in range(4)]
+    sparse = [random_sparse_cost(300, 10 + s) for s in range(3)]
+    return dense + sparse
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    At, b, c = host_problem()
+    solve = dict(entry="solve_unitdiag", At=At, b=b, c=c, n=N_HOST,
+                 kw=HOST_KW)
+    Ys, Cs = rtr_batch()
+    jobs = [("meshes", "meshes", {}),
+            ("model", "al_solve", solve),
+            ("host", "al_solve", dict(solve, mesh="host")),
+            ("host22", "al_solve", dict(solve, mesh="host", nodes=2)),
+            ("rtr", "batched_rtr", dict(Ys=Ys, Cs=Cs,
+                                        typdist=float(np.pi *
+                                                      np.sqrt(BATCH_N)),
+                                        tr=BATCH_TR)),
+            ("batch", "maxcut_batch", dict(Cs=maxcut_instances(),
+                                           kw=BATCH_KW)),
+            ("batch2d", "maxcut_batch", dict(Cs=maxcut_instances(),
+                                             kw=BATCH_KW, mesh="2d")),
+            ("batch_model", "maxcut_batch", dict(Cs=maxcut_instances()[:4],
+                                                 kw=BATCH_KW,
+                                                 mesh="model"))]
+    return spawn_ranks(W.run_jobs, WORLD, "gloo", "cpu", args=(jobs,),
+                       threads=1)
+
+
+def test_rank_grid_puts_nodes_outermost():
+    """rank_grid (the JAX _device_grid): row k holds node k's ranks."""
+    assert rank_grid(8, 2).shape == (2, 4)
+    np.testing.assert_array_equal(rank_grid(8, 2)[1], [4, 5, 6, 7])
+    assert rank_grid(4, 1).shape == (1, 4)
+
+
+def test_init_distributed_is_a_noop_for_one_process(monkeypatch):
+    """One process (no WORLD_SIZE, or 1): init_distributed returns False
+    and starts no group, as the JAX function does."""
+    for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    assert init_distributed() is False
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    assert init_distributed(device="cpu") is False
+    assert not dist.is_initialized()
+
+
+def test_mesh_without_a_group_joins_the_torchrun_ranks(monkeypatch):
+    """A process that torchrun's variables name one of several
+    (WORLD_SIZE=2) and that has no group joins them through
+    init_distributed when a mesh is asked for, and never takes a mesh of
+    one place: without a rendezvous address that raises, and no group is
+    left behind."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    for var in ("MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    assert not dist.is_initialized()
+    for mk in (lambda: make_mesh(device_type="cpu"),
+               lambda: make_mesh(2, "batch", "cpu"),
+               lambda: make_host_mesh(device_type="cpu")):
+        with pytest.raises(ValueError, match="MASTER_ADDR"):
+            mk()
+        assert not dist.is_initialized()
+
+
+def test_mesh_shapes_and_axis_names(ranks):
+    """test_parallel.py:64-80 on 4 ranks: make_mesh, make_mesh_2d, the
+    host meshes (node axis outermost; one node by default, a simulated
+    two-node grid), each rank's coordinates; a mesh of another size than
+    the world raises (one rank per place); init_distributed inside a group
+    returns True."""
+    per = [r["meshes"]["result"] for r in ranks]
+    m0 = per[0]
+    assert m0["model"][:2] == ((WORLD,), ("model",))
+    assert m0["model_n"][:2] == ((WORLD,), ("model",))
+    assert m0["batch"][:2] == ((WORLD,), ("batch",))
+    assert m0["2d"][:2] == ((2, WORLD // 2), ("batch", "model"))
+    assert m0["host"][:2] == ((1, WORLD), ("dcn", "model"))
+    assert m0["host2"][:2] == ((2, WORLD // 2), ("dcn", "model"))
+    assert m0["batch_host"][:2] == ((2, WORLD // 2), ("batch", "model"))
+    for r, m in enumerate(per):
+        assert m["model"][2] == (r,)
+        assert m["host2"][2] == divmod(r, WORLD // 2)
+        assert "one rank per place" in m["wrong_count"]
+        assert m["init_again"] is True
+
+
+def test_host_mesh_solve_matches_model_only(ranks):
+    """test_parallel.py:101-110: the sharded unitdiag solve on the (1, 4)
+    host mesh and on a (2, 2) (dcn, model) grid (sharded over model,
+    replicated over dcn) reproduces the model-only solve over 4 ranks, and
+    the port's single solve."""
+    At, b, c = host_problem()
+    single = solve_unitdiag(At, b, c, N_HOST, device="cpu", **HOST_KW)
+    objs = {k: ranks[0][k]["result"]["obj"]
+            for k in ("model", "host", "host22")}
+    assert np.isfinite(objs["model"])
+    for k in ("host", "host22"):
+        np.testing.assert_allclose(objs[k], objs["model"], rtol=1e-9)
+    np.testing.assert_allclose(objs["model"], single.obj, rtol=1e-9)
+    # the (2, 2) grid: both dcn replicas hold the same result
+    for r in ranks[1:]:
+        assert r["host22"]["result"]["obj"] == objs["host22"]
+
+
+def test_batched_maxcut_solve_matches_unsharded(ranks):
+    """batched_maxcut_solve on the 4-rank batch axis (one instance a rank)
+    against the unsharded batched RTR on the whole batch: every field to
+    1e-6 (test_parallel.py:46), assembled alike on every rank."""
+    Ys, Cs = rtr_batch()
+    base = make_batched_trustregions(_maxcut_problem(), TROptions(**BATCH_TR))
+    ref = base(torch.as_tensor(Ys), torch.as_tensor(Cs),
+               float(np.pi * np.sqrt(BATCH_N)))
+    got = ranks[0]["rtr"]["result"]
+    np.testing.assert_allclose(got["fx"], ref.fx.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(got["Y"], ref.Y.numpy(), atol=1e-6)
+    np.testing.assert_array_equal(got["iters"], ref.iters)
+    assert len(np.unique(np.round(got["fx"], 6))) > 1
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["rtr"]["result"]["Y"], got["Y"])
+
+
+@pytest.mark.parametrize("job", ["batch", "batch2d", "batch_model"])
+def test_solve_maxcut_batch_mesh_matches_unsharded(ranks, job):
+    """solve_maxcut_batch(mesh=) over a 4-rank batch axis, a (2, 2)
+    (batch, model) mesh and a mesh without a batch axis (every rank solves
+    the whole batch), against the unsharded call: every instance's
+    objective within 1e-6 and certified; all ranks agree."""
+    Cs = maxcut_instances()[:4] if job == "batch_model" else \
+        maxcut_instances()
+    ref = solve_maxcut_batch(Cs, device="cpu", **BATCH_KW)
+    got = ranks[0][job]["result"]
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g["status"] == r.status == 0
+        np.testing.assert_allclose(g["obj"], r.obj, rtol=1e-6, atol=1e-6)
+    for other in ranks[1:]:
+        for g, o in zip(got, other[job]["result"]):
+            assert g["obj"] == o["obj"]
+            np.testing.assert_array_equal(g["Y"], o["Y"])
+
+
+# ------------------------------------------------- against the JAX package --
+
+@functools.lru_cache(maxsize=None)
+def _jax_host_solves():
+    """JAX's sharded unitdiag solve on make_host_mesh over 4 devices (1, 4)
+    and on a simulated two-host (2, 2) (dcn, model) grid."""
+    devs = jax.devices()[:WORLD]
+    At, b, c = host_problem()
+    return {k: j_unitdiag(At, b, c, N_HOST, mesh=mesh, **HOST_KW)
+            for k, mesh in (("host", jhost_mesh(devs)),
+                            ("host22", Mesh(_device_grid(devs, 2),
+                                            ("dcn", "model"))))}
+
+
+@pytest.mark.parametrize("job", ["host", "host22"])
+def test_host_mesh_solve_matches_jax(ranks, job):
+    """The port's unitdiag solve on the (1, 4) host mesh and the (2, 2)
+    (dcn, model) grid against JAX's solve_unitdiag under make_host_mesh /
+    the same grid from the same Y0: equal outer iterations, objective to
+    1e-9, the factor to 1e-8, both certified."""
+    if len(jax.devices()) < WORLD:
+        pytest.skip(f"needs {WORLD} virtual devices")
+    ref = _jax_host_solves()[job]
+    got = ranks[0][job]["result"]
+    assert got["status"] == ref.status == 0
+    assert got["iterations"] == ref.iterations
+    np.testing.assert_allclose(got["obj"], ref.obj, rtol=1e-9)
+    np.testing.assert_allclose(got["Y"], ref.Y, atol=1e-8)
+
+
+def test_batched_maxcut_solve_matches_jax(ranks):
+    """batched_maxcut_solve on the 4-rank batch axis against JAX's
+    batched_maxcut_solve on a 4-device batch mesh from the same factors
+    and costs: fx and Y to 1e-9, equal TR and tCG iteration counts."""
+    if len(jax.devices()) < WORLD:
+        pytest.skip(f"needs {WORLD} virtual devices")
+    Ys, Cs = rtr_batch()
+    solve, shard = jbatched(jmake_mesh(WORLD, "batch"),
+                            JTROptions(**BATCH_TR))
+    ref = solve(*shard(jnp.asarray(Ys), jnp.asarray(Cs)),
+                float(np.pi * np.sqrt(BATCH_N)))
+    got = ranks[0]["rtr"]["result"]
+    np.testing.assert_allclose(got["fx"], np.asarray(ref.fx), rtol=1e-9)
+    np.testing.assert_allclose(got["Y"], np.asarray(ref.Y), atol=1e-9)
+    np.testing.assert_array_equal(got["iters"], np.asarray(ref.iters))
+    np.testing.assert_array_equal(got["inner_iters"],
+                                  np.asarray(ref.inner_iters))
+
+
+@pytest.mark.parametrize("job", ["batch", "batch2d", "batch_model"])
+def test_solve_maxcut_batch_mesh_matches_jax(ranks, job):
+    """solve_maxcut_batch(mesh=) against JAX's on the matching virtual
+    mesh (a 4-device batch axis, a (2, 2) (batch, model) mesh, a 4-device
+    model-only mesh that leaves the batch unsharded): every instance
+    certified with JAX's outer iterations and its objective within
+    1e-6."""
+    if len(jax.devices()) < WORLD:
+        pytest.skip(f"needs {WORLD} virtual devices")
+    mesh = {"batch": lambda: jmake_mesh(WORLD, "batch"),
+            "batch2d": lambda: jmake_mesh_2d(2, WORLD // 2),
+            "batch_model": lambda: jmake_mesh(WORLD, "model")}[job]()
+    Cs = maxcut_instances()[:4] if job == "batch_model" else \
+        maxcut_instances()
+    ref = j_batch(Cs, mesh=mesh, **BATCH_KW)
+    got = ranks[0][job]["result"]
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g["status"] == r.status == 0
+        assert g["iterations"] == r.iterations
+        np.testing.assert_allclose(g["obj"], r.obj, rtol=1e-6, atol=1e-6)
