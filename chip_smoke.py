@@ -125,11 +125,30 @@ not 0):
      21's; with two or more cards, 24a again on NCCL across min(4, cards)
      cards (24d; otherwise one line says why it did not run).  Gloo
      stages CUDA all-reduces through the host, so its times are labelled
-     host-staged.
+     host-staged;
+ 25. the row-sharded SOS-dual operator and the model-sharded MaxCut RTR
+     (slice 6b; K7 / K8 row-block modes, K11 split mode): at world 1 on
+     NCCL (one spawn), ShardedSymDualOp at q = 120 (n~ = 14,522): apply,
+     adjoint and apply -> scale by idAAt -> adjoint of a seeded symmetric
+     M and tuple y, held to the single-card K7 / K8 (1e-12 f64, 1e-5
+     f32) and each row-block mode to its plain twin on the card, with
+     times, each launch's ms and the collectives' ms (25a); the G67-size
+     dense MaxCut (the stand-in's cost as a dense 10^4 x 10^4 f64 C, p =
+     40, a seeded Oblique.rand start, JAX's default TROptions) through
+     sharded_maxcut_solve, bit-equal to the single-card RTR (fx, Y, TR
+     and tCG counts), and K11's split mode at its tCG shape bit-equal to
+     the one launch (25c); then over 2 gloo ranks on card 0 (one spawn)
+     the operator at q = 60 (25b) and the RTR (fx within 1e-12, Y within
+     1e-10, equal counts; 25c), every rank's replicated outputs bit-equal;
+     phase 21's 16 dense G1-size stand-ins through
+     batched_sharded_maxcut_solve on a (2, 2) (batch, model) mesh of 4
+     gloo ranks on card 0, every instance held to the single-card batched
+     RTR (25d); with two or more cards, 25a and 25c on NCCL across min(4,
+     cards) cards (25e; otherwise one line says why it did not run).
 ``--phases`` selects phases (default all; 1-2 always run).  A phase runs
 with the rest of its group (3 | 4 | 5 | 6-7 | 8-11 | 12-15 | 16-19 |
-20 | 21 | 22 | 23 | 24), and 16-19 bring 12-15 (phase 17 reads phase 13's
-objective); the ``kernels`` line lists the kernels whose phases ran
+20 | 21 | 22 | 23 | 24 | 25), and 16-19 bring 12-15 (phase 17 reads phase
+13's objective); the ``kernels`` line lists the kernels whose phases ran
 (with phase 23, each kernel's f32 launches there; with phase 24, rank
 0's launches in 24b of the row's kernel, or of its mode where the mode
 has a counter of its own).
@@ -224,13 +243,21 @@ CHAIN5_T = 5
 SHARD_GLOO_WORLD = 2
 SHARD_NCCL_MAX = 4
 SHARD_P, SHARD_K, SHARD_SIGMA = AL_HOT_P_PAD, 11, 0.37
+# phase 25 (slice 6b): the row-sharded SOS-dual operator at q = 120 on
+# NCCL (25a, 25e) and q = 60 over gloo ranks on card 0 (25b); the G67-size
+# dense MaxCut RTR column-sharded at p = 40 (25c, 25e); the batch of
+# phase 21's 16 dense G1-size stand-ins on a (2, 2) (batch, model) mesh of
+# gloo ranks on card 0 (25d)
+SYMDUAL_NCCL_Q, SYMDUAL_GLOO_Q = 120, 60
+MAXCUT_SHARD_P = 40
+BATCH_SHARD_MESH = (2, 2)
 # the phases and their groups: a phase runs with the rest of its group;
 # 16-19 read phase 13's SOS-dual objective; 23 reads the objectives of 5,
 # 7, 9, 13 and 22 where they ran (and solves them itself where not), 24
 # those of 7 and 21
-LAST_PHASE = 24
+LAST_PHASE = 25
 GROUPS = ((3,), (4,), (5,), (6, 7), (8, 9, 10, 11), (12, 13, 14, 15),
-          (16, 17, 18, 19), (20,), (21,), (22,), (23,), (24,))
+          (16, 17, 18, 19), (20,), (21,), (22,), (23,), (24,), (25,))
 NEEDS = {16: (12,)}
 # the JAX package's optima on the CPU (f64), the values the port is held to
 JAX_BQP30 = -154.7359587770444
@@ -2808,7 +2835,9 @@ def shard_times(sop, path):
     """Phase 24b's per-shard kernel times (ranks in turns, one at a time on
     the card): K3 pair dots, K4 A(·) and Aᵀ on the slice, K1 ``al_hess`` on
     the slice, each against its plain twin at the shard's own shapes (its
-    errors) and its bound, f32 (the tCG's) and f64; then the all-reduces
+    errors), its bound and, for K3 and K4, phase 6's library call on the
+    shard's arrays (``sampled_addmm`` on its pattern, its CSR products),
+    f32 (the tCG's) and f64; then the all-reduces
     of the solve's shapes ((m,), (p, n), (k, n)), both ranks together,
     host clock around a synchronize (gloo stages them through the
     host)."""
@@ -2836,33 +2865,48 @@ def shard_times(sop, path):
             coefs = (2.0, 4.0 * SHARD_SIGMA)
             pat = (o.pat.i, o.pat.colptr)
             name = str(dt)[6:]
-            for kern, fn, twin, reads, writes, flops in (
+            # the library yardsticks of phase 6 on the shard's own arrays:
+            # sampled_addmm on its pattern, its CSR products
+            Pz = csr(o.pat.colptr, o.pat.i, torch.zeros_like(o.pat.v),
+                     (n, n))
+            A_k = csr(o.krow_ptr, o.a2p, o.v, (m, nP))
+            A_p = csr(o.pat_ptr, o.kp, o.vp, (nP, m))
+            for kern, fn, twin, reads, writes, flops, lib in (
                     ("pattern_dots", lambda: o.pattern_pair_dots(Y, U),
                      lambda: K.pattern_dots_plain(Y, U, o.pat),
-                     (Y, U, *pat), e, 2.0 * nP * p),
+                     (Y, U, *pat), e, 2.0 * nP * p,
+                     lambda: torch.sparse.sampled_addmm(
+                         Pz, U.T.contiguous(), Y, beta=0.0)),
                     ("csr_gather.apply_from_e", lambda: o.apply_from_e(e),
                      lambda: K.csr_gather_plain(e, o.krow_ptr, o.a2p, o.v),
                      (gathered(e, o.a2p), o.krow_ptr, o.a2p, o.v),
-                     torch.empty(m, dtype=dt), 2.0 * nA),
+                     torch.empty(m, dtype=dt), 2.0 * nA, lambda: A_k @ e),
                     ("csr_gather.adjoint_on_pattern",
                      lambda: o.adjoint_on_pattern(w),
                      lambda: K.csr_gather_plain(w, o.pat_ptr, o.kp, o.vp),
                      (gathered(w, o.kp), o.pat_ptr, o.kp, o.vp), e,
-                     2.0 * nA),
+                     2.0 * nA, lambda: A_p @ w),
                     ("symcoo_spmm.al_hess",
                      lambda: o.al_hess(U, Y, es, ayu, coefs),
                      lambda: K.symcoo_spmm_plain(U, o.pat, "al_hess",
                                                  vals=es, B=Y, vals2=ayu,
                                                  coefs=coefs),
-                     (U, Y, *pat, es, ayu), U, 4.0 * nP * p)):
+                     (U, Y, *pat, es, ayu), U, 4.0 * nP * p, None)):
                 b_ms, b_by = bound(nbytes(*reads, writes), flops, name)
                 err, rel_err = max_err(fn(), twin())
-                rows.append(dict(rank=dist.get_rank(), kernel=kern,
-                                 dtype=name, p=p, nnzP_local=nP,
-                                 nnzA_local=nA, max_abs_err=err,
-                                 rel_err=rel_err, ms=time_ms(fn),
-                                 plain_ms=time_ms(twin), bound_ms=b_ms,
-                                 bound_by=b_by))
+                row = dict(rank=dist.get_rank(), kernel=kern, dtype=name,
+                           p=p, nnzP_local=nP, nnzA_local=nA,
+                           max_abs_err=err, rel_err=rel_err, ms=time_ms(fn),
+                           plain_ms=time_ms(twin), bound_ms=b_ms,
+                           bound_by=b_by, library_ms=None)
+                if lib is not None:
+                    try:
+                        row["library_ms"] = time_ms(lib)
+                    except (RuntimeError, NotImplementedError,
+                            TypeError) as err_:
+                        row["library_error"] = str(err_).splitlines()[0][:200]
+                rows.append(row)
+            del Pz, A_k, A_p
         torch.cuda.synchronize()
     dist.barrier()
     p, n = ins["Y"].shape
@@ -3160,6 +3204,547 @@ def shard_phases(device, rec, keep):
     out["seconds"] = time.perf_counter() - t_phase
     emit(dict(phase="sharded_summary", seconds=out["seconds"],
               setup_s=out["setup_s"]))
+    return out
+
+
+def idaat(q):
+    """SymDualOp's per-degree 1 / class size of the expanded basis (ops/
+    symdual.py build_bqpsos), the scale between apply and adjoint."""
+    d0 = 4.0 * (1 + q + q * (q - 1) // 2)
+    return 1.0 / np.array([d0, 8.0 * q, 8.0 * q, 24.0, 24.0])
+
+
+def host_ms(fn, reps=7, warm=2):
+    """Median wall ms of ``fn()`` ending in a synchronize (for calls whose
+    collectives go through the host, where CUDA events would time the
+    host's copies only in part)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def symdual_rank(q, seed):
+    """One rank of 25a / 25b / 25e: ShardedSymDualOp(q) on the 1-D model
+    mesh of all ranks, f64 and f32, against the single-card kernels on
+    the whole matrix (K7, K8) and each row-block mode against its plain
+    twin on the card (the same collectives): apply of a seeded symmetric
+    M, the adjoint of a seeded tuple y, and apply -> scale by idAAt ->
+    adjoint.  Errors relative to the reference's largest entry (the largest
+    absolute error by dtype and check); digests of the replicated outputs
+    (y0 .. Y3 and the adjoints' top rows); then, in f64, the row-block
+    modes' times against their twins and bounds, the adjoint's beside
+    torch.take of the class map's rows for this rank (its library
+    yardstick, checked bit-equal), each launch's device ms
+    (torch.profiler) and the collectives' ms."""
+    import torch
+    import torch.distributed as dist
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch.ops.symdual import _split
+    from manisdp_tpu_torch.parallel.distributed import all_reduce, all_to_all
+    from manisdp_tpu_torch.parallel.mesh import make_mesh
+    from manisdp_tpu_torch.parallel.symdual_sharded import ShardedSymDualOp
+    world, rank = dist.get_world_size(), dist.get_rank()
+    device = torch.device("cuda", torch.cuda.current_device())
+    gloo = dist.get_backend() == "gloo"
+    op = ShardedSymDualOp(q, make_mesh(world, "model", "cuda"))
+    n, o, rows, ql = op.n, 2 + q, op.rows, op.ql
+    qrows = slice(o + rows.start * q, o + rows.stop * q)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    M64 = torch.randn((n, n), generator=gen, dtype=torch.float64,
+                      device=device)
+    M64 = 0.5 * (M64 + M64.T)
+    flat64 = torch.randn((1 + q + q * q + q ** 3 + q ** 4,), generator=gen,
+                         dtype=torch.float64, device=device)
+    scale64 = torch.as_tensor(idaat(q), device=device)
+    a2a = lambda s_, r_: all_to_all(s_, r_, op.group)  # noqa: E731
+    red = lambda t: all_reduce(t, op.group)  # noqa: E731
+
+    worst = {}
+
+    def rel(check, got, ref):
+        """On the card: the largest |got - ref| over the largest |ref|."""
+        err = float(torch.max(torch.abs(got - ref)))
+        w = worst.setdefault(name, {})
+        w[check] = max(w.get(check, 0.0), err)
+        return err / max(float(torch.max(torch.abs(ref))), 1e-300)
+
+    out = dict(rank=rank, world=world, backend=dist.get_backend(), q=q,
+               device=str(device), rows=[rows.start, rows.stop], errors={},
+               max_abs_err=worst, digests={}, launches={}, collectives={})
+    for dt in (torch.float64, torch.float32):
+        name = str(dt)[6:]
+        M, scale = M64.to(dt), scale64.to(dt)
+        top, rowsQ = op.split_matrix(M)
+        K.reset_launches()
+        y = op.apply(top, rowsQ)
+        torch.cuda.synchronize()
+        out["launches"][f"{name}_apply"] = dict(
+            symdual_apply=K.LAUNCHES["symdual_apply"],
+            rows=K.SYMDUAL_APPLY_LAUNCHES["rows"])
+        out["collectives"][f"{name}_apply"] = dict(K.COLLECTIVES)
+        ref = K.symdual_apply(M, q)
+        err = dict(apply=max(max(rel("apply", y[d], ref[d])
+                                 for d in range(4)),
+                             rel("apply", y[4], ref[4][rows])))
+        ys = _split(flat64.to(dt), q)
+        K.reset_launches()
+        Wt, Wr = op.adjoint(ys[:4] + (ys[4][rows].contiguous(),))
+        torch.cuda.synchronize()
+        out["launches"][f"{name}_adjoint"] = dict(
+            symdual_adjoint=K.LAUNCHES["symdual_adjoint"],
+            rows=K.SYMDUAL_LAUNCHES["adjoint_rows"])
+        out["collectives"][f"{name}_adjoint"] = dict(K.COLLECTIVES)
+        W = K.symdual_adjoint(ys, q)
+        err["adjoint"] = max(rel("adjoint", Wt, W[:o]),
+                             rel("adjoint", Wr, W[qrows]))
+        del W
+        Rt, Rr = op.adjoint(tuple(t * scale[d] for d, t in enumerate(y)))
+        R = K.symdual_adjoint(ref, q, scale=scale)
+        err["roundtrip"] = max(rel("roundtrip", Rt, R[:o]),
+                               rel("roundtrip", Rr, R[qrows]))
+        del R
+        tw = K.symdual_apply_rows_plain(top, rowsQ, q, rows.start, a2a, red)
+        err["apply_twin"] = max(rel("apply_twin", g, t)
+                                for g, t in zip(y, tw))
+        yl = ys[:4] + (ys[4][rows].contiguous(),)
+        tw8 = K.symdual_adjoint_rows_plain(yl, q, rows.start)
+        err["adjoint_twin"] = max(rel("adjoint_twin", Wt, tw8[0]),
+                                  rel("adjoint_twin", Wr, tw8[1]))
+        out["errors"][name] = err
+        out["digests"][name] = _digest(*(t.cpu().numpy() for t in
+                                         (*y[:4], Wt, Rt)))
+        del tw, tw8, ref, Rt, Rr, Wt, Wr, ys, yl
+        if dt == torch.float32:
+            continue
+        # times (f64): each mode against its twin and its bound; the
+        # collectives alone at the apply's shapes
+        timer = host_ms if gloo else time_ms
+        apply = lambda: op.apply(top, rowsQ)  # noqa: E731
+        twin = lambda: K.symdual_apply_rows_plain(  # noqa: E731
+            top, rowsQ, q, rows.start, a2a, red)
+        adj = lambda: op.adjoint(yl)  # noqa: E731
+        yl = _split(flat64, q)[:4] + (_split(flat64, q)[4][rows].clone(),)
+        adj_twin = lambda: K.symdual_adjoint_rows_plain(  # noqa: E731
+            yl, q, rows.start)
+        flat_out = 1 + q + q * q + q ** 3
+        send = torch.ones((world, ql * q ** 3 // world), dtype=dt,
+                          device=device)
+        recv = torch.empty_like(send)
+        part = torch.ones((flat_out,), dtype=dt, device=device)
+        t = dict(
+            apply_ms=timer(apply), apply_plain_ms=timer(twin),
+            apply_bound=bound(nbytes(top, rowsQ, part, y[4]), 0.0, name),
+            adjoint_ms=timer(adj), adjoint_plain_ms=timer(adj_twin),
+            adjoint_bound=bound(nbytes(*yl, top, ql * q * n * 8), 0.0, name),
+            all_to_all_ms=timer(lambda: a2a(send, recv)),
+            all_to_all_bytes=nbytes(send),
+            all_reduce_ms=timer(lambda: red(part)),
+            all_reduce_bytes=nbytes(part),
+            staging="host (gloo)" if gloo else "device (NCCL)")
+        # K8's library yardstick on this rank's rows: torch.take of the
+        # local flat y over the class map's top and local Q rows, Y4's
+        # slots shifted to the local block
+        cls = symdual_class_map(q, device)
+        cls = torch.cat([cls[:o], cls[qrows]])
+        cls[cls >= 1 + q + q * q + q ** 3] -= rows.start * q ** 3
+        yl_flat = torch.cat([v.reshape(-1) for v in yl])
+        take = lambda: torch.take(yl_flat, cls)  # noqa: E731
+        t.update(adjoint_library_ms=timer(take),
+                 adjoint_library_index_mb=nbytes(cls) / 1e6,
+                 adjoint_library_bit_equal=bool(torch.equal(
+                     take(), torch.cat(adj()))))
+        if not t["adjoint_library_bit_equal"]:
+            raise AssertionError("K8's row-block adjoint differs from "
+                                 "torch.take of the class map's rows")
+        del cls, yl_flat
+        if not gloo:
+            t["apply_launches_ms"] = pass_times(apply, reps=5)
+            t["adjoint_launches_ms"] = pass_times(adj, reps=5)
+        out["times"] = t
+        del send, recv, part, top, rowsQ, y
+        torch.cuda.empty_cache()
+    out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    return out
+
+
+def maxcut_shard_rank(C_sp, p, seed, single):
+    """One rank of 25c / 25e: the dense G67-size MaxCut RTR through
+    sharded_maxcut_solve (JAX's default TROptions) on the 1-D model mesh
+    of all ranks from a seeded Oblique.rand start; with ``single`` first
+    the single-card make_trustregions(make_maxcut_problem(dense=True)) in
+    this process on the same input.  Returns each solve's fx (and its hex),
+    counts, seconds and launches, digests of Y (rank 0: Y itself), and K11's
+    split mode at this rank's tCG shape against its twin and the one
+    launch (times and bound)."""
+    import torch
+    import torch.distributed as dist
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch.core import TROptions, make_trustregions
+    from manisdp_tpu_torch.manifolds import Oblique
+    from manisdp_tpu_torch.parallel.distributed import all_reduce
+    from manisdp_tpu_torch.parallel.mesh import (make_mesh, mesh_axis,
+                                                 sharded_maxcut_solve)
+    from manisdp_tpu_torch.solvers.maxcut import make_maxcut_problem
+    world, rank = dist.get_world_size(), dist.get_rank()
+    device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(world, "model", "cuda")
+    group = mesh_axis(mesh, "model")[2]
+    n = C_sp.shape[0]
+    C = torch.as_tensor(C_sp.toarray(), dtype=torch.float64, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    Y0 = Oblique.rand(gen, p, n)
+    typ = Oblique.typicaldist(p, n)
+    out = dict(rank=rank, world=world, backend=dist.get_backend(),
+               device=str(device))
+
+    def record(res, seconds):
+        r = dict(fx=float(res.fx), fx_hex=float(res.fx).hex(),
+                 norm_grad=float(res.norm_grad), iters=res.iters,
+                 inner_iters=res.inner_iters, seconds=seconds,
+                 launches=dict(K.LAUNCHES), tcg=dict(K.TCG_LAUNCHES),
+                 collectives=dict(K.COLLECTIVES),
+                 digest=_digest(res.Y.cpu().numpy()))
+        if rank == 0:
+            r["Y"] = res.Y.cpu().numpy()
+        return r
+
+    if single:
+        base = make_trustregions(make_maxcut_problem(dense=True), TROptions(
+            maxiter=4, maxinner=10, tolgradnorm=1e-8))
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r1 = base(Y0, C, typ)
+        torch.cuda.synchronize()
+        out["single"] = record(r1, time.perf_counter() - t0)
+        del r1
+    solve, shard = sharded_maxcut_solve(mesh)
+    Yl, Cl = shard(Y0, C)
+    del C
+    K.reset_launches()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    res = solve(Yl, Cl, typ)
+    torch.cuda.synchronize()
+    out["sharded"] = record(res, time.perf_counter() - t0)
+    out["local_shape"] = list(Yl.shape)
+    # K11 split at this rank's tCG shape (1, p, n / D), f64, with the tangent
+    # projection, as the solve runs it
+    shape = (1,) + tuple(Yl.shape)
+    r = torch.randn(shape, generator=gen, dtype=torch.float64, device=device)
+    Hd = r * (1.0 + torch.randn(shape, generator=gen, dtype=torch.float64,
+                                device=device).abs())
+    eta, Heta = torch.zeros_like(r), torch.zeros_like(r)
+    r_r = all_reduce(torch.sum(r * r, dim=(1, 2)), group)
+    z = torch.zeros_like(r_r)
+    sc = torch.stack([z, z, r_r, r_r, z, z + typ ** 2 / 64, z, z + 1], 1)
+    st = torch.zeros((1, 2), dtype=torch.int32, device=device)
+    Y = Yl[None]
+    red = lambda t: all_reduce(t, group)  # noqa: E731
+
+    def fresh():
+        return tuple(t.clone() for t in (r, Hd, eta, Heta, r))
+
+    got = K.tcg_step(*fresh(), sc, st, 1, Y, None, red)
+    ref = K.tcg_step_plain(*fresh(), sc, st, 1, Y, None, red)
+    one = K.tcg_step(*fresh(), sc, st, 1, Y, None)
+    torch.cuda.synchronize()
+    err = max(_rel_err(g.cpu().numpy(), f.cpu().numpy())
+              for g, f in zip(got[:5], ref[:5]))
+    bufs = fresh()
+    gloo = dist.get_backend() == "gloo"
+    timer = host_ms if gloo else time_ms
+    L = r.numel()
+    out["k11_split"] = dict(
+        shape=list(shape), rel_err=err, max_abs_err=max(
+            float(torch.max(torch.abs(g - f))) for g, f in zip(got[:5],
+                                                                ref[:5])),
+        bit_equal_one_launch=world == 1 and all(
+            torch.equal(g, f) for g, f in zip(got, one)),
+        ms=timer(lambda: K.tcg_step(*bufs, sc, st, 1, Y, None, red)),
+        plain_ms=timer(lambda: K.tcg_step_plain(*fresh(), sc, st, 1, Y,
+                                                None, red)),
+        one_launch_ms=timer(lambda: K.tcg_step(*bufs, sc, st, 1, Y, None)),
+        bound=bound(nbytes(r, Hd, eta, Heta, r, sc, st, Y, eta, Heta, r, r),
+                    18.0 * L, "float64"),
+        staging="host (gloo)" if gloo else "device (NCCL)",
+        passes_ms=None if gloo else pass_times(
+            lambda: K.tcg_step(*bufs, sc, st, 1, Y, None, red), reps=10))
+    return out
+
+
+def batch_shard_rank(Cs, p, seed):
+    """One rank of 25d: batched_sharded_maxcut_solve (JAX's default
+    TROptions) on a (batch, model) = BATCH_SHARD_MESH mesh of all ranks,
+    the dense costs and seeded Oblique.rand starts of ``Cs``."""
+    import torch
+    import torch.distributed as dist
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch.manifolds import Oblique
+    from manisdp_tpu_torch.parallel.mesh import (batched_sharded_maxcut_solve,
+                                                 make_mesh_2d)
+    device = torch.device("cuda", torch.cuda.current_device())
+    Ys, Cd, typ = batch_shard_inputs(Cs, p, seed, device)
+    solve, shard = batched_sharded_maxcut_solve(
+        make_mesh_2d(*BATCH_SHARD_MESH, "cuda"))
+    Yl, Cl = shard(Ys, Cd)
+    del Cd
+    K.reset_launches()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    res = solve(Yl, Cl, typ)
+    torch.cuda.synchronize()
+    out = dict(rank=dist.get_rank(), seconds=time.perf_counter() - t0,
+               local_shape=list(Yl.shape), fx=res.fx.cpu().tolist(),
+               iters=res.iters.tolist(), inner_iters=res.inner_iters.tolist(),
+               launches=dict(K.LAUNCHES), tcg=dict(K.TCG_LAUNCHES),
+               collectives=dict(K.COLLECTIVES),
+               digest=_digest(res.Y.cpu().numpy()))
+    if dist.get_rank() == 0:
+        out["Y"] = res.Y.cpu().numpy()
+    return out
+
+
+def batch_shard_inputs(Cs, p, seed, device):
+    """25d's inputs: the (B, n, n) dense costs, a seeded (B, p, n)
+    Oblique.rand start and typicaldist."""
+    import torch
+    from manisdp_tpu_torch.manifolds import Oblique
+    n = Cs[0].shape[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    Ys = torch.stack([Oblique.rand(gen, p, n) for _ in Cs])
+    Cd = torch.stack([torch.as_tensor(C.toarray(), dtype=torch.float64,
+                                      device=device) for C in Cs])
+    return Ys, Cd, Oblique.typicaldist(p, n)
+
+
+def rank_jobs(jobs):
+    """A rank of phase 25 running several jobs in one spawn: ``jobs`` a
+    list of (name, function name in this module, kwargs); returns
+    {name: result}."""
+    return {name: globals()[fn](**kw) for name, fn, kw in jobs}
+
+
+def sharded_6b_rows(rec):
+    """The ``kernels`` line's rows of phase 25's three modes: launches,
+    times and bounds from rank 0 of 25a (K7 / K8 row blocks, f64, q = 120,
+    NCCL at world 1) and 25c (K11 split, f64, the G67 shape at world 1);
+    each row's max_abs_err the worst of its own checks (the mode against
+    the single-card kernel and against its twin).  The adjoint's library
+    call is torch.take of the class map's rows; no single PyTorch call
+    computes the apply or K11's step (library_ms null)."""
+    a, c = rec["a"]["ranks"][0], rec["c"]["world1"]["ranks"][0]
+    t, k11 = a["times"], c["k11_split"]
+    err = a["max_abs_err"]["float64"]
+    row = dict(route="cuda", library_ms=None,
+               library="none: no single PyTorch call computes it")
+    return [
+        dict(row, name="symdual_apply.rows",
+             source="manisdp_tpu_torch/csrc/symdual_apply.cu",
+             replaces="manisdp_tpu/parallel/symdual_sharded.py:79",
+             launches=a["launches"]["float64_apply"]["rows"],
+             max_abs_err=max(err["apply"], err["apply_twin"]),
+             ms=t["apply_ms"],
+             plain_ms=t["apply_plain_ms"], bound_ms=t["apply_bound"][0],
+             bound_by=t["apply_bound"][1],
+             passes_ms=t.get("apply_launches_ms"),
+             all_to_all_ms=t["all_to_all_ms"], q=a["q"], world=a["world"]),
+        dict(row, name="symdual_adjoint.rows",
+             source="manisdp_tpu_torch/csrc/symdual_adjoint.cu",
+             replaces="manisdp_tpu/parallel/symdual_sharded.py:178",
+             launches=a["launches"]["float64_adjoint"]["rows"],
+             max_abs_err=max(err["adjoint"], err["adjoint_twin"]),
+             ms=t["adjoint_ms"], plain_ms=t["adjoint_plain_ms"],
+             bound_ms=t["adjoint_bound"][0], bound_by=t["adjoint_bound"][1],
+             library_ms=t["adjoint_library_ms"],
+             library="torch.take of the class map's rows",
+             library_index_mb=t["adjoint_library_index_mb"], q=a["q"],
+             world=a["world"]),
+        dict(row, name="tcg_step.split",
+             source="manisdp_tpu_torch/csrc/tcg_step.cu",
+             replaces="manisdp_tpu/parallel/mesh.py:55",
+             launches=c["sharded"]["tcg"]["split"],
+             max_abs_err=k11["max_abs_err"], ms=k11["ms"],
+             plain_ms=k11["plain_ms"], bound_ms=k11["bound"][0],
+             bound_by=k11["bound"][1], one_launch_ms=k11["one_launch_ms"],
+             passes_ms=k11["passes_ms"], shape=k11["shape"])]
+
+
+def sharded_6b_phases(device, seed):
+    """Phase 25: ShardedSymDualOp at q = 120 on NCCL at world 1 (25a) and
+    at q = 60 over 2 gloo ranks on card 0 (25b); the dense G67-size MaxCut
+    RTR through sharded_maxcut_solve at world 1 (25c, bit-equal to the
+    single-card RTR) and over 2 gloo ranks (25c); the 16 G1-size dense
+    stand-ins through batched_sharded_maxcut_solve on a (2, 2) mesh of
+    gloo ranks on card 0 (25d); with two or more cards, 25a and 25c on
+    NCCL across min(4, cards) cards (25e).  Gloo stages every collective
+    through the host: its times are labelled so."""
+    import torch
+    from manisdp_tpu_torch.core import TROptions, make_batched_trustregions
+    from manisdp_tpu_torch.parallel import spawn_ranks
+    from manisdp_tpu_torch.solvers.maxcut import make_maxcut_problem
+
+    t_phase = time.perf_counter()
+    out = {}
+    cards = torch.cuda.device_count()
+    nccl_world = min(SHARD_NCCL_MAX, cards)
+    tol = {"float64": 1e-12, "float32": 1e-5}
+
+    C_sp, _ = load_graph("G67", None, seed)
+
+    def spawn(world, backend, dev, q=None, single=None):
+        """One spawn of ``world`` ranks running the operator's job (at q)
+        and the MaxCut RTR's (with the single-card reference when
+        ``single``), each a list of the ranks' results."""
+        jobs = []
+        if q is not None:
+            jobs.append(("symdual", "symdual_rank", dict(q=q,
+                                                         seed=seed + 25)))
+        if single is not None:
+            jobs.append(("maxcut", "maxcut_shard_rank", dict(
+                C_sp=C_sp, p=MAXCUT_SHARD_P, seed=seed + 25, single=single)))
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(rank_jobs, world, backend, dev, args=(jobs,))
+        call_s = time.perf_counter() - t0
+        return {name: ([r[name] for r in ranks], call_s) for name, *_ in jobs}
+
+    def symdual(label, ranks, call_s):
+        r0 = ranks[0]
+        q, world, backend = r0["q"], r0["world"], r0["backend"]
+        res = dict(phase=f"symdual_sharded_{label}", q=q, n=2 + q + q * q,
+                   world=world, backend=backend, ranks_on=r0["device"],
+                   call_s=call_s, ranks=ranks)
+        emit(res)
+        for r in ranks:
+            for dt, errs in r["errors"].items():
+                for k, e in errs.items():
+                    if not e <= tol[dt]:
+                        raise AssertionError(f"25{label}: rank {r['rank']} "
+                                             f"{dt} {k} relative error {e}")
+            for k, c in r["collectives"].items():
+                want = (2, 1) if k.endswith("apply") else (0, 0)
+                if (c["all_to_all"], c["all_reduce"]) != want:
+                    raise AssertionError(f"25{label}: {k} collectives {c}")
+            for k, c in r["launches"].items():
+                if any(v != 1 for v in c.values()):
+                    raise AssertionError(f"25{label}: {k} launches {c}")
+            if r["digests"] != ranks[0]["digests"]:
+                raise AssertionError(f"25{label}: rank {r['rank']}'s "
+                                     "replicated outputs differ from rank 0's")
+        return res
+
+    def maxcut(label, ranks, call_s, ref):
+        r0 = ranks[0]
+        world, backend = r0["world"], r0["backend"]
+        single = r0.get("single", ref)
+        Y1 = single.pop("Y", None) if ref is None else ref["Y"]
+        Ys = r0["sharded"].pop("Y")
+        res = dict(phase=f"maxcut_sharded_{label}", n=C_sp.shape[0],
+                   p=MAXCUT_SHARD_P, world=world, backend=backend,
+                   ranks_on=r0["device"], call_s=call_s,
+                   fx_rel=abs(r0["sharded"]["fx"] - single["fx"]) /
+                   abs(single["fx"]),
+                   Y_abs=float(np.max(np.abs(Ys - Y1))),
+                   single={k: v for k, v in single.items() if k != "Y"},
+                   ranks=ranks)
+        emit(res)
+        for r in ranks:
+            g = r["sharded"]
+            if (g["iters"], g["inner_iters"]) != (single["iters"],
+                                                  single["inner_iters"]):
+                raise AssertionError(f"25{label}: rank {r['rank']} counts "
+                                     f"{g['iters']}, {g['inner_iters']}")
+            if g["tcg"]["split"] <= 0 or g["launches"]["oblique_cols"] <= 0:
+                raise AssertionError(f"25{label}: rank {r['rank']} never "
+                                     "launched K11's split mode or K2")
+            if g["digest"] != r0["sharded"]["digest"] or \
+                    g["fx_hex"] != r0["sharded"]["fx_hex"]:
+                raise AssertionError(f"25{label}: rank {r['rank']}'s result "
+                                     "differs from rank 0's")
+            k11 = r["k11_split"]
+            if not k11["rel_err"] <= 1e-12 or (
+                    world == 1 and not k11["bit_equal_one_launch"]):
+                raise AssertionError(f"25{label}: K11 split {k11}")
+        if world == 1:
+            if r0["sharded"]["fx_hex"] != single["fx_hex"] or \
+                    r0["sharded"]["digest"] != single["digest"]:
+                raise AssertionError(f"25{label}: not bit-equal to the "
+                                     f"single-card RTR: {res['fx_rel']}, "
+                                     f"{res['Y_abs']}")
+        elif not (res["fx_rel"] <= 1e-12 and res["Y_abs"] <= 1e-10):
+            raise AssertionError(f"25{label}: fx {res['fx_rel']}, Y "
+                                 f"{res['Y_abs']}")
+        return res, dict(single, Y=Y1)
+
+    # -- 25a / 25c at world 1 (NCCL), one spawn; 25b / 25c at world 2
+    #    (gloo on card 0), one spawn --
+    one = spawn(1, "nccl", "cuda", q=SYMDUAL_NCCL_Q, single=True)
+    two = spawn(SHARD_GLOO_WORLD, "gloo", "cuda:0", q=SYMDUAL_GLOO_Q,
+                single=False)
+    out["a"] = symdual("a", *one["symdual"])
+    out["b"] = symdual("b", *two["symdual"])
+    c1, single = maxcut("c1", *one["maxcut"], None)
+    c2, _ = maxcut("c2", *two["maxcut"], single)
+    out["c"] = dict(world1=c1, world2=c2)
+    # -- 25d: the batch on a (batch, model) mesh --
+    dense, _ = batch_graphs()
+    t0 = time.perf_counter()
+    world = BATCH_SHARD_MESH[0] * BATCH_SHARD_MESH[1]
+    ranks = spawn_ranks(batch_shard_rank, world, "gloo", "cuda:0",
+                        args=(dense, MAXCUT_SHARD_P, seed + 25))
+    call_s = time.perf_counter() - t0
+    Ys, Cd, typ = batch_shard_inputs(dense, MAXCUT_SHARD_P, seed + 25, device)
+    t0 = time.perf_counter()
+    ref = make_batched_trustregions(make_maxcut_problem(dense=True),
+                                    TROptions(maxiter=4, maxinner=10,
+                                              tolgradnorm=1e-8))(Ys, Cd, typ)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    del Cd
+    r0 = ranks[0]
+    fx_ref = ref.fx.cpu().numpy()
+    d = out["d"] = dict(
+        phase="batch_sharded_d", instances=len(dense), n=dense[0].shape[0],
+        p=MAXCUT_SHARD_P, mesh=list(BATCH_SHARD_MESH), backend="gloo",
+        ranks_on="cuda:0", staging="host (gloo)", call_s=call_s,
+        single_card_s=single_s,
+        fx_rel=float(np.max(np.abs(r0["fx"] - fx_ref) / np.abs(fx_ref))),
+        Y_abs=float(np.max(np.abs(r0.pop("Y") - ref.Y.cpu().numpy()))),
+        ranks=ranks)
+    emit(d)
+    if not (d["fx_rel"] <= 1e-12 and d["Y_abs"] <= 1e-10):
+        raise AssertionError(f"25d: fx {d['fx_rel']}, Y {d['Y_abs']}")
+    for r in ranks:
+        if not (np.array_equal(r["iters"], ref.iters) and
+                np.array_equal(r["inner_iters"], ref.inner_iters)):
+            raise AssertionError(f"25d: rank {r['rank']} counts differ")
+        if r["digest"] != r0["digest"] or r["tcg"]["split"] <= 0:
+            raise AssertionError(f"25d: rank {r['rank']}: {r['tcg']}")
+    # -- 25e: NCCL across cards --
+    if cards >= 2:
+        e = spawn(nccl_world, "nccl", "cuda", q=SYMDUAL_NCCL_Q, single=False)
+        out["e"] = dict(symdual=symdual("e", *e["symdual"]),
+                        maxcut=maxcut("e", *e["maxcut"], single)[0])
+    else:
+        out["e"] = dict(phase="sharded_6b_e", run=False,
+                        reason=f"{cards} CUDA device: NCCL needs one card "
+                        "per rank, so the cross-card runs need two or more")
+        emit(out["e"])
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(dict(phase="sharded_6b_summary", seconds=out["seconds"]))
     return out
 
 
@@ -3511,6 +4096,9 @@ def run_phases(args, jobs):
     if 24 in ph:
         rec["sharded"] = shard_phases(device, rec, keep)
     keep.clear()
+    # -- 25. the row-sharded SOS-dual operator and the model-sharded RTR --
+    if 25 in ph:
+        rec["sharded_6b"] = sharded_6b_phases(device, args.seed)
 
     # each kernel's hot call on its main path: the f32 tCG's Hessian and
     # projection (G67 solve), the f32 AL Hessian's products (mc solves),
@@ -3668,6 +4256,8 @@ def run_phases(args, jobs):
             rec["batch"]["sparse"]["launches"]["tcg_step"])),
     ]
     kern = []
+    if 25 in ph:
+        kern += sharded_6b_rows(rec["sharded_6b"])
     for needs, make in specs:
         if not set(needs) <= ph:
             continue

@@ -5,7 +5,11 @@ The JAX package runs both loops as ``lax.while_loop``s in one compiled
 program.  Here the outer TR loop is a Python loop with a host branch for
 accept / reject (at most ``maxiter`` host reads per solve), and the tCG
 loop keeps its scalars on the device: one scalar set per instance, every
-branch of the reference a select.  Each tCG iteration is the Hessian
+branch of the reference a select.  On a manifold sharded over ranks
+(``M.reduce``: the model-sharded MaxCut of parallel/mesh.py) every sum
+of the tCG covers all ranks, and K11 runs in its split mode; cost, inner
+and norm come all-reduced from the problem and the manifold, so every
+rank takes the same host branches.  Each tCG iteration is the Hessian
 product and one launch of kernel K11 (``kernels.tcg_step``: the dots, the
 step and the next direction); on a manifold whose tangent map is K2's
 column projection (``tangent_cols``: the oblique and masked-product
@@ -69,6 +73,10 @@ def _make_tcg(problem: Problem, opts: TROptions, batched: bool = False):
     M = problem.manifold
     tcg_dt = getattr(torch, opts.tcg_dtype) if opts.tcg_dtype else None
     tangent_cols = getattr(M, "tangent_cols", None)
+    # a manifold whose points are sharded over ranks sums every inner
+    # product over them (parallel/mesh.ShardedOblique): ||r||^2 here, and
+    # K11's partials in its split mode
+    reduce = getattr(M, "reduce", None)
 
     def tcg(Y, grad, Delta, params, aux, gaux, active=None):
         """Returns (eta, Heta, inner iterations, stop code), the last two
@@ -96,6 +104,8 @@ def _make_tcg(problem: Problem, opts: TROptions, batched: bool = False):
         r = bat(grad.clone())
         mdelta = r.clone()
         r_r = torch.sum(r * r, dim=tuple(range(1, r.dim())))
+        if reduce is not None:
+            r_r = reduce(r_r)
         norm_r0 = torch.sqrt(r_r)
         # no preconditioner: z = r
         kappa_bound = norm_r0 * torch.clamp(norm_r0 ** opts.theta,
@@ -127,7 +137,8 @@ def _make_tcg(problem: Problem, opts: TROptions, batched: bool = False):
                 break
             Hm = bat(problem.hess(Y, unb(mdelta), params, aux, gaux))
             eta, Heta, r, mdelta, sc, st = tcg_step(
-                mdelta, Hm, eta, Heta, r, sc, st, opts.mininner, Yb, mask)
+                mdelta, Hm, eta, Heta, r, sc, st, opts.mininner, Yb, mask,
+                reduce)
             if Yb is None:
                 mdelta = bat(M.tangent(Y, unb(mdelta)))
 

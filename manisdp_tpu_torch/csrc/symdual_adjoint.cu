@@ -20,6 +20,13 @@
 //              then rows).
 // The partner pi: 0 <-> 1, 2 + a <-> o + a q + a, o + i q + j <-> o + j q + i.
 //
+// adjoint's row-block mode replaces parallel/symdual_sharded.py
+// adjoint_sharded (ShardedSymDualOp.adjoint): Y4 is a block of ql rows
+// (q/D, q, q, q) at row offset i0, y0 .. Y3 whole; the output is ``top``,
+// the rows u < o (replicated), and the block's Q rows (i, j), i0 <= i <
+// i0 + ql, as (ql q, n~) rows.  A block a row as in the full mode, o + ql q
+// blocks in all; a Q row reads its Y4 run at i - i0.  No communication.
+//
 // What bounds it on an H100: bytes.  At q = 60 (n~ = 3,662) adjoint writes
 // 107 MB and reads Y4 (104 MB) in f64, 63 us at 3.35 TB/s; with both
 // bases it reads 214 MB more.  sym_mat reads and writes 107 MB each.
@@ -119,6 +126,7 @@ struct Tensors {
   const T* Y3;
   const T* Y4;
   int q;
+  int i0;  // the first row of Y4 given (0 but in the row-block mode)
   __device__ __forceinline__ const T* at0() const { return y0; }
   __device__ __forceinline__ const T* at1(int a) const { return y1 + a; }
   __device__ __forceinline__ const T* at2(int a, int b) const {
@@ -128,7 +136,7 @@ struct Tensors {
     return Y3 + (((int64_t)a * q + b) * q + c);
   }
   __device__ __forceinline__ const T* at4(int i, int j, int k, int l) const {
-    return Y4 + ((((int64_t)i * q + j) * q + k) * q + l);
+    return Y4 + ((((int64_t)(i - i0) * q + j) * q + k) * q + l);
   }
 };
 
@@ -218,9 +226,17 @@ struct AdjointArgs {
   T c1;
   const T* B2;
   T c2;
-  T* out;
+  T* out;        // row u < o at out + u n~
+  T* outq;       // Q row u at outq + (u - o - i0 q) n~ (out + o n~ in full)
   int cv;        // output vectors of a Q row staged at once (0: none)
 };
+
+template <typename T>
+__device__ __forceinline__ T* out_row(const AdjointArgs<T>& A, int u) {
+  const int o = 2 + A.Y.q;
+  return u < o ? A.out + (int64_t)u * A.n
+               : A.outq + (int64_t)(u - o - A.Y.i0 * A.Y.q) * A.n;
+}
 
 // the epilogue, in the order (and with the contractions) of the
 // one-thread-an-entry kernel; sc is scale[deg].  S (a scale) and HB (B1
@@ -234,15 +250,15 @@ __device__ __forceinline__ T epilogue(const AdjointArgs<T>& A, T v, T sc,
   return v;
 }
 
-// one entry of the output at flat offset at from its class slot
+// one entry of the output (at dst; at flat offset at of B1 / B2) from its
+// class slot
 template <typename T, bool S, bool HB>
-__device__ __forceinline__ void store_entry(const AdjointArgs<T>& A,
+__device__ __forceinline__ void store_entry(const AdjointArgs<T>& A, T* dst,
                                             int64_t at, const T* slot,
                                             int deg) {
   const T b1 = HB && A.B1 != nullptr ? A.B1[at] : T(0);
   const T b2 = HB && A.B2 != nullptr ? A.B2[at] : T(0);
-  A.out[at] = epilogue<T, S, HB>(A, *slot, S ? A.scale[deg] : T(1), b1,
-                                 b2);
+  *dst = epilogue<T, S, HB>(A, *slot, S ? A.scale[deg] : T(1), b1, b2);
 }
 
 // entry() out of line, so the rare where-chain path does not set the
@@ -266,9 +282,10 @@ template <typename T, bool S, bool HB>
 __device__ __forceinline__ void chain_cols(const AdjointArgs<T>& A, int u,
                                            int v0, int v1) {
   const int64_t row = (int64_t)u * A.n;
+  T* orow = out_row(A, u);
   for (int v = v0 + (int)threadIdx.x; v < v1; v += kThreads) {
     const Slot<T> slot = entry_slot(A.Y, A.dq, u, v);
-    store_entry<T, S, HB>(A, row + v, slot.at, slot.deg);
+    store_entry<T, S, HB>(A, orow + v, row + v, slot.at, slot.deg);
   }
 }
 
@@ -337,7 +354,8 @@ __device__ __forceinline__ int fix_index(int q, int i, int j, int k, int l) {
   return 2 * q + 3 * r + (l == k ? 0 : l == i ? 1 : 2);
 }
 
-// The Q block of row (i, j), i != j, from its head h on: nv vectors of N
+// The Q block of row (i, j), i != j, from its head h on (d0 its offset in
+// B1 / B2, od its output): nv vectors of N
 // entries, cv at a time.  Each chunk of Y4's run (and of B1 / B2) and the
 // chunk's fix-up slots are staged in shared memory by one batch of
 // cp.async, so a whole chunk's bytes are in flight at once; then each
@@ -347,7 +365,7 @@ __device__ __forceinline__ int fix_index(int q, int i, int j, int k, int l) {
 // first chunk is in flight.
 template <typename T, bool S, bool HB, class Edges>
 __device__ __forceinline__ void bulk_q(const AdjointArgs<T>& A, int i, int j,
-                                       int64_t d0, int h, int nv,
+                                       int64_t d0, T* od, int h, int nv,
                                        Edges edges) {
   constexpr int N = kVec<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -357,7 +375,7 @@ __device__ __forceinline__ void bulk_q(const AdjointArgs<T>& A, int i, int j,
   T* b1s = run + (cv + 1) * N;
   T* b2s = b1s + (h1 ? (cv + 1) * N : 0);
   T* fixv = b2s + (h2 ? (cv + 1) * N : 0);
-  const T* y4 = A.Y.Y4 + ((int64_t)i * q + j) * q * q;
+  const T* y4 = A.Y.Y4 + ((int64_t)(i - A.Y.i0) * q + j) * q * q;
   const T s4 = S ? A.scale[4] : T(1);
   for (int w0 = 0; w0 < nv; w0 += cv) {
     const int w1 = min(nv, w0 + cv);
@@ -392,7 +410,7 @@ __device__ __forceinline__ void bulk_q(const AdjointArgs<T>& A, int i, int j,
                                   h2 ? b2s[at + x] : T(0));
         if (++l == q) { l = 0; ++k; }
       }
-      st16(A.out + d0 + t, o);
+      st16(od + t, o);
     }
     __syncthreads();
   }
@@ -402,21 +420,24 @@ template <typename T, bool S, bool HB>
 __global__ void __launch_bounds__(kThreads)
 adjoint_kernel(AdjointArgs<T> A) {
   constexpr int N = kVec<T>;
-  const int u = blockIdx.x;
   const int q = A.Y.q, o = 2 + q, n = A.n;
+  // the block's row: the rows u < o, then the Q rows from row i0
+  const int u = (int)blockIdx.x < o ? (int)blockIdx.x
+                                    : (int)blockIdx.x + A.Y.i0 * q;
   const int i = u < o ? -1 : A.dq(u - o), j = u < o ? -1 : u - o - i * q;
   const int64_t d0 = (int64_t)u * n + o;
+  T* od = out_row(A, u) + o;
   // the head that aligns the output to 16 bytes; B1 / B2 must then be
   // aligned too, else the row takes the where-chain throughout
-  const int h = min((N - phase(A.out + d0)) % N, q * q);
+  const int h = min((N - phase(od)) % N, q * q);
   if (i == j || A.cv == 0 ||            // u < o, or a Q row with i = j
-      (HB && ((A.B1 != nullptr && phase(A.B1 + d0) != phase(A.out + d0)) ||
-              (A.B2 != nullptr && phase(A.B2 + d0) != phase(A.out + d0))))) {
+      (HB && ((A.B1 != nullptr && phase(A.B1 + d0) != phase(od)) ||
+              (A.B2 != nullptr && phase(A.B2 + d0) != phase(od))))) {
     chain_cols<T, S, HB>(A, u, 0, n);
     return;
   }
   const int nv = (q * q - h) / N;
-  bulk_q<T, S, HB>(A, i, j, d0, h, nv,
+  bulk_q<T, S, HB>(A, i, j, d0, od, h, nv,
                    [&] { chain_cols<T, S, HB>(A, u, 0, o + h); });
   chain_cols<T, S, HB>(A, u, o + h + nv * N, n);
 }
@@ -685,7 +706,7 @@ sym_mat_tile_kernel(const T* __restrict__ M, int n, OrbitTiles rt,
 constexpr size_t kRowBudget = 48 * 1024;
 
 template <typename T, bool S, bool HB>
-int launch_adjoint_mode(const AdjointArgs<T>& A, size_t smem,
+int launch_adjoint_mode(const AdjointArgs<T>& A, int rows, size_t smem,
                         cudaStream_t stream) {
   auto kern = adjoint_kernel<T, S, HB>;
   static size_t allowed = 0;
@@ -695,36 +716,42 @@ int launch_adjoint_mode(const AdjointArgs<T>& A, size_t smem,
     if (e != cudaSuccess) return (int)e;
     allowed = smem;
   }
-  kern<<<A.n, kThreads, smem, stream>>>(A);
+  kern<<<rows, kThreads, smem, stream>>>(A);
   return (int)cudaGetLastError();
 }
 
+// i0, ql: the row-block mode's Y4 rows (i0 = 0, ql = q in the full mode),
+// outq its Q rows' output (null: the full (n~, n~) output)
 template <typename T>
 int launch_adjoint(const void* y0, const void* y1, const void* Y2,
                    const void* Y3, const void* Y4, int q, const void* scale,
                    const void* B1, double c1, const void* B2, double c2,
-                   void* out, void* stream) {
+                   void* out, int i0, int ql, void* outq, void* stream) {
   constexpr int N = kVec<T>;
   if (q <= 0) return (int)cudaSuccess;
-  if (q > kMaxQ) return (int)cudaErrorInvalidValue;
+  if (q > kMaxQ || i0 < 0 || ql < 0 || i0 + ql > q)
+    return (int)cudaErrorInvalidValue;
+  const int n = 2 + q + q * q;
   const int nbuf = 1 + (B1 != nullptr) + (B2 != nullptr);
   const long room = (long)(kRowBudget / sizeof(T)) - 5L * q;
   const int cv = (int)std::max(0L, std::min<long>(room / nbuf / N - 1,
                                                   ((long)q * q + N - 1) / N));
   const size_t smem =
       cv > 0 ? ((size_t)nbuf * (cv + 1) * N + 5 * q) * sizeof(T) : 0;
+  T* qrows = outq != nullptr ? (T*)outq : (T*)out + (int64_t)(2 + q) * n;
   AdjointArgs<T> A{
       Tensors<T>{(const T*)y0, (const T*)y1, (const T*)Y2, (const T*)Y3,
-                 (const T*)Y4, q},
-      make_div(q), 2 + q + q * q, (const T*)scale, (const T*)B1, (T)c1,
-      (const T*)B2, (T)c2, (T*)out, cv};
+                 (const T*)Y4, q, i0},
+      make_div(q), n, (const T*)scale, (const T*)B1, (T)c1,
+      (const T*)B2, (T)c2, (T*)out, qrows, cv};
   const cudaStream_t s = (cudaStream_t)stream;
+  const int rows = 2 + q + ql * q;
   const bool hb = B1 != nullptr || B2 != nullptr;
   if (scale != nullptr)
-    return hb ? launch_adjoint_mode<T, true, true>(A, smem, s)
-              : launch_adjoint_mode<T, true, false>(A, smem, s);
-  return hb ? launch_adjoint_mode<T, false, true>(A, smem, s)
-            : launch_adjoint_mode<T, false, false>(A, smem, s);
+    return hb ? launch_adjoint_mode<T, true, true>(A, rows, smem, s)
+              : launch_adjoint_mode<T, true, false>(A, rows, smem, s);
+  return hb ? launch_adjoint_mode<T, false, true>(A, rows, smem, s)
+            : launch_adjoint_mode<T, false, false>(A, rows, smem, s);
 }
 
 template <typename T>
@@ -783,7 +810,7 @@ int symdual_adjoint_f64(const void* y0, const void* y1, const void* Y2,
                         const void* scale, const void* B1, double c1,
                         const void* B2, double c2, void* out, void* stream) {
   return launch_adjoint<double>(y0, y1, Y2, Y3, Y4, q, scale, B1, c1, B2, c2,
-                                out, stream);
+                                out, 0, q, nullptr, stream);
 }
 
 int symdual_adjoint_f32(const void* y0, const void* y1, const void* Y2,
@@ -791,7 +818,23 @@ int symdual_adjoint_f32(const void* y0, const void* y1, const void* Y2,
                         const void* scale, const void* B1, double c1,
                         const void* B2, double c2, void* out, void* stream) {
   return launch_adjoint<float>(y0, y1, Y2, Y3, Y4, q, scale, B1, c1, B2, c2,
-                               out, stream);
+                               out, 0, q, nullptr, stream);
+}
+
+// the row-block mode: Y4l the (ql, q, q, q) rows from i0; top (2 + q, n~),
+// rowsQ (ql q, n~)
+int symdual_adjoint_rows_f64(const void* y0, const void* y1, const void* Y2,
+                             const void* Y3, const void* Y4l, int q, int i0,
+                             int ql, void* top, void* rowsQ, void* stream) {
+  return launch_adjoint<double>(y0, y1, Y2, Y3, Y4l, q, nullptr, nullptr, 0.0,
+                                nullptr, 0.0, top, i0, ql, rowsQ, stream);
+}
+
+int symdual_adjoint_rows_f32(const void* y0, const void* y1, const void* Y2,
+                             const void* Y3, const void* Y4l, int q, int i0,
+                             int ql, void* top, void* rowsQ, void* stream) {
+  return launch_adjoint<float>(y0, y1, Y2, Y3, Y4l, q, nullptr, nullptr, 0.0,
+                               nullptr, 0.0, top, i0, ql, rowsQ, stream);
 }
 
 int symdual_sym_factor_f64(const void* Y, int p, int q, int renorm, void* out,

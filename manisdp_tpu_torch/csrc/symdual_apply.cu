@@ -41,6 +41,35 @@
 //                  three row-contiguous reads of P3, blocks in i-major
 //                  order so the i-slabs of P3 are reused from L2; Y2, a
 //                  thread per slot, reads P3[a, c, c, :] along b.
+//
+// Row-block mode: replaces parallel/symdual_sharded.py apply_sharded
+// (ShardedSymDualOp.apply) of the JAX package.  A rank holds ``top`` =
+// M's first o rows (replicated) and ``rowsQ`` = its Q rows (i, j) for i in
+// [off, off + ql) (ql = q / D), and returns y0 .. Y3 whole and Y4's rows
+// [off, off + ql).  Four launches around the caller's two all-to-alls
+// (equal splits over the D ranks) and one all-reduce:
+//   rows_pack   a warp per row of y0's partial sums and per slot of y1,
+//               from this rank's rows (the replicated rows' terms on the
+//               rank with off = 0 only); a block per local row (i, j)
+//               copying T's row into the send buffer's chunk j / ql:
+//               send1 (D, ql, ql, q^2).
+//   all_to_all  recv1[s, a, b] = T[s ql + a, off + b]: the rows (j, i).
+//   rows_pair   a block per local row (i, j): S's row = T[i, j] + T[j, i]
+//               (the (1, 0, 2, 3) permutation read from recv1) through
+//               shared memory, P2's row written into the send buffer's
+//               chunk k / ql: send2 (D, ql, q, ql, q); a block per e: the
+//               partial S3[e] (the terms of this rank's rows).
+//   all_to_all  recv2 = P2's rows (i, j) at the columns (k, l) of this
+//               rank's rows, a (q^2, ql q) matrix.
+//   rows_p3     P3 = P2 + P2^T on the local rows, by 32 x 32 tiles (recv2
+//               staged and read transposed).
+//   rows_final  a block per (i, k): Y4[i, :, k, :] from the row-i reads
+//               P3[i, j, k, l] + P3[i, k, j, l] + P3[i, l, k, j] (the last,
+//               = P3[j, k, i, l] by P3's symmetries, staged as s[l][j]);
+//               Y3's partial from S3's; y0; Y2's partial, a thread a slot.
+//   all-reduce  of the flat (1 + q + q^2 + q^3) partial: y0 .. Y3.
+// Don't-care slots are written 0, as in the full mode.
+//
 // What bounds it on an H100: bytes.  The function reads T (q^4 entries)
 // and writes Y4 (q^4): at q = 60, 104 MB in f32, 31 us at 3.35 TB/s.  The
 // workspace adds a q^4 / 2 write (P2), a q^4 read and a q^4 / 2 write (the
@@ -388,9 +417,324 @@ int launch(const void* M, int q, const void* scale, const void* shift,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------- row blocks --
+
+// This rank's rows: top (o, n~) and the Q rows (i, j), off <= i < off + ql;
+// rep: this rank adds the terms of the replicated rows
+template <typename T>
+struct RowBlocks {
+  const T* top;
+  const T* rows;
+  int64_t n;
+  int q, o, off, ql;
+  bool rep;
+  __device__ __forceinline__ bool local(int i) const {
+    return i >= off && i < off + ql;
+  }
+  __device__ __forceinline__ T at(int u, int64_t v) const {
+    return top[(int64_t)u * n + v];
+  }
+  __device__ __forceinline__ T atq(int i, int j, int64_t v) const {
+    return rows[((int64_t)(i - off) * q + j) * n + v];
+  }
+  __device__ __forceinline__ T Tq(int i, int j, int k, int l) const {
+    return atq(i, j, o + (int64_t)k * q + l);
+  }
+  __device__ __forceinline__ T H(int b, int i, int j) const {
+    return at(2 + b, o + (int64_t)i * q + j);
+  }
+  __device__ __forceinline__ T K(int i, int j, int b) const {
+    return atq(i, j, 2 + b);
+  }
+  __device__ __forceinline__ T E(int s, int i, int j) const {
+    return at(s, o + (int64_t)i * q + j);
+  }
+  __device__ __forceinline__ T F(int i, int j, int s) const {
+    return atq(i, j, s);
+  }
+  __device__ __forceinline__ T G(int a, int b) const { return at(2 + a, 2 + b); }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rows_pack(RowBlocks<T> A, T* __restrict__ flat, T* __restrict__ y0part,
+          T* __restrict__ send) {
+  const int q = A.q;
+  const int64_t q2 = (int64_t)q * q;
+  const int64_t nwarp = (2 * q + kWarps - 1) / kWarps;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int64_t bid = blockIdx.x;
+  if (bid < nwarp) {
+    const int64_t w = bid * kWarps + warp;
+    if (w >= 2 * q) return;                            // warp-uniform
+    if (w < q) {
+      // y0's partial row i: the pairs (i, j) of this rank's row i
+      const int i = (int)w;
+      T acc = T(0);
+      if (A.local(i))
+        for (int j = lane; j < q; j += 32)
+          acc += i == j ? A.K(i, i, i) + A.Tq(i, i, i, i)
+                        : A.Tq(i, j, i, j) + A.Tq(i, j, j, i);
+      acc = warp_sum(acc);
+      if (lane == 0) y0part[i] = A.rep ? acc + A.G(i, i) + A.H(i, i, i) : acc;
+      return;
+    }
+    const int a = (int)(w - q);
+    const bool la = A.local(a);
+    T acc = T(0);
+    for (int i = lane; i < q; i += 32) {
+      if (i == a) continue;
+      if (A.rep) acc += A.H(i, i, a) + A.H(i, a, i);
+      if (A.local(i))
+        acc += A.K(i, a, i) + A.Tq(i, i, i, a) + A.Tq(i, i, a, i) +
+               A.Tq(i, a, i, i);
+      if (la) acc += A.K(a, i, i) + A.Tq(a, i, i, i);
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      if (A.rep)
+        acc += A.at(0, 2 + a) + A.at(1, 2 + a) + A.at(2 + a, 0) +
+               A.at(2 + a, 1) + A.E(0, a, a) + A.E(1, a, a);
+      if (la) acc += A.F(a, a, 0) + A.F(a, a, 1);
+      flat[1 + a] = acc;
+    }
+    return;
+  }
+  bid -= nwarp;
+  // T's local row (ip, j) into chunk j / ql of send (D, ql, ql, q^2)
+  const int ip = (int)(bid / q), j = (int)(bid % q);
+  const int d = j / A.ql, jb = j - d * A.ql;
+  const T* src = A.rows + ((int64_t)ip * q + j) * A.n + A.o;
+  T* dst = send + (((int64_t)d * A.ql + ip) * A.ql + jb) * q2;
+  for (int64_t t = threadIdx.x; t < q2; t += kThreads) dst[t] = src[t];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rows_pair(RowBlocks<T> A, const T* __restrict__ recv, T* __restrict__ send,
+          T* __restrict__ S3) {
+  const int q = A.q, qp = q + 1;
+  const int64_t q2 = (int64_t)q * q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  T* s = smem<T>();
+  int64_t bid = blockIdx.x;
+  if (bid < q) {
+    // the partial S3[e, :, :]: H's row e (replicated), T's row (e, e) and
+    // the column e of K and of T's (e, e) down this rank's rows (f, g)
+    const int e = (int)bid;
+    const bool le = A.local(e);
+    for (int f = warp; f < q; f += kWarps) {
+      const bool lf = A.local(f);
+      for (int g = lane; g < q; g += 32) {
+        T v = T(0);
+        if (A.rep) v += A.H(e, f, g);
+        if (le) v += A.Tq(e, e, f, g);
+        if (lf) v += A.K(f, g, e) + A.Tq(f, g, e, e);
+        s[f * qp + g] = v;
+      }
+    }
+    __syncthreads();
+    for (int f = warp; f < q; f += kWarps)
+      for (int g = lane; g < q; g += 32)
+        S3[e * q2 + f * q + g] = s[f * qp + g] + s[g * qp + f];
+    return;
+  }
+  bid -= q;
+  // the local pair row (i, j), i = off + ip: S's row T[i, j] + T[j, i],
+  // the second received in recv (D, ql, ql, q^2) at [j / ql, j % ql, ip]
+  const int ip = (int)(bid / q), j = (int)(bid % q);
+  const int sr = j / A.ql, jb = j - sr * A.ql;
+  const T* ra = A.rows + ((int64_t)ip * q + j) * A.n + A.o;
+  const T* rb = recv + (((int64_t)sr * A.ql + jb) * A.ql + ip) * q2;
+#pragma unroll 4
+  for (int k = warp; k < q; k += kWarps)
+    for (int l = lane; l < q; l += 32) s[k * qp + l] = ra[k * q + l] + rb[k * q + l];
+  __syncthreads();
+  // P2's row into chunk k / ql of send (D, ql, q, ql, q)
+  for (int k = warp; k < q; k += kWarps) {
+    const int d = k / A.ql, kb = k - d * A.ql;
+    T* dst = send + ((((int64_t)d * A.ql + ip) * q + j) * A.ql + kb) * q;
+    for (int l = lane; l < q; l += 32) dst[l] = s[k * qp + l] + s[l * qp + k];
+  }
+}
+
+// P3[r, c] = P2[r, c] + P2[c, r] on the local rows r = (k, l) (R = ql q of
+// them) and all columns c = (i, j): P2's own rows from p2 = send2 (the
+// chunk c / (ql q) of row r), P2[c, r] from r2 = recv2, a (q^2, R)
+// matrix, staged by 32 x 32 tiles and read transposed
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rows_p3(int q, int ql, const T* __restrict__ p2, const T* __restrict__ r2,
+        T* __restrict__ P3) {
+  __shared__ T t[kTile][kTile + 1];
+  const int64_t R = (int64_t)ql * q, C = (int64_t)q * q;
+  const int64_t ntc = (C + kTile - 1) / kTile;
+  const int64_t r0 = (blockIdx.x / ntc) * kTile, c0 = (blockIdx.x % ntc) * kTile;
+  const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
+  for (int y = ty; y < kTile; y += kThreads / kTile) {
+    const int64_t c = c0 + y, r = r0 + tx;
+    if (c < C && r < R) t[y][tx] = r2[c * R + r];
+  }
+  __syncthreads();
+  for (int y = ty; y < kTile; y += kThreads / kTile) {
+    const int64_t r = r0 + y;
+    const int c = (int)(c0 + tx);
+    if (r < R && c < C) {
+      const int d = c / (int)R;
+      P3[r * C + c] = p2[((int64_t)d * R + r) * R + (c - d * R)] + t[tx][y];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rows_final(RowBlocks<T> A, const T* __restrict__ P3, const T* __restrict__ S3,
+           const T* __restrict__ y0part, T* __restrict__ flat,
+           T* __restrict__ y4) {
+  const int q = A.q, qp = q + 1;
+  const int64_t q2 = (int64_t)q * q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  T* s = smem<T>();
+  int64_t bid = blockIdx.x;
+  const int64_t n4 = (int64_t)A.ql * q;
+  if (bid < n4) {
+    // Y4[i, :, k, :], i = off + ip: P3[i, l, k, j] staged as s[l][j] from
+    // the rows (i, l), then a warp per j, the lanes along l
+    const int ip = (int)(bid / q), k = (int)(bid % q), i = A.off + ip;
+    for (int l = warp; l < q; l += kWarps) {
+      const T* src = P3 + ((int64_t)ip * q + l) * q2 + (int64_t)k * q;
+      for (int j = lane; j < q; j += 32) s[l * qp + j] = src[j];
+    }
+    __syncthreads();
+    const T* p_ik = P3 + ((int64_t)ip * q + k) * q2;          // [j * q + l]
+    for (int j = warp; j < q; j += kWarps) {
+      const T* p_ij = P3 + ((int64_t)ip * q + j) * q2 + (int64_t)k * q;
+      T* out = y4 + (((int64_t)ip * q + j) * q + k) * q;
+      const bool ok = i != j && i != k && j != k;
+      for (int l = lane; l < q; l += 32) {
+        T v = T(0);
+        if (ok && l != i && l != j && l != k)
+          v = p_ij[l] + p_ik[(int64_t)j * q + l] + s[l * qp + j];
+        out[l] = v;
+      }
+    }
+    return;
+  }
+  bid -= n4;
+  if (bid < q) {
+    // Y3[a, :, :] from the partial S3; S3[c, a, b] staged, read transposed
+    const int a = (int)bid;
+    for (int c = warp; c < q; c += kWarps)
+      for (int b = lane; b < q; b += 32)
+        s[c * qp + b] = S3[((int64_t)c * q + a) * q + b];
+    __syncthreads();
+    T* y3 = flat + 1 + q + q2 + a * q2;
+    for (int b = warp; b < q; b += kWarps)
+      for (int c = lane; c < q; c += 32) {
+        T v = T(0);
+        if (a != b && a != c && b != c)
+          v = S3[((int64_t)a * q + b) * q + c] +
+              S3[((int64_t)b * q + a) * q + c] + s[c * qp + b];
+        y3[b * q + c] = v;
+      }
+    return;
+  }
+  bid -= q;
+  if (bid == 0) {
+    // y0: the partial rows in order, then the constant block
+    if (threadIdx.x >= 32) return;
+    T acc = T(0);
+    for (int i = threadIdx.x; i < q; i += 32) acc += y0part[i];
+    acc = warp_sum(acc);
+    if (threadIdx.x == 0)
+      flat[0] = A.rep ? acc + A.at(0, 0) + A.at(0, 1) + A.at(1, 0) + A.at(1, 1)
+                      : acc;
+    return;
+  }
+  --bid;
+  // Y2[a, b]'s partial, a thread a slot: P3's rows (a, c) at columns
+  // (c, b) and the single entries of this rank's rows
+  const int64_t t = bid * kThreads + threadIdx.x;
+  if (t >= q2) return;
+  const int a = (int)(t / q), b = (int)(t % q);
+  T acc = T(0);
+  if (a != b) {
+    if (A.local(a)) {
+      const T* pa = P3 + (int64_t)(a - A.off) * q * q2;
+#pragma unroll 8
+      for (int c = 0; c < q; ++c)
+        if (c != a && c != b) acc += pa[(int64_t)c * q2 + c * q + b];
+      acc += A.F(a, b, 0) + A.F(a, b, 1) + A.K(a, a, b) + A.Tq(a, a, b, b);
+    }
+    if (A.local(b))
+      acc += A.F(b, a, 0) + A.F(b, a, 1) + A.K(b, b, a) + A.Tq(b, b, a, a);
+    if (A.rep)
+      acc += A.G(a, b) + A.G(b, a) + A.E(0, a, b) + A.E(1, a, b) +
+             A.E(0, b, a) + A.E(1, b, a) + A.H(a, b, b) + A.H(b, a, a);
+  }
+  flat[1 + q + t] = acc;
+}
+
+// one stage of the row-block mode: 0 rows_pack, 1 rows_pair, 2 rows_p3 and
+// rows_final.  ws: S3 (q^3), y0part (q), then three buffers of ql q^3:
+// send1 / send2, recv1 / P3, recv2.
+template <typename T>
+int launch_rows(const void* top, const void* rows, int q, int off, int ql,
+                int rep, int stage, void* flat, void* y4, void* ws,
+                void* stream) {
+  if (q <= 0 || ql <= 0 || q % ql != 0 || off % ql != 0 || off + ql > q)
+    return (int)cudaErrorInvalidValue;
+  RowBlocks<T> A{(const T*)top, (const T*)rows, 2 + q + (int64_t)q * q, q,
+                 2 + q, off, ql, rep != 0};
+  const int64_t q2 = (int64_t)q * q, blk = (int64_t)ql * q * q2;
+  T* S3 = (T*)ws;
+  T* y0part = S3 + q2 * q;
+  T* bufA = y0part + q;
+  T* bufB = bufA + blk;
+  T* bufC = bufB + blk;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t slab = sizeof(T) * (size_t)q * (q + 1);
+  const int64_t nrow = (int64_t)ql * q;
+  if (stage == 0) {
+    const unsigned g = (unsigned)((2 * q + kWarps - 1) / kWarps + nrow);
+    rows_pack<T><<<g, kThreads, 0, s>>>(A, (T*)flat, y0part, bufA);
+  } else if (stage == 1) {
+    cudaError_t err = allow_smem(rows_pair<T>, slab);
+    if (err != cudaSuccess) return (int)err;
+    rows_pair<T><<<(unsigned)(q + nrow), kThreads, slab, s>>>(A, bufB, bufA, S3);
+  } else if (stage == 2) {
+    const int64_t tiles = ((nrow + kTile - 1) / kTile) * ((q2 + kTile - 1) / kTile);
+    rows_p3<T><<<(unsigned)tiles, kThreads, 0, s>>>(q, ql, bufA, bufC, bufB);
+    cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess) err = allow_smem(rows_final<T>, slab);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned g = (unsigned)(nrow + q + 1 + (q2 + kThreads - 1) / kThreads);
+    rows_final<T><<<g, kThreads, slab, s>>>(A, bufB, S3, y0part, (T*)flat,
+                                            (T*)y4);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+int symdual_apply_rows_f64(const void* top, const void* rows, int q, int off,
+                           int ql, int rep, int stage, void* flat, void* y4,
+                           void* ws, void* stream) {
+  return launch_rows<double>(top, rows, q, off, ql, rep, stage, flat, y4, ws,
+                             stream);
+}
+
+int symdual_apply_rows_f32(const void* top, const void* rows, int q, int off,
+                           int ql, int rep, int stage, void* flat, void* y4,
+                           void* ws, void* stream) {
+  return launch_rows<float>(top, rows, q, off, ql, rep, stage, flat, y4, ws,
+                            stream);
+}
+
 
 int symdual_apply_f64(const void* M, int q, const void* scale,
                       const void* shift, void* y, void* ws, void* stream) {

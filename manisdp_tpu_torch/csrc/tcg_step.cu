@@ -47,6 +47,15 @@
 // earlier order whatever grid the occupancy API allows.  No float
 // atomics.
 //
+// Split mode (the model-sharded RTR, parallel/mesh.py: each rank holds a
+// column block of every vector, and every sum must cover all ranks): the
+// three phases as three ordinary launches of the same device functions,
+// a block per virtual block (per column tile in a projected phase 3).
+// Between them the caller sums the partials part (phase 1) and part2
+// (phase 2) over the ranks, entry by entry; the next launch then sums
+// them in block order as phase 2 / 3 of the one launch do.  At one rank
+// that is the one launch's arithmetic, so its bits.
+//
 // What bounds it on an H100: bytes.  One read of each input (d, Hd, r,
 // eta, Heta) and one write of each output (eta, Heta, r, d): 9 vectors of
 // L entries, 10 with Y.  A thread walks its entries kChunk at a time,
@@ -397,6 +406,74 @@ tcg_step_kernel(const StepArgs<T> a) {
   }
 }
 
+// ------------------------------------------------------ split mode --
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tcg_split_dots(const StepArgs<T> a) {
+  __shared__ T sh[kWarps];
+  dots_vblock(a, blockIdx.x, sh);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tcg_split_update(const StepArgs<T> a) {
+  __shared__ T sh[kWarps];
+  const int64_t v = blockIdx.x;
+  const int b = (int)(v / a.nblk);
+  if (a.st[2 * b + 1] != 0) {
+    if (threadIdx.x == 0) a.part2[v] = T(0);
+    return;
+  }
+  const Step<T> x = step_scalars(a, b, sh);
+  update_vblock(a, v, x, sh);
+}
+
+template <typename T, int TC>
+__global__ void __launch_bounds__(kThreads)
+tcg_split_finish(const StepArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ T sh[kWarps];
+  __shared__ T ssum[TC];
+  const int per = a.Y == nullptr ? a.nblk : (a.n + TC - 1) / TC;
+  const int64_t item = blockIdx.x;
+  const int b = (int)(item / per), k = (int)(item % per);
+  T beta = T(0);
+  if (!finish_scalars(a, b, k == 0 && threadIdx.x == 0, sh, beta)) return;
+  if (a.Y == nullptr) {
+    finish_vblock(a, item, beta);
+  } else {
+    T* sx = reinterpret_cast<T*>(smem);
+    finish_tile<T, TC>(a, b, k, beta, sx, sx + (int64_t)a.rows * TC, ssum);
+  }
+}
+
+template <typename T, int TC>
+int launch_split(const StepArgs<T>& a, int phase, cudaStream_t stream) {
+  const unsigned nv = (unsigned)((int64_t)a.nb * a.nblk);
+  if (phase == 0) {
+    tcg_split_dots<T><<<nv, kThreads, 0, stream>>>(a);
+  } else if (phase == 1) {
+    tcg_split_update<T><<<nv, kThreads, 0, stream>>>(a);
+  } else {
+    size_t smem = 0;
+    unsigned grid = nv;
+    if (a.Y != nullptr) {
+      smem = (size_t)2 * a.rows * TC * sizeof(T);
+      static size_t allowed = 0;
+      if (smem > allowed) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            tcg_split_finish<T, TC>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+        allowed = smem;
+      }
+      grid = (unsigned)((int64_t)a.nb * ((a.n + TC - 1) / TC));
+    }
+    tcg_split_finish<T, TC><<<grid, kThreads, smem, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
 // persistent blocks that fit on the card at once, per kernel and dynamic
 // shared memory (cached: the occupancy query is a host call)
 template <typename T, int TC>
@@ -458,12 +535,14 @@ int launch_step(const StepArgs<T>& a, cudaStream_t stream) {
 // of K2's, so that enough persistent blocks stay resident)
 constexpr size_t kTcgTileBytes = 32 << 10;
 
+// phase < 0: the one cooperative launch; 0 / 1 / 2: that phase of the
+// split mode
 template <typename T>
 int launch(const void* d, const void* Hd, void* eta, void* Heta, void* r,
            const void* sc, const void* st, const void* Y, const void* mask,
            int64_t L, int nb, int nblk, int p, int n, int mininner,
            void* part, void* part2, void* xs, void* sc_next, void* st_next,
-           void* stream) {
+           int phase, void* stream) {
   if (nb <= 0 || nblk <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   if (Y != nullptr && (p <= 0 || (int64_t)p * n != L))
     return (int)cudaErrorInvalidValue;
@@ -475,6 +554,9 @@ int launch(const void* d, const void* Hd, void* eta, void* Heta, void* r,
                       mininner,     (T*)part, (T*)part2, (T*)xs,
                       (T*)sc_next,  (int*)st_next};
   const cudaStream_t s = (cudaStream_t)stream;
+  if (phase >= 0)
+    return tc == 16 ? launch_split<T, 16>(a, phase, s)
+                    : launch_split<T, 32>(a, phase, s);
   if (tc == 16) return launch_step<T, 16>(a, s);
   return launch_step<T, 32>(a, s);
 }
@@ -483,13 +565,16 @@ int launch(const void* d, const void* Hd, void* eta, void* Heta, void* r,
 
 extern "C" {
 
+// phase -1: the one cooperative launch; 0 dots, 1 update, 2 finish: that
+// launch of the split mode
 int tcg_step_f64(const void* d, const void* Hd, void* eta, void* Heta,
                  void* r, const void* sc, const void* st, const void* Y,
                  const void* mask, int64_t L, int nb, int nblk, int p, int n,
                  int mininner, void* part, void* part2, void* xs,
-                 void* sc_next, void* st_next, void* stream) {
+                 void* sc_next, void* st_next, int phase, void* stream) {
+  if (phase < -1 || phase > 2) return (int)cudaErrorInvalidValue;
   return launch<double>(d, Hd, eta, Heta, r, sc, st, Y, mask, L, nb, nblk, p,
-                        n, mininner, part, part2, xs, sc_next, st_next,
+                        n, mininner, part, part2, xs, sc_next, st_next, phase,
                         stream);
 }
 
@@ -497,9 +582,10 @@ int tcg_step_f32(const void* d, const void* Hd, void* eta, void* Heta,
                  void* r, const void* sc, const void* st, const void* Y,
                  const void* mask, int64_t L, int nb, int nblk, int p, int n,
                  int mininner, void* part, void* part2, void* xs,
-                 void* sc_next, void* st_next, void* stream) {
+                 void* sc_next, void* st_next, int phase, void* stream) {
+  if (phase < -1 || phase > 2) return (int)cudaErrorInvalidValue;
   return launch<float>(d, Hd, eta, Heta, r, sc, st, Y, mask, L, nb, nblk, p,
-                       n, mininner, part, part2, xs, sc_next, st_next,
+                       n, mininner, part, part2, xs, sc_next, st_next, phase,
                        stream);
 }
 

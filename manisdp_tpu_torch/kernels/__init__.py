@@ -19,10 +19,13 @@ K5 ``masked_sym`` (csrc/masked_sym.cu): the entrywise carrier's dense
 K6 ``oa_refine`` (csrc/oa_refine.cu): the elementwise pass of one
    Ogita-Aishima refinement step of the dense eigen-certificate (f64).
 K7 ``symdual_apply`` (csrc/symdual_apply.cu): the SOS-dual tensor
-   operator's class sums of an (n~, n~) matrix, every degree (y0 .. Y4).
+   operator's class sums of an (n~, n~) matrix, every degree (y0 .. Y4);
+   in row-block mode (``symdual_apply_rows``) on one rank's rows of the
+   matrix sharded over ranks, around two all-to-alls and one all-reduce.
 K8 ``symdual_adjoint`` (csrc/symdual_adjoint.cu): its adjoint (mode
-   ``adjoint``) and the duplicate-copy projections of a factor
-   (``sym_factor``) and of a matrix (``sym_mat``).
+   ``adjoint``; row-block mode ``symdual_adjoint_rows``) and the
+   duplicate-copy projections of a factor (``sym_factor``) and of a matrix
+   (``sym_mat``).
 K9 ``symmom_apply`` (csrc/symmom_apply.cu): the BQP moment operator's rows
    A(M) of an (n~, n~) matrix in the flat layout, don't-care slots 0.
 K10 ``symmom_adjoint`` (csrc/symmom_adjoint.cu): its exact adjoint A'(y),
@@ -30,7 +33,8 @@ K10 ``symmom_adjoint`` (csrc/symmom_adjoint.cu): its exact adjoint A'(y),
 K11 ``tcg_step`` (csrc/tcg_step.cu): the truncated-CG vector step around
    one Hessian-vector product, one scalar set per instance, in one
    cooperative launch; on the oblique and masked-product manifolds it
-   also applies K2's tangent projection to the next direction.
+   also applies K2's tangent projection to the next direction.  Split
+   mode: three launches with a sum over ranks between them.
 K1 and K2 also take a batch of B instances of one padded size in one
 launch (instance mode): a BatchedSymCOO and (B, p, n) factors.
 
@@ -70,12 +74,15 @@ MASKED_LAUNCHES = {mode: 0 for mode in MASKED_MODES}
 # K8's launches by mode (their sum is LAUNCHES["symdual_adjoint"]);
 # "residual" is the adjoint given B1 or B2
 SYMDUAL_LAUNCHES = {"adjoint": 0, "residual": 0, "sym_factor": 0,
-                    "sym_mat": 0}
+                    "sym_mat": 0, "adjoint_rows": 0}
+# K7's calls in row-block mode (also counted in LAUNCHES["symdual_apply"])
+SYMDUAL_APPLY_LAUNCHES = {"rows": 0}
 # K1's and K2's launches in instance mode (also counted above)
 INSTANCE_LAUNCHES = {"symcoo_spmm": 0, "oblique_cols": 0}
 # K11's launches (LAUNCHES["tcg_step"]) that also projected the next
-# direction onto the tangent space
-TCG_LAUNCHES = {"projected": 0}
+# direction onto the tangent space, and its steps in split mode (three
+# launches each, the partials summed over the ranks between them)
+TCG_LAUNCHES = {"projected": 0, "split": 0}
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 
@@ -83,14 +90,18 @@ _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 F32_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 # the collectives of the sharded paths (parallel/distributed.py): calls
 # and bytes of this rank's tensors (not kernels; reset with them)
+# ("host_staged": the all_to_all / all_gather calls that gloo ran on CUDA
+# tensors through host copies made by parallel/distributed.py)
 COLLECTIVES = {"all_reduce": 0, "all_reduce_bytes": 0, "broadcast": 0,
-               "broadcast_bytes": 0}
+               "broadcast_bytes": 0, "all_to_all": 0, "all_to_all_bytes": 0,
+               "all_gather": 0, "all_gather_bytes": 0, "host_staged": 0}
 
 
 def reset_launches():
     for counts in (LAUNCHES, F32_LAUNCHES, SPMM_LAUNCHES, CSR_LAUNCHES,
                    MASKED_LAUNCHES, OBLIQUE_LAUNCHES, SYMDUAL_LAUNCHES,
-                   INSTANCE_LAUNCHES, TCG_LAUNCHES, COLLECTIVES):
+                   SYMDUAL_APPLY_LAUNCHES, INSTANCE_LAUNCHES, TCG_LAUNCHES,
+                   COLLECTIVES):
         for k in counts:
             counts[k] = 0
 
@@ -710,6 +721,71 @@ def symdual_apply(M, q: int, scale=None, shift=None):
             parts[3].view(q, q, q), parts[4].view(q, q, q, q))
 
 
+def _rows_shape(q: int, ql: int, off: int):
+    if ql <= 0 or q % ql or off % ql or not 0 <= off <= q - ql:
+        raise ValueError(f"a row block of {ql} rows at offset {off} does not "
+                         f"split q = {q} evenly")
+
+
+def symdual_apply_rows_plain(top, rows, q: int, off: int, a2a, reduce):
+    """Plain twin of K7's row-block mode: ops/symdual.py's torch port of
+    the JAX apply_sharded, with the same collectives."""
+    from ..ops.symdual import _apply_sharded_tensor
+    return _apply_sharded_tensor(top, rows, q, off, a2a, reduce)
+
+
+def symdual_apply_rows(top, rows, q: int, off: int, a2a, reduce):
+    """K7's row-block mode (the row-sharded operator of
+    parallel/symdual_sharded.py): this rank's ``top`` (2 + q, n~), the
+    expanded matrix's first rows (replicated), and ``rows`` (ql, q, n~),
+    its Q-grid rows (i, j) for off <= i < off + ql.  ``a2a(send, recv)``
+    is the equal-split all-to-all over the D = q / ql ranks (block g of
+    dim 0 to rank g) and ``reduce(t)`` the sum over them in place.
+    Returns (y0, y1, Y2, Y3, Y4_local): y0 .. Y3 whole on every rank (views
+    of one flat buffer), Y4's rows [off, off + ql) (ql, q, q, q); every
+    repeated-index slot 0.  Two all-to-alls and one all-reduce (of the
+    flat 1 + q + q^2 + q^3 partial); the rank with off = 0 adds the
+    replicated rows' terms."""
+    ql = rows.shape[0]
+    _rows_shape(q, ql, off)
+    if not _on_cuda(top, rows):
+        return symdual_apply_rows_plain(top, rows, q, off, a2a, reduce)
+    _check_dtype(top.dtype, top, rows)
+    n = _qn(q)
+    if top.shape != (2 + q, n) or rows.shape != (ql, q, n) or \
+            not (top.is_contiguous() and rows.is_contiguous()):
+        raise ValueError(f"top must be contiguous ({2 + q}, {n}) and rows "
+                         f"({ql}, {q}, {n}), got {tuple(top.shape)}, "
+                         f"{tuple(rows.shape)}")
+    _check_slab(q, top)
+    D, dev, dt = q // ql, top.device, top.dtype
+    flat = torch.empty((1 + q + q * q + q ** 3,), dtype=dt, device=dev)
+    y4 = torch.empty((ql, q, q, q), dtype=dt, device=dev)
+    blk = ql * q ** 3
+    # S3, y0's partial rows, send1 / send2, recv1 / P3, recv2
+    ws = torch.empty((q ** 3 + q + 3 * blk,), dtype=dt, device=dev)
+    bufs = [ws[q ** 3 + q + k * blk:q ** 3 + q + (k + 1) * blk].view(D, -1)
+            for k in range(3)]
+    fn = getattr(build(), f"symdual_apply_rows_{_SUFFIX[dt]}")
+    # the all-to-alls after stages 0 and 1: send1 -> recv1, send2 -> recv2
+    exchanges = ((bufs[0], bufs[1]), (bufs[0], bufs[2]), None)
+    for stage, exchange in enumerate(exchanges):
+        err = fn(top.data_ptr(), rows.data_ptr(), q, off, ql, int(off == 0),
+                 stage, flat.data_ptr(), y4.data_ptr(), ws.data_ptr(),
+                 _stream(top))
+        if err != 0:
+            raise RuntimeError(f"symdual_apply launch failed: CUDA error "
+                               f"{err}")
+        if exchange is not None:
+            a2a(*exchange)
+    reduce(flat)
+    _launched("symdual_apply", dt)
+    SYMDUAL_APPLY_LAUNCHES["rows"] += 1
+    parts = torch.split(flat, [1, q, q * q, q ** 3])
+    return (parts[0].reshape(()), parts[1], parts[2].view(q, q),
+            parts[3].view(q, q, q), y4)
+
+
 # -------------------------------------------------------------------- K8 --
 
 def symdual_adjoint_plain(y, q: int, scale=None, B1=None, c1=0.0, B2=None,
@@ -764,6 +840,44 @@ def symdual_adjoint(y, q: int, scale=None, B1=None, c1=0.0, B2=None,
     SYMDUAL_LAUNCHES["adjoint" if B1 is None and B2 is None
                      else "residual"] += 1
     return out
+
+
+def symdual_adjoint_rows_plain(y, q: int, off: int):
+    """Plain twin of K8's row-block mode: ops/symdual.py's torch port of
+    the JAX adjoint_sharded."""
+    from ..ops.symdual import _adjoint_sharded_tensor
+    return _adjoint_sharded_tensor(*y, q, off)
+
+
+def symdual_adjoint_rows(y, q: int, off: int):
+    """K8 ``adjoint`` in row-block mode: y = (y0, y1, Y2, Y3, Y4_local) with
+    y0 .. Y3 whole and Y4_local the rows [off, off + ql) (ql, q, q, q).
+    Returns (top (2 + q, n~), rows (ql q, n~)): the adjoint's first rows
+    and its Q rows (i, j) for off <= i < off + ql.  No communication."""
+    if len(y) != 5:
+        raise ValueError("y must be the 5-tuple (y0, y1, Y2, Y3, Y4_local)")
+    ql = y[4].shape[0]
+    _rows_shape(q, ql, off)
+    if not _on_cuda(*y):
+        return symdual_adjoint_rows_plain(y, q, off)
+    dt = y[4].dtype
+    _check_dtype(dt, *y)
+    shapes = [(), (q,), (q, q), (q, q, q), (ql, q, q, q)]
+    if y[0].numel() != 1 or any(tuple(t.shape) != sh for t, sh in
+                                zip(y[1:], shapes[1:])):
+        raise ValueError(f"y's shapes do not match q = {q}, {ql} rows")
+    y = [t.contiguous() for t in y]
+    n = _qn(q)
+    top = torch.empty((2 + q, n), dtype=dt, device=y[4].device)
+    rows = torch.empty((ql * q, n), dtype=dt, device=y[4].device)
+    fn = getattr(build(), f"symdual_adjoint_rows_{_SUFFIX[dt]}")
+    err = fn(*(t.data_ptr() for t in y), q, off, ql, top.data_ptr(),
+             rows.data_ptr(), _stream(top))
+    if err != 0:
+        raise RuntimeError(f"symdual_adjoint launch failed: CUDA error {err}")
+    _launched("symdual_adjoint", dt)
+    SYMDUAL_LAUNCHES["adjoint_rows"] += 1
+    return top, rows
 
 
 def symdual_sym_factor_plain(Y, q: int, renorm: bool = True):
@@ -1003,14 +1117,19 @@ def tcg_finish_plain(part2, sc, st, xs, r, d, mininner: int):
 
 
 def tcg_step_plain(d, Hd, eta, Heta, r, sc, st, mininner: int, Y=None,
-                   mask=None):
+                   mask=None, reduce=None):
     """Plain twin of K11: the three phases' twins, then with ``Y`` the
     oblique tangent projection of the next direction (K2's
-    oblique_cols_plain proj, with ``mask`` the masked product's).
+    oblique_cols_plain proj, with ``mask`` the masked product's); with
+    ``reduce`` (split mode) each phase's partial goes through it first.
     Returns (eta, Heta, r, d, sc_next, st_next)."""
     part = tcg_dots_plain(d, Hd, r, st)
+    if reduce is not None:
+        part = reduce(part)
     eta, Heta, r, part2, xs = tcg_update_plain(part, sc, st, d, Hd, eta,
                                                Heta, r)
+    if reduce is not None:
+        part2 = reduce(part2)
     d, sc, st = tcg_finish_plain(part2, sc, st, xs, r, d, mininner)
     if Y is not None:
         d = oblique_cols_plain(Y, d, "proj", mask=mask)
@@ -1018,7 +1137,7 @@ def tcg_step_plain(d, Hd, eta, Heta, r, sc, st, mininner: int, Y=None,
 
 
 def tcg_step(d, Hd, eta, Heta, r, sc, st, mininner: int, Y=None,
-             mask=None):
+             mask=None, reduce=None):
     """K11: one tCG iteration's vector step in one cooperative launch.
     From d, Hd = H[d] and the scalar state: the step of every active
     instance (eta, Heta unless the model increased, r <- r - alpha Hd),
@@ -1027,10 +1146,17 @@ def tcg_step(d, Hd, eta, Heta, r, sc, st, mininner: int, Y=None,
     d <- proj_Y(r + beta d), the oblique tangent projection of K2.
     eta, Heta, r and d ((B, ...) tensors of one shape and dtype) are
     updated in place (a contiguous copy of one that is not) and returned:
-    (eta, Heta, r, d, sc_next, st_next)."""
+    (eta, Heta, r, d, sc_next, st_next).
+
+    Split mode (``reduce`` given: the vectors are this rank's block of
+    vectors sharded over several ranks): three launches, the dots, the
+    update and the finish, with ``reduce(t)`` (the sum of ``t`` over the
+    ranks, in place; returns it) on the partials between them, (B, nblk,
+    2) and (B, nblk).  Every rank must hold blocks of one size.  At one
+    rank it gives the one launch's bits."""
     if not _on_cuda(d, Hd, eta, Heta, r, sc, st, Y, mask):
         return tcg_step_plain(d, Hd, eta, Heta, r, sc, st, mininner, Y,
-                              mask)
+                              mask, reduce)
     dt, shape = d.dtype, d.shape
     B = shape[0]
     d, Hd, eta, Heta, r = (t.contiguous() for t in (d, Hd, eta, Heta, r))
@@ -1067,18 +1193,31 @@ def tcg_step(d, Hd, eta, Heta, r, sc, st, mininner: int, Y=None,
     xs = part2[B * nblk:]
     sc_n = xs[4 * B:].view(B, 8)
     st_n = torch.empty_like(st)
-    err = getattr(build(), f"tcg_step_{_SUFFIX[dt]}")(
-        d.data_ptr(), Hd.data_ptr(), eta.data_ptr(), Heta.data_ptr(),
-        r.data_ptr(), sc.data_ptr(), st.data_ptr(),
-        Y.data_ptr() if Y is not None else None,
-        mask.data_ptr() if mask is not None else None, L, B, nblk, p, n,
-        int(mininner), ws.data_ptr(), part2.data_ptr(),
-        xs.data_ptr(), sc_n.data_ptr(), st_n.data_ptr(), _stream(d))
+    args = (d.data_ptr(), Hd.data_ptr(), eta.data_ptr(), Heta.data_ptr(),
+            r.data_ptr(), sc.data_ptr(), st.data_ptr(),
+            Y.data_ptr() if Y is not None else None,
+            mask.data_ptr() if mask is not None else None, L, B, nblk, p, n,
+            int(mininner), ws.data_ptr(), part2.data_ptr(),
+            xs.data_ptr(), sc_n.data_ptr(), st_n.data_ptr())
+    step = getattr(build(), f"tcg_step_{_SUFFIX[dt]}")
+    if reduce is None:
+        err = step(*args, -1, _stream(d))
+    else:
+        sums = (ws[:2 * B * nblk].view(B, nblk, 2),
+                part2[:B * nblk].view(B, nblk))
+        for phase in range(3):
+            err = step(*args, phase, _stream(d))
+            if err != 0:
+                break
+            if phase < 2:
+                reduce(sums[phase])
     if err != 0:
         raise RuntimeError(f"tcg_step launch failed: CUDA error {err}")
     _launched("tcg_step", dt)
     if Y is not None:
         TCG_LAUNCHES["projected"] += 1
+    if reduce is not None:
+        TCG_LAUNCHES["split"] += 1
     return eta, Heta, r, d, sc_n, st_n
 
 
@@ -1087,8 +1226,11 @@ __all__ = ["LAUNCHES", "SPMM_LAUNCHES", "CSR_LAUNCHES", "MASKED_LAUNCHES",
            "oblique_cols", "oblique_cols_plain", "pattern_dots",
            "pattern_dots_plain", "csr_gather", "csr_gather_plain",
            "masked_sym", "masked_sym_plain", "oa_refine", "oa_refine_plain",
-           "symdual_apply", "symdual_apply_plain", "symdual_adjoint",
-           "symdual_adjoint_plain", "symdual_sym_factor",
+           "symdual_apply", "symdual_apply_plain", "symdual_apply_rows",
+           "symdual_apply_rows_plain", "SYMDUAL_APPLY_LAUNCHES",
+           "symdual_adjoint", "symdual_adjoint_plain",
+           "symdual_adjoint_rows", "symdual_adjoint_rows_plain",
+           "symdual_sym_factor",
            "symdual_sym_factor_plain", "symdual_sym_mat",
            "symdual_sym_mat_plain", "symmom_apply", "symmom_apply_plain",
            "symmom_flat_length",

@@ -46,12 +46,14 @@ _SIGNATURES = {
     "symdual_apply": (_P, _I, _P, _P, _P, _P, _P),
     "symdual_adjoint": (_P, _P, _P, _P, _P, _I, _P, _P, _D, _P, _D, _P,
                         _P),
+    "symdual_apply_rows": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "symdual_adjoint_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "symdual_sym_factor": (_P, _I, _I, _I, _P, _P),
     "symdual_sym_mat": (_P, _I, _P, _P),
     "symmom_apply": (_P, _I, _P, _P, _P),
     "symmom_adjoint": (_P, _I, _P, _D, _P, _P, _P),
     "tcg_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
-                 _I, _P, _P, _P, _P, _P, _P),
+                 _I, _P, _P, _P, _P, _P, _I, _P),
 }
 # the dtypes each kernel is built for (default: both)
 _SUFFIXES = {"oa_refine": ("f64",)}

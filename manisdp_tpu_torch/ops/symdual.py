@@ -189,6 +189,192 @@ def _adjoint_tensor(y0, y1, Y2, Y3, Y4, q):
     return torch.cat([rowsC, rowsL, rowsQ], dim=0)
 
 
+def _pad_rows(block, q, off):
+    """A (ql, ...) row block at row offset ``off`` of a zeros (q, ...)
+    tensor (with the all-reduce this assembles the whole)."""
+    out = block.new_zeros((q,) + tuple(block.shape[1:]))
+    out[off:off + block.shape[0]] = block
+    return out
+
+
+def _pad_cols(block, q, off):
+    out = block.new_zeros(block.shape[:1] + (q,) + tuple(block.shape[2:]))
+    out[:, off:off + block.shape[1]] = block
+    return out
+
+
+def _zero_dontcare_rows(y, q, off):
+    """(y0, y1, Y2, Y3, Y4_local) with the repeated-index slots 0 (Y4's
+    masks at its rows)."""
+    ql = y[4].shape[0]
+    m2, m3, m4 = _repeat_masks(q, y[4].device)
+    zero = torch.zeros((), dtype=y[4].dtype, device=y[4].device)
+    return (y[0], y[1], torch.where(m2, zero, y[2]),
+            torch.where(m3, zero, y[3]),
+            torch.where(m4[off:off + ql], zero, y[4]))
+
+
+def _apply_sharded_tensor(top, rowsQ, q, off, a2a, reduce):
+    """The JAX apply_sharded in torch on this rank's rows: ``top`` (2 + q,
+    n~), ``rowsQ`` (ql, q, n~) at row offset ``off``; ``a2a(send, recv)``
+    the equal-split all-to-all, ``reduce(t)`` the in-place sum over the
+    ranks.  The JAX function's six psums are one all-reduce of their
+    concatenation.  Returns (y0, y1, Y2, Y3, Y4_local), repeated-index
+    slots 0."""
+    o = 2 + q
+    ql = rowsQ.shape[0]
+    D = q // ql
+    dt, dev = rowsQ.dtype, rowsQ.device
+    es = torch.einsum
+
+    def sl(x, axis):
+        return x.narrow(axis, off, ql)
+
+    s = top[:2, :2]
+    u = top[:2, 2:o]
+    E = top[:2, o:].reshape(2, q, q)
+    uT = top[2:o, :2]
+    G = top[2:o, 2:o]
+    H = top[2:o, o:].reshape(q, q, q)
+    F = rowsQ[:, :, :2]                       # (ql, q, 2)
+    K = rowsQ[:, :, 2:o]                      # (ql, q, q)   [i, j, b]
+    T = rowsQ[:, :, o:].reshape(ql, q, q, q)  # (ql, q, q, q)
+
+    moff = 1.0 - torch.eye(q, dtype=dt, device=dev)
+    moff_l = sl(moff, 0)                      # (ql, q)
+    Tn = T * moff_l[:, :, None, None] * moff[None, None, :, :]
+    Hn = H * moff[None, :, :]
+    Kn = K * moff_l[:, :, None]
+
+    # -- degree 0 --
+    y0_rep = torch.sum(s) + torch.trace(G) + es('aaa->', H)
+    K_dd = sl(sl(K, 1), 2)
+    T_dd = sl(sl(sl(T, 1), 2), 3)
+    y0_loc = (es('aaa->', K_dd) + es('aaaa->', T_dd)
+              + es('ajaj->', sl(Tn, 2)) + es('ajja->', sl(Tn, 3)))
+
+    # -- degree 1 --
+    y1_rep = (torch.sum(u, dim=0) + torch.sum(uT, dim=1)
+              + es('sii->i', E) + es('iia->a', Hn) + es('jaj->a', Hn))
+    y1_loc = (es('bab->a', sl(Kn, 2))
+              + es('ccca->a', sl(sl(T, 1), 2))
+              + es('ccac->a', sl(sl(T, 1), 3))
+              + es('cacc->a', sl(sl(T, 2), 3)))
+    y1_blk = (es('aas->a', sl(F, 1)) + es('ajj->a', Kn)
+              + es('accc->a', T) - 4.0 * es('aaaa->a', T_dd))
+    y1_part = y1_loc + _pad_rows(y1_blk, q, off)
+
+    # -- degree 2 --
+    Es = torch.sum(E, dim=0)
+    HD = es('abb->ab', H)
+    A4_blk = es('acbc->ab', Tn) + es('accb->ab', Tn)
+    A4_part = (es('cabc->ab', sl(Tn, 3)) + es('cacb->ab', sl(Tn, 2))
+               + _pad_rows(A4_blk, q, off))
+    Fs_blk = torch.sum(F, dim=2)                       # (ql, q)
+    KD_blk = es('ccb->bc', sl(K, 1))                   # (q, ql)
+    DD_blk = es('aakk->ak', sl(T, 1))                  # (ql, q)
+    FKD_part = _pad_rows(Fs_blk + DD_blk, q, off) + _pad_cols(KD_blk, q, off)
+
+    # -- degree 3 --
+    D1n_part = _pad_rows(es('eefg->efg', sl(T, 1)), q, off)
+    Kp_part = _pad_rows(Kn + es('agee->age', T) * moff_l[:, :, None], q, off)
+
+    sizes = [1, q, q * q, q * q, q ** 3, q ** 3]
+    flat = torch.cat([y0_loc.reshape(1), y1_part, A4_part.reshape(-1),
+                      FKD_part.reshape(-1), D1n_part.reshape(-1),
+                      Kp_part.reshape(-1)])
+    reduce(flat)
+    y0_s, y1_s, A4, FKD, D1n, Kp = torch.split(flat, sizes)
+    y0 = y0_rep + y0_s.reshape(())
+    y1 = y1_rep + y1_s
+    half2 = G + Es + HD + A4.view(q, q) + FKD.view(q, q)
+    Y2 = half2 + half2.T
+    Hp = Hn + D1n.view(q, q, q) * moff[None, :, :]
+    HH = Hp + torch.swapaxes(Hp, 1, 2)
+    Ka = torch.permute(Kp.view(q, q, q), (2, 0, 1))
+    KK = Ka + torch.swapaxes(Ka, 1, 2)
+    S3 = HH + KK
+    Y3 = S3 + torch.permute(S3, (1, 0, 2)) + torch.permute(S3, (2, 1, 0))
+
+    # -- degree 4: the two cross-shard transposes --
+    # all_to_all #1 (split axis 1, concat axis 0): x1[i, b] = Tn[i, off + b]
+    send = Tn.reshape(ql, D, ql, q, q).transpose(0, 1).contiguous()
+    recv = torch.empty_like(send)
+    a2a(send.view(D, -1), recv.view(D, -1))
+    x1 = recv.reshape(q, ql, q, q)
+    P1 = Tn + torch.permute(x1, (1, 0, 2, 3))
+    P2 = P1 + torch.permute(P1, (0, 1, 3, 2))
+    # all_to_all #2 (split axis 2, concat axis 0): x2[i, j, c] = P2[i, j,
+    # off + c]
+    send = P2.reshape(ql, q, D, ql, q).permute(2, 0, 1, 3, 4).contiguous()
+    recv = torch.empty_like(send)
+    a2a(send.view(D, -1), recv.view(D, -1))
+    x2 = recv.reshape(q, q, ql, q)
+    P3 = P2 + torch.permute(x2, (2, 3, 0, 1))
+    Y4 = P3 + torch.permute(P3, (0, 2, 1, 3)) + torch.permute(P3, (0, 3, 2, 1))
+    return _zero_dontcare_rows((y0, y1, Y2, Y3, Y4), q, off)
+
+
+def _adjoint_sharded_tensor(y0, y1, Y2, Y3, Y4, q, off):
+    """The JAX adjoint_sharded in torch: y0 .. Y3 whole, Y4 (ql, q, q, q)
+    the rows at ``off``.  Returns (top (2 + q, n~), rowsQ (ql q, n~))."""
+    ql = Y4.shape[0]
+    dt, dev = Y4.dtype, Y4.device
+    y0 = y0.reshape(())
+    eye = torch.eye(q, dtype=torch.bool, device=dev)
+    w = torch.where
+
+    E_w = w(eye, y1[:, None], Y2)
+    G_w = w(eye, y0, Y2)
+
+    a = torch.arange(q, device=dev)
+    b3, i3, j3 = a[:, None, None], a[None, :, None], a[None, None, :]
+    H_w = w(i3 == j3,
+            w(b3 == i3, y0, Y2[:, :, None]),
+            w(b3 == i3, y1[None, None, :],
+              w(b3 == j3, y1[None, :, None], Y3)))
+
+    # the local rows' leading index: off + a local iota
+    i4 = off + torch.arange(ql, device=dev)[:, None, None, None]
+    j4, k4, l4 = a[None, :, None, None], a[None, None, :, None], \
+        a[None, None, None, :]
+    Y2_l, Y3_l, y1_l = Y2[off:off + ql], Y3[off:off + ql], y1[off:off + ql]
+    Y2_ik = Y2_l[:, None, :, None]
+    Y2_il = Y2_l[:, None, None, :]
+    Y2_jk = Y2[None, :, :, None]
+    Y2_jl = Y2[None, :, None, :]
+    fd = i4 == j4
+    sd = k4 == l4
+    same = ((i4 == k4) & (j4 == l4)) | ((i4 == l4) & (j4 == k4))
+    T_w = w(fd & sd,
+            w(i4 == k4, y0, Y2_ik),
+            w(fd,
+              w(i4 == k4, y1[None, None, None, :],
+                w(i4 == l4, y1[None, None, :, None], Y3_l[:, None, :, :])),
+              w(sd,
+                w(k4 == i4, y1[None, :, None, None],
+                  w(k4 == j4, y1_l[:, None, None, None],
+                    Y3_l[:, :, :, None])),
+                w(same, y0,
+                  w(i4 == k4, Y2_jl,
+                    w(i4 == l4, Y2_jk,
+                      w(j4 == k4, Y2_il,
+                        w(j4 == l4, Y2_ik, Y4))))))))
+
+    two = torch.ones((2,), dtype=dt, device=dev)
+    rowsC = torch.cat([y0 * torch.ones((2, 2), dtype=dt, device=dev),
+                       two[:, None] * y1[None, :],
+                       two[:, None] * E_w.reshape(1, -1)], dim=1)
+    rowsL = torch.cat([y1[:, None] * two[None, :], G_w,
+                       H_w.reshape(q, q * q)], dim=1)
+    top = torch.cat([rowsC, rowsL], dim=0)
+    E_w_l = E_w[off:off + ql].reshape(ql * q, 1)
+    H_wT_l = torch.permute(H_w, (1, 2, 0))[off:off + ql].reshape(ql * q, q)
+    rowsQ = torch.cat([E_w_l * two[None, :], H_wT_l,
+                       T_w.reshape(ql * q, q * q)], dim=1)
+    return top, rowsQ
+
+
 def _flatten(y0, y1, Y2, Y3, Y4):
     return torch.cat([y0.reshape(1), y1, Y2.reshape(-1), Y3.reshape(-1),
                       Y4.reshape(-1)])

@@ -3,14 +3,17 @@ manisdp_tpu/parallel/distributed.py).
 
 The port runs SPMD with one process per rank: every rank calls the same
 entry point with the same inputs, holds its shard of the work on its own
-device and meets the others only in two collectives, ``all_reduce``
-(SUM) and ``broadcast`` (``all_reduce`` / ``broadcast`` below, which
-count their calls and bytes in ``kernels.COLLECTIVES``).  Both run on
-NCCL and on gloo, on CUDA and on CPU tensors:
+device and meets the others only in four collectives, ``all_reduce``
+(SUM), ``broadcast``, ``all_to_all`` (equal splits) and ``all_gather``
+(column blocks joined; the functions below, which count their calls and
+bytes in ``kernels.COLLECTIVES``).  All run on NCCL and on gloo, on CUDA
+and on CPU tensors:
 
   - NCCL needs one card per rank (it refuses two ranks on one device);
   - gloo runs the CPU tests, and ranks that share one card (it stages
-    CUDA tensors through the host).
+    CUDA all-reduces through the host itself; ``all_to_all`` and
+    ``all_gather`` copy CUDA tensors to the host and back here, counted
+    as ``host_staged``).
 
   - ``init_distributed()`` reads torchrun's variables (MASTER_ADDR,
     MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK) or explicit arguments; a
@@ -176,6 +179,64 @@ def broadcast(t: torch.Tensor, group=None, src_index: int = 0
     COLLECTIVES["broadcast"] += 1
     COLLECTIVES["broadcast_bytes"] += t.numel() * t.element_size()
     return t
+
+
+def _host_staged(t: torch.Tensor, group) -> bool:
+    """Whether a collective on ``t`` runs through host copies made here:
+    gloo given CUDA tensors (NCCL, and gloo on CPU tensors, take them as
+    they are)."""
+    return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def all_to_all(send: torch.Tensor, recv: torch.Tensor, group=None
+               ) -> torch.Tensor:
+    """Equal-split all-to-all over ``group``: block g of ``send`` (along
+    dim 0, one block per group rank) goes to rank g, and ``recv``'s block
+    g (same shape as ``send``) comes from rank g.  Both contiguous;
+    ``recv`` is returned.  Counted in COLLECTIVES (bytes: ``send``'s)."""
+    if send.shape != recv.shape or not (send.is_contiguous() and
+                                        recv.is_contiguous()):
+        raise ValueError("all_to_all takes contiguous send / recv tensors "
+                         "of one shape")
+    if _host_staged(send, group):
+        COLLECTIVES["host_staged"] += 1
+        staged = torch.empty(recv.shape, dtype=recv.dtype)
+        dist.all_to_all_single(staged, send.cpu(), group=group)
+        recv.copy_(staged)
+    else:
+        dist.all_to_all_single(recv, send, group=group)
+    COLLECTIVES["all_to_all"] += 1
+    COLLECTIVES["all_to_all_bytes"] += send.numel() * send.element_size()
+    return recv
+
+
+# torch's name for the flat all-gather (all_gather_into_tensor before 2.13)
+_gather_single = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+
+
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every group rank's ``t`` (..., k) joined along the last axis in group
+    rank order: (..., D k), a new tensor on ``t``'s device (the column
+    blocks of a factor back into the whole factor).  Counted in
+    COLLECTIVES (bytes: ``t``'s)."""
+    D = dist.get_world_size(group)
+    t = t.contiguous()
+    # the blocks stacked along a leading axis (gloo wants them flat)
+    flat = (D * t.numel(),)
+    if _host_staged(t, group):
+        COLLECTIVES["host_staged"] += 1
+        out = torch.empty(flat, dtype=t.dtype)
+        _gather_single(out, t.cpu().reshape(-1), group=group)
+        out = out.to(t.device)
+    else:
+        out = torch.empty(flat, dtype=t.dtype, device=t.device)
+        _gather_single(out, t.reshape(-1), group=group)
+    COLLECTIVES["all_gather"] += 1
+    COLLECTIVES["all_gather_bytes"] += t.numel() * t.element_size()
+    out = out.view((D,) + tuple(t.shape))
+    return torch.movedim(out, 0, -2).reshape(tuple(t.shape[:-1]) +
+                                             (D * t.shape[-1],))
 
 
 def gather_objects(obj, group, device: torch.device) -> list:

@@ -1,17 +1,27 @@
-"""Device meshes and the data-parallel batch (PyTorch port of
-manisdp_tpu/parallel/mesh.py).
+"""Device meshes, the model-sharded MaxCut RTR and the data-parallel
+batch (PyTorch port of manisdp_tpu/parallel/mesh.py).
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh``, PyTorch's
 counterpart of ``jax.sharding.Mesh``: named axes over ranks, one rank
 per place (one process per card, or per CPU rank under gloo).  Two axes
 are used:
 
-  - ``model``: the constraint pattern of the primal AL, sharded by
+  - ``model``: the matrix dimension n, or the constraint pattern.  In
+    ``sharded_maxcut_solve`` the factor Y (p, n) and the dense cost C are
+    column-sharded, a contiguous block of n / D columns a rank: Y and the
+    tCG's direction are all-gathered before Y·C_local and U·C_local
+    (``torch.matmul``, as the JAX package leaves the products to XLA),
+    the oblique column ops (K2, and K11 in its split mode) run on the
+    local columns, and every inner product, norm and the cost are
+    all-reduced (``ShardedOblique``), so every rank takes the same host
+    branches.  In the primal AL the constraint pattern is sharded by
     pattern id (``sharded_ops.ShardedConstraintOp``; ``mesh=`` of
     ``solve_sdp`` / ``solve_unitdiag`` / ``solve_unittrace``);
   - ``batch``: independent MaxCut instances, a contiguous block of the
     batch per rank (``batched_maxcut_solve``; ``solve_maxcut_batch``'s
-    ``mesh=``), with no communication until the results are assembled.
+    ``mesh=``), with no communication until the results are assembled;
+    on a (batch, model) mesh ``batched_sharded_maxcut_solve`` composes
+    both.
 
 Where the JAX ``make_mesh(n)`` takes the first n local devices, a mesh
 here needs exactly as many ranks as it has places (ROADMAP Queue C).
@@ -26,8 +36,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..core import TROptions, make_batched_trustregions
-from .distributed import _set_device, gather_objects, init_distributed
+from ..core import (Problem, TROptions, make_batched_trustregions,
+                    make_trustregions)
+from ..manifolds import Oblique
+from .distributed import (_set_device, all_gather, all_reduce,
+                          gather_objects, init_distributed)
 
 
 def _require_group(n: Optional[int], device_type: str = "cuda") -> int:
@@ -93,6 +106,106 @@ def _maxcut_problem():
     return make_maxcut_problem(dense=True)
 
 
+def _mesh_device(mesh) -> torch.device:
+    """This rank's device on ``mesh``: the current card, or the CPU."""
+    device = torch.device(mesh.device_type)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _put(a, index, device) -> torch.Tensor:
+    """``a[index]`` (numpy or a tensor) as a contiguous float64 tensor on
+    ``device``."""
+    part = a[index] if isinstance(a, torch.Tensor) else np.asarray(a)[index]
+    return torch.as_tensor(part, dtype=torch.float64,
+                           device=device).contiguous()
+
+
+class ShardedOblique(Oblique):
+    """The oblique manifold on this rank's contiguous block of columns of
+    a factor sharded over the ranks of ``group``: the column ops are
+    Oblique's on the local columns (K2; K11 projects in its split mode),
+    ``inner`` / ``norm`` sum over the local columns and all-reduce, and
+    ``reduce`` is the sum over the ranks (the tCG's ||r||^2 and K11's
+    partials, core/trustregions.py).  At one rank every value has the
+    bits of Oblique's."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def reduce(self, t):
+        return all_reduce(t, self.group)
+
+    def inner(self, x, u, v):
+        return self.reduce(torch.sum(u * v, dim=(-2, -1)))
+
+    def norm(self, x, u):
+        return torch.sqrt(self.reduce(torch.sum(u * u, dim=(-2, -1))))
+
+
+def sharded_maxcut_problem(group) -> Problem:
+    """make_maxcut_problem(dense=True) of solvers/maxcut.py on column
+    shards: Y, U (..., p, n/D) and C (..., n, n/D) this rank's columns.
+    Y (or U) is all-gathered before the product with C's columns; eG and
+    the Hessian's column sums are local, f is all-reduced."""
+    M = ShardedOblique(group)
+
+    def cost(Y, C):
+        YC = all_gather(Y, group) @ C
+        eG = torch.sum(YC * Y, dim=-2)
+        return 0.5 * M.reduce(torch.sum(eG, dim=-1)), (YC, eG)
+
+    def grad(Y, C, aux):
+        YC, eG = aux
+        return YC - Y * eG[..., None, :], ()
+
+    def hess(Y, U, C, aux, gaux):
+        _, eG = aux
+        UC = all_gather(U, group) @ C
+        return UC - Y * torch.sum(Y * UC, dim=-2, keepdim=True) \
+            - U * eG[..., None, :]
+
+    return Problem(manifold=M, cost=cost, grad=grad, hess=hess)
+
+
+def model_cols(n: int, D: int, me: int) -> slice:
+    """Rank ``me``'s contiguous columns of n split over D ranks of a model
+    axis (D divides n)."""
+    if n % D:
+        raise ValueError(f"n = {n} columns do not split over {D} ranks of "
+                         "the model axis")
+    return slice(me * (n // D), (me + 1) * (n // D))
+
+
+def sharded_maxcut_solve(mesh, tr_opts: Optional[TROptions] = None):
+    """The RTR solve with Y and the dense C column-sharded over the mesh
+    axis ``model``.
+
+    Returns (solve, shard_fn): ``shard_fn(Y, C)`` takes the whole (p, n)
+    factor and (n, n) cost (numpy or tensors) and returns this rank's
+    column blocks, (p, n/D) and (n, n/D), on its device (ValueError when D
+    does not divide n); ``solve(Y, C, typicaldist)`` runs the RTR on them
+    and returns its TRResult with the whole Y on every rank, as the JAX
+    solve returns a global array."""
+    tr_opts = tr_opts or TROptions(maxiter=4, maxinner=10,
+                                   tolgradnorm=1e-8)
+    D, me, group = mesh_axis(mesh, "model")
+    base = make_trustregions(sharded_maxcut_problem(group), tr_opts)
+    device = _mesh_device(mesh)
+
+    def shard_fn(Y, C):
+        cols = model_cols(Y.shape[-1], D, me)
+        return (_put(Y, (slice(None), cols), device),
+                _put(C, (slice(None), cols), device))
+
+    def solve(Y, C, typicaldist):
+        res = base(Y, C, typicaldist)
+        return res._replace(Y=all_gather(res.Y, group))
+
+    return solve, shard_fn
+
+
 def batch_rows(B: int, D: int, me: int) -> slice:
     """Rank ``me``'s contiguous rows of a batch of B instances split over
     D ranks of a batch axis (D divides B)."""
@@ -128,27 +241,62 @@ def batched_maxcut_solve(mesh, tr_opts: Optional[TROptions] = None):
                                    tolgradnorm=1e-8)
     base = make_batched_trustregions(_maxcut_problem(), tr_opts)
     D, me, group = mesh_axis(mesh, "batch")
-    device = torch.device(mesh.device_type)
-    if device.type == "cuda":
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = _mesh_device(mesh)
 
     def shard_fn(Ys, Cs):
         if len(Cs) != len(Ys):
             raise ValueError(f"{len(Ys)} factors and {len(Cs)} costs")
         rows = batch_rows(len(Ys), D, me)
-        put = lambda a: torch.as_tensor(  # noqa: E731
-            np.asarray(a[rows]) if not isinstance(a, torch.Tensor)
-            else a[rows], dtype=torch.float64, device=device).contiguous()
-        return put(Ys), put(Cs)
+        return _put(Ys, rows, device), _put(Cs, rows, device)
+
+    def solve(Ys, Cs, typicaldist):
+        return _gather_batch(base(Ys, Cs, typicaldist), group, device)
+
+    return solve, shard_fn
+
+
+def _gather_batch(res, group, device):
+    """A BatchedTRResult of this rank's rows of the batch, assembled over
+    the batch axis ``group`` on every rank."""
+    Y, fx, ng, it, inner = gather_rows(
+        (res.Y.cpu(), res.fx.cpu(), res.norm_grad.cpu(),
+         np.asarray(res.iters), np.asarray(res.inner_iters)), group, device)
+    return type(res)(Y=Y.to(device), fx=fx.to(device),
+                     norm_grad=ng.to(device), iters=it.numpy(),
+                     inner_iters=inner.numpy())
+
+
+def batched_sharded_maxcut_solve(mesh, tr_opts: Optional[TROptions] = None):
+    """2-D (batch x model) parallelism on a ``make_mesh_2d`` mesh: the
+    instance batch split over ``batch`` and each instance's factor and
+    cost column-sharded over ``model`` (sharded_maxcut_solve's algebra on
+    the port's batched RTR); only the model axis communicates during the
+    solve.
+
+    Returns (solve, shard_fn): ``shard_fn(Ys, Cs)`` takes the whole batch,
+    (B, p, n) factors and (B, n, n) dense costs, and returns this rank's
+    rows (``batch_rows``) and columns (``model_cols``), (B/Db, p, n/Dm)
+    and (B/Db, n, n/Dm); ``solve(Ys, Cs, typicaldist)`` returns the whole
+    batch's BatchedTRResult on every rank."""
+    tr_opts = tr_opts or TROptions(maxiter=4, maxinner=10,
+                                   tolgradnorm=1e-8)
+    Db, mb, bgroup = mesh_axis(mesh, "batch")
+    Dm, mm, mgroup = mesh_axis(mesh, "model")
+    base = make_batched_trustregions(sharded_maxcut_problem(mgroup),
+                                     tr_opts)
+    device = _mesh_device(mesh)
+
+    def shard_fn(Ys, Cs):
+        if len(Cs) != len(Ys):
+            raise ValueError(f"{len(Ys)} factors and {len(Cs)} costs")
+        rows = batch_rows(len(Ys), Db, mb)
+        cols = model_cols(Ys.shape[-1], Dm, mm)
+        return (_put(Ys, (rows, slice(None), cols), device),
+                _put(Cs, (rows, slice(None), cols), device))
 
     def solve(Ys, Cs, typicaldist):
         res = base(Ys, Cs, typicaldist)
-        Y, fx, ng, it, inner = gather_rows(
-            (res.Y.cpu(), res.fx.cpu(), res.norm_grad.cpu(),
-             np.asarray(res.iters), np.asarray(res.inner_iters)),
-            group, device)
-        return type(res)(Y=Y.to(device), fx=fx.to(device),
-                         norm_grad=ng.to(device), iters=it.numpy(),
-                         inner_iters=inner.numpy())
+        return _gather_batch(res._replace(Y=all_gather(res.Y, mgroup)),
+                             bgroup, device)
 
     return solve, shard_fn

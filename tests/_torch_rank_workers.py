@@ -149,3 +149,68 @@ def maxcut_batch(Cs, kw, mesh="batch"):
     res = solve_maxcut_batch(Cs, mesh=_mesh(mesh), device="cpu", **kw)
     return [dict(obj=r.obj, dinf=r.dinf, status=r.status, Y=r.Y,
                  iterations=r.iterations, history=r.history) for r in res]
+
+
+def sharded_rtr(Y, C, typdist, tr):
+    """parallel.sharded_maxcut_solve on the model axis of all ranks."""
+    from manisdp_tpu_torch.core import TROptions
+    from manisdp_tpu_torch.parallel import sharded_maxcut_solve
+    solve, shard = sharded_maxcut_solve(_mesh("model"), TROptions(**tr))
+    Yl, Cl = shard(Y, C)
+    res = solve(Yl, Cl, typdist)
+    out = dict(Y=res.Y.numpy(), fx=float(res.fx),
+               norm_grad=float(res.norm_grad), iters=res.iters,
+               inner_iters=res.inner_iters, local_shape=tuple(Yl.shape),
+               cost_shape=tuple(Cl.shape))
+    try:
+        shard(Y[:, :-1], C[:, :-1])
+    except ValueError as e:
+        out["uneven"] = str(e)
+    return out
+
+
+def batched_sharded_rtr(Ys, Cs, typdist, tr):
+    """parallel.batched_sharded_maxcut_solve on a (2, world / 2) (batch,
+    model) mesh."""
+    from manisdp_tpu_torch.core import TROptions
+    from manisdp_tpu_torch.parallel.mesh import batched_sharded_maxcut_solve
+    solve, shard = batched_sharded_maxcut_solve(_mesh("2d"),
+                                                TROptions(**tr))
+    Yl, Cl = shard(Ys, Cs)
+    res = solve(Yl, Cl, typdist)
+    return dict(Y=res.Y.numpy(), fx=res.fx.numpy(),
+                norm_grad=res.norm_grad.numpy(), iters=res.iters,
+                inner_iters=res.inner_iters, local_shape=tuple(Yl.shape))
+
+
+def symdual_sharded(cases, mesh):
+    """ShardedSymDualOp on the model axis of a CPU mesh ("model": all ranks;
+    "2d": the (2, world / 2) mesh's model axis): for each (q, M, y) of
+    ``cases``, apply of M, the adjoint of y (its Y4 rows on this rank) and
+    the roundtrip apply -> adjoint of M, merged; the collectives of one
+    apply and of one adjoint; and the ValueError of a q that the axis does
+    not divide."""
+    from manisdp_tpu_torch.parallel.symdual_sharded import ShardedSymDualOp
+    m = _mesh(mesh)
+    out = []
+    for q, M, y in cases:
+        op = ShardedSymDualOp(q, m)
+        K.reset_launches()
+        got = op.apply(*op.split_matrix(M))
+        coll_apply = dict(K.COLLECTIVES)
+        K.reset_launches()
+        yt = tuple(torch.as_tensor(t) for t in y)
+        W = op.adjoint(yt[:4] + (yt[4][op.rows],))
+        coll_adjoint = dict(K.COLLECTIVES)
+        out.append(dict(
+            q=q, rows=(op.rows.start, op.rows.stop),
+            apply=[t.numpy() for t in got],
+            adjoint=op.merge_matrix(*W),
+            roundtrip=op.merge_matrix(*op.adjoint(got)),
+            collectives_apply=coll_apply, collectives_adjoint=coll_adjoint))
+    D = int(m.shape[m.mesh_dim_names.index("model")])
+    try:
+        ShardedSymDualOp(D + 1, m)
+    except ValueError as e:
+        out.append(str(e))
+    return out

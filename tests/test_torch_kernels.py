@@ -72,6 +72,9 @@ def test_reset_launches():
     K.INSTANCE_LAUNCHES["symcoo_spmm"] = 10
     K.TCG_LAUNCHES["projected"] = 11
     K.LAUNCHES["tcg_step"] = 12
+    K.SYMDUAL_APPLY_LAUNCHES["rows"] = 13
+    K.TCG_LAUNCHES["split"] = 14
+    K.COLLECTIVES["all_to_all"] = 15
     K.reset_launches()
     assert K.LAUNCHES == {"symcoo_spmm": 0, "oblique_cols": 0,
                           "pattern_dots": 0, "csr_gather": 0,
@@ -85,12 +88,14 @@ def test_reset_launches():
     assert set(K.OBLIQUE_LAUNCHES) == set(K.OBLIQUE_MODES) | {"proj_eG",
                                                               "masked"}
     assert set(K.SYMDUAL_LAUNCHES) == {"adjoint", "residual", "sym_factor",
-                                       "sym_mat"}
+                                       "sym_mat", "adjoint_rows"}
+    assert set(K.SYMDUAL_APPLY_LAUNCHES) == {"rows"}
     assert set(K.INSTANCE_LAUNCHES) == {"symcoo_spmm", "oblique_cols"}
-    assert set(K.TCG_LAUNCHES) == {"projected"}
+    assert set(K.TCG_LAUNCHES) == {"projected", "split"}
     for counts in (K.SPMM_LAUNCHES, K.CSR_LAUNCHES, K.MASKED_LAUNCHES,
                    K.OBLIQUE_LAUNCHES, K.SYMDUAL_LAUNCHES,
-                   K.INSTANCE_LAUNCHES, K.TCG_LAUNCHES):
+                   K.SYMDUAL_APPLY_LAUNCHES, K.INSTANCE_LAUNCHES,
+                   K.TCG_LAUNCHES, K.COLLECTIVES):
         assert not any(counts.values())
 
 
@@ -281,6 +286,36 @@ def test_instance_modes_match_twins_on_card(cuda_device, dtype, p_pad):
                        .to_dense())
 
 
+def _tcg_state(device, dtype, shape, tangent, seed):
+    """K11's inputs at one (B, p, n) shape: the vectors (d, Hd, eta, Heta,
+    r) with <d, r> > 0, the scalar state (instance 1 set up for a model
+    increase and the last one stopped when B > 1) and, with a tangent, a
+    point Y of unit columns (and a random column mask)."""
+    B = shape[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=dtype,  # noqa: E731
+                                 device=device)
+    d, r, eta, Heta = (rnd(*shape) for _ in range(4))
+    Hd = d * (1.0 + rnd(*shape).abs())
+    d_r = torch.sum(d * r, dim=(1, 2))
+    r = r * torch.sign(d_r)[:, None, None]
+    sc = torch.tensor([0.3, 0.2, 5.0, 1.0, -1.0, 1e6, 1e-9, 1.0],
+                      dtype=dtype, device=device).repeat(B, 1)
+    sc[:, 3] = d_r.abs()
+    st = torch.zeros((B, 2), dtype=torch.int32, device=device)
+    if B > 1:
+        sc[1, 3] *= 4.0                             # model increase
+        st[B - 1, 1] = 2                            # stopped
+    Y = mask = None
+    if tangent is not None:
+        Y = K.oblique_cols_plain(rnd(*shape), None, "renormalize")
+    if tangent == "masked":
+        mask = (torch.rand(shape[2], generator=gen, device=device) <
+                0.5).to(dtype)
+    return (d, Hd, eta, Heta, r), sc, st, Y, mask
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("shape", [(1, 48, 3000), (4, 8, N), (3, 192, 77)])
@@ -294,27 +329,8 @@ def test_tcg_step_matches_twin_on_card(cuda_device, dtype, shape, tangent):
     chunks."""
     tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
     B = shape[0]
-    gen = torch.Generator(device=cuda_device)
-    gen.manual_seed(2)
-    rnd = lambda *s: torch.randn(s, generator=gen, dtype=dtype,  # noqa: E731
-                                 device=cuda_device)
-    d, r, eta, Heta = (rnd(*shape) for _ in range(4))
-    Hd = d * (1.0 + rnd(*shape).abs())
-    d_r = torch.sum(d * r, dim=(1, 2))
-    r = r * torch.sign(d_r)[:, None, None]
-    sc = torch.tensor([0.3, 0.2, 5.0, 1.0, -1.0, 1e6, 1e-9, 1.0],
-                      dtype=dtype, device=cuda_device).repeat(B, 1)
-    sc[:, 3] = d_r.abs()
-    st = torch.zeros((B, 2), dtype=torch.int32, device=cuda_device)
-    if B > 1:
-        sc[1, 3] *= 4.0                             # model increase
-        st[B - 1, 1] = 2                            # stopped
-    Y = mask = None
-    if tangent is not None:
-        Y = K.oblique_cols_plain(rnd(*shape), None, "renormalize")
-    if tangent == "masked":
-        mask = (torch.rand(shape[2], generator=gen, device=cuda_device) <
-                0.5).to(dtype)
+    (d, Hd, eta, Heta, r), sc, st, Y, mask = _tcg_state(
+        cuda_device, dtype, shape, tangent, 2)
 
     def run(step):
         vecs = [t.clone() for t in (d, Hd, eta, Heta, r)]
@@ -613,6 +629,100 @@ def test_carrier_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
                     mu[0].float())
     with pytest.raises(ValueError, match="devices"):
         K.masked_sym(E.cpu(), E, E, "apply")              # CPU / CUDA mix
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 48, 3000), (4, 8, N), (3, 192, 77)])
+@pytest.mark.parametrize("tangent", [None, "oblique", "masked"])
+def test_tcg_split_is_bit_equal_at_world_one_on_card(cuda_device, dtype,
+                                                     shape, tangent):
+    """K11's split mode with the sum over one rank (the identity) gives the
+    one launch's bits on every output (the stopped instance's state left as
+    it is by both), and agrees with its twin (the three phases' twins with
+    the reduction between them)."""
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    B = shape[0]
+    (d, Hd, eta, Heta, r), sc, st, Y, mask = _tcg_state(
+        cuda_device, dtype, shape, tangent, 3)
+    calls = []
+
+    def one_rank(t):
+        calls.append(tuple(t.shape))
+        return t
+
+    def run(step, **kw):
+        vecs = [t.clone() for t in (d, Hd, eta, Heta, r)]
+        return step(*vecs, sc, st, 1, Y, mask, **kw)
+
+    before = (K.LAUNCHES["tcg_step"], K.TCG_LAUNCHES["split"])
+    split = run(K.tcg_step, reduce=one_rank)
+    torch.cuda.synchronize()
+    nblk = K.tcg_blocks(d.numel() // B)
+    assert calls == [(B, nblk, 2), (B, nblk)]
+    one = run(K.tcg_step)
+    act = slice(0, B - 1) if B > 1 else slice(0, 1)
+    for g, o in zip(split[:3] + split[4:], one[:3] + one[4:]):
+        assert torch.equal(g, o)
+    assert torch.equal(split[3][act], one[3][act])
+    ref = run(K.tcg_step_plain, reduce=lambda t: t)
+    for g, f in zip(split[:4], ref[:4]):
+        assert _rel(g[act], f[act]) <= tol
+    assert _rel(split[4], ref[4]) <= tol and torch.equal(split[5], ref[5])
+    assert K.LAUNCHES["tcg_step"] - before[0] == 2
+    assert K.TCG_LAUNCHES["split"] - before[1] == 1
+
+
+def _one_rank_collectives():
+    """The all-to-all and the all-reduce of a group of one rank."""
+    return (lambda send, recv: recv.copy_(send)), (lambda t: t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("q", [3, 7, 12, 20, 33, 60])
+def test_symdual_row_modes_match_on_card(cuda_device, dtype, q):
+    """K7's and K8's row-block modes at one rank against their twins (the
+    torch ports of the JAX apply_sharded / adjoint_sharded) and against
+    the full-mode kernels: y on every slot (0 at the repeated-index ones),
+    the adjoint entirely; K8's row blocks of q / D rows at every offset
+    (D = 3 / 4 where it divides q; no communication) assembled into the
+    full adjoint."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    n = 2 + q + q * q
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(q)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=torch.float64,  # noqa: E731
+                                 device=cuda_device).to(dtype)
+    M = rnd(n, n)
+    M = M + M.T
+    top, rows = M[:2 + q].contiguous(), M[2 + q:].reshape(q, q, n)
+    a2a, reduce = _one_rank_collectives()
+    before = (K.LAUNCHES["symdual_apply"], K.SYMDUAL_APPLY_LAUNCHES["rows"])
+    got = K.symdual_apply_rows(top, rows, q, 0, a2a, reduce)
+    twin = K.symdual_apply_rows_plain(top.cpu(), rows.cpu(), q, 0, a2a,
+                                      reduce)
+    full = K.symdual_apply(M, q)
+    for g, t, f in zip(got, twin, full):
+        assert g.device.type == "cuda" and g.dtype == dtype
+        assert _rel(g, t) <= tol and _rel(g, f) <= tol
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["symdual_apply"] - before[0] == 2
+    assert K.SYMDUAL_APPLY_LAUNCHES["rows"] - before[1] == 1
+    y = tuple(got)
+    W = K.symdual_adjoint(y, q)
+    for D in [1] + [D for D in (3, 4) if q % D == 0]:
+        ql = q // D
+        parts = []
+        for off in range(0, q, ql):
+            yl = y[:4] + (y[4][off:off + ql],)
+            t, r = K.symdual_adjoint_rows(yl, q, off)
+            tt, rt = K.symdual_adjoint_rows_plain(
+                tuple(v.cpu() for v in yl), q, off)
+            assert _rel(t, tt) <= tol and _rel(r, rt) <= tol
+            assert torch.equal(t, W[:2 + q])
+            parts.append(r)
+        assert torch.equal(torch.cat(parts), W[2 + q:])
 
 
 def _dontcare(q):

@@ -27,10 +27,14 @@ from manisdp_tpu.core import TROptions as JTROptions
 from manisdp_tpu.parallel.distributed import _device_grid
 from manisdp_tpu.parallel.distributed import make_host_mesh as jhost_mesh
 from manisdp_tpu.parallel.mesh import batched_maxcut_solve as jbatched
+from manisdp_tpu.parallel.mesh import \
+    batched_sharded_maxcut_solve as jbatched_sharded
 from manisdp_tpu.parallel.mesh import make_mesh as jmake_mesh
 from manisdp_tpu.parallel.mesh import make_mesh_2d as jmake_mesh_2d
+from manisdp_tpu.parallel.mesh import sharded_maxcut_solve as jsharded
 from manisdp_tpu_torch import solve_maxcut_batch, solve_unitdiag
-from manisdp_tpu_torch.core import TROptions, make_batched_trustregions
+from manisdp_tpu_torch.core import (TROptions, make_batched_trustregions,
+                                    make_trustregions)
 from manisdp_tpu_torch.parallel import init_distributed, spawn_ranks
 from manisdp_tpu_torch.parallel.distributed import make_host_mesh, rank_grid
 from manisdp_tpu_torch.parallel.mesh import _maxcut_problem, make_mesh
@@ -41,6 +45,9 @@ N_HOST = 12
 BATCH_N, BATCH_P = 32, 4
 BATCH_TR = dict(maxiter=2, maxinner=6, tolgradnorm=1e-10)
 BATCH_KW = dict(p0=4, max_outer=30, verbose=False)
+# test_parallel.py:test_model_sharded_matches_single's instance and options
+SHARD_N, SHARD_P = 64, 4
+SHARD_TR = dict(maxiter=3, maxinner=8, tolgradnorm=1e-10)
 # the host-mesh solves' explicit start, the same for both packages
 HOST_Y0 = np.random.RandomState(21).randn(3, N_HOST)
 HOST_Y0 /= np.sqrt((HOST_Y0 ** 2).sum(axis=0))
@@ -86,6 +93,17 @@ def rtr_batch():
     return np.stack(Ys), np.stack(Cs)
 
 
+def sharded_instance():
+    """test_parallel.py:_tiny(64, 4, 0): a zero-diagonal symmetric cost and
+    a unit-column start."""
+    rs = np.random.RandomState(0)
+    B = rs.randn(SHARD_N, SHARD_N)
+    C = 0.5 * (B + B.T)
+    np.fill_diagonal(C, 0.0)
+    Y = rs.randn(SHARD_P, SHARD_N)
+    return Y / np.sqrt((Y ** 2).sum(axis=0)), C
+
+
 def maxcut_instances():
     """A bucket of 4 dense costs (split over the batch axis) and a bucket
     of 3 scipy-sparse ones (which 4 ranks do not divide: solved whole)."""
@@ -114,7 +132,14 @@ def ranks():
                                              kw=BATCH_KW, mesh="2d")),
             ("batch_model", "maxcut_batch", dict(Cs=maxcut_instances()[:4],
                                                  kw=BATCH_KW,
-                                                 mesh="model"))]
+                                                 mesh="model")),
+            ("sharded", "sharded_rtr", dict(zip(("Y", "C"),
+                                                sharded_instance()),
+                                            typdist=float(np.pi * np.sqrt(
+                                                SHARD_N)), tr=SHARD_TR)),
+            ("sharded2d", "batched_sharded_rtr",
+             dict(Ys=Ys, Cs=Cs, typdist=float(np.pi * np.sqrt(BATCH_N)),
+                  tr=BATCH_TR))]
     return spawn_ranks(W.run_jobs, WORLD, "gloo", "cpu", args=(jobs,),
                        threads=1)
 
@@ -304,3 +329,69 @@ def test_solve_maxcut_batch_mesh_matches_jax(ranks, job):
         assert g["status"] == r.status == 0
         assert g["iterations"] == r.iterations
         np.testing.assert_allclose(g["obj"], r.obj, rtol=1e-6, atol=1e-6)
+
+
+def test_sharded_maxcut_solve_matches_single_and_jax(ranks):
+    """sharded_maxcut_solve with Y and C column-sharded over 4 ranks (16
+    columns a rank) against the port's single make_trustregions and JAX's
+    sharded_maxcut_solve on make_mesh(4) (test_parallel.py:25's instance
+    and options): fx to 1e-12 (relative), Y to 1e-12, equal TR and tCG
+    counts; the whole Y on every rank, bit-equal; K11's split mode ran
+    (the twin's collectives: per tCG step two all-reduces of the
+    partials); D not dividing n raises ValueError."""
+    Y, C = sharded_instance()
+    typ = float(np.pi * np.sqrt(SHARD_N))
+    got = ranks[0]["sharded"]["result"]
+    assert got["local_shape"] == (SHARD_P, SHARD_N // WORLD)
+    assert got["cost_shape"] == (SHARD_N, SHARD_N // WORLD)
+    single = make_trustregions(_maxcut_problem(), TROptions(**SHARD_TR))(
+        torch.as_tensor(Y), torch.as_tensor(C), typ)
+    np.testing.assert_allclose(got["fx"], float(single.fx), rtol=1e-12)
+    np.testing.assert_allclose(got["Y"], single.Y.numpy(), atol=1e-12)
+    assert (got["iters"], got["inner_iters"]) == (single.iters,
+                                                  single.inner_iters)
+    if len(jax.devices()) >= WORLD:
+        solve, shard = jsharded(jmake_mesh(WORLD, "model"),
+                                JTROptions(**SHARD_TR))
+        ref = solve(*shard(jnp.asarray(Y), jnp.asarray(C)), typ)
+        np.testing.assert_allclose(got["fx"], float(ref.fx), rtol=1e-12)
+        np.testing.assert_allclose(got["Y"], np.asarray(ref.Y), atol=1e-12)
+        assert (got["iters"], got["inner_iters"]) == (int(ref.iters),
+                                                      int(ref.inner_iters))
+    assert "do not split over 4 ranks" in got["uneven"]
+    coll = ranks[0]["sharded"]["collectives"]
+    assert coll["all_gather"] > 0 and coll["all_reduce"] >= \
+        2 * got["inner_iters"]
+    for r in ranks[1:]:
+        o = r["sharded"]["result"]
+        np.testing.assert_array_equal(o["Y"], got["Y"])
+        assert o["fx"] == got["fx"]
+
+
+def test_batched_sharded_maxcut_solve_matches_jax(ranks):
+    """batched_sharded_maxcut_solve on a (2, 2) (batch, model) mesh (two
+    instances and 16 columns a rank) against JAX's on make_mesh_2d(2, 2)
+    and the port's unsharded batched RTR, rtr_batch()'s instances: fx and
+    Y to 1e-9, equal TR and tCG counts, the whole batch on every rank."""
+    Ys, Cs = rtr_batch()
+    typ = float(np.pi * np.sqrt(BATCH_N))
+    got = ranks[0]["sharded2d"]["result"]
+    assert got["local_shape"] == (WORLD // 2, BATCH_P, BATCH_N // 2)
+    base = make_batched_trustregions(_maxcut_problem(), TROptions(**BATCH_TR))
+    single = base(torch.as_tensor(Ys), torch.as_tensor(Cs), typ)
+    np.testing.assert_allclose(got["fx"], single.fx.numpy(), rtol=1e-9)
+    np.testing.assert_allclose(got["Y"], single.Y.numpy(), atol=1e-9)
+    np.testing.assert_array_equal(got["iters"], single.iters)
+    np.testing.assert_array_equal(got["inner_iters"], single.inner_iters)
+    if len(jax.devices()) >= WORLD:
+        solve, shard = jbatched_sharded(jmake_mesh_2d(2, WORLD // 2),
+                                        JTROptions(**BATCH_TR))
+        ref = solve(*shard(jnp.asarray(Ys), jnp.asarray(Cs)), typ)
+        np.testing.assert_allclose(got["fx"], np.asarray(ref.fx), rtol=1e-9)
+        np.testing.assert_allclose(got["Y"], np.asarray(ref.Y), atol=1e-9)
+        np.testing.assert_array_equal(got["iters"], np.asarray(ref.iters))
+        np.testing.assert_array_equal(got["inner_iters"],
+                                      np.asarray(ref.inner_iters))
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["sharded2d"]["result"]["Y"],
+                                      got["Y"])

@@ -27,6 +27,11 @@ process sees the same bits):
     step is its three passes followed by K2 ``proj``.  The hash covers
     eta, Heta, r, the scalar state and the next direction of the active
     instances (a stopped instance's is never read);
+  - on a tree with the row-block and split modes (slice 6b), each at one
+    rank (the collectives the identity): K7 ``rows`` and K8 ``rows`` (the
+    rows of a quarter of the grid at offset 15) at q = 60, and every K11
+    case above again in split mode (``*_split``: its hash must equal the
+    one launch's);
 in f32 and f64.  Each tree also solves the G67 stand-in and the sparse
 batch's first bucket (their objectives hashed too) and reports the host
 and the device ms per tCG iteration at their solutions
@@ -223,6 +228,9 @@ def child(tree):
     solves, host = solve_points(cs, dev)
     solves["qs30"], steps = qs30_steps(cs, dev)
     qs30 = k11_qs30_cases(cs, K, rnd, run, dev, steps)
+    if hasattr(K, "symdual_apply_rows"):
+        # last: its draws from ``rnd`` must not move the other cases' inputs
+        row_cases(K, rnd, dtypes, run)
     print(json.dumps(dict(tree=tree, cases=cases, solves=solves,
                           tcg_iteration=host, qs30_k11=dict(
                               qs30, by_shape=steps))), flush=True)
@@ -282,6 +290,28 @@ def k8_cases(K, rnd, dtypes, run, dev):
                     f"{'renorm' if renorm else 'plain'}", dt,
                     K.symdual_sym_factor, K.symdual_sym_factor_plain,
                     (Y64.to(dt), Q, renorm), {}, p=p)
+
+
+def row_cases(K, rnd, dtypes, run):
+    """K7's and K8's row-block modes at q = 60 and one rank: apply on the
+    whole grid (the all-to-all a copy, the all-reduce the identity), the
+    adjoint of the Y4 rows [15, 30)."""
+    from manisdp_tpu_torch.ops.symdual import _split
+    n, o, ql = 2 + Q + Q * Q, 2 + Q, Q // 4
+    M64 = rnd(n, n)
+    M64 = M64 + M64.T
+    flat64 = rnd(1 + Q + Q * Q + Q ** 3 + Q ** 4)
+    a2a = lambda send, recv: recv.copy_(send)  # noqa: E731
+    one = lambda t: t  # noqa: E731
+    for dt in dtypes:
+        M = M64.to(dt)
+        top, rows = M[:o].contiguous(), M[o:].reshape(Q, Q, n)
+        run("symdual_apply.rows", dt, K.symdual_apply_rows,
+            K.symdual_apply_rows_plain, (top, rows, Q, 0, a2a, one), {}, q=Q)
+        y = _split(flat64.to(dt), Q)
+        yl = y[:4] + (y[4][ql:2 * ql].contiguous(),)
+        run("symdual_adjoint.rows", dt, K.symdual_adjoint_rows,
+            K.symdual_adjoint_rows_plain, (yl, Q, ql), {}, q=Q)
 
 
 def k2_cases(cs, K, rnd, dtypes, run):
@@ -399,6 +429,19 @@ def k11_cases(cs, K, rnd, dtypes, run, dev):
             for name, Yv, mv, stv in variants:
                 k11_run(run, f"tcg_step.{'batch' if B > 1 else 'g67'}.{name}",
                         kern, twin, vecs, sc, stv, Yv, mv, p=p, instances=B)
+                if hasattr(K, "symdual_apply_rows"):
+                    # split mode at one rank: the sum over ranks the identity
+                    k11_run(run, f"tcg_step.{'batch' if B > 1 else 'g67'}."
+                            f"{name}_split", split_step(K.tcg_step),
+                            split_step(K.tcg_step_plain), vecs, sc, stv, Yv,
+                            mv, p=p, instances=B)
+
+
+def split_step(step):
+    """K11's ``step`` (kernel or twin) in split mode at one rank."""
+    def run(*args):
+        return step(*args, reduce=lambda t: t)
+    return run
 
 
 def qs30_steps(cs, dev):
