@@ -132,7 +132,13 @@ not 0):
      adjoint and apply -> scale by idAAt -> adjoint of a seeded symmetric
      M and tuple y, held to the single-card K7 / K8 (1e-12 f64, 1e-5
      f32) and each row-block mode to its plain twin on the card, with
-     times, each launch's ms and the collectives' ms (25a); the G67-size
+     times, each launch's ms, the full-mode K7's ms, K7's library
+     yardstick (index_add_ of M at the sorted-index class map, within
+     1e-13) and the collectives' ms (25a; no all-to-all at one rank); the
+     apply at q = 180 in f64 (n~ = 32,582: its q x (q + 1) slab would
+     exceed a block's shared memory) held to index_add_'s class sums
+     within 1e-13, its ms beside its bound and its peak memory (25f); the
+     G67-size
      dense MaxCut (the stand-in's cost as a dense 10^4 x 10^4 f64 C, p =
      40, a seeded Oblique.rand start, JAX's default TROptions) through
      sharded_maxcut_solve, bit-equal to the single-card RTR (fx, Y, TR
@@ -178,6 +184,7 @@ It needs one CUDA device and exits with an error without one.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -247,8 +254,10 @@ SHARD_P, SHARD_K, SHARD_SIGMA = AL_HOT_P_PAD, 11, 0.37
 # NCCL (25a, 25e) and q = 60 over gloo ranks on card 0 (25b); the G67-size
 # dense MaxCut RTR column-sharded at p = 40 (25c, 25e); the batch of
 # phase 21's 16 dense G1-size stand-ins on a (2, 2) (batch, model) mesh of
-# gloo ranks on card 0 (25d)
-SYMDUAL_NCCL_Q, SYMDUAL_GLOO_Q = 120, 60
+# gloo ranks on card 0 (25d); the operator at q = 180 on NCCL at world 1
+# (25f), where the f64 q x (q + 1) slab would exceed a block's 232,448
+# bytes of shared memory
+SYMDUAL_NCCL_Q, SYMDUAL_GLOO_Q, SYMDUAL_BIG_Q = 120, 60, 180
 MAXCUT_SHARD_P = 40
 BATCH_SHARD_MESH = (2, 2)
 # the phases and their groups: a phase runs with the rest of its group;
@@ -1147,17 +1156,79 @@ def qs_instance(d):
     return qssos(d, coe)
 
 
-def symdual_class_map(q, device):
+def symdual_class_map(q, device, kernel=False, canonical=None):
     """The int64 (n~, n~) map from an entry of the SOS-dual adjoint W to
-    its slot of the flat y = (y0, y1, Y2, Y3, Y4): the twin on y_flat =
-    arange, exact in f64 (the length is < 2^53).  torch.take(y_flat, map)
-    is then the unscaled adjoint: K8's library yardstick."""
+    its slot of the flat y = (y0, y1, Y2, Y3, Y4): the twin (``kernel``:
+    K8's adjoint, whose workspace is only its output) on y_flat = arange,
+    exact in f64 (the length is < 2^53).  torch.take(y_flat, map) is then
+    the unscaled adjoint: K8's library yardstick.  With ``canonical``
+    (symdual_canonical_slots) in place of the arange, each entry maps to
+    its class's sorted-index slot: K7's yardstick (class_sums)."""
     import torch
     from manisdp_tpu_torch import kernels as K
     from manisdp_tpu_torch.ops.symdual import _split
-    idx = torch.arange(1 + q + q * q + q ** 3 + q ** 4, dtype=torch.float64,
-                       device=device)
-    return K.symdual_adjoint_plain(_split(idx, q), q).long()
+    idx = canonical if canonical is not None else torch.arange(
+        1 + q + q * q + q ** 3 + q ** 4, dtype=torch.float64, device=device)
+    adjoint = K.symdual_adjoint if kernel else K.symdual_adjoint_plain
+    W = adjoint(_split(idx, q), q)
+    del idx
+    return W.long()
+
+
+def symdual_canonical_slots(q, device):
+    """For each slot of the flat y, the slot of its class's sorted-index
+    representative (Y2[min, max], Y3 and Y4 at their sorted indices), as
+    f64; Y4 built a slab of i at a time."""
+    import torch
+    o2, o3, o4 = 1 + q, 1 + q + q * q, 1 + q + q * q + q ** 3
+    out = torch.empty((o4 + q ** 4,), dtype=torch.float64, device=device)
+    out[:o2] = torch.arange(o2, dtype=torch.float64, device=device)
+    a = torch.arange(q, device=device)
+
+    def flat(off, idx):
+        s = torch.sort(torch.stack(torch.broadcast_tensors(*idx)), dim=0)[0]
+        f = s[0]
+        for t in s[1:]:
+            f = f * q + t
+        return (off + f).reshape(-1)
+
+    out[o2:o3] = flat(o2, (a[:, None], a[None, :]))
+    out[o3:o4] = flat(o3, (a[:, None, None], a[None, :, None],
+                           a[None, None, :]))
+    j, k, l = a[:, None, None], a[None, :, None], a[None, None, :]
+    for i in range(q):
+        out[o4 + i * q ** 3:o4 + (i + 1) * q ** 3] = flat(
+            o4, (torch.full_like(j, i), j, k, l))
+    return out
+
+
+def class_sums(out, cls, M):
+    """K7's library yardstick: every class sum of M by one index_add_ of
+    its entries at their class's sorted-index slot (``cls``:
+    symdual_class_map with ``canonical``, flattened), into the zeroed
+    flat ``out``.  The same sums as K7 up to their order."""
+    return out.zero_().index_add_(0, cls, M.reshape(-1))
+
+
+def class_sums_errors(y, sums, canon, q):
+    """K7's per-degree output ``y`` against the class sums ``sums`` read
+    at every slot's sorted-index slot (``canon``, int64), repeated-index
+    slots 0: the largest absolute error of each degree and the largest
+    sum.  One temporary the size of the largest degree (in place after
+    the gather)."""
+    import torch
+    from manisdp_tpu_torch.ops.symdual import _repeat_masks
+    masks = (None, None) + _repeat_masks(q, sums.device)
+    errs, scale, o = [], 0.0, 0
+    for d, v in enumerate(y):
+        ref = torch.take(sums, canon[o:o + v.numel()]).view(v.shape)
+        if masks[d] is not None:
+            ref.masked_fill_(masks[d], 0)
+        scale = max(scale, float(ref.max()), -float(ref.min()))
+        errs.append(float(ref.sub_(v).abs_().max()))
+        o += v.numel()
+        del ref
+    return errs, scale
 
 
 def phase_dual_kernels(top64, dop64, iab64, device, seed):
@@ -1165,7 +1236,8 @@ def phase_dual_kernels(top64, dop64, iab64, device, seed):
     K4 on the original-basis DualOp and on the iAB pair, f64 and f32,
     against their twins.  K8 takes y as views of one flat buffer (K7's
     output layout) with NaN in every don't-care slot; its unscaled
-    adjoint is timed beside torch.take of the class map."""
+    adjoint is timed beside torch.take of the class map, K7's apply beside
+    index_add_ of M at the sorted-index class map (class_sums)."""
     import torch
     from manisdp_tpu_torch import kernels as K
     from manisdp_tpu_torch.ops.symdual import (_dontcare_mask, _flatten,
@@ -1191,6 +1263,9 @@ def phase_dual_kernels(top64, dop64, iab64, device, seed):
               **{f"skew_{k}": row_profile(c["ptr"])
                  for k, c in skew.items()}))
     cls = symdual_class_map(q, device)
+    canon = symdual_canonical_slots(q, device)
+    cls_canon = symdual_class_map(q, device, canonical=canon).view(-1)
+    canon = canon.long()
     dontcare = torch.as_tensor(_dontcare_mask(q), device=device)
     for dt in (torch.float64, torch.float32):
         info = dict(dtype=str(dt)[6:], q=q, n=n)
@@ -1224,14 +1299,27 @@ def phase_dual_kernels(top64, dop64, iab64, device, seed):
                     f"sym_factor_p{p}_{'renorm' if renorm else 'plain'}",
                     (K.symdual_sym_factor, K.symdual_sym_factor_plain),
                     (Y, q, renorm), {}, (Y,), 4.0 * p * n))
+        sums = torch.empty_like(y_flat)
         for name, mode, (fn, twin), args, kw, reads, flops in cases:
             k7_case = name == "symdual_apply"
             take = mode == "adjoint"
+            index_add = k7_case and mode == "apply"
+            lib = (lambda: torch.take(y_flat, cls)) if take else (
+                lambda: class_sums(sums, cls_canon, M)) if index_add else None
             check_case(rows, name, mode, fn, twin, args, kw, tol[dt],
                        reads=reads, flops=flops, repeat=True,
-                       passes=k7_case,
-                       library=(lambda: torch.take(y_flat, cls)) if take
-                       else None, **info)
+                       passes=k7_case, library=lib, **info)
+            if index_add:
+                # the same sums in another order (index_add_'s atomics)
+                errs, big = class_sums_errors(fn(*args, **kw),
+                                              class_sums(sums, cls_canon, M),
+                                              canon, q)
+                rows[-1].update(
+                    library="index_add_ of M at the sorted-index class map",
+                    library_rel_err=max(errs) / big)
+                if not rows[-1]["library_rel_err"] <= tol[dt]:
+                    raise AssertionError("K7 differs from index_add_: "
+                                         f"{rows[-1]}")
             if take:
                 # the gather reads the 8-byte index map besides
                 rows[-1].update(
@@ -1241,7 +1329,7 @@ def phase_dual_kernels(top64, dop64, iab64, device, seed):
                 if not rows[-1]["library_bit_equal"]:
                     raise AssertionError("K8 adjoint differs from "
                                          f"torch.take: {rows[-1]}")
-        del y, y_flat
+        del y, y_flat, sums
         # K2 proj with the Hessian's eG term at the solve's widest factor
         Y, H, U = (rnd(192, n).to(dt) for _ in range(3))
         g = rnd(n).to(dt)
@@ -3231,6 +3319,51 @@ def host_ms(fn, reps=7, warm=2):
     return statistics.median(ts)
 
 
+def rows_in_one_process(apply_rows, top, rows, q, D):
+    """K7's row-block mode (``kernels.symdual_apply_rows`` or its twin)
+    over D ranks in one process: a thread per rank on the same stream,
+    the all-to-all done by slicing the ranks' send buffers, the
+    all-reduce a sum of the ranks' partials.  ``rows`` (q, q, n~) is the
+    whole grid.  Returns (y0, y1, Y2, Y3, Y4): rank 0's replicated
+    outputs and every rank's Y4 rows joined."""
+    import threading
+    import torch
+    ql = q // D
+    bar = threading.Barrier(D, timeout=600)   # a hung rank raises
+    sends, parts, outs, errs = [None] * D, [None] * D, [None] * D, []
+
+    def rank(r):
+        def a2a(send, recv):
+            sends[r] = send
+            bar.wait()                  # every rank's send is enqueued
+            for s in range(D):
+                recv[s].copy_(sends[s][r])
+            bar.wait()                  # every copy is enqueued
+
+        def reduce(t):
+            parts[r] = t
+            bar.wait()
+            total = torch.stack(parts).sum(0)
+            bar.wait()
+            t.copy_(total)
+
+        try:
+            outs[r] = apply_rows(top, rows[r * ql:(r + 1) * ql], q, r * ql,
+                                 a2a, reduce)
+        except BaseException as err:    # noqa: BLE001 - re-raised below
+            errs.append(err)
+            bar.abort()
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(D)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return outs[0][:4] + (torch.cat([o[4] for o in outs]),)
+
+
 def symdual_rank(q, seed):
     """One rank of 25a / 25b / 25e: ShardedSymDualOp(q) on the 1-D model
     mesh of all ranks, f64 and f32, against the single-card kernels on
@@ -3242,8 +3375,10 @@ def symdual_rank(q, seed):
     (y0 .. Y3 and the adjoints' top rows); then, in f64, the row-block
     modes' times against their twins and bounds, the adjoint's beside
     torch.take of the class map's rows for this rank (its library
-    yardstick, checked bit-equal), each launch's device ms
-    (torch.profiler) and the collectives' ms."""
+    yardstick, checked bit-equal), the full-mode K7 on the whole M, and at
+    world 1 the apply beside index_add_ of M at the sorted-index class map
+    (its library yardstick, class_sums, within 1e-13 of the largest sum),
+    each launch's device ms (torch.profiler) and the collectives' ms."""
     import torch
     import torch.distributed as dist
     from manisdp_tpu_torch import kernels as K
@@ -3343,6 +3478,7 @@ def symdual_rank(q, seed):
         t = dict(
             apply_ms=timer(apply), apply_plain_ms=timer(twin),
             apply_bound=bound(nbytes(top, rowsQ, part, y[4]), 0.0, name),
+            full_mode_ms=timer(lambda: K.symdual_apply(M, q)),
             adjoint_ms=timer(adj), adjoint_plain_ms=timer(adj_twin),
             adjoint_bound=bound(nbytes(*yl, top, ql * q * n * 8), 0.0, name),
             all_to_all_ms=timer(lambda: a2a(send, recv)),
@@ -3353,6 +3489,21 @@ def symdual_rank(q, seed):
         # K8's library yardstick on this rank's rows: torch.take of the
         # local flat y over the class map's top and local Q rows, Y4's
         # slots shifted to the local block
+        if world == 1:
+            # K7's library yardstick: the class sums by one index_add_
+            canon = symdual_canonical_slots(q, device)
+            cls = symdual_class_map(q, device, canonical=canon).view(-1)
+            canon = canon.long()
+            sums = torch.empty((flat_out + q ** 4,), dtype=dt, device=device)
+            t["apply_library_ms"] = timer(lambda: class_sums(sums, cls, M))
+            errs, big = class_sums_errors(apply(), class_sums(sums, cls, M),
+                                          canon, q)
+            t["apply_library_rel_err"] = max(errs) / big
+            del sums, cls, canon
+            if not t["apply_library_rel_err"] <= 1e-13:
+                raise AssertionError("K7's row-block apply differs from "
+                                     "index_add_ of the class map: "
+                                     f"{t['apply_library_rel_err']}")
         cls = symdual_class_map(q, device)
         cls = torch.cat([cls[:o], cls[qrows]])
         cls[cls >= 1 + q + q * q + q ** 3] -= rows.start * q ** 3
@@ -3373,6 +3524,73 @@ def symdual_rank(q, seed):
         del send, recv, part, top, rowsQ, y
         torch.cuda.empty_cache()
     out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    return out
+
+
+def symdual_big_rank(q, seed):
+    """25f, NCCL at world 1: ShardedSymDualOp(q).apply in f64 at a q whose
+    q x (q + 1) slab would not fit a block's shared memory, held to the
+    class sums of a seeded M by index_add_ (class_sums; the map built by
+    K8's adjoint), repeated-index slots zeroed: every degree within 1e-13
+    of the largest sum (the plain twin's q^4 temporaries would not fit the
+    card).  The map is freed before the apply; times beside the bound,
+    each launch's ms and the peak memory."""
+    import torch
+    import torch.distributed as dist
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch.parallel.mesh import make_mesh
+    from manisdp_tpu_torch.parallel.symdual_sharded import ShardedSymDualOp
+    device = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    op = ShardedSymDualOp(q, make_mesh(dist.get_world_size(), "model",
+                                       "cuda"))
+    if op.ql != q:
+        raise ValueError("25f runs at world 1")
+    n, ny = op.n, 1 + q + q * q + q ** 3 + q ** 4
+    free, total = torch.cuda.mem_get_info(device)
+    out = dict(q=q, n=n, world=1, dtype="float64",
+               slab_bytes=8 * q * (q + 1), smem_bytes=232_448,
+               card_free_gb_at_start=free / 1e9, card_gb=total / 1e9)
+    t0 = time.perf_counter()
+    canon = symdual_canonical_slots(q, device)
+    cls = symdual_class_map(q, device, kernel=True, canonical=canon).view(-1)
+    canon = canon.long()
+    torch.cuda.synchronize()
+    out["class_map_s"] = time.perf_counter() - t0
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    M = torch.randn((n, n), generator=gen, dtype=torch.float64,
+                    device=device)
+    sums = torch.empty((ny,), dtype=torch.float64, device=device)
+    out["library_ms"] = time_ms(lambda: class_sums(sums, cls, M), reps=5,
+                                warm=1)
+    class_sums(sums, cls, M)
+    del cls
+    torch.cuda.empty_cache()
+    top, rowsQ = op.split_matrix(M)
+    K.reset_launches()
+    y = op.apply(top, rowsQ)
+    torch.cuda.synchronize()
+    out["launches"] = dict(rows=K.SYMDUAL_APPLY_LAUNCHES["rows"],
+                           all_to_all=K.COLLECTIVES["all_to_all"],
+                           all_reduce=K.COLLECTIVES["all_reduce"])
+    errs, big = class_sums_errors(y, sums, canon, q)
+    out["abs_err_by_degree"] = errs
+    out["max_abs_err"] = max(errs)
+    out["rel_err"] = max(errs) / big
+    del y, sums, canon
+    torch.cuda.empty_cache()
+    apply = lambda: op.apply(top, rowsQ)  # noqa: E731
+    out["ms"] = time_ms(apply, reps=5, warm=1)
+    out["launches_ms"] = pass_times(apply, reps=2)
+    out["bound"] = bound(nbytes(top, rowsQ, 8 * ny), 0.0, "float64")
+    out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    if not out["rel_err"] <= 1e-13:
+        raise AssertionError(f"25f: q = {q} apply differs from index_add_: "
+                             f"{out['rel_err']}")
+    if out["launches"] != dict(rows=1, all_to_all=0, all_reduce=1):
+        raise AssertionError(f"25f: launches {out['launches']}")
     return out
 
 
@@ -3543,10 +3761,13 @@ def sharded_6b_rows(rec):
     times and bounds from rank 0 of 25a (K7 / K8 row blocks, f64, q = 120,
     NCCL at world 1) and 25c (K11 split, f64, the G67 shape at world 1);
     each row's max_abs_err the worst of its own checks (the mode against
-    the single-card kernel and against its twin).  The adjoint's library
-    call is torch.take of the class map's rows; no single PyTorch call
-    computes the apply or K11's step (library_ms null)."""
+    the single-card kernel and against its twin).  The apply's library
+    call is index_add_ of M at the sorted-index class map (beside it the
+    full-mode K7 on the whole M and 25f's q = 180 run), the adjoint's
+    torch.take of the class map's rows; no single PyTorch call computes
+    K11's step (library_ms null)."""
     a, c = rec["a"]["ranks"][0], rec["c"]["world1"]["ranks"][0]
+    f = rec["f"]
     t, k11 = a["times"], c["k11_split"]
     err = a["max_abs_err"]["float64"]
     row = dict(route="cuda", library_ms=None,
@@ -3561,7 +3782,13 @@ def sharded_6b_rows(rec):
              plain_ms=t["apply_plain_ms"], bound_ms=t["apply_bound"][0],
              bound_by=t["apply_bound"][1],
              passes_ms=t.get("apply_launches_ms"),
-             all_to_all_ms=t["all_to_all_ms"], q=a["q"], world=a["world"]),
+             library_ms=t.get("apply_library_ms"),
+             library="index_add_ of M at the sorted-index class map",
+             full_mode_ms=t["full_mode_ms"],
+             all_to_all_ms=t["all_to_all_ms"], q=a["q"], world=a["world"],
+             q180=dict(ms=f["ms"], bound_ms=f["bound"][0],
+                       library_ms=f["library_ms"], rel_err=f["rel_err"],
+                       passes_ms=f["launches_ms"], peak_gb=f["peak_gb"])),
         dict(row, name="symdual_adjoint.rows",
              source="manisdp_tpu_torch/csrc/symdual_adjoint.cu",
              replaces="manisdp_tpu/parallel/symdual_sharded.py:178",
@@ -3598,17 +3825,23 @@ def sharded_6b_phases(device, seed):
     from manisdp_tpu_torch.solvers.maxcut import make_maxcut_problem
 
     t_phase = time.perf_counter()
-    out = {}
+    # the ranks share card 0 with this process (25f peaks near 45 GB):
+    # hand back what the earlier phases left cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(main_process_gb=dict(
+        allocated=torch.cuda.memory_allocated(device) / 1e9,
+        reserved=torch.cuda.memory_reserved(device) / 1e9))
     cards = torch.cuda.device_count()
     nccl_world = min(SHARD_NCCL_MAX, cards)
     tol = {"float64": 1e-12, "float32": 1e-5}
 
     C_sp, _ = load_graph("G67", None, seed)
 
-    def spawn(world, backend, dev, q=None, single=None):
-        """One spawn of ``world`` ranks running the operator's job (at q)
-        and the MaxCut RTR's (with the single-card reference when
-        ``single``), each a list of the ranks' results."""
+    def spawn(world, backend, dev, q=None, single=None, big_q=None):
+        """One spawn of ``world`` ranks running the operator's job (at q),
+        the MaxCut RTR's (with the single-card reference when ``single``)
+        and 25f's (at big_q), each a list of the ranks' results."""
         jobs = []
         if q is not None:
             jobs.append(("symdual", "symdual_rank", dict(q=q,
@@ -3616,6 +3849,9 @@ def sharded_6b_phases(device, seed):
         if single is not None:
             jobs.append(("maxcut", "maxcut_shard_rank", dict(
                 C_sp=C_sp, p=MAXCUT_SHARD_P, seed=seed + 25, single=single)))
+        if big_q is not None:
+            jobs.append(("big", "symdual_big_rank", dict(q=big_q,
+                                                         seed=seed + 25)))
         t0 = time.perf_counter()
         ranks = spawn_ranks(rank_jobs, world, backend, dev, args=(jobs,))
         call_s = time.perf_counter() - t0
@@ -3635,7 +3871,9 @@ def sharded_6b_phases(device, seed):
                         raise AssertionError(f"25{label}: rank {r['rank']} "
                                              f"{dt} {k} relative error {e}")
             for k, c in r["collectives"].items():
-                want = (2, 1) if k.endswith("apply") else (0, 0)
+                # no all-to-all at one rank
+                want = (2 if world > 1 else 0, 1) if k.endswith("apply") \
+                    else (0, 0)
                 if (c["all_to_all"], c["all_reduce"]) != want:
                     raise AssertionError(f"25{label}: {k} collectives {c}")
             for k, c in r["launches"].items():
@@ -3691,10 +3929,14 @@ def sharded_6b_phases(device, seed):
 
     # -- 25a / 25c at world 1 (NCCL), one spawn; 25b / 25c at world 2
     #    (gloo on card 0), one spawn --
-    one = spawn(1, "nccl", "cuda", q=SYMDUAL_NCCL_Q, single=True)
+    one = spawn(1, "nccl", "cuda", q=SYMDUAL_NCCL_Q, single=True,
+                big_q=SYMDUAL_BIG_Q)
     two = spawn(SHARD_GLOO_WORLD, "gloo", "cuda:0", q=SYMDUAL_GLOO_Q,
                 single=False)
     out["a"] = symdual("a", *one["symdual"])
+    out["f"] = dict(phase="symdual_sharded_f", backend="nccl",
+                    call_s=one["big"][1], **one["big"][0][0])
+    emit(out["f"])
     out["b"] = symdual("b", *two["symdual"])
     c1, single = maxcut("c1", *one["maxcut"], None)
     c2, _ = maxcut("c2", *two["maxcut"], single)

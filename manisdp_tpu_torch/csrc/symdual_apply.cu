@@ -46,39 +46,48 @@
 // (ShardedSymDualOp.apply) of the JAX package.  A rank holds ``top`` =
 // M's first o rows (replicated) and ``rowsQ`` = its Q rows (i, j) for i in
 // [off, off + ql) (ql = q / D), and returns y0 .. Y3 whole and Y4's rows
-// [off, off + ql).  Four launches around the caller's two all-to-alls
-// (equal splits over the D ranks) and one all-reduce:
-//   rows_pack   a warp per row of y0's partial sums and per slot of y1,
-//               from this rank's rows (the replicated rows' terms on the
-//               rank with off = 0 only); a block per local row (i, j)
-//               copying T's row into the send buffer's chunk j / ql:
-//               send1 (D, ql, ql, q^2).
+// [off, off + ql).  At D > 1 three launches around the caller's two
+// all-to-alls (equal splits over the D ranks); at D = 1 the last two
+// launches and no all-to-all; then one all-reduce:
+//   rows_pack   (D > 1) a block per local row (i, j) copying T's row, by
+//               16-byte vectors where aligned, into the send buffer's chunk
+//               j / ql: send1 (D, ql, ql, q^2).
 //   all_to_all  recv1[s, a, b] = T[s ql + a, off + b]: the rows (j, i).
-//   rows_pair   a block per local row (i, j): S's row = T[i, j] + T[j, i]
-//               (the (1, 0, 2, 3) permutation read from recv1) through
-//               shared memory, P2's row written into the send buffer's
-//               chunk k / ql: send2 (D, ql, q, ql, q); a block per e: the
-//               partial S3[e] (the terms of this rank's rows).
+//   rows_pair   a warp per row of y0's partial sums and per slot of y1
+//               (the replicated rows' terms on the rank with off = 0 only);
+//               a block per (e, tile pair): the partial S3[e]; S's row T[i,
+//               j] + T[j, i] and P2's row S + S^T by 32 x 32 tile pairs.
+//               D = 1: a block per pair i <= j, both T rows read from
+//               rowsQ, P2's row stored once (P2 is symmetric in the row
+//               pair); D > 1: a block per local row, T[j, i] from recv1,
+//               P2's row into send2 (D, ql, q, ql, q) by column blocks.
 //   all_to_all  recv2 = P2's rows (i, j) at the columns (k, l) of this
 //               rank's rows, a (q^2, ql q) matrix.
-//   rows_p3     P3 = P2 + P2^T on the local rows, by 32 x 32 tiles (recv2
-//               staged and read transposed).
-//   rows_final  a block per (i, k): Y4[i, :, k, :] from the row-i reads
-//               P3[i, j, k, l] + P3[i, k, j, l] + P3[i, l, k, j] (the last,
-//               = P3[j, k, i, l] by P3's symmetries, staged as s[l][j]);
-//               Y3's partial from S3's; y0; Y2's partial, a thread a slot.
+//   rows_final  Y3's partial by tiles, y0, Y2's partial a thread a slot;
+//               Y4 by 8^3 cubes of (j, k, l), each P3 term formed there
+//               as P2's own run plus the received one, P3[i, z, x, y] =
+//               P2[i, z, x, y] + P2[x, y, i, z] (both from P2's buffer at
+//               D = 1): a block per (i, tile triple), i-major, stages the
+//               three sub-cubes that every order of the triple reads and
+//               writes every order.
 //   all-reduce  of the flat (1 + q + q^2 + q^3) partial: y0 .. Y3.
-// Don't-care slots are written 0, as in the full mode.
+// Don't-care slots are written 0, as in the full mode.  Each value is a
+// fixed chain of additions (S, P2, P3 = P2own + P2^T, Y4 = (P3a + P3b) +
+// P3c, Y2's partial over c in order) whatever the work map, so Y4 does not
+// depend on D.  No launch stages a q-dependent slab: q has no ceiling.
 //
-// What bounds it on an H100: bytes.  The function reads T (q^4 entries)
-// and writes Y4 (q^4): at q = 60, 104 MB in f32, 31 us at 3.35 TB/s.  The
-// workspace adds a q^4 / 2 write (P2), a q^4 read and a q^4 / 2 write (the
-// transpose) and a q^4 / 2 read (Y4, L2 reuse aside): about 2.25x the
-// bound's bytes.
+// What bounds it on an H100: bytes.  The function reads T and writes Y4,
+// 2 q^4 / D entries: at q = 120 in f64, 3.3 GB, 1.0 ms at 3.35 TB/s.  At
+// D = 1 the pair pass reads T once and writes half of P2 (q^4 / 2); the
+// final pass loads about q^4 entries of that half (each stored entry about
+// twice, the second often from L2) and writes Y4: 3 to 3.5 q^4 entries in
+// all.  At D > 1 the pack copies T's q^4 / D and the exchanges come on top.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "oblique_tile.cuh"
 
 namespace {
 
@@ -455,14 +464,78 @@ struct RowBlocks {
   __device__ __forceinline__ T G(int a, int b) const { return at(2 + a, 2 + b); }
 };
 
+// P2's two reads in the final pass: own_run(ip, z, x) is the run
+// P2[off + ip, z, x, :] (this rank's rows), tr_run(x, y, ip) the run
+// P2[x, y, off + ip, :] (every row at this rank's columns).  At one rank
+// a single (q^2, q^2) buffer holds P2's rows (a, b), a <= b, and both
+// read it; otherwise own is send2 (D, ql, q, ql, q) and tr is recv2
+// (q^2, ql q).
+template <typename T>
+struct P2Runs {
+  const T* own;
+  const T* tr;
+  int q, ql;
+  __device__ __forceinline__ int64_t pair_row(int a, int b) const {
+    return a <= b ? (int64_t)a * q + b : (int64_t)b * q + a;
+  }
+  __device__ __forceinline__ const T* own_run(int ip, int z, int x) const {
+    if (ql == q) return own + pair_row(ip, z) * q * q + (int64_t)x * q;
+    const int d = x / ql, xb = x - d * ql;
+    return own + ((((int64_t)d * ql + ip) * q + z) * ql + xb) * q;
+  }
+  __device__ __forceinline__ const T* tr_run(int x, int y, int ip) const {
+    const int64_t ld = (int64_t)(ql == q ? q : ql) * q;
+    return tr + (ql == q ? pair_row(x, y) : (int64_t)x * q + y) * ld +
+           (int64_t)ip * q;
+  }
+};
+
+// T's local row (ip, j) into chunk j / ql of send1 (D, ql, ql, q^2), a
+// block a row, by 16-byte vectors where the row's start and q^2 allow
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-rows_pack(RowBlocks<T> A, T* __restrict__ flat, T* __restrict__ y0part,
-          T* __restrict__ send) {
+rows_pack(RowBlocks<T> A, T* __restrict__ send) {
+  constexpr int V = 16 / sizeof(T);
   const int q = A.q;
   const int64_t q2 = (int64_t)q * q;
+  const int ip = (int)(blockIdx.x / q), j = (int)(blockIdx.x % q);
+  const int d = j / A.ql, jb = j - d * A.ql;
+  const T* src = A.rows + ((int64_t)ip * q + j) * A.n + A.o;
+  T* dst = send + (((int64_t)d * A.ql + ip) * A.ql + jb) * q2;
+  if (q2 % V == 0 && ((uintptr_t)src | (uintptr_t)dst) % 16 == 0) {
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    int4* d4 = reinterpret_cast<int4*>(dst);
+    for (int64_t t = threadIdx.x; t < q2 / V; t += kThreads) d4[t] = s4[t];
+  } else {
+    for (int64_t t = threadIdx.x; t < q2; t += kThreads) dst[t] = src[t];
+  }
+}
+
+// the partial S3[e, f, g] before its (f, g) symmetrization: H's row e
+// (replicated), T's row (e, e), and the column e of K and of T's (e, e)
+// at this rank's row (f, g)
+template <typename T>
+__device__ __forceinline__ T s3_term(const RowBlocks<T>& A, int e, bool le,
+                                     int f, int g) {
+  T v = T(0);
+  if (A.rep) v += A.H(e, f, g);
+  if (le) v += A.Tq(e, e, f, g);
+  if (A.local(f)) v += A.K(f, g, e) + A.Tq(f, g, e, e);
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rows_pair(RowBlocks<T> A, const T* __restrict__ recv, T* __restrict__ P2,
+          T* __restrict__ S3, T* __restrict__ flat, T* __restrict__ y0part) {
+  __shared__ T ta[kTile][kTile + 1], tb[kTile][kTile + 1];
+  const int q = A.q;
+  const int64_t q2 = (int64_t)q * q;
+  const int nt = (q + kTile - 1) / kTile, ntp = nt * (nt + 1) / 2;
   const int64_t nwarp = (2 * q + kWarps - 1) / kWarps;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
+  constexpr int kRows = kThreads / kTile;
   int64_t bid = blockIdx.x;
   if (bid < nwarp) {
     const int64_t w = bid * kWarps + warp;
@@ -501,145 +574,133 @@ rows_pack(RowBlocks<T> A, T* __restrict__ flat, T* __restrict__ y0part,
     return;
   }
   bid -= nwarp;
-  // T's local row (ip, j) into chunk j / ql of send (D, ql, ql, q^2)
-  const int ip = (int)(bid / q), j = (int)(bid % q);
-  const int d = j / A.ql, jb = j - d * A.ql;
-  const T* src = A.rows + ((int64_t)ip * q + j) * A.n + A.o;
-  T* dst = send + (((int64_t)d * A.ql + ip) * A.ql + jb) * q2;
-  for (int64_t t = threadIdx.x; t < q2; t += kThreads) dst[t] = src[t];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rows_pair(RowBlocks<T> A, const T* __restrict__ recv, T* __restrict__ send,
-          T* __restrict__ S3) {
-  const int q = A.q, qp = q + 1;
-  const int64_t q2 = (int64_t)q * q;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  T* s = smem<T>();
-  int64_t bid = blockIdx.x;
-  if (bid < q) {
-    // the partial S3[e, :, :]: H's row e (replicated), T's row (e, e) and
-    // the column e of K and of T's (e, e) down this rank's rows (f, g)
-    const int e = (int)bid;
+  if (bid < (int64_t)q * ntp) {
+    // the partial S3[e] on the tile pair (F, G), (G, F), F <= G:
+    // S3[e, f, g] = v[f][g] + v[g][f]
+    const int e = (int)(bid / ntp);
+    int F, G;
+    tri(bid % ntp, F, G);
     const bool le = A.local(e);
-    for (int f = warp; f < q; f += kWarps) {
-      const bool lf = A.local(f);
-      for (int g = lane; g < q; g += 32) {
-        T v = T(0);
-        if (A.rep) v += A.H(e, f, g);
-        if (le) v += A.Tq(e, e, f, g);
-        if (lf) v += A.K(f, g, e) + A.Tq(f, g, e, e);
-        s[f * qp + g] = v;
+    const int f0 = F * kTile, g0 = G * kTile;
+    for (int r = ty; r < kTile; r += kRows) {
+      if (f0 + r < q && g0 + tx < q)
+        ta[r][tx] = s3_term(A, e, le, f0 + r, g0 + tx);
+      if (F != G && g0 + r < q && f0 + tx < q)
+        tb[r][tx] = s3_term(A, e, le, g0 + r, f0 + tx);
+    }
+    __syncthreads();
+    const T(*tbt)[kTile + 1] = F == G ? ta : tb;
+    T* s3 = S3 + e * q2;
+    for (int r = ty; r < kTile; r += kRows) {
+      if (f0 + r < q && g0 + tx < q)
+        s3[(int64_t)(f0 + r) * q + g0 + tx] = ta[r][tx] + tbt[tx][r];
+      if (F != G && g0 + r < q && f0 + tx < q)
+        s3[(int64_t)(g0 + r) * q + f0 + tx] = tb[r][tx] + ta[tx][r];
+    }
+    return;
+  }
+  bid -= (int64_t)q * ntp;
+  // S's row T[i, j] + T[j, i] and P2's row S + S^T by 32 x 32 tile pairs.
+  // One rank: a block per pair i <= j, both T rows read from ``rows``,
+  // P2's row stored once, at row (i, j) of the (q^2, q^2) buffer.  Several:
+  // a block per local row (i, j), i = off + ip, T[j, i] received in recv
+  // (D, ql, ql, q^2) at [j / ql, j % ql, ip], P2's row stored by column
+  // blocks into send2 (D, ql, q, ql, q)
+  const bool one = A.ql == q;
+  int ip, j;
+  const T* rb;
+  if (one) {
+    tri(bid, ip, j);
+    rb = A.rows + ((int64_t)j * q + ip) * A.n + A.o;
+  } else {
+    ip = (int)(bid / q);
+    j = (int)(bid % q);
+    const int sr = j / A.ql, jb = j - sr * A.ql;
+    rb = recv + (((int64_t)sr * A.ql + jb) * A.ql + ip) * q2;
+  }
+  const T* ra = A.rows + ((int64_t)ip * q + j) * A.n + A.o;
+  auto dst = [&](int k, int l) -> T* {
+    if (one) return P2 + ((int64_t)ip * q + j) * q2 + (int64_t)k * q + l;
+    const int d = k / A.ql, kb = k - d * A.ql;
+    return P2 + ((((int64_t)d * A.ql + ip) * q + j) * A.ql + kb) * q + l;
+  };
+  for (int p = 0; p < ntp; ++p) {
+    int KT, LT;
+    tri(p, KT, LT);
+    const int k0 = KT * kTile, l0 = LT * kTile;
+    for (int r = ty; r < kTile; r += kRows) {
+      if (k0 + r < q && l0 + tx < q) {
+        const int64_t t = (int64_t)(k0 + r) * q + l0 + tx;
+        ta[r][tx] = ra[t] + rb[t];
+      }
+      if (KT != LT && l0 + r < q && k0 + tx < q) {
+        const int64_t t = (int64_t)(l0 + r) * q + k0 + tx;
+        tb[r][tx] = ra[t] + rb[t];
       }
     }
     __syncthreads();
-    for (int f = warp; f < q; f += kWarps)
-      for (int g = lane; g < q; g += 32)
-        S3[e * q2 + f * q + g] = s[f * qp + g] + s[g * qp + f];
-    return;
-  }
-  bid -= q;
-  // the local pair row (i, j), i = off + ip: S's row T[i, j] + T[j, i],
-  // the second received in recv (D, ql, ql, q^2) at [j / ql, j % ql, ip]
-  const int ip = (int)(bid / q), j = (int)(bid % q);
-  const int sr = j / A.ql, jb = j - sr * A.ql;
-  const T* ra = A.rows + ((int64_t)ip * q + j) * A.n + A.o;
-  const T* rb = recv + (((int64_t)sr * A.ql + jb) * A.ql + ip) * q2;
-#pragma unroll 4
-  for (int k = warp; k < q; k += kWarps)
-    for (int l = lane; l < q; l += 32) s[k * qp + l] = ra[k * q + l] + rb[k * q + l];
-  __syncthreads();
-  // P2's row into chunk k / ql of send (D, ql, q, ql, q)
-  for (int k = warp; k < q; k += kWarps) {
-    const int d = k / A.ql, kb = k - d * A.ql;
-    T* dst = send + ((((int64_t)d * A.ql + ip) * q + j) * A.ql + kb) * q;
-    for (int l = lane; l < q; l += 32) dst[l] = s[k * qp + l] + s[l * qp + k];
-  }
-}
-
-// P3[r, c] = P2[r, c] + P2[c, r] on the local rows r = (k, l) (R = ql q of
-// them) and all columns c = (i, j): P2's own rows from p2 = send2 (the
-// chunk c / (ql q) of row r), P2[c, r] from r2 = recv2, a (q^2, R)
-// matrix, staged by 32 x 32 tiles and read transposed
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rows_p3(int q, int ql, const T* __restrict__ p2, const T* __restrict__ r2,
-        T* __restrict__ P3) {
-  __shared__ T t[kTile][kTile + 1];
-  const int64_t R = (int64_t)ql * q, C = (int64_t)q * q;
-  const int64_t ntc = (C + kTile - 1) / kTile;
-  const int64_t r0 = (blockIdx.x / ntc) * kTile, c0 = (blockIdx.x % ntc) * kTile;
-  const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
-  for (int y = ty; y < kTile; y += kThreads / kTile) {
-    const int64_t c = c0 + y, r = r0 + tx;
-    if (c < C && r < R) t[y][tx] = r2[c * R + r];
-  }
-  __syncthreads();
-  for (int y = ty; y < kTile; y += kThreads / kTile) {
-    const int64_t r = r0 + y;
-    const int c = (int)(c0 + tx);
-    if (r < R && c < C) {
-      const int d = c / (int)R;
-      P3[r * C + c] = p2[((int64_t)d * R + r) * R + (c - d * R)] + t[tx][y];
+    const T(*tbt)[kTile + 1] = KT == LT ? ta : tb;
+    for (int r = ty; r < kTile; r += kRows) {
+      if (k0 + r < q && l0 + tx < q)
+        *dst(k0 + r, l0 + tx) = ta[r][tx] + tbt[tx][r];
+      if (KT != LT && l0 + r < q && k0 + tx < q)
+        *dst(l0 + r, k0 + tx) = tb[r][tx] + ta[tx][r];
     }
+    __syncthreads();
   }
+}
+
+// Y4's cubes: kCube^3 entries (j, k, l) of one i; sub-cubes staged with
+// padded strides (kC2, kC1, 1) against bank conflicts
+constexpr int kCube = 8;
+constexpr int kC1 = kCube + 1, kC2 = kCube * kC1 + 1, kSub = kCube * kC2;
+static_assert(kCube * kCube * kCube == 2 * kThreads,
+              "two cube entries a thread");
+
+// (A, B, C), A <= B <= C, of entry t of the tile triples taken C-major
+__device__ __forceinline__ void tet(int64_t t, int& A, int& B, int& C) {
+  int64_t c = (int64_t)cbrt(6.0 * (double)t);
+  while (c > 0 && c * (c + 1) * (c + 2) / 6 > t) --c;
+  while ((c + 1) * (c + 2) * (c + 3) / 6 <= t) ++c;
+  C = (int)c;
+  tri(t - c * (c + 1) * (c + 2) / 6, A, B);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-rows_final(RowBlocks<T> A, const T* __restrict__ P3, const T* __restrict__ S3,
+rows_final(RowBlocks<T> A, P2Runs<T> P, const T* __restrict__ S3,
            const T* __restrict__ y0part, T* __restrict__ flat,
            T* __restrict__ y4) {
-  const int q = A.q, qp = q + 1;
+  __shared__ T sm[6 * kSub];
+  const int q = A.q;
   const int64_t q2 = (int64_t)q * q;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  T* s = smem<T>();
+  const int nt = (q + kTile - 1) / kTile;
+  const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
+  constexpr int kRows = kThreads / kTile;
   int64_t bid = blockIdx.x;
-  const int64_t n4 = (int64_t)A.ql * q;
-  if (bid < n4) {
-    // Y4[i, :, k, :], i = off + ip: P3[i, l, k, j] staged as s[l][j] from
-    // the rows (i, l), then a warp per j, the lanes along l
-    const int ip = (int)(bid / q), k = (int)(bid % q), i = A.off + ip;
-    for (int l = warp; l < q; l += kWarps) {
-      const T* src = P3 + ((int64_t)ip * q + l) * q2 + (int64_t)k * q;
-      for (int j = lane; j < q; j += 32) s[l * qp + j] = src[j];
-    }
-    __syncthreads();
-    const T* p_ik = P3 + ((int64_t)ip * q + k) * q2;          // [j * q + l]
-    for (int j = warp; j < q; j += kWarps) {
-      const T* p_ij = P3 + ((int64_t)ip * q + j) * q2 + (int64_t)k * q;
-      T* out = y4 + (((int64_t)ip * q + j) * q + k) * q;
-      const bool ok = i != j && i != k && j != k;
-      for (int l = lane; l < q; l += 32) {
-        T v = T(0);
-        if (ok && l != i && l != j && l != k)
-          v = p_ij[l] + p_ik[(int64_t)j * q + l] + s[l * qp + j];
-        out[l] = v;
-      }
-    }
-    return;
-  }
-  bid -= n4;
-  if (bid < q) {
-    // Y3[a, :, :] from the partial S3; S3[c, a, b] staged, read transposed
-    const int a = (int)bid;
-    for (int c = warp; c < q; c += kWarps)
-      for (int b = lane; b < q; b += 32)
-        s[c * qp + b] = S3[((int64_t)c * q + a) * q + b];
+  // the short roles first: Y3 by tiles, y0, Y2's partial
+  if (bid < (int64_t)q * nt * nt) {
+    // Y3[a, b, c] on the tile (B, C); S3[c, a, b] staged, read transposed
+    T(*t)[kTile + 1] = reinterpret_cast<T(*)[kTile + 1]>(sm);
+    const int a = (int)(bid / (nt * nt)), bc = (int)(bid % (nt * nt));
+    const int b0 = bc / nt * kTile, c0 = bc % nt * kTile;
+    for (int r = ty; r < kTile; r += kRows)
+      if (c0 + r < q && b0 + tx < q)
+        t[r][tx] = S3[((int64_t)(c0 + r) * q + a) * q + b0 + tx];
     __syncthreads();
     T* y3 = flat + 1 + q + q2 + a * q2;
-    for (int b = warp; b < q; b += kWarps)
-      for (int c = lane; c < q; c += 32) {
-        T v = T(0);
-        if (a != b && a != c && b != c)
-          v = S3[((int64_t)a * q + b) * q + c] +
-              S3[((int64_t)b * q + a) * q + c] + s[c * qp + b];
-        y3[b * q + c] = v;
-      }
+    for (int r = ty; r < kTile; r += kRows) {
+      const int b = b0 + r, c = c0 + tx;
+      if (b >= q || c >= q) continue;
+      T v = T(0);
+      if (a != b && a != c && b != c)
+        v = S3[((int64_t)a * q + b) * q + c] +
+            S3[((int64_t)b * q + a) * q + c] + t[tx][r];
+      y3[(int64_t)b * q + c] = v;
+    }
     return;
   }
-  bid -= q;
+  bid -= (int64_t)q * nt * nt;
   if (bid == 0) {
     // y0: the partial rows in order, then the constant block
     if (threadIdx.x >= 32) return;
@@ -652,32 +713,118 @@ rows_final(RowBlocks<T> A, const T* __restrict__ P3, const T* __restrict__ S3,
     return;
   }
   --bid;
-  // Y2[a, b]'s partial, a thread a slot: P3's rows (a, c) at columns
-  // (c, b) and the single entries of this rank's rows
-  const int64_t t = bid * kThreads + threadIdx.x;
-  if (t >= q2) return;
-  const int a = (int)(t / q), b = (int)(t % q);
-  T acc = T(0);
-  if (a != b) {
-    if (A.local(a)) {
-      const T* pa = P3 + (int64_t)(a - A.off) * q * q2;
+  const int64_t ny2 = (q2 + kThreads - 1) / kThreads;
+  if (bid < ny2) {
+    // Y2[a, b]'s partial, a thread a slot: P3[a, c, c, b] = P2[a, c, c, b]
+    // + P2[c, b, a, c] over c, then the single entries of this rank's rows
+    const int64_t t = bid * kThreads + threadIdx.x;
+    if (t >= q2) return;
+    const int a = (int)(t / q), b = (int)(t % q);
+    T acc = T(0);
+    if (a != b) {
+      if (A.local(a)) {
+        const int ip = a - A.off;
 #pragma unroll 8
-      for (int c = 0; c < q; ++c)
-        if (c != a && c != b) acc += pa[(int64_t)c * q2 + c * q + b];
-      acc += A.F(a, b, 0) + A.F(a, b, 1) + A.K(a, a, b) + A.Tq(a, a, b, b);
+        for (int c = 0; c < q; ++c)
+          if (c != a && c != b)
+            acc += P.own_run(ip, c, c)[b] + P.tr_run(c, b, ip)[c];
+        acc += A.F(a, b, 0) + A.F(a, b, 1) + A.K(a, a, b) + A.Tq(a, a, b, b);
+      }
+      if (A.local(b))
+        acc += A.F(b, a, 0) + A.F(b, a, 1) + A.K(b, b, a) + A.Tq(b, b, a, a);
+      if (A.rep)
+        acc += A.G(a, b) + A.G(b, a) + A.E(0, a, b) + A.E(1, a, b) +
+               A.E(0, b, a) + A.E(1, b, a) + A.H(a, b, b) + A.H(b, a, a);
     }
-    if (A.local(b))
-      acc += A.F(b, a, 0) + A.F(b, a, 1) + A.K(b, b, a) + A.Tq(b, b, a, a);
-    if (A.rep)
-      acc += A.G(a, b) + A.G(b, a) + A.E(0, a, b) + A.E(1, a, b) +
-             A.E(0, b, a) + A.E(1, b, a) + A.H(a, b, b) + A.H(b, a, a);
+    flat[1 + q + t] = acc;
+    return;
   }
-  flat[1 + q + t] = acc;
+  bid -= ny2;
+  // Y4[i] (i = off + ip) by cubes: a block per ip and tile triple A <= B
+  // <= C, blocks i-major.  With U[z; x, y] = P3[i, z, x, y] = P2[i, z, x,
+  // y] + P2[x, y, i, z] (symmetric in x, y), Y4[i, j, k, l] = (U[j; k, l] +
+  // U[k; j, l]) + U[l; k, j], and every order of the triple reads the same
+  // three sub-cubes U[Z; X, Y] (Z one tile, X < Y the other two roles).
+  // Their P2 runs (own along y, tr along z) are staged by cp.async, U is
+  // formed once in place, and every distinct order of the triple is
+  // written from it.
+  const int nc = (q + kCube - 1) / kCube;
+  const int64_t ntri = (int64_t)nc * (nc + 1) * (nc + 2) / 6;
+  const int ip = (int)(bid / ntri), i = A.off + ip;
+  int tl[3];
+  tet(bid % ntri, tl[0], tl[1], tl[2]);
+  T* sR = sm;                      // [s][z][x][y]: P2[i, z, x, y]
+  T* sC = sm + 3 * kSub;           // [s][x][y][z]: P2[x, y, i, z]
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const int z0 = tl[s] * kCube, x0 = tl[s == 0 ? 1 : 0] * kCube,
+              y0 = tl[s == 2 ? 1 : 2] * kCube;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = threadIdx.x + h * kThreads;
+      const int c = e % kCube, b = e / kCube % kCube, a = e / (kCube * kCube);
+      const int at = s * kSub + a * kC2 + b * kC1 + c;
+      if (z0 + a < q && x0 + b < q && y0 + c < q)
+        cp_async_elem(sR + at, P.own_run(ip, z0 + a, x0 + b) + y0 + c);
+      else
+        sR[at] = T(0);
+      if (x0 + a < q && y0 + b < q && z0 + c < q)
+        cp_async_elem(sC + at, P.tr_run(x0 + a, y0 + b, ip) + z0 + c);
+      else
+        sC[at] = T(0);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  // U[z; x, y] = P2[i, z, x, y] + P2[x, y, i, z] once, in place of sR
+#pragma unroll
+  for (int s = 0; s < 3; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = threadIdx.x + h * kThreads;
+      const int z = e / (kCube * kCube), x = e / kCube % kCube,
+                y = e % kCube;
+      sR[s * kSub + z * kC2 + x * kC1 + y] +=
+          sC[s * kSub + x * kC2 + y * kC1 + z];
+    }
+  __syncthreads();
+  // U[z; .,.] from sub-cube s, the pair's roles r1, r2 at offsets c1, c2
+  auto U = [&](int s, int z, int r1, int c1, int r2, int c2) -> T {
+    const int x = r1 < r2 ? c1 : c2, y = r1 < r2 ? c2 : c1;
+    return sR[s * kSub + z * kC2 + x * kC1 + y];
+  };
+  constexpr int perm[6][3] = {{0, 1, 2}, {0, 2, 1}, {1, 0, 2},
+                              {1, 2, 0}, {2, 0, 1}, {2, 1, 0}};
+#pragma unroll
+  for (int p = 0; p < 6; ++p) {
+    const int pj = perm[p][0], pk = perm[p][1], pl = perm[p][2];
+    bool dup = false;                   // an earlier order's tiles
+#pragma unroll
+    for (int p2 = 0; p2 < p; ++p2)
+      dup |= tl[perm[p2][0]] == tl[pj] && tl[perm[p2][1]] == tl[pk] &&
+             tl[perm[p2][2]] == tl[pl];
+    if (dup) continue;                  // block-uniform
+    const int j0 = tl[pj] * kCube, k0 = tl[pk] * kCube, l0 = tl[pl] * kCube;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = threadIdx.x + h * kThreads;
+      const int ll = e % kCube, kk = e / kCube % kCube,
+                jj = e / (kCube * kCube);
+      const int j = j0 + jj, k = k0 + kk, l = l0 + ll;
+      if (j >= q || k >= q || l >= q) continue;
+      T v = T(0);
+      if (i != j && i != k && i != l && j != k && j != l && k != l)
+        v = U(pj, jj, pk, kk, pl, ll) + U(pk, kk, pj, jj, pl, ll) +
+            U(pl, ll, pk, kk, pj, jj);
+      y4[(((int64_t)ip * q + j) * q + k) * q + l] = v;
+    }
+  }
 }
 
-// one stage of the row-block mode: 0 rows_pack, 1 rows_pair, 2 rows_p3 and
-// rows_final.  ws: S3 (q^3), y0part (q), then three buffers of ql q^3:
-// send1 / send2, recv1 / P3, recv2.
+// one stage of the row-block mode: 0 rows_pack (several ranks only), 1
+// rows_pair, 2 rows_final.  ws: S3 (q^3), y0part (q), then P2 (ql q^3:
+// the (q^2, q^2) buffer at one rank, send1 / send2 otherwise) and, with
+// several ranks, recv1 / recv2 (ql q^3).
 template <typename T>
 int launch_rows(const void* top, const void* rows, int q, int off, int ql,
                 int rep, int stage, void* flat, void* y4, void* ws,
@@ -687,30 +834,30 @@ int launch_rows(const void* top, const void* rows, int q, int off, int ql,
   RowBlocks<T> A{(const T*)top, (const T*)rows, 2 + q + (int64_t)q * q, q,
                  2 + q, off, ql, rep != 0};
   const int64_t q2 = (int64_t)q * q, blk = (int64_t)ql * q * q2;
+  const bool one = ql == q;
   T* S3 = (T*)ws;
   T* y0part = S3 + q2 * q;
   T* bufA = y0part + q;
-  T* bufB = bufA + blk;
-  T* bufC = bufB + blk;
+  T* bufB = one ? nullptr : bufA + blk;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t slab = sizeof(T) * (size_t)q * (q + 1);
   const int64_t nrow = (int64_t)ql * q;
+  const int nt = (q + kTile - 1) / kTile;
   if (stage == 0) {
-    const unsigned g = (unsigned)((2 * q + kWarps - 1) / kWarps + nrow);
-    rows_pack<T><<<g, kThreads, 0, s>>>(A, (T*)flat, y0part, bufA);
+    if (one) return (int)cudaErrorInvalidValue;      // nothing to exchange
+    rows_pack<T><<<(unsigned)nrow, kThreads, 0, s>>>(A, bufA);
   } else if (stage == 1) {
-    cudaError_t err = allow_smem(rows_pair<T>, slab);
-    if (err != cudaSuccess) return (int)err;
-    rows_pair<T><<<(unsigned)(q + nrow), kThreads, slab, s>>>(A, bufB, bufA, S3);
+    const int64_t nwarp = (2 * q + kWarps - 1) / kWarps;
+    const int64_t tasks = one ? (int64_t)q * (q + 1) / 2 : nrow;
+    const unsigned g =
+        (unsigned)(nwarp + (int64_t)q * (nt * (nt + 1) / 2) + tasks);
+    rows_pair<T><<<g, kThreads, 0, s>>>(A, bufB, bufA, S3, (T*)flat, y0part);
   } else if (stage == 2) {
-    const int64_t tiles = ((nrow + kTile - 1) / kTile) * ((q2 + kTile - 1) / kTile);
-    rows_p3<T><<<(unsigned)tiles, kThreads, 0, s>>>(q, ql, bufA, bufC, bufB);
-    cudaError_t err = cudaGetLastError();
-    if (err == cudaSuccess) err = allow_smem(rows_final<T>, slab);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned g = (unsigned)(nrow + q + 1 + (q2 + kThreads - 1) / kThreads);
-    rows_final<T><<<g, kThreads, slab, s>>>(A, bufB, S3, y0part, (T*)flat,
-                                            (T*)y4);
+    P2Runs<T> P{bufA, one ? bufA : bufB, q, ql};
+    const int64_t nc = (q + kCube - 1) / kCube;
+    const int64_t ntri = nc * (nc + 1) * (nc + 2) / 6;
+    const unsigned g = (unsigned)((int64_t)q * nt * nt + 1 +
+                                  (q2 + kThreads - 1) / kThreads + ql * ntri);
+    rows_final<T><<<g, kThreads, 0, s>>>(A, P, S3, y0part, (T*)flat, (T*)y4);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -743,9 +743,11 @@ def symdual_apply_rows(top, rows, q: int, off: int, a2a, reduce):
     dim 0 to rank g) and ``reduce(t)`` the sum over them in place.
     Returns (y0, y1, Y2, Y3, Y4_local): y0 .. Y3 whole on every rank (views
     of one flat buffer), Y4's rows [off, off + ql) (ql, q, q, q); every
-    repeated-index slot 0.  Two all-to-alls and one all-reduce (of the
-    flat 1 + q + q^2 + q^3 partial); the rank with off = 0 adds the
-    replicated rows' terms."""
+    repeated-index slot 0.  One all-reduce (of the flat 1 + q + q^2 + q^3
+    partial) and, at D > 1, two all-to-alls (``a2a`` is never called at
+    D = 1); the rank with off = 0 adds the replicated rows' terms.  No
+    shared memory depends on q, so q has no ceiling.  Workspace: q^3 + q +
+    q^4 entries at D = 1, q^3 + q + 2 q^4 / D at D > 1."""
     ql = rows.shape[0]
     _rows_shape(q, ql, off)
     if not _on_cuda(top, rows):
@@ -757,27 +759,28 @@ def symdual_apply_rows(top, rows, q: int, off: int, a2a, reduce):
         raise ValueError(f"top must be contiguous ({2 + q}, {n}) and rows "
                          f"({ql}, {q}, {n}), got {tuple(top.shape)}, "
                          f"{tuple(rows.shape)}")
-    _check_slab(q, top)
     D, dev, dt = q // ql, top.device, top.dtype
     flat = torch.empty((1 + q + q * q + q ** 3,), dtype=dt, device=dev)
     y4 = torch.empty((ql, q, q, q), dtype=dt, device=dev)
     blk = ql * q ** 3
-    # S3, y0's partial rows, send1 / send2, recv1 / P3, recv2
-    ws = torch.empty((q ** 3 + q + 3 * blk,), dtype=dt, device=dev)
+    # S3, y0's partial rows, P2 (send1 / send2 at D > 1) and, at D > 1,
+    # recv1 / recv2
+    nbuf = 1 if D == 1 else 2
+    ws = torch.empty((q ** 3 + q + nbuf * blk,), dtype=dt, device=dev)
     bufs = [ws[q ** 3 + q + k * blk:q ** 3 + q + (k + 1) * blk].view(D, -1)
-            for k in range(3)]
+            for k in range(nbuf)]
     fn = getattr(build(), f"symdual_apply_rows_{_SUFFIX[dt]}")
-    # the all-to-alls after stages 0 and 1: send1 -> recv1, send2 -> recv2
-    exchanges = ((bufs[0], bufs[1]), (bufs[0], bufs[2]), None)
-    for stage, exchange in enumerate(exchanges):
+    # one rank: the pair pass and the final pass, no exchange; several:
+    # the pack, then an all-to-all after it and after the pair pass
+    for stage in ((1, 2) if D == 1 else (0, 1, 2)):
         err = fn(top.data_ptr(), rows.data_ptr(), q, off, ql, int(off == 0),
                  stage, flat.data_ptr(), y4.data_ptr(), ws.data_ptr(),
                  _stream(top))
         if err != 0:
             raise RuntimeError(f"symdual_apply launch failed: CUDA error "
                                f"{err}")
-        if exchange is not None:
-            a2a(*exchange)
+        if D > 1 and stage < 2:
+            a2a(*bufs)
     reduce(flat)
     _launched("symdual_apply", dt)
     SYMDUAL_APPLY_LAUNCHES["rows"] += 1

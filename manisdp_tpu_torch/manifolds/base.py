@@ -8,7 +8,32 @@ rows to zero rows.
 
 from __future__ import annotations
 
+from typing import Protocol
+
 import torch
+
+
+class Manifold(Protocol):
+    """Static-method protocol of the manifolds (Oblique, Sphere,
+    Euclidean) on tensors; implementations are plain classes."""
+
+    @staticmethod
+    def inner(x, u, v): ...
+
+    @staticmethod
+    def norm(x, u): ...
+
+    @staticmethod
+    def proj(x, u): ...
+
+    @staticmethod
+    def retr(x, u): ...
+
+    @staticmethod
+    def zerovec(x): ...
+
+    @staticmethod
+    def typicaldist(p, n): ...
 
 
 def frob_inner(x, u, v):

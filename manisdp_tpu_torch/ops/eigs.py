@@ -1,5 +1,6 @@
-"""Dual-certificate result, the Lanczos spectral bound and the LOBPCG
-certificate of ``cert_method="lobpcg"`` (PyTorch port of
+"""Dual-certificate result, the exact (dense eigh) certificate, the
+Lanczos spectral bound, the LOBPCG certificate of ``cert_method="lobpcg"``
+and the ``dual_certificate`` dispatch over them (PyTorch port of
 manisdp_tpu/ops/eigs.py).
 
 The JAX package carries four copies of the Lanczos pass (ops/eigs.py:65,
@@ -30,6 +31,16 @@ class CertResult(NamedTuple):
     num_neg: Any       # negative Ritz-value count (see docstring)
     neg_vecs: Any      # (n, k) Ritz vectors of the k smallest Ritz values
     neg_vals: Any      # (k,) the k smallest Ritz values, ascending
+
+
+def eigh_certificate(S_dense, k: int) -> CertResult:
+    """Exact certificate from a dense symmetric S (``torch.linalg.eigh``
+    on S's device): the extreme eigenvalues, the count of negative ones,
+    and the bottom k eigenpairs (vectors (n, k))."""
+    vals, vecs = torch.linalg.eigh(S_dense)
+    return CertResult(lam_min=vals[0], lam_max=vals[-1],
+                      num_neg=torch.sum(vals < 0), neg_vecs=vecs[:, :k],
+                      neg_vals=vals[:k])
 
 
 def lanczos_bounds(matvec_rows: Callable, v0: torch.Tensor,
@@ -102,3 +113,25 @@ def lobpcg_certificate(matvec_rows: Callable, n: int, k: int,
     if info is not None:
         info.update(solver.last)
     return res
+
+
+def dual_certificate(method: str, n: int, k: int, *, S_dense=None,
+                     matvec_rows: Callable = None,
+                     gen: Optional[torch.Generator] = None,
+                     lobpcg_tol: float = 1e-9,
+                     eig_switch_n: int = 2049) -> CertResult:
+    """Dispatch of the JAX package's ``dual_certificate``: ``"eigh"`` (the
+    dense S), ``"lobpcg"`` (``matvec_rows(V) = V S`` on (rows, n) V, the
+    random draws from ``gen`` in place of the key) or ``"auto"`` (eigh
+    below ``eig_switch_n``, else lobpcg)."""
+    if method == "auto":
+        method = "eigh" if n < eig_switch_n else "lobpcg"
+    if method == "eigh":
+        if S_dense is None:
+            raise ValueError("eigh certificate needs S_dense")
+        return eigh_certificate(S_dense, k)
+    if method == "lobpcg":
+        if matvec_rows is None or gen is None:
+            raise ValueError("lobpcg certificate needs matvec_rows and gen")
+        return lobpcg_certificate(matvec_rows, n, k, gen, tol=lobpcg_tol)
+    raise ValueError(f"unknown eig method {method!r}")

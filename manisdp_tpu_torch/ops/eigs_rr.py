@@ -310,3 +310,19 @@ class DeviceCertSolver:
         s_lower = th - corr
         return (s_lower[0], num_neg, X[:k], th[:k],
                 torch.max(resid[:k]))
+
+
+def lobpcg_rows(matvec_rows: Callable, n: int, k: int, gen: torch.Generator,
+                maxiter: int = 200, tol: float = 1e-9, deflate=None,
+                X0=None, matvec32: Optional[Callable] = None,
+                switch_tol: float = 1e-5) -> CertResult:
+    """One-shot wrapper (tests / ad-hoc use), the JAX package's
+    ``lobpcg_rows``: the rowrr solve on ``DeviceCertSolver`` (linear
+    bound, block cap 24, ``deflate`` the factor whose strong directions
+    augment the block) with ``matvec_rows(V) = V S``, random draws from
+    ``gen``."""
+    rows = 0 if deflate is None else deflate.shape[0]
+    solver = DeviceCertSolver(n, k, deflate_rows=rows, bound="linear")
+    return solver.solve(matvec_rows, gen, X0=X0, Ydefl=deflate,
+                        maxiter=maxiter, tol=tol, matvec32_rows=matvec32,
+                        switch_tol=switch_tol)

@@ -277,21 +277,26 @@ def _rank_main(rank, fn, world, backend, device, tmp, args, threads):
 
 
 def spawn_ranks(fn: Callable, world: int, backend: str = "gloo",
-                device="cpu", args: tuple = (),
+                device="cuda", args: tuple = (),
                 threads: Optional[int] = None) -> list:
     """Run ``fn(*args)`` on ``world`` ranks, each a spawned process with the
     default process group initialized (``backend``) and its device set,
     and return the ranks' return values in rank order.
 
-    ``device``: "cpu"; "cuda" puts rank r on cuda:(r % cards); "cuda:0"
-    puts every rank on card 0 (gloo only: NCCL refuses two ranks on one
-    card).  The rendezvous is a FileStore in a temporary directory.
+    ``device``: "cuda" (the default) puts rank r on cuda:(r % cards) and
+    raises without a card, before any rank starts; "cuda:0" puts every
+    rank on card 0 (gloo only: NCCL refuses two ranks on one card); "cpu"
+    runs the ranks on the CPU, only when asked.  The rendezvous is a FileStore in a temporary directory.
     ``threads``: torch and BLAS threads per rank (the BLAS variables are
     set for the children only).  ``fn`` and ``args`` must pickle: ``fn``
     a function defined at a module's top level.  A rank that raises makes
     this raise, with its traceback."""
     import torch.multiprocessing as mp
     dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device!r} but torch finds no CUDA "
+                           "device; pass device='cpu' to run the ranks on "
+                           "the CPU")
     backend = _backend_for(dev, backend)
     if backend == "nccl":
         cards = torch.cuda.device_count()

@@ -16,8 +16,9 @@ Here every q^4 object is sharded over the ranks of one mesh axis
 ``apply`` (the class sums) is kernel K7's row-block mode
 (``kernels.symdual_apply_rows``): the pair swap (1, 0, 2, 3) and the
 swap of the pairs (2, 3, 0, 1) of the degree-4 symmetrization cross the
-shards, one ``all_to_all`` each (``distributed.all_to_all``); the
-partial sums of degrees 0-3 are all-reduced once.  ``adjoint`` (the
+shards, one ``all_to_all`` each (``distributed.all_to_all``; none at
+D = 1, where every row is local); the partial sums of degrees 0-3 are
+all-reduced once.  ``adjoint`` (the
 masked broadcast) is K8's row-block mode
 (``kernels.symdual_adjoint_rows``): a rank's output rows depend only on
 y0 .. Y3 and its own Y4 rows, so it needs no communication.  On CPU
@@ -25,8 +26,10 @@ tensors both run their plain twins, the torch ports of the JAX
 functions (ops/symdual.py ``_apply_sharded_tensor``,
 ``_adjoint_sharded_tensor``), with the same collectives.
 
-Per-rank memory is about 4 q^4 / D + O(q^3) during an apply (the local
-Q block, two all-to-all buffers and Y4's rows).
+Per-rank memory is about 4 q^4 / D + O(q^3) during an apply at D > 1
+(the local Q block, the two all-to-all buffers, which hold P2's own rows
+and the received columns in turn, and Y4's rows), 3 q^4 + O(q^3) at
+D = 1 (one q^4 workspace).
 """
 
 from __future__ import annotations

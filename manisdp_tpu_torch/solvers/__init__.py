@@ -1,0 +1,3 @@
+from .common import SDPResult
+
+__all__ = ["SDPResult"]

@@ -141,6 +141,16 @@ class RankController:
         return nne
 
 
+def sigma_update(sigma: float, pinf: float, gradnorm: float, opt) -> float:
+    """Self-adaptive penalty schedule (ManiSDP_unitdiag.m:108-112):
+    ``opt`` a SolverOptions (tau1, tau2, gama, sigma_min, sigma_max)."""
+    if pinf < opt.tau1 * gradnorm:
+        return max(sigma / opt.gama, opt.sigma_min)
+    elif pinf > opt.tau2 * gradnorm:
+        return min(sigma * opt.gama, opt.sigma_max)
+    return sigma
+
+
 class SlowProgress:
     """Every ``period`` iterations: if none of the tracked residuals
     improved since the previous checkpoint (and iter > warmup), flag

@@ -725,6 +725,96 @@ def test_symdual_row_modes_match_on_card(cuda_device, dtype, q):
         assert torch.equal(torch.cat(parts), W[2 + q:])
 
 
+def _no_exchange(send, recv):
+    raise AssertionError("an all-to-all at one rank")
+
+
+def _grid(q, dtype, device, seed):
+    """A seeded (n~, n~) M on the card, its top rows and its Q grid."""
+    n = 2 + q + q * q
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    M = torch.randn((n, n), generator=gen, dtype=torch.float64,
+                    device=device).to(dtype)
+    return M, M[:2 + q].contiguous(), M[2 + q:].reshape(q, q, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("D", [1, 4])
+@pytest.mark.parametrize("q", [12, 60])
+def test_symdual_apply_rows_ranks_on_card(cuda_device, dtype, D, q):
+    """K7's row-block mode over D ranks in one process (a thread per rank,
+    the all-to-all by slicing the ranks' send buffers:
+    chip_smoke.rows_in_one_process) against its twin with the same
+    collectives, run in f64 on the same inputs: 1e-14 (f64) / 1e-6 (f32)
+    relative; a second call gives the same bits."""
+    tol = 1e-14 if dtype == torch.float64 else 1e-6
+    _, top, rows = _grid(q, dtype, cuda_device, 100 + q)
+    run = chip_smoke.rows_in_one_process
+    got = run(K.symdual_apply_rows, top, rows, q, D)
+    again = run(K.symdual_apply_rows, top, rows, q, D)
+    twin = run(K.symdual_apply_rows_plain, top.double(), rows.double(), q,
+               D)
+    for g, a, t in zip(got, again, twin):
+        assert g.dtype == dtype and g.shape == t.shape
+        assert _rel(g, t) <= tol
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_symdual_apply_rows_one_rank_on_card(cuda_device, dtype):
+    """At one rank K7's row-block mode never calls the all-to-all, equals
+    the full-mode kernel's Y4 bit for bit (and y0 .. Y3 to 1e-12 / 1e-5
+    relative, as test_symdual_row_modes_match_on_card), and allocates no
+    more than its outputs and its q^3 + q + q^4 workspace."""
+    q = 33
+    M, top, rows = _grid(q, dtype, cuda_device, 7)
+    full = K.symdual_apply(M, q)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # bytes requested (the allocator may hand out larger cached blocks)
+    stat = "requested_bytes.all.{}"
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_stats(cuda_device)[stat.format("current")]
+    got = K.symdual_apply_rows(top, rows, q, 0, _no_exchange, lambda t: t)
+    torch.cuda.synchronize()
+    peak = torch.cuda.memory_stats(cuda_device)[stat.format("peak")] - base
+    entries = (1 + q + q * q + q ** 3 + q ** 4) + (q ** 3 + q + q ** 4)
+    assert peak <= entries * M.element_size()
+    assert torch.equal(got[4], full[4])
+    # y0 .. Y3 sum their terms in another order than the full mode
+    for g, f in zip(got, full):
+        assert _rel(g, f) <= (1e-12 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.cuda
+def test_symdual_apply_rows_past_the_slab_on_card(cuda_device):
+    """K7's row-block mode at q = 170 in f64, whose q x (q + 1) slab
+    (232,560 bytes) would exceed a block's 232,448 bytes of shared memory:
+    it runs, and every degree is within 1e-13 (of the largest sum) of the
+    class sums by index_add_ (chip_smoke.class_sums; the twin's q^4
+    temporaries would not fit the card)."""
+    q = 170
+    assert q * (q + 1) * 8 > 232_448
+    M, top, rows = _grid(q, torch.float64, cuda_device, 170)
+    got = K.symdual_apply_rows(top, rows, q, 0, _no_exchange, lambda t: t)
+    canon = chip_smoke.symdual_canonical_slots(q, cuda_device)
+    cls = chip_smoke.symdual_class_map(q, cuda_device, kernel=True,
+                                       canonical=canon).view(-1)
+    canon = canon.long()
+    sums = chip_smoke.class_sums(torch.empty_like(canon, dtype=M.dtype), cls,
+                                 M)
+    del cls, M, top, rows
+    errs, big = chip_smoke.class_sums_errors(got, sums, canon, q)
+    assert max(errs) / big <= 1e-13
+    del got, sums, canon
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _dontcare(q):
     from manisdp_tpu_torch.ops.symdual import _dontcare_mask
     return torch.as_tensor(_dontcare_mask(q))

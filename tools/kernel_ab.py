@@ -29,7 +29,8 @@ process sees the same bits):
     instances (a stopped instance's is never read);
   - on a tree with the row-block and split modes (slice 6b), each at one
     rank (the collectives the identity): K7 ``rows`` and K8 ``rows`` (the
-    rows of a quarter of the grid at offset 15) at q = 60, and every K11
+    rows of a quarter of the grid at offset 15) at q = 60, K7 ``rows_d4``
+    over four ranks in one process (the all-to-all by slicing), every K11
     case above again in split mode (``*_split``: its hash must equal the
     one launch's);
 in f32 and f64.  Each tree also solves the G67 stand-in and the sparse
@@ -230,7 +231,7 @@ def child(tree):
     qs30 = k11_qs30_cases(cs, K, rnd, run, dev, steps)
     if hasattr(K, "symdual_apply_rows"):
         # last: its draws from ``rnd`` must not move the other cases' inputs
-        row_cases(K, rnd, dtypes, run)
+        row_cases(cs, K, rnd, dtypes, run)
     print(json.dumps(dict(tree=tree, cases=cases, solves=solves,
                           tcg_iteration=host, qs30_k11=dict(
                               qs30, by_shape=steps))), flush=True)
@@ -292,10 +293,12 @@ def k8_cases(K, rnd, dtypes, run, dev):
                     (Y64.to(dt), Q, renorm), {}, p=p)
 
 
-def row_cases(K, rnd, dtypes, run):
+def row_cases(cs, K, rnd, dtypes, run):
     """K7's and K8's row-block modes at q = 60 and one rank: apply on the
     whole grid (the all-to-all a copy, the all-reduce the identity), the
-    adjoint of the Y4 rows [15, 30)."""
+    adjoint of the Y4 rows [15, 30); then the apply over D = 4 ranks in
+    this process (chip_smoke.rows_in_one_process: a thread per rank, the
+    all-to-all by slicing the ranks' send buffers)."""
     from manisdp_tpu_torch.ops.symdual import _split
     n, o, ql = 2 + Q + Q * Q, 2 + Q, Q // 4
     M64 = rnd(n, n)
@@ -312,6 +315,14 @@ def row_cases(K, rnd, dtypes, run):
         yl = y[:4] + (y[4][ql:2 * ql].contiguous(),)
         run("symdual_adjoint.rows", dt, K.symdual_adjoint_rows,
             K.symdual_adjoint_rows_plain, (yl, Q, ql), {}, q=Q)
+    for dt in dtypes:
+        M = M64.to(dt)
+        top, rows = M[:o].contiguous(), M[o:].reshape(Q, Q, n)
+        run("symdual_apply.rows_d4", dt,
+            lambda *a: cs.rows_in_one_process(K.symdual_apply_rows, *a),
+            lambda *a: cs.rows_in_one_process(K.symdual_apply_rows_plain,
+                                              *a),
+            (top, rows, Q, 4), {}, q=Q, ranks=4)
 
 
 def k2_cases(cs, K, rnd, dtypes, run):
