@@ -111,15 +111,20 @@ not 0):
  24. the sharded paths (``parallel/``), each rank a process started by
      ``parallel.spawn_ranks``: mc-12000 (phase 7's instance and options)
      through ``solve_sdp(mesh=)`` over the constraint operator sharded by
-     pattern id (K3 / K4 / K1 per shard, all-reduces between) on NCCL at
-     world size 1 (24a), then on gloo at world size 2 with both ranks on
+     pattern id (K3 / K4 / K1 per shard, K1 / K3 on the shard's columns,
+     the column blocks joined by all-gathers, true sums all-reduced) on
+     NCCL at world size 1 (24a), then on gloo at world size 2 with both
+     ranks on
      card 0 (24b; first each shard's apply_factored, adjoint_on_pattern,
      matmat_pattern, matvec_pattern and AL Hessian against the unsharded
      operator's, and each shard's K3 / K4 / K1 against its plain twin at
      the shard's shapes, 1e-12 f64 / 1e-5 f32), each at status 0 with
      the on-card oracle <= 1e-8, within 1e-6 of phase 7's (24a) and
      24a's (24b) objective, every rank bit-equal and launching K1, K3, K4
-     and K11;
+     and K11 (at world 2 K1 and K3 on its columns); before the spawns,
+     each world-2 and world-4 piece's K1 ``al_hess`` / ``plain`` and K3
+     built and timed in this process beside the whole pattern's and the
+     twins (``piece_times``);
      phase 21's sparse batch through ``solve_maxcut_batch(mesh=)`` over a
      2-rank batch axis on gloo (24c), every instance within 1e-6 of phase
      21's; with two or more cards, 24a again on NCCL across min(4, cards)
@@ -250,6 +255,8 @@ CHAIN5_T = 5
 SHARD_GLOO_WORLD = 2
 SHARD_NCCL_MAX = 4
 SHARD_P, SHARD_K, SHARD_SIGMA = AL_HOT_P_PAD, 11, 0.37
+# the world sizes whose pieces phase 24 times in the main process
+SHARD_PIECE_WORLDS = (2, 4)
 # phase 25 (slice 6b): the row-sharded SOS-dual operator at q = 120 on
 # NCCL (25a, 25e) and q = 60 over gloo ranks on card 0 (25b); the G67-size
 # dense MaxCut RTR column-sharded at p = 40 (25c, 25e); the batch of
@@ -3019,6 +3026,100 @@ def shard_times(sop, path):
     return dict(kernels=rows, all_reduce=reduces)
 
 
+def piece_times(arrays, worlds, device, seed=24, p=SHARD_P):
+    """The sharded operator's per-shard K1 ``al_hess`` (its two products,
+    no epilogue, as a shard launches it), K1 ``plain`` (one factor: beside
+    ``al_hess``, whether the walk waits on its gathers) and K3, f32 and
+    f64, on every rank's piece of ``partition(arrays, world)`` for each
+    world size (1: the whole pattern, in the same call), each piece built
+    in this process with ``ShardedConstraintOp.from_piece(...).local``: no
+    ranks are spawned.  Each row: the kernel's ms and its twin's (the
+    twin's relative error), the bound from the piece's own bytes (the
+    factors' rows its entries read, its pattern's rows, column pointers and
+    values, its output; HBM rate), the whole pattern's ms, for K3
+    ``sampled_addmm`` on the piece's pattern, and a hash of the output
+    (K1's on the piece's columns, so a package whose K1 writes all n
+    columns hashes alike).  ``device`` "cpu" runs the twins untimed."""
+    import hashlib
+    import torch
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch.parallel.sharded_ops import (ShardedConstraintOp,
+                                                        partition)
+    dev = torch.device(device)
+    timed = time_ms if dev.type == "cuda" else (lambda fn: float("nan"))
+    n = int(arrays["n"])
+
+    def digest(t):
+        return hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                              .tobytes()).hexdigest()[:16]
+
+    rows, whole = [], {}
+    for world in (1,) + tuple(worlds):
+        for rank, piece in enumerate(partition(arrays, world)):
+            o64 = ShardedConstraintOp.from_piece(piece, arrays, rank, world,
+                                                 dev).local
+            c0, c1 = int(piece["pat_j"][0]), int(piece["pat_j"][-1]) + 1
+            r0, r1 = int(piece["pat_i"].min()), int(piece["pat_i"].max()) + 1
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed + 1000 * world + rank)
+            rnd = lambda *sh: torch.randn(  # noqa: E731
+                sh, generator=gen, dtype=torch.float64, device=dev)
+            Y64 = K.oblique_cols_plain(rnd(p, n), None, "renormalize")
+            U64 = K.oblique_cols_plain(Y64, rnd(p, n), "proj")
+            es64, ayu64 = rnd(o64.pat.nnz), rnd(o64.pat.nnz)
+            for dt in (torch.float32, torch.float64):
+                o = o64.astype(dt)
+                Y, U, es, ayu = (t.to(dt) for t in (Y64, U64, es64, ayu64))
+                coefs = (2.0, 4.0 * SHARD_SIGMA)
+                nP, name = o.pat.nnz, str(dt)[6:]
+                esz = torch.empty((), dtype=dt).element_size()
+                fac, ptrs = p * esz, 4 * (c1 - c0 + 1)
+                Pz = csr(o.pat.colptr, o.pat.i, torch.zeros_like(o.pat.v),
+                         (n, n))
+                cases = (
+                    ("symcoo_spmm.al_hess",
+                     lambda: o.al_hess(U, Y, es, ayu, coefs),
+                     lambda: K.symcoo_spmm_plain(
+                         U, o.pat, "al_hess", vals=es, B=Y, vals2=ayu,
+                         coefs=coefs),
+                     2 * (r1 - r0) * fac + nP * (4 + 2 * esz) + ptrs +
+                     (c1 - c0) * fac, 4.0 * nP * p, None),
+                    ("symcoo_spmm.plain", lambda: o.matmat_pattern(U, es),
+                     lambda: K.symcoo_spmm_plain(U, o.pat, "plain",
+                                                 vals=es),
+                     (r1 - r0) * fac + nP * (4 + esz) + ptrs +
+                     (c1 - c0) * fac, 2.0 * nP * p, None),
+                    ("pattern_dots", lambda: o.pattern_pair_dots(Y, U),
+                     lambda: K.pattern_dots_plain(Y, U, o.pat),
+                     (r1 - r0) * fac + (c1 - c0) * fac + nP * (4 + esz) +
+                     ptrs, 2.0 * nP * p,
+                     lambda: torch.sparse.sampled_addmm(
+                         Pz, U.T.contiguous(), Y, beta=0.0)))
+                for kern, fn, twin, nbytes, flops, lib in cases:
+                    got, ref = fn(), twin()
+                    if kern != "pattern_dots" and got.shape[-1] == n:
+                        got, ref = got[:, c0:c1], ref[:, c0:c1]
+                    err, rel = max_err(got, ref)
+                    b_ms, b_by = bound(nbytes, flops, name)
+                    row = dict(world=world, rank=rank, kernel=kern,
+                               dtype=name, p=p, nnzP=nP, cols=[c0, c1],
+                               rows=[r0, r1], max_abs_err=err, rel_err=rel,
+                               hash=digest(got), ms=timed(fn),
+                               plain_ms=timed(twin), bound_ms=b_ms,
+                               bound_by=b_by, library_ms=None)
+                    if lib is not None:
+                        row["library_ms"] = timed(lib)
+                    if world == 1:
+                        whole[kern, name] = row["ms"]
+                    row["whole_ms"] = whole.get((kern, name))
+                    rows.append(row)
+                del Pz
+            del o64
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return rows
+
+
 def launches_24b(name, rank):
     """A ``kernels``-line row's launches in one 24b rank's solve: the
     kernel's count for a row named by the kernel alone, its mode's count
@@ -3083,6 +3184,7 @@ def shard_rank(paths, check_path, kw):
                oblique_modes=dict(K.OBLIQUE_LAUNCHES),
                csr_modes=dict(K.CSR_LAUNCHES),
                instance_launches=dict(K.INSTANCE_LAUNCHES),
+               span_launches=dict(K.SPAN_LAUNCHES),
                collectives=dict(K.COLLECTIVES),
                history=[dict(gap=h["gap"], pinf=h["pinf"], dinf=h["dinf"])
                         for h in res.history],
@@ -3178,6 +3280,19 @@ def shard_phases(device, rec, keep):
         check_path = os.path.join(tmp, "checks.npz")
         np.savez(check_path, **shard_inputs(op_mc, device, 24))
         out["setup_s"] = time.perf_counter() - t0
+        # each world-2 and world-4 piece's K1 / K3 in this process, beside
+        # the whole pattern's and the twins
+        t0 = time.perf_counter()
+        out["pieces"] = piece_times(arrays, SHARD_PIECE_WORLDS, device)
+        emit(dict(phase="mc12000_shard_pieces",
+                  seconds=time.perf_counter() - t0, rows=out["pieces"]))
+        for r in out["pieces"]:
+            if not r["rel_err"] <= (1e-12 if r["dtype"] == "float64"
+                                    else 1e-5):
+                raise AssertionError(
+                    f"24: {r['kernel']} ({r['dtype']}) on piece "
+                    f"{r['rank']} of {r['world']} against its twin: "
+                    f"relative error {r['rel_err']}")
         del arrays
 
         def rel(a, b):
@@ -3209,6 +3324,11 @@ def shard_phases(device, rec, keep):
                     if r["launches"][name] <= 0:
                         raise AssertionError(f"24{label}: rank {r['rank']} "
                                              f"never launched {name}")
+                    if world > 1 and name in r["span_launches"] and \
+                            r["span_launches"][name] <= 0:
+                        raise AssertionError(
+                            f"24{label}: rank {r['rank']} never launched "
+                            f"{name} on its shard's columns")
             if not oracle["eta"] <= 1e-8:
                 raise AssertionError(f"24{label}: KKT oracle {oracle}")
             for r in ranks[1:]:
@@ -3754,6 +3874,40 @@ def rank_jobs(jobs):
     list of (name, function name in this module, kwargs); returns
     {name: result}."""
     return {name: globals()[fn](**kw) for name, fn, kw in jobs}
+
+
+def shard_piece_rows(rec):
+    """The ``kernels`` line's rows of K1 and K3 on a shard's columns (the
+    sharded operator's mode): launches from rank 0 of 24b (gloo, world 2;
+    K1's in every mode), times from phase 24's main-process run of the
+    world-2 piece of rank 0 in f32 (K1 ``al_hess``, the tCG's Hessian),
+    each row's max_abs_err the worst over every piece and both dtypes;
+    beside them the world-4 pieces' times and the whole pattern's in the
+    same call."""
+    pieces, r0 = rec["pieces"], rec["b"]["ranks"][0]
+    out = []
+    for name, kern, rep, lib in (
+            ("symcoo_spmm.span", "symcoo_spmm.al_hess",
+             "parallel/sharded_ops.py:213", None),
+            ("pattern_dots.span", "pattern_dots",
+             "parallel/sharded_ops.py:178",
+             "torch.sparse.sampled_addmm on the piece's pattern")):
+        mine = [r for r in pieces if r["kernel"] == kern]
+        hot = next(r for r in mine if r["world"] == 2 and r["rank"] == 0
+                   and r["dtype"] == "float32")
+        out.append(dict(
+            name=name, route="cuda",
+            source=f"manisdp_tpu_torch/csrc/{kern.split('.')[0]}.cu",
+            replaces=f"manisdp_tpu/{rep}",
+            launches=r0["span_launches"][kern.split(".")[0]],
+            max_abs_err=max(r["max_abs_err"] for r in mine if r["world"] > 1),
+            ms=hot["ms"], plain_ms=hot["plain_ms"], bound_ms=hot["bound_ms"],
+            bound_by=hot["bound_by"], library_ms=hot["library_ms"],
+            library=lib or "none: no single PyTorch call computes it",
+            whole_ms=hot["whole_ms"],
+            pieces={f"w{r['world']}r{r['rank']}_{r['dtype']}": [
+                r["ms"], r["bound_ms"]] for r in mine if r["world"] > 1}))
+    return out
 
 
 def sharded_6b_rows(rec):
@@ -4498,6 +4652,8 @@ def run_phases(args, jobs):
             rec["batch"]["sparse"]["launches"]["tcg_step"])),
     ]
     kern = []
+    if 24 in ph:
+        kern += shard_piece_rows(rec["sharded"])
     if 25 in ph:
         kern += sharded_6b_rows(rec["sharded_6b"])
     for needs, make in specs:

@@ -45,6 +45,7 @@ raises.  It never falls back.  ``LAUNCHES`` counts kernel launches only.
 
 from __future__ import annotations
 
+import dataclasses
 import weakref
 
 import numpy as np
@@ -83,6 +84,9 @@ INSTANCE_LAUNCHES = {"symcoo_spmm": 0, "oblique_cols": 0}
 # direction onto the tangent space, and its steps in split mode (three
 # launches each, the partials summed over the ranks between them)
 TCG_LAUNCHES = {"projected": 0, "split": 0}
+# the K1 / K3 launches on a pattern's span narrower than the whole n x n
+# (a sharded operator's shard, its column range)
+SPAN_LAUNCHES = {"symcoo_spmm": 0, "pattern_dots": 0}
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 
@@ -101,7 +105,7 @@ def reset_launches():
     for counts in (LAUNCHES, F32_LAUNCHES, SPMM_LAUNCHES, CSR_LAUNCHES,
                    MASKED_LAUNCHES, OBLIQUE_LAUNCHES, SYMDUAL_LAUNCHES,
                    SYMDUAL_APPLY_LAUNCHES, INSTANCE_LAUNCHES, TCG_LAUNCHES,
-                   COLLECTIVES):
+                   SPAN_LAUNCHES, COLLECTIVES):
         for k in counts:
             counts[k] = 0
 
@@ -166,6 +170,14 @@ def symcoo_spmm_plain(A, C, mode="plain", vals=None, z=None, B=None,
             return tuple(_stack_like(o) for o in zip(*outs))
         return _stack_like(outs)
     v = C.v if vals is None else vals
+    if C.span is not None:
+        # the column block of the whole-width product
+        c0, c1 = C.span[:2]
+        full = symcoo_spmm_plain(A, dataclasses.replace(C, span=None), mode,
+                                 vals, z, B, eG, vals2, coefs)
+        if mode == "cost":
+            return full[0][:, c0:c1], full[1][c0:c1]
+        return full[:, c0:c1]
     AM = scatter_cols(v, C.i, C.j, A, C.n)
     if mode == "al_hess":
         H = coefs[0] * AM + coefs[1] * scatter_cols(vals2, C.i, C.j, B, C.n)
@@ -183,6 +195,12 @@ def symcoo_spmm_plain(A, C, mode="plain", vals=None, z=None, B=None,
         return AM - B * torch.sum(B * AM, dim=0, keepdim=True) \
             - A * eG[None, :]
     raise ValueError(f"unknown symcoo_spmm mode {mode!r}")
+
+
+def pattern_span(P):
+    """(c0, c1, r0, r1) of a pattern: its ``span``, or the whole n x n."""
+    return P.span if getattr(P, "span", None) is not None else \
+        (0, P.n, 0, P.n)
 
 
 # K1 walks columns of more than this many entries on average with its
@@ -225,6 +243,11 @@ def symcoo_spmm(A, C, mode="plain", vals=None, z=None, B=None, eG=None,
     returns H = coefs[0]·A·M + coefs[1]·B·M2, M2 with C's pattern and the
     values ``vals2``; given ``eG`` it returns the unit-diagonal epilogue
     H − B ∘ colsum(B ∘ H) − A ∘ eG.
+
+    A C with a ``span`` (c0, c1, r0, r1) (a shard of a pattern): the
+    (p, c1 − c0) block of columns c0 .. c1-1 (``cost``'s w (c1 − c0,)); the
+    grid covers those columns and the N-major copies the rows r0 .. r1-1
+    their entries read; z and eG stay (n,).
 
     Instance mode: ``C`` a BatchedSymCOO of nb instances, ``A`` and ``B``
     (nb, p, n) with any strides, ``z`` and ``eG`` (nb, n); every mode but
@@ -276,8 +299,13 @@ def symcoo_spmm(A, C, mode="plain", vals=None, z=None, B=None, eG=None,
         raise ValueError("z must be contiguous")
     if eG is not None and not eG.is_contiguous():
         raise ValueError("eG must be contiguous")
-    out = torch.empty(lead + (p, n), dtype=A.dtype, device=A.device)
-    w = torch.empty(lead + (n,), dtype=A.dtype, device=A.device) \
+    c0, c1, r0, r1 = pattern_span(C)
+    if batched and (c0, c1, r0, r1) != (0, n, 0, n):
+        raise ValueError("instance mode takes whole patterns, no span")
+    if not 0 <= c0 <= c1 <= n or not 0 <= r0 <= r1 <= n:
+        raise ValueError(f"span {(c0, c1, r0, r1)} outside n={n}")
+    out = torch.empty(lead + (p, c1 - c0), dtype=A.dtype, device=A.device)
+    w = torch.empty(lead + (c1 - c0,), dtype=A.dtype, device=A.device) \
         if mode == "cost" else None
     sab, sar, sac = (0,) * (not batched) + tuple(A.stride())
     sbb, sbr, sbc = ((0,) * (not batched) + tuple(B.stride())
@@ -286,12 +314,14 @@ def symcoo_spmm(A, C, mode="plain", vals=None, z=None, B=None, eG=None,
     if mode == "al_hess":
         gathered.append((sbr, sbc, sbb, B.data_ptr()))
     vw, pp, copy = symcoo_spmm_layout(p, A.dtype, gathered)
-    # the N-major copies the kernel transposes into (None: gathered in place)
-    scratch = lambda: torch.empty(lead + (n, pp), dtype=A.dtype,  # noqa: E731
-                                  device=A.device)
+    # the N-major copies the kernel transposes into (None: gathered in
+    # place): the rows r0 .. r1-1 the entries read
+    scratch = lambda: torch.empty(lead + (r1 - r0, pp),  # noqa: E731
+                                  dtype=A.dtype, device=A.device)
     At = scratch() if copy[0] else None
     Bt = scratch() if mode == "al_hess" and copy[1] else None
-    deep = v.shape[0] > SPMM_DEEP_MEAN * n * (C.nb if batched else 1)
+    deep = v.shape[0] > SPMM_DEEP_MEAN * (c1 - c0) * (C.nb if batched
+                                                       else 1)
     fn = getattr(build(), f"symcoo_spmm_{_SUFFIX[A.dtype]}")
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     code = SPMM_MODES[mode] + (mode == "al_hess" and eG is not None)
@@ -300,11 +330,12 @@ def symcoo_spmm(A, C, mode="plain", vals=None, z=None, B=None, eG=None,
              v.data_ptr(), p, n, C.nb if batched else 1, code, ptr(z),
              ptr(B), sbb, sbr, sbc, ptr(eG), ptr(vals2), float(coefs[0]),
              float(coefs[1]), out.data_ptr(), ptr(w), ptr(At), ptr(Bt), pp,
-             vw, int(deep), _stream(A))
+             vw, int(deep), c0, c1 - c0, r0, r1 - r0, _stream(A))
     if err != 0:
         raise RuntimeError(f"symcoo_spmm launch failed: CUDA error {err}")
     _launched("symcoo_spmm", A.dtype)
     SPMM_LAUNCHES[mode] += 1
+    SPAN_LAUNCHES["symcoo_spmm"] += (c0, c1, r0, r1) != (0, n, 0, n)
     if batched:
         INSTANCE_LAUNCHES["symcoo_spmm"] += 1
     return (out, w) if mode == "cost" else out
@@ -403,7 +434,10 @@ def pattern_dots_layout(p, dtype):
 def pattern_dots(Y, U, P):
     """K3.  ``Y``, ``U`` (p, n) with any strides (``U`` may be ``Y``);
     ``P`` a column-sorted SymCOO pattern (fields i, j, colptr, n).
-    Returns e (nnz,) with e_k = <Y[:, i_k], U[:, j_k]>."""
+    Returns e (nnz,) with e_k = <Y[:, i_k], U[:, j_k]>.  A pattern with a
+    ``span`` (c0, c1, r0, r1): warps over its columns only, U's N-major copy
+    of columns c0 .. c1-1 and Y's of rows r0 .. r1-1 (one copy over both
+    ranges when U is Y)."""
     if not _on_cuda(Y, U, P.i, P.colptr):
         return pattern_dots_plain(Y, U, P)
     _check_dtype(Y.dtype, Y, U)
@@ -418,19 +452,29 @@ def pattern_dots(Y, U, P):
     p, n = Y.shape
     pp, group = pattern_dots_layout(p, Y.dtype)
     same = U.data_ptr() == Y.data_ptr() and U.stride() == Y.stride()
-    # the N-major copies the kernel gathers from (Uᵀ only when U is not Y)
-    Yt = torch.empty((n, pp), dtype=Y.dtype, device=Y.device)
-    Ut = None if same else torch.empty_like(Yt)
+    c0, c1, r0, r1 = pattern_span(P)
+    if not 0 <= c0 <= c1 <= n or not 0 <= r0 <= r1 <= n:
+        raise ValueError(f"span {(c0, c1, r0, r1)} outside n={n}")
+    # the N-major copies the kernel gathers from: Y's rows r0 .. r1-1 and
+    # U's columns c0 .. c1-1, or (U is Y) one copy over both ranges
+    if same:
+        ny = (max(r1, c1) - min(r0, c0)) if r1 > r0 else c1 - c0
+    else:
+        ny = r1 - r0
+    Yt = torch.empty((ny, pp), dtype=Y.dtype, device=Y.device)
+    Ut = None if same else torch.empty((c1 - c0, pp), dtype=Y.dtype,
+                                       device=Y.device)
     out = torch.empty((P.i.shape[0],), dtype=Y.dtype, device=Y.device)
     fn = getattr(build(), f"pattern_dots_{_SUFFIX[Y.dtype]}")
     err = fn(Y.data_ptr(), Y.stride(0), Y.stride(1),
              None if same else U.data_ptr(), U.stride(0), U.stride(1),
              P.colptr.data_ptr(), P.i.data_ptr(), p, n, pp, group,
              Yt.data_ptr(), None if same else Ut.data_ptr(), out.data_ptr(),
-             _stream(Y))
+             c0, c1 - c0, r0, r1 - r0, _stream(Y))
     if err != 0:
         raise RuntimeError(f"pattern_dots launch failed: CUDA error {err}")
     _launched("pattern_dots", Y.dtype)
+    SPAN_LAUNCHES["pattern_dots"] += (c0, c1, r0, r1) != (0, n, 0, n)
     return out
 
 

@@ -35,10 +35,10 @@ _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
 _SIGNATURES = {
     "symcoo_spmm": (_P, _I64, _I64, _I64, _P, _P, _P, _P, _I, _I, _I, _I,
                     _P, _P, _I64, _I64, _I64, _P, _P, _D, _D, _P, _P, _P,
-                    _P, _I, _I, _I, _P),
+                    _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "oblique_cols": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "pattern_dots": (_P, _I64, _I64, _P, _I64, _I64, _P, _P, _I, _I, _I,
-                     _I, _P, _P, _P, _P),
+                     _I, _P, _P, _P, _I, _I, _I, _I, _P),
     "csr_gather": (_P, _P, _P, _P, _P, _D, _P, _I, _I, _I, _P, _I, _P,
                    _P),
     "masked_sym": (_P, _P, _P, _P, _D, _I, _I, _P, _P),

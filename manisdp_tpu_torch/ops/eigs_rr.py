@@ -78,6 +78,7 @@ class DeviceCertSolver:
 
     BIG = 1e30       # Ritz value given to dropped basis directions
     F32_PATIENCE = 10  # f32 iterations allowed without halving the residual
+    RISE_TOL = 1e-10   # rise of the bottom Ritz value (x scale) = breakdown
 
     def __init__(self, n: int, k: int, deflate_rows: int = 0,
                  block_cap: int = 24, bound: str = "kato",
@@ -164,6 +165,7 @@ class DeviceCertSolver:
         AX = matvec_rows(X)
         theta = torch.sum(X * AX, dim=1)
         rn = torch.linalg.norm(AX - theta[:, None] * X, dim=1)
+        X_start, q_start = X, float(torch.min(theta))
         P = torch.zeros_like(X)
         AP = torch.zeros_like(AX)
 
@@ -205,7 +207,21 @@ class DeviceCertSolver:
 
         lam_min, num_neg, Xk, th_k, resid_k = self._finish(
             matvec_rows, X.to(dt))
-        self.last = dict(iters=j, resid=resid_k, scale=scale, lo=lo, hi=hi)
+        # LOBPCG's Ritz values never rise in exact arithmetic (each step's
+        # subspace holds the last block), so a final bottom Ritz value above
+        # the start block's smallest Rayleigh quotient marks a breakdown
+        # (the carried products drifted and the block lost the bottom of the
+        # spectrum) or an f32 stage that lost the start block's accuracy.
+        # Its bound can then exceed a value the start block already showed
+        # (a false certificate), so the start block's own bounds, as valid,
+        # are reported where their lam_min is the lower.
+        broke = float(th_k[0]) > q_start + self.RISE_TOL * float(scale)
+        if broke:
+            start = self._finish(matvec_rows, X_start)
+            if float(start[0]) < float(lam_min):
+                lam_min, num_neg, Xk, th_k, resid_k = start
+        self.last = dict(iters=j, resid=resid_k, scale=scale, lo=lo, hi=hi,
+                         breakdown=broke)
         if matvec32_rows is not None:
             self.last.update(iters32=counts[0], iters64=counts[1])
         return CertResult(lam_min=lam_min, lam_max=hi, num_neg=num_neg,

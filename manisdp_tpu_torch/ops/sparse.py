@@ -56,6 +56,11 @@ class SymCOO:
     v: torch.Tensor        # (nnz,) values
     n: int
     colptr: torch.Tensor   # (n+1,) int32
+    # a slice of a larger pattern (a sharded operator's): (c0, c1, r0,
+    # r1), its entries lie in columns c0 .. c1-1 and rows r0 .. r1-1; its
+    # products are then the (p, c1 - c0) column block of those columns
+    # (None: the whole n x n)
+    span: Optional[tuple] = None
 
     @staticmethod
     def from_arrays(i, j, v, n: int, device, dtype=torch.float64

@@ -14,17 +14,23 @@ K4 and K1 run on it unchanged; ranks are ragged and nothing is padded.
 
   - local, no communication: the pair dots (K3), the adjoint on P and
     es / s values (K4 over the a2p order);
-  - one all-reduce each: ``dot_pattern`` (a scalar), ``apply_from_e``
-    (K4 over the k order, (m,)), ``colsum_pattern`` (n,),
-    ``matmat_pattern`` (K1 ``plain``, (p, n)) and ``matvec_pattern`` (K1
-    on the Vᵀ view, (n, k));
-  - the AL Hessian (``al_hess``): K1 ``al_hess`` without its epilogue on
-    each shard, one (p, n) all-reduce, then the unit-diagonal epilogue
-    once (K2 ``proj`` with the eG term); applied per shard, its − U·eG
-    term would count ``world`` times;
-  - ``quad_cols`` (the stats' z = colsum(Y ∘ Y·mat(vals))): K1 ``cost``
-    per shard, one (n,) all-reduce; ``matmat_shift`` (the certificate's
-    V·(mat(vals) − diag(z))): the all-reduced ``matmat_pattern``, then the
+  - one all-reduce each, where a value is a sum over ranks: ``dot_pattern``
+    (a scalar) and ``apply_from_e`` (K4 over the k order, (m,));
+  - column blocks: a slice of P sorted by (j, i) holds the entries of a
+    contiguous run of columns, c0 .. c1-1 (only its first and last column
+    may be shared with the neighbouring ranks), so a rank's pattern carries
+    that span and K1 / K3 run over those columns only.  ``matmat_pattern``
+    (K1 ``plain``, (p, n)), ``matvec_pattern`` (K1 on the Vᵀ view,
+    (n, k)), ``colsum_pattern`` (n,), ``quad_cols`` (K1 ``cost``, the
+    stats' z = colsum(Y ∘ Y·mat(vals)), (n,)) and the AL Hessian's
+    products (K1 ``al_hess`` without its epilogue) each give the rank's
+    block of columns; one all-gather of the blocks (padded to the widest)
+    and the blocks placed in rank order give the whole result, a column two
+    ranks share summed in rank order, the same bits on every rank
+    (``_join``).  ``al_hess`` then applies the unit-diagonal epilogue once
+    (K2 ``proj`` with the eG term; applied per shard, its − U·eG term would
+    count ``world`` times); ``matmat_shift`` (the certificate's
+    V·(mat(vals) − diag(z))) is the joined ``matmat_pattern``, then the
     shift;
   - ``pattern_dense`` (the dense S): the slices' values summed into the
     whole pattern's (one (nnzP,) all-reduce), then placed on the device.
@@ -44,7 +50,7 @@ import torch
 
 from ..kernels import oblique_cols
 from ..ops.sparse import ConstraintOp, _MVecResiduals
-from .distributed import all_reduce
+from .distributed import all_gather, all_reduce
 
 
 def partition(arrays: dict, world: int) -> list:
@@ -77,6 +83,17 @@ def partition(arrays: dict, world: int) -> list:
     return out
 
 
+def column_spans(pat_j: np.ndarray, world: int, n: int) -> tuple:
+    """Each rank's columns (c0, c1) under ``partition``: the columns of its
+    slice of the (j, i)-sorted pattern (the whole n at one rank)."""
+    if world == 1:
+        return ((0, n),)
+    nnzP = pat_j.shape[0]
+    Lp = -(-nnzP // world)
+    return tuple((int(pat_j[d * Lp]), int(pat_j[min((d + 1) * Lp, nnzP) - 1])
+                  + 1) if d * Lp < nnzP else (0, 0) for d in range(world))
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardedConstraintOp(_MVecResiduals):
     """A ConstraintOp partitioned by pattern id over the ranks of
@@ -93,6 +110,7 @@ class ShardedConstraintOp(_MVecResiduals):
     pat_j_host: np.ndarray
     m: int
     n: int
+    spans: tuple             # each rank's columns (c0, c1), in rank order
 
     @staticmethod
     def build(arrays: dict, rank: int, world: int, device, group=None
@@ -114,18 +132,24 @@ class ShardedConstraintOp(_MVecResiduals):
             raise ValueError(
                 "a rank's pattern slice is empty: the pattern has too few "
                 "entries for this many ranks")
+        n = int(arrays["n"])
         local = ConstraintOp.from_arrays(dict(
             k=piece["ks"], i=pat_i[loc], j=pat_j[loc], v=piece["vs"],
             a2p=loc, pat_i=pat_i, pat_j=pat_j, pat_v=piece["pat_v"],
             b=np.asarray(arrays["b"]), kp=piece["kp"], vp=piece["vp"],
-            a2p_sorted=piece["locp"], m=int(arrays["m"]),
-            n=int(arrays["n"])), device)
+            a2p_sorted=piece["locp"], m=int(arrays["m"]), n=n), device)
+        if world > 1:
+            # the slice's columns and the rows its entries read (at one
+            # rank the whole n x n, as on one card)
+            local = dataclasses.replace(local, pat=dataclasses.replace(
+                local.pat, span=(int(pat_j[0]), int(pat_j[-1]) + 1,
+                                 int(pat_i.min()), int(pat_i.max()) + 1)))
+        glob_j = np.asarray(arrays["pat_j"])
         return ShardedConstraintOp(
             local=local, b=local.b, group=group, world=world, rank=rank,
-            lo=int(piece["lo"]), nnzP=int(np.asarray(arrays["pat_i"]).size),
-            pat_i_host=np.asarray(arrays["pat_i"]),
-            pat_j_host=np.asarray(arrays["pat_j"]), m=int(arrays["m"]),
-            n=int(arrays["n"]))
+            lo=int(piece["lo"]), nnzP=int(glob_j.size),
+            pat_i_host=np.asarray(arrays["pat_i"]), pat_j_host=glob_j,
+            m=int(arrays["m"]), n=n, spans=column_spans(glob_j, world, n))
 
     @property
     def device(self) -> torch.device:
@@ -167,21 +191,41 @@ class ShardedConstraintOp(_MVecResiduals):
     def normal_factored(self, Y, U):
         return self.adjoint_on_pattern(self.apply_factored(Y, U))
 
+    def _join(self, block):
+        """The whole (..., n) result from every rank's (..., c1 − c0) block
+        of its columns (``spans``): one all-gather of the blocks, padded to
+        the widest, then each rank's block added into zeros in rank order,
+        so a column two ranks share is their sum in rank order, the same
+        bits on every rank.  At one rank the block is the whole result."""
+        if self.world == 1:
+            return block
+        wide = max(c1 - c0 for c0, c1 in self.spans)
+        pad = wide - block.shape[-1]
+        if pad:
+            block = torch.nn.functional.pad(block, (0, pad))
+        got = all_gather(block, self.group)
+        out = torch.zeros(block.shape[:-1] + (self.n,), dtype=block.dtype,
+                          device=block.device)
+        for r, (c0, c1) in enumerate(self.spans):
+            out[..., c0:c1] += got[..., r * wide:r * wide + c1 - c0]
+        return out
+
     def colsum_pattern(self, vals):
-        return self._sum(self.local.colsum_pattern(vals))
+        c0, c1 = self.spans[self.rank]
+        return self._join(self.local.colsum_pattern(vals)[c0:c1])
 
     def matmat_pattern(self, Y, vals):
-        return self._sum(self.local.matmat_pattern(Y, vals))
+        return self._join(self.local.matmat_pattern(Y, vals))
 
     def matvec_pattern(self, V, vals):
-        return self._sum(self.local.matvec_pattern(V, vals))
+        return self._join(self.local.matvec_pattern(V, vals).T).T
 
     def al_hess(self, U, Y, es, ayu, coefs,
                 eG: Optional[torch.Tensor] = None):
         """coefs[0]·U·mat(es) + coefs[1]·Y·mat(ayu), and with ``eG`` the
         unit-diagonal epilogue H − Y ∘ colsum(Y ∘ H) − U ∘ eG, applied once
-        after the sum."""
-        H = self._sum(self.local.al_hess(U, Y, es, ayu, coefs))
+        after the blocks are joined."""
+        H = self._join(self.local.al_hess(U, Y, es, ayu, coefs))
         if eG is None:
             return H
         return oblique_cols(Y.contiguous(), H, "proj", v=U.contiguous(),
@@ -194,7 +238,7 @@ class ShardedConstraintOp(_MVecResiduals):
 
     def quad_cols(self, Y, vals):
         """colsum(Y ∘ Y·mat(vals)) -> (n,)."""
-        return self._sum(self.local.quad_cols(Y, vals))
+        return self._join(self.local.quad_cols(Y, vals))
 
     # -- the global pattern ------------------------------------------------
     def global_values(self, vals):

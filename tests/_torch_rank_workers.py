@@ -95,6 +95,54 @@ def protocol(sharded, arrays, inputs):
     return out
 
 
+def column_blocks(arrays, inputs, world):
+    """The sharded operator's column-block methods (each rank's block of
+    its columns, joined by one all-gather) beside the path they replace:
+    the rank's block placed in zeros at its columns and all-reduced.  On
+    the first ``world`` ranks (a group of their own; the others return
+    None), f64 and f32."""
+    from manisdp_tpu_torch.parallel.distributed import all_reduce
+    from manisdp_tpu_torch.parallel.sharded_ops import ShardedConstraintOp
+    group = dist.new_group(list(range(world)))
+    if dist.get_rank() >= world:
+        return None
+    sop64 = ShardedConstraintOp.build(arrays, dist.get_rank(), world, "cpu",
+                                      group)
+    c0, c1 = sop64.spans[sop64.rank]
+    out = dict(spans=sop64.spans, span=sop64.local.pat.span)
+    for dt in (torch.float64, torch.float32):
+        sop = sop64.astype(dt)
+        loc = sop.local
+        Y, U, w, V, eG = (torch.as_tensor(inputs[k]).to(dt)
+                          for k in ("Y", "U", "w", "V", "eG"))
+        es, sv = sop.es_vals(w, inputs["sigma"]), sop.s_vals(w)
+        ayu = sop.normal_factored(Y, U)
+        coefs = (2.0, 4.0 * inputs["sigma"])
+        vals = sop.c_pattern * sop.pattern_pair_dots(Y, U)
+
+        def reduced(block):
+            full = torch.zeros(block.shape[:-1] + (sop.n,), dtype=dt)
+            full[..., c0:c1] = block
+            return all_reduce(full, group)
+
+        pairs = dict(
+            matmat=(sop.matmat_pattern(Y, es),
+                    reduced(loc.matmat_pattern(Y, es))),
+            matvec=(sop.matvec_pattern(V, sv),
+                    reduced(loc.matvec_pattern(V, sv).T).T),
+            al_hess=(sop.al_hess(U, Y, es, ayu, coefs),
+                     reduced(loc.al_hess(U, Y, es, ayu, coefs))),
+            al_hess_diag=(sop.al_hess(U, Y, es, ayu, coefs, eG=eG),
+                          K.oblique_cols(Y, reduced(loc.al_hess(
+                              U, Y, es, ayu, coefs)), "proj", v=U, g=eG)),
+            quad_cols=(sop.quad_cols(Y, sv), reduced(loc.quad_cols(Y, sv))),
+            colsum=(sop.colsum_pattern(vals),
+                    reduced(loc.colsum_pattern(vals)[c0:c1])))
+        out[str(dt)[6:]] = {k: (a.numpy(), b.numpy())
+                            for k, (a, b) in pairs.items()}
+    return out
+
+
 def al_solve(entry, At, b, c, n, kw, mesh="model", nodes=None):
     """One AL entry point (solve_sdp / solve_unitdiag / solve_unittrace) on
     the CPU under a mesh."""

@@ -29,6 +29,8 @@ from manisdp_tpu_torch.ops.sparse import (ConstraintOp, DenseConstraintOp,
 from manisdp_tpu_torch.solvers import primal_al as tal
 from manisdp_tpu_torch.utils.checkpoint import resume_kwargs
 
+import _torch_parity as parity
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_cpu_thread():
@@ -373,7 +375,14 @@ def test_mc_solve_matches_jax(mode, cls, monkeypatch):
 def test_dense_eigh_certificate_matches_jax():
     """cert_method="dense_eigh" on the entrywise carrier (eig_switch_n
     lowered so the dense eigh certificate is not taken instead): the far
-    tier, the near tier and the exact f64 eigh fallback all run."""
+    tier, the near tier and the exact f64 eigh fallback all run.
+
+    Both packages' far tier is an f32 eigh (LAPACK through PyTorch, XLA's
+    in JAX), whose escape vectors agree only to f32 rounding.  So the
+    trajectories agree to 1e-10 for two outer iterations (dinf to the f32
+    eigh's 1e-5), the third inner solve starts from those vectors, and
+    the outer count that follows depends on the machine's BLAS.  Held: the
+    first two iterations, then the status, eta and the optimum."""
     from manisdp_tpu_torch.ops import dense_cert
     data, kw = _mc40()
     n = data.K.s
@@ -382,8 +391,11 @@ def test_dense_eigh_certificate_matches_jax():
     dense_cert.reset_counts()
     res = solve_sdp(data.At, data.b, data.c, n, Y0=Y0, device="cpu", **kw)
     ref = j_sdp(data.At, data.b, data.c, n, Y0=Y0, **kw)
+    parity.hold(res.history, ref.history, head=2, dinf_rtol=1e-5)
+    print(f"margin: the second iteration's f32 dinf apart by "
+          f"{parity.rel(res.history[1]['dinf'], ref.history[1]['dinf']):.2e}"
+          f" relative; outer iterations {res.iterations} / {ref.iterations}")
     assert res.status == 0 and ref.status == 0 and res.eta < 1e-8
-    assert res.iterations == ref.iterations
     np.testing.assert_allclose(res.obj, ref.obj, rtol=1e-6)
     counts = dict(dense_cert.COUNTS)
     assert sum(counts.values()) == res.iterations
@@ -392,7 +404,15 @@ def test_dense_eigh_certificate_matches_jax():
 
 def test_theta_unittrace_on_the_entrywise_carrier():
     """A small Lovasz theta through solve_unittrace (tests/test_theta.py's
-    construction): its edge constraints are entrywise."""
+    construction): its edge constraints are entrywise.
+
+    The trajectories agree to 1e-10 for eight outer iterations.  The
+    ninth inner solve starts from the eighth certificate's escape vectors,
+    which LOBPCG determines only to its residual tolerance (1e-9 of the
+    spectral scale), so the ninth gradnorm and dinf differ at ~1e-9
+    relative; the nonconvex inner solves amplify that, and the outer count
+    that follows depends on the machine's BLAS.  Held: the first eight
+    iterations, then the status, eta and the optimum."""
     At, b, c, n = _theta()
     assert EntrywiseConstraintOp.detect(
         ConstraintOp.build(At, b, c, n, "cpu")) is not None
@@ -400,8 +420,14 @@ def test_theta_unittrace_on_the_entrywise_carrier():
     kw = dict(verbose=False, max_outer=300)
     res = solve_unittrace(At, b, c, n, Y0=Y0, device="cpu", **kw)
     ref = j_unittrace(At, b, c, n, Y0=Y0, **kw)
+    at = parity.hold(res.history, ref.history, head=8, dinf_rtol=1e-9)
+    if at < min(len(res.history), len(ref.history)):
+        a, b_ = res.history[at], ref.history[at]
+        print(f"margin: at outer iteration {at + 1} gradnorm apart by "
+              f"{parity.rel(a['gradnorm'], b_['gradnorm']):.2e}, dinf by "
+              f"{parity.rel(a['dinf'], b_['dinf']):.2e} relative; outer "
+              f"iterations {res.iterations} / {ref.iterations}")
     assert res.status == 0 and ref.status == 0 and res.eta < 1e-8
-    assert res.iterations == ref.iterations
     np.testing.assert_allclose(res.obj, ref.obj, rtol=1e-6)
     np.testing.assert_allclose(np.trace(res.X), 1.0, atol=1e-8)
 

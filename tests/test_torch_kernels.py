@@ -490,6 +490,63 @@ def test_al_kernels_match_twins_on_card(cuda_device, dtype, p_pad):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("p", [8, 16, 24])
+@pytest.mark.parametrize("samples,deep", [(900, True), (60, False)])
+def test_k1_k3_on_a_shards_columns_on_card(cuda_device, dtype, p, samples,
+                                           deep):
+    """K1 (``plain``, ``cost``, ``al_hess``) and K3 on each world-2 and
+    world-4 shard of a matrix-completion operator whose columns take K1's
+    deep walk (900 samples) or its shallow one (60): over the shard's
+    columns they are bit-equal to the same kernels run over all n columns
+    of the shard's pattern, and within 1e-12 (f64) / 1e-5 (f32) of the
+    twins."""
+    import dataclasses
+    from manisdp_tpu_torch.frontends.workloads import matrix_completion
+    from manisdp_tpu_torch.parallel.sharded_ops import ShardedConstraintOp
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    data, _ = matrix_completion(30, 40, rank=2, m_samples=samples, seed=2)
+    n = int(data.K.s)
+    arrays = ConstraintOp.build(data.At, data.b, data.c, n,
+                                "cpu").host_arrays(full=True)
+    assert (arrays["pat_i"].size > K.SPMM_DEEP_MEAN * n) == deep
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(4)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=dtype,  # noqa: E731
+                                 device=cuda_device)
+    Y, U = rnd(p, n), rnd(p, n)
+    spans = K.SPAN_LAUNCHES["symcoo_spmm"], K.SPAN_LAUNCHES["pattern_dots"]
+    for world in (2, 4):
+        for r in range(world):
+            loc = ShardedConstraintOp.build(arrays, r, world,
+                                            cuda_device).local.astype(dtype)
+            pat = loc.pat
+            c0, c1 = pat.span[:2]
+            whole = dataclasses.replace(pat, span=None)
+            es, ayu = rnd(pat.nnz), rnd(pat.nnz)
+            for mode, A, kw in (
+                    ("plain", Y, dict(vals=es)),
+                    ("cost", Y, dict(vals=es)),
+                    ("al_hess", U, dict(vals=es, B=Y, vals2=ayu,
+                                        coefs=(2.0, 1.48)))):
+                got = K.symcoo_spmm(A, pat, mode, **kw)
+                full = K.symcoo_spmm(A, whole, mode, **kw)
+                twin = K.symcoo_spmm_plain(A, pat, mode, **kw)
+                if mode == "cost":
+                    assert torch.equal(got[1], full[1][c0:c1])
+                    got, full, twin = got[0], full[0], twin[0]
+                assert got.shape == (p, c1 - c0)
+                assert torch.equal(got, full[:, c0:c1]), (world, r, mode)
+                assert _rel(got, twin) <= tol
+            got = K.pattern_dots(Y, U, pat)
+            assert torch.equal(got, K.pattern_dots(Y, U, whole))
+            assert _rel(got, K.pattern_dots_plain(Y, U, pat)) <= tol
+    torch.cuda.synchronize()
+    assert K.SPAN_LAUNCHES["symcoo_spmm"] - spans[0] == 3 * 6
+    assert K.SPAN_LAUNCHES["pattern_dots"] - spans[1] == 6
+
+
+@pytest.mark.cuda
 def test_al_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     op = _constraint_op(cuda_device)
     Y = torch.ones((4, N), dtype=torch.float64, device=cuda_device)

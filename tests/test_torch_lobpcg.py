@@ -159,3 +159,36 @@ def test_non_finite_f32_step_drops_into_f64(sym):
                        matvec32_rows=lambda V: torch.full_like(V, np.nan))
     assert solver.last["iters32"] == 0 and solver.last["iters64"] > 0
     _sound(res, ref)
+
+
+@pytest.mark.parametrize("bound", ["linear", "kato"])
+def test_breakdown_does_not_certify(monkeypatch, bound):
+    """A block that loses the bottom of the spectrum mid-run (the carried
+    products drift once the residuals fall below their rounding; exact
+    LOBPCG's Ritz values never rise) must not certify a point the start
+    block already showed to be uncertified.  Here the iteration is replaced
+    by one that ends on the top of the spectrum: its linear bound would
+    claim lambda_min > 0 (the dense-carrier lobpcg certificate's false
+    status 0, ROADMAP Queue C); the start block's bounds are reported."""
+    rs = np.random.RandomState(3)
+    n, k = 40, 3
+    Q, _ = np.linalg.qr(rs.randn(n, n))
+    w = np.concatenate([[-1e-3], np.linspace(0.5, 10.0, n - 1)])
+    S = torch.from_numpy((Q * w) @ Q.T)
+    X0 = torch.from_numpy(Q[:, :k] + 1e-3 * rs.randn(n, k))
+
+    def lost(self, mv, X, AX, P, AP, theta, rn, j, last, *args, **kw):
+        top = torch.from_numpy(Q[:, n - self.b:].T.copy())
+        return top, mv(top), P, AP, theta, rn, last
+
+    solver = DeviceCertSolver(n, k, bound=bound)
+    healthy = solver.solve(lambda V: V @ S, _gen(0), X0=X0, maxiter=50,
+                           tol=1e-10)
+    assert abs(float(healthy.neg_vals[0]) - w[0]) < 1e-10
+    assert not solver.last.get("breakdown")
+    monkeypatch.setattr(DeviceCertSolver, "_iterate", lost)
+    res = solver.solve(lambda V: V @ S, _gen(0), X0=X0, maxiter=5,
+                       tol=1e-10)
+    assert float(res.lam_min) <= w[0]
+    assert float(res.neg_vals[0]) < 0
+    assert solver.last["breakdown"]

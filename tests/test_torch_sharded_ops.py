@@ -8,6 +8,7 @@ thread each); JAX runs its sharded op under shard_map on the virtual CPU
 mesh (tests/conftest.py).  One spawn per world size runs every rank-side
 job (``tests/_torch_rank_workers.py``)."""
 
+import dataclasses
 import functools
 
 import jax
@@ -22,8 +23,10 @@ import _torch_rank_workers as W
 from manisdp_tpu.ops.sparse import ConstraintOp as JOp
 from manisdp_tpu.parallel.mesh import make_mesh as jmake_mesh
 from manisdp_tpu.parallel.sharded_ops import ShardedConstraintOp as JSOp
+from manisdp_tpu_torch import kernels as K
 from manisdp_tpu_torch import solve_unitdiag
 from manisdp_tpu_torch.convert import sharded_op_from_jax
+from manisdp_tpu_torch.frontends.workloads import matrix_completion
 from manisdp_tpu_torch.ops.sparse import ConstraintOp
 from manisdp_tpu_torch.parallel import spawn_ranks
 from manisdp_tpu_torch.parallel.sharded_ops import (ShardedConstraintOp,
@@ -160,14 +163,29 @@ def problem():
 
 
 @pytest.fixture(scope="module")
-def ranks(problem):
+def mc():
+    """A small matrix completion (n = 24): the JAX and the port operator.
+    Its pattern's cuts into 2 and 4 slices fall inside columns."""
+    data, _ = matrix_completion(10, 14, rank=2, m_samples=80, seed=1)
+    n = int(data.K.s)
+    return (JOp.build(data.At, data.b, data.c, n),
+            ConstraintOp.build(data.At, data.b, data.c, n, "cpu"))
+
+
+@pytest.fixture(scope="module")
+def ranks(problem, mc):
     """Each of 4 ranks' job results: the protocol on shards over 2 of them
-    (``protocol2``) and over all 4, and the solves at world 4."""
+    (``protocol2``) and over all 4, the column blocks of the matrix
+    completion's shards over 2 (``blocks2``), and the solves at world 4."""
     jop, arrays, _ = problem
     inputs = _inputs(jop.n, jop.m)
     jobs = [(f"protocol{world}", "protocol",
              dict(sharded=_jax_sharded_arrays(jop, world)[1], arrays=arrays,
                   inputs=inputs)) for world in (2, 4)]
+    top = mc[1]
+    jobs.append(("blocks2", "column_blocks", dict(
+        arrays=top.host_arrays(full=True), inputs=_inputs(top.n, top.m),
+        world=2)))
     for name, entry, make, kw in SOLVES:
         At, b, c = make()
         jobs.append((name, "al_solve", dict(
@@ -302,6 +320,114 @@ def test_protocol_matches_jax_shard_map(problem, ranks, world):
     }
     for name, want in checks.items():
         assert _rel(got[name], want) <= 1e-12, (world, name)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_column_range_twins_match_full_width_and_jax(mc, world):
+    """K1 (``plain``, ``al_hess``, ``cost``) and K3 on each rank's slice of
+    a matrix-completion pattern whose cuts split columns: the slice's
+    span gives the columns c0 .. c1-1 only, equal to those columns of the
+    full-width twins; the blocks placed at their columns and summed, and
+    the slices' pair dots, against the JAX ShardedConstraintOp under
+    shard_map on the same partition (1e-12, f64)."""
+    jop, top = mc
+    if len(jax.devices()) < world:
+        pytest.skip(f"needs {world} virtual devices")
+    n, arrays = top.n, top.host_arrays(full=True)
+    inputs = _inputs(n, top.m)
+    t = {k: torch.as_tensor(v) for k, v in inputs.items() if k != "sigma"}
+    Y, U, w, w2 = t["Y"], t["U"], t["w"], t["w"].flip(0)
+    coefs = (2.0, 4.0 * SIGMA)
+    p = Y.shape[0]
+    f64 = dict(dtype=torch.float64)
+    joined = dict(plain=torch.zeros(p, n, **f64),
+                  al_hess=torch.zeros(p, n, **f64), cost=torch.zeros(n, **f64))
+    dots, spans = [], []
+    for r in range(world):
+        loc = ShardedConstraintOp.build(arrays, r, world, "cpu").local
+        pat = loc.pat
+        c0, c1, r0, r1 = pat.span
+        spans.append((c0, c1))
+        assert c1 - c0 < n
+        whole = dataclasses.replace(pat, span=None)
+        es, ayu = loc.es_vals(w, SIGMA), loc.adjoint_on_pattern(w2)
+        for mode, A, kw in (
+                ("plain", Y, dict(vals=es)),
+                ("al_hess", U, dict(vals=es, B=Y, vals2=ayu, coefs=coefs)),
+                ("cost", Y, dict(vals=es))):
+            got = K.symcoo_spmm(A, pat, mode, **kw)
+            full = K.symcoo_spmm_plain(A, whole, mode, **kw)
+            if mode == "cost":
+                got, full = got[1], full[1][c0:c1]
+            else:
+                full = full[:, c0:c1]
+            assert got.shape[-1] == c1 - c0
+            assert torch.equal(got, full), (r, mode)
+            joined[mode][..., c0:c1] += got
+        got = K.pattern_dots(Y, U, pat)
+        assert torch.equal(got, K.pattern_dots_plain(Y, U, whole))
+        assert int(pat.i.min()) >= r0 and int(pat.i.max()) < r1
+        dots.append(got)
+    # the cuts fall inside columns: neighbouring ranks share one
+    assert any(a[1] - 1 == b[0] for a, b in zip(spans, spans[1:]))
+
+    mesh = jmake_mesh(world, "model")
+    sop_h, _ = _jax_sharded_arrays(jop, world)
+    sop = jax.device_put(sop_h, sop_h.shardings(mesh))
+    specs = sop_h.specs()
+    jY, jU, jw = (jax.numpy.asarray(inputs[k]) for k in "YUw")
+    jw2 = jax.numpy.asarray(inputs["w"][::-1].copy())
+
+    def run(fn, in_specs, out_specs=P()):
+        return jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                                     out_specs=out_specs, check_vma=False))
+
+    def hess(o, y_, u_, w_, w2_):
+        return coefs[0] * o.matmat_pattern(u_, o.es_vals(w_, SIGMA)) + \
+            coefs[1] * o.matmat_pattern(y_, o.adjoint_on_pattern(w2_))
+
+    def cost(o, y_, w_):
+        return jax.numpy.sum(
+            y_ * o.matmat_pattern(y_, o.es_vals(w_, SIGMA)), axis=0)
+
+    nnzP = jop.pat.nnz
+    Lp = -(-nnzP // world)
+    jdots = np.asarray(run(lambda o, y_, u_: o.pattern_pair_dots(y_, u_),
+                           (specs, P(), P()), P("model"))(sop, jY, jU))
+    jdots = np.concatenate([jdots.reshape(world, Lp)[d, :min(
+        Lp, nnzP - d * Lp)] for d in range(world)])
+    for name, got, want in (
+            ("plain", joined["plain"], run(
+                lambda o, y_, w_: o.matmat_pattern(y_, o.es_vals(w_, SIGMA)),
+                (specs, P(), P()))(sop, jY, jw)),
+            ("al_hess", joined["al_hess"],
+             run(hess, (specs, P(), P(), P(), P()))(sop, jY, jU, jw, jw2)),
+            ("cost", joined["cost"], run(cost, (specs, P(), P()))(sop, jY,
+                                                                  jw)),
+            ("pair_dots", torch.cat(dots), jdots)):
+        assert _rel(got.numpy(), want) <= 1e-12, (world, name)
+
+
+def test_column_blocks_join_like_the_all_reduce(ranks):
+    """The sharded operator's column-block methods on the matrix
+    completion at world 2 (gloo): each rank's block joined by one
+    all-gather equals the path it replaces (the block in zeros at its
+    columns, all-reduced), bit for bit, in f64 and f32 (a column both ranks
+    share is a + b either way); both ranks hold the same bits."""
+    per = [r["blocks2"] for r in ranks]
+    assert all(p["result"] is None for p in per[2:])
+    res = [p["result"] for p in per[:2]]
+    spans = res[0]["spans"]
+    assert spans[0][1] - 1 == spans[1][0]
+    for r, out in enumerate(res):
+        assert tuple(out["span"][:2]) == tuple(spans[r])
+        for dt in ("float64", "float32"):
+            for name, (joined, reduced) in out[dt].items():
+                np.testing.assert_array_equal(joined, reduced,
+                                              err_msg=f"{dt} {name}")
+                np.testing.assert_array_equal(joined, res[0][dt][name][0])
+    for p in per[:2]:
+        assert p["collectives"]["all_gather"] > 0
 
 
 def _solve(name):

@@ -27,6 +27,10 @@ process sees the same bits):
     step is its three passes followed by K2 ``proj``.  The hash covers
     eta, Heta, r, the scalar state and the next direction of the active
     instances (a stopped instance's is never read);
+  - K1 ``al_hess`` and K3 on the mc-12000 pattern's world-2 and world-4
+    slices (``partition``'s cuts), over the slice's columns where the
+    tree's SymCOO has a ``span`` (hashed on those columns either way), and
+    K3 on the whole pattern;
   - on a tree with the row-block and split modes (slice 6b), each at one
     rank (the collectives the identity): K7 ``rows`` and K8 ``rows`` (the
     rows of a quarter of the grid at offset 15) at q = 60, K7 ``rows_d4``
@@ -232,9 +236,66 @@ def child(tree):
     if hasattr(K, "symdual_apply_rows"):
         # last: its draws from ``rnd`` must not move the other cases' inputs
         row_cases(cs, K, rnd, dtypes, run)
+    shard_cases(K, SymCOO, dtypes, run, dev)
     print(json.dumps(dict(tree=tree, cases=cases, solves=solves,
                           tcg_iteration=host, qs30_k11=dict(
                               qs30, by_shape=steps))), flush=True)
+
+
+def shard_cases(K, SymCOO, dtypes, run, dev):
+    """K1 ``al_hess`` and K3 at p 16 on the mc-12000 pattern whole and on
+    each world-2 and world-4 slice of it (``partition``'s cuts of the
+    (j, i)-sorted pattern ids), with inputs of a generator of their own.  On
+    a tree whose SymCOO has a ``span``, a slice runs over its own columns;
+    on an older tree over all n (its other columns zero), hashed on the
+    slice's columns, so the two trees' hashes compare."""
+    import numpy as np
+    import torch
+    pat = np.load(PATTERN)
+    i_all, j_all, n = pat["i"], pat["j"], int(pat["n"])
+    nnzP = i_all.size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    rnd = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                 dtype=torch.float64, device=dev)
+    as_t = lambda a, d: torch.as_tensor(a, dtype=d, device=dev)  # noqa: E731
+    spans = "span" in SymCOO.__dataclass_fields__
+    for world in (1, 2, 4):
+        Lp = -(-nnzP // world)
+        for r in range(world):
+            lo, hi = r * Lp, min((r + 1) * Lp, nnzP)
+            i, j = i_all[lo:hi], j_all[lo:hi]
+            c0, c1 = int(j[0]), int(j[-1]) + 1
+            colptr = np.zeros(n + 1, np.int64)
+            np.cumsum(np.bincount(j, minlength=n), out=colptr[1:])
+            span = dict(span=(c0, c1, int(i.min()), int(i.max()) + 1)) \
+                if spans and world > 1 else {}
+            P64 = SymCOO(i=as_t(i, torch.int32), j=as_t(j, torch.int32),
+                         v=rnd(hi - lo), n=n,
+                         colptr=as_t(colptr, torch.int32), **span)
+
+            def cols(fn):
+                def call(*a, **kw):
+                    out = fn(*a, **kw)
+                    return out[:, c0:c1] if out.shape[-1] != c1 - c0 \
+                        else out
+                return call
+
+            tag = "mc12000" if world == 1 else f"mc12000_w{world}r{r}"
+            for dt in dtypes:
+                Pt = P64.astype(dt)
+                es, ayu = rnd(hi - lo).to(dt), rnd(hi - lo).to(dt)
+                Y = K.oblique_cols_plain(rnd(16, n).to(dt), None,
+                                         "renormalize")
+                U = K.oblique_cols_plain(Y, rnd(16, n).to(dt), "proj")
+                if world > 1:
+                    run(f"symcoo_spmm.{tag}.al_hess", dt,
+                        cols(K.symcoo_spmm), cols(K.symcoo_spmm_plain),
+                        (U, Pt, "al_hess"), dict(vals=es, B=Y, vals2=ayu,
+                                                 coefs=(2.0, 4.0 * 0.37)),
+                        p=16)
+                run(f"pattern_dots.{tag}", dt, K.pattern_dots,
+                    K.pattern_dots_plain, (Y, U, Pt), {}, p=16)
 
 
 def solve_points(cs, dev):
