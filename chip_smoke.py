@@ -132,7 +132,8 @@ not 0):
      stages CUDA all-reduces through the host, so its times are labelled
      host-staged;
  25. the row-sharded SOS-dual operator and the model-sharded MaxCut RTR
-     (slice 6b; K7 / K8 row-block modes, K11 split mode): at world 1 on
+     (slice 6b; K7 / K8 row-block modes, K11 peer and split modes): at
+     world 1 on
      NCCL (one spawn), ShardedSymDualOp at q = 120 (n~ = 14,522): apply,
      adjoint and apply -> scale by idAAt -> adjoint of a seeded symmetric
      M and tuple y, held to the single-card K7 / K8 (1e-12 f64, 1e-5
@@ -146,16 +147,24 @@ not 0):
      G67-size
      dense MaxCut (the stand-in's cost as a dense 10^4 x 10^4 f64 C, p =
      40, a seeded Oblique.rand start, JAX's default TROptions) through
-     sharded_maxcut_solve, bit-equal to the single-card RTR (fx, Y, TR
-     and tCG counts), and K11's split mode at its tCG shape bit-equal to
-     the one launch (25c); then over 2 gloo ranks on card 0 (one spawn)
-     the operator at q = 60 (25b) and the RTR (fx within 1e-12, Y within
-     1e-10, equal counts; 25c), every rank's replicated outputs bit-equal;
+     sharded_maxcut_solve, K11 in its peer mode (the group's choice on
+     NCCL) and again in its split mode, each bit-equal to the single-card
+     RTR (fx, Y, TR and tCG counts), and K11's peer and split modes at its
+     tCG shape bit-equal to each other and to the one launch, each timed
+     beside its bound (25c); then over 2 gloo ranks on card 0 (one spawn)
+     the operator at q = 60 (25b) and the RTR in K11's split mode (fx
+     within 1e-12, Y within 1e-10, equal counts; 25c; also K11's peer
+     mode between the two processes at the rank's shape, bit-equal to the
+     split mode, host-timed), every rank's replicated outputs
+     bit-equal;
      phase 21's 16 dense G1-size stand-ins through
      batched_sharded_maxcut_solve on a (2, 2) (batch, model) mesh of 4
      gloo ranks on card 0, every instance held to the single-card batched
      RTR (25d); with two or more cards, 25a and 25c on NCCL across min(4,
-     cards) cards (25e; otherwise one line says why it did not run).
+     cards) cards, the RTR in K11's peer mode where every pair of the
+     cards has peer access and again in split mode, both held to the
+     single card, K11's two modes timed side by side at the rank's shape
+     (25e; otherwise one line says why it did not run).
 ``--phases`` selects phases (default all; 1-2 always run).  A phase runs
 with the rest of its group (3 | 4 | 5 | 6-7 | 8-11 | 12-15 | 16-19 |
 20 | 21 | 22 | 23 | 24 | 25), and 16-19 bring 12-15 (phase 17 reads phase
@@ -189,6 +198,7 @@ It needs one CUDA device and exits with an error without one.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import os
@@ -1569,6 +1579,7 @@ def profile_breakdown(fn):
                            "steqr", "stedc", "potrf", "cusolver", "lansy",
                            "larf", "geqrf")),
              ("memcpy / memset", ("Memcpy", "Memset", "memcpy", "memset")),
+             ("NCCL collectives", ("nccl",)),
              ("reductions", ("reduce", "Reduce")),
              ("indexing / copies", ("index", "Index", "gather", "scatter",
                                     "copy", "cat", "Cat", "tril", "triu")),
@@ -3714,21 +3725,22 @@ def symdual_big_rank(q, seed):
     return out
 
 
-def maxcut_shard_rank(C_sp, p, seed, single):
+def maxcut_shard_rank(C_sp, p, seed, single, peer_k11=False):
     """One rank of 25c / 25e: the dense G67-size MaxCut RTR through
     sharded_maxcut_solve (JAX's default TROptions) on the 1-D model mesh
-    of all ranks from a seeded Oblique.rand start; with ``single`` first
-    the single-card make_trustregions(make_maxcut_problem(dense=True)) in
-    this process on the same input.  Returns each solve's fx (and its hex),
-    counts, seconds and launches, digests of Y (rank 0: Y itself), and K11's
-    split mode at this rank's tCG shape against its twin and the one
-    launch (times and bound)."""
+    of all ranks from a seeded Oblique.rand start, K11 in the mode the
+    group chooses (peer on NCCL with peer access, else split) and, where
+    that is peer, once more in split mode; with ``single`` first the
+    single-card make_trustregions(make_maxcut_problem(dense=True)) in this
+    process on the same input.  Returns each solve's fx (and its hex),
+    counts, seconds and launches, digests of Y (rank 0: Y itself), and
+    K11's modes at this rank's tCG shape (``k11_modes``; the peer mode
+    there too with ``peer_k11``)."""
     import torch
     import torch.distributed as dist
     from manisdp_tpu_torch import kernels as K
     from manisdp_tpu_torch.core import TROptions, make_trustregions
     from manisdp_tpu_torch.manifolds import Oblique
-    from manisdp_tpu_torch.parallel.distributed import all_reduce
     from manisdp_tpu_torch.parallel.mesh import (make_mesh, mesh_axis,
                                                  sharded_maxcut_solve)
     from manisdp_tpu_torch.solvers.maxcut import make_maxcut_problem
@@ -3745,10 +3757,10 @@ def maxcut_shard_rank(C_sp, p, seed, single):
     out = dict(rank=rank, world=world, backend=dist.get_backend(),
                device=str(device))
 
-    def record(res, seconds):
+    def record(res, seconds, mode):
         r = dict(fx=float(res.fx), fx_hex=float(res.fx).hex(),
                  norm_grad=float(res.norm_grad), iters=res.iters,
-                 inner_iters=res.inner_iters, seconds=seconds,
+                 inner_iters=res.inner_iters, seconds=seconds, mode=mode,
                  launches=dict(K.LAUNCHES), tcg=dict(K.TCG_LAUNCHES),
                  collectives=dict(K.COLLECTIVES),
                  digest=_digest(res.Y.cpu().numpy()))
@@ -3764,21 +3776,68 @@ def maxcut_shard_rank(C_sp, p, seed, single):
         t0 = time.perf_counter()
         r1 = base(Y0, C, typ)
         torch.cuda.synchronize()
-        out["single"] = record(r1, time.perf_counter() - t0)
+        out["single"] = record(r1, time.perf_counter() - t0, None)
         del r1
-    solve, shard = sharded_maxcut_solve(mesh)
-    Yl, Cl = shard(Y0, C)
+
+    def sharded(mode):
+        # twice: the first call also sets up the peer mode's buffers (and,
+        # in a fresh process, NCCL's communicator and the GEMM handles)
+        solve, shard = sharded_maxcut_solve(mesh, tcg_mode=mode)
+        Yl, Cl = shard(Y0, C)
+        secs = []
+        for _ in range(2):
+            K.reset_launches()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            res = solve(Yl, Cl, typ)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        rec = record(res, secs[1], solve.manifold.tcg_mode)
+        rec["first_s"] = secs[0]
+        if dist.get_backend() == "nccl":
+            # where a warm solve's time goes: device busy share, by kind
+            dist.barrier()
+            rec["profile"] = profile_breakdown(
+                lambda: solve(Yl, Cl, typ))[1]
+        solve.manifold.close()
+        return rec, Yl
+
+    out["sharded"], Yl = sharded(None)
+    if out["sharded"]["mode"] == "peer":
+        out["sharded_split"], _ = sharded("split")
     del C
-    K.reset_launches()
-    torch.cuda.synchronize()
-    dist.barrier()
-    t0 = time.perf_counter()
-    res = solve(Yl, Cl, typ)
-    torch.cuda.synchronize()
-    out["sharded"] = record(res, time.perf_counter() - t0)
     out["local_shape"] = list(Yl.shape)
-    # K11 split at this rank's tCG shape (1, p, n / D), f64, with the tangent
-    # projection, as the solve runs it
+    out["k11"] = k11_modes(Yl, group, gen, typ,
+                           peer_k11 or out["sharded"]["mode"] == "peer")
+    return out
+
+
+def k11_modes(Yl, group, gen, typ, peer):
+    """K11 at this rank's tCG shape (1, p, n / D), f64, with the tangent
+    projection, as the sharded solve runs it, from one seeded state: the
+    split mode (its partials all-reduced) and, with ``peer``, the peer mode
+    (a PeerSums of ``group``), each against its twin (the split's with the
+    all-reduce, the peer's with distributed.ordered_sum), against each
+    other and, at one rank, against the one launch; digests of every
+    output and of the next scalar state (which every rank must share);
+    each mode's ms: one call (CUDA events; host-timed on gloo), a step in
+    a chain of 50 at the host's pace (``host_chain_ms``: CUDA events
+    around them, no spin before) and, on NCCL, at the device's
+    (``chain_ms``: the 50 steps enqueued behind a spin kernel, so the
+    ranks run them back to back in lockstep, the first step taking up
+    their skew) and its kernels and collectives by name (``pass_times``;
+    across ranks a kernel's time includes its wait for the others); on
+    NCCL also one all-reduce of each of the split mode's partials, (1,
+    nblk, 2) and (1, nblk), at the device's pace; the bound at this
+    shape."""
+    import torch
+    import torch.distributed as dist
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch.parallel.distributed import all_reduce, ordered_sum
+    from manisdp_tpu_torch.parallel.peer import PeerSums
+    device = Yl.device
+    world = dist.get_world_size(group)
     shape = (1,) + tuple(Yl.shape)
     r = torch.randn(shape, generator=gen, dtype=torch.float64, device=device)
     Hd = r * (1.0 + torch.randn(shape, generator=gen, dtype=torch.float64,
@@ -3789,36 +3848,94 @@ def maxcut_shard_rank(C_sp, p, seed, single):
     sc = torch.stack([z, z, r_r, r_r, z, z + typ ** 2 / 64, z, z + 1], 1)
     st = torch.zeros((1, 2), dtype=torch.int32, device=device)
     Y = Yl[None]
-    red = lambda t: all_reduce(t, group)  # noqa: E731
+    gloo = dist.get_backend(group) == "gloo"
+    L = r.numel()
+    out = dict(shape=list(shape), world=world,
+               staging="host (gloo)" if gloo else "device (NCCL)",
+               bound=bound(nbytes(r, Hd, eta, Heta, r, sc, st, Y, eta, Heta,
+                                  r, r), 18.0 * L, "float64"))
 
     def fresh():
         return tuple(t.clone() for t in (r, Hd, eta, Heta, r))
 
-    got = K.tcg_step(*fresh(), sc, st, 1, Y, None, red)
-    ref = K.tcg_step_plain(*fresh(), sc, st, 1, Y, None, red)
+    def chain_ms(fn, steps=50, reps=5, spin_ms=0.0):
+        ts = []
+        fn()
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            dist.barrier(group)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            if spin_ms:
+                torch.cuda._sleep(int(spin_ms * 2e6))   # ~2e6 cycles a ms
+            a.record()
+            for _ in range(steps):
+                fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b) / steps)
+        return statistics.median(ts)
+
+    def device_chain_ms(fn, host_ms, steps=50):
+        """chain_ms behind a spin longer than the host takes to enqueue
+        the steps (``host_ms`` a step at the host's pace)."""
+        return chain_ms(fn, steps, spin_ms=1.5 * steps * host_ms + 2.0)
+
+    red = lambda t: all_reduce(t, group)  # noqa: E731
+    peers = PeerSums(group) if peer else None
+    modes = dict(split=dict(reduce=red, twin=red))
+    if peer:
+        modes["peer"] = dict(peer=peers,
+                             twin=lambda t: ordered_sum(t, group))
     one = K.tcg_step(*fresh(), sc, st, 1, Y, None)
-    torch.cuda.synchronize()
-    err = max(_rel_err(g.cpu().numpy(), f.cpu().numpy())
-              for g, f in zip(got[:5], ref[:5]))
+    got = {}
+    for name, kw in modes.items():
+        twin = kw.pop("twin")
+        g = got[name] = K.tcg_step(*fresh(), sc, st, 1, Y, None, **kw)
+        ref = K.tcg_step_plain(*fresh(), sc, st, 1, Y, None, twin)
+        torch.cuda.synchronize()
+        bufs = fresh()
+        timer = host_ms if gloo else time_ms
+        step = functools.partial(K.tcg_step, *bufs, sc, st, 1, Y, None,
+                                 **kw)
+        host_chain = chain_ms(step)
+        out[name] = dict(
+            rel_err=max(_rel_err(a.cpu().numpy(), f.cpu().numpy())
+                        for a, f in zip(g[:5], ref[:5])),
+            max_abs_err=max(float(torch.max(torch.abs(a - f)))
+                            for a, f in zip(g[:5], ref[:5])),
+            digest=_digest(*(t.cpu().numpy() for t in g)),
+            scalars_digest=_digest(*(t.cpu().numpy() for t in g[4:])),
+            bit_equal_one_launch=world == 1 and all(
+                torch.equal(a, f) for a, f in zip(g, one)),
+            ms=timer(step),
+            plain_ms=timer(lambda: K.tcg_step_plain(*fresh(), sc, st, 1, Y,
+                                                    None, twin)),
+            host_chain_ms=host_chain,
+            chain_ms=None if gloo else device_chain_ms(step, host_chain),
+            passes_ms=None if gloo else pass_times(step, reps=10))
     bufs = fresh()
-    gloo = dist.get_backend() == "gloo"
-    timer = host_ms if gloo else time_ms
-    L = r.numel()
-    out["k11_split"] = dict(
-        shape=list(shape), rel_err=err, max_abs_err=max(
-            float(torch.max(torch.abs(g - f))) for g, f in zip(got[:5],
-                                                                ref[:5])),
-        bit_equal_one_launch=world == 1 and all(
-            torch.equal(g, f) for g, f in zip(got, one)),
-        ms=timer(lambda: K.tcg_step(*bufs, sc, st, 1, Y, None, red)),
-        plain_ms=timer(lambda: K.tcg_step_plain(*fresh(), sc, st, 1, Y,
-                                                None, red)),
-        one_launch_ms=timer(lambda: K.tcg_step(*bufs, sc, st, 1, Y, None)),
-        bound=bound(nbytes(r, Hd, eta, Heta, r, sc, st, Y, eta, Heta, r, r),
-                    18.0 * L, "float64"),
-        staging="host (gloo)" if gloo else "device (NCCL)",
-        passes_ms=None if gloo else pass_times(
-            lambda: K.tcg_step(*bufs, sc, st, 1, Y, None, red), reps=10))
+    out["one_launch_ms"] = time_ms(lambda: K.tcg_step(*bufs, sc, st, 1, Y,
+                                                      None))
+    if not gloo:
+        nblk = K.tcg_blocks(L)
+        out["all_reduce_ms"] = {}
+        for part in (torch.zeros((1, nblk, 2), dtype=torch.float64,
+                                 device=device),
+                     torch.zeros((1, nblk), dtype=torch.float64,
+                                 device=device)):
+            ar = functools.partial(all_reduce, part, group)
+            out["all_reduce_ms"][str(tuple(part.shape))] = device_chain_ms(
+                ar, chain_ms(ar))
+    if peer:
+        out["peer_vs_split"] = dict(
+            bit_equal=all(torch.equal(a, f) for a, f in
+                          zip(got["peer"], got["split"])),
+            rel_err=max(_rel_err(a.cpu().numpy(), f.cpu().numpy())
+                        for a, f in zip(got["peer"][:5], got["split"][:5])))
+        torch.cuda.synchronize()
+        dist.barrier(group)
+        peers.close()
     return out
 
 
@@ -3919,10 +4036,18 @@ def sharded_6b_rows(rec):
     call is index_add_ of M at the sorted-index class map (beside it the
     full-mode K7 on the whole M and 25f's q = 180 run), the adjoint's
     torch.take of the class map's rows; no single PyTorch call computes
-    K11's step (library_ms null)."""
+    K11's step (library_ms null).  K11's split row counts its launches in
+    25c's gloo solve at world 2 (the mode gloo takes), the peer row in the
+    solve at world 1 (NCCL); both rows' times are world 1's, and 25e's
+    (four cards) go beside them where it ran."""
     a, c = rec["a"]["ranks"][0], rec["c"]["world1"]["ranks"][0]
+    c2 = rec["c"]["world2"]["ranks"][0]
     f = rec["f"]
-    t, k11 = a["times"], c["k11_split"]
+    t, k11 = a["times"], c["k11"]
+    e = rec.get("e", {}).get("maxcut")
+    k11e = {m: [r["k11"][m] for r in e["ranks"]] for m in ("split", "peer")
+            if m in e["ranks"][0]["k11"]} if e else {}
+    want_e = e["ranks"][0]["sharded"]["mode"] if e else None
     err = a["max_abs_err"]["float64"]
     row = dict(route="cuda", library_ms=None,
                library="none: no single PyTorch call computes it")
@@ -3954,21 +4079,37 @@ def sharded_6b_rows(rec):
              library="torch.take of the class map's rows",
              library_index_mb=t["adjoint_library_index_mb"], q=a["q"],
              world=a["world"]),
-        dict(row, name="tcg_step.split",
-             source="manisdp_tpu_torch/csrc/tcg_step.cu",
-             replaces="manisdp_tpu/parallel/mesh.py:55",
-             launches=c["sharded"]["tcg"]["split"],
-             max_abs_err=k11["max_abs_err"], ms=k11["ms"],
-             plain_ms=k11["plain_ms"], bound_ms=k11["bound"][0],
-             bound_by=k11["bound"][1], one_launch_ms=k11["one_launch_ms"],
-             passes_ms=k11["passes_ms"], shape=k11["shape"])]
+    ] + [dict(row, name=f"tcg_step.{m}",
+               source="manisdp_tpu_torch/csrc/tcg_step.cu",
+               replaces="manisdp_tpu/parallel/mesh.py:55",
+               launches=(c2 if m == "split" else c)["sharded"]["tcg"][m],
+               max_abs_err=k11[m]["max_abs_err"], ms=k11[m]["ms"],
+               plain_ms=k11[m]["plain_ms"], bound_ms=k11["bound"][0],
+               bound_by=k11["bound"][1], chain_ms=k11[m]["chain_ms"],
+               host_chain_ms=k11[m]["host_chain_ms"],
+               one_launch_ms=k11["one_launch_ms"],
+               passes_ms=k11[m]["passes_ms"], shape=k11["shape"],
+               **({"cards": dict(
+                   world=e["world"], shape=e["ranks"][0]["k11"]["shape"],
+                   bound_ms=e["ranks"][0]["k11"]["bound"][0],
+                   ms=[x["ms"] for x in k11e[m]],
+                   chain_ms=[x["chain_ms"] for x in k11e[m]],
+                   host_chain_ms=[x["host_chain_ms"] for x in k11e[m]],
+                   passes_ms=k11e[m][0]["passes_ms"],
+                   all_reduce_ms=e["ranks"][0]["k11"]["all_reduce_ms"],
+                   solve_s=e["ranks"][0]["sharded" if m == want_e
+                                        else "sharded_split"]["seconds"])}
+                  if m in k11e
+                  else {}))
+           for m in ("split", "peer")]
 
 
 def sharded_6b_phases(device, seed):
     """Phase 25: ShardedSymDualOp at q = 120 on NCCL at world 1 (25a) and
     at q = 60 over 2 gloo ranks on card 0 (25b); the dense G67-size MaxCut
-    RTR through sharded_maxcut_solve at world 1 (25c, bit-equal to the
-    single-card RTR) and over 2 gloo ranks (25c); the 16 G1-size dense
+    RTR through sharded_maxcut_solve at world 1 (25c, K11's peer mode and
+    then its split mode, each bit-equal to the single-card RTR) and over 2
+    gloo ranks (25c, split); the 16 G1-size dense
     stand-ins through batched_sharded_maxcut_solve on a (2, 2) mesh of
     gloo ranks on card 0 (25d); with two or more cards, 25a and 25c on
     NCCL across min(4, cards) cards (25e).  Gloo stages every collective
@@ -3992,17 +4133,21 @@ def sharded_6b_phases(device, seed):
 
     C_sp, _ = load_graph("G67", None, seed)
 
-    def spawn(world, backend, dev, q=None, single=None, big_q=None):
+    def spawn(world, backend, dev, q=None, single=None, big_q=None,
+              peer_k11=False):
         """One spawn of ``world`` ranks running the operator's job (at q),
-        the MaxCut RTR's (with the single-card reference when ``single``)
-        and 25f's (at big_q), each a list of the ranks' results."""
+        the MaxCut RTR's (with the single-card reference when ``single``;
+        K11's peer mode checked beside the split mode with ``peer_k11``
+        or where the group chooses it) and 25f's (at big_q), each a list
+        of the ranks' results."""
         jobs = []
         if q is not None:
             jobs.append(("symdual", "symdual_rank", dict(q=q,
                                                          seed=seed + 25)))
         if single is not None:
             jobs.append(("maxcut", "maxcut_shard_rank", dict(
-                C_sp=C_sp, p=MAXCUT_SHARD_P, seed=seed + 25, single=single)))
+                C_sp=C_sp, p=MAXCUT_SHARD_P, seed=seed + 25, single=single,
+                peer_k11=peer_k11)))
         if big_q is not None:
             jobs.append(("big", "symdual_big_rank", dict(q=big_q,
                                                          seed=seed + 25)))
@@ -4038,62 +4183,103 @@ def sharded_6b_phases(device, seed):
                                      "replicated outputs differ from rank 0's")
         return res
 
-    def maxcut(label, ranks, call_s, ref):
+    def maxcut(label, ranks, call_s, ref, want):
+        """25c / 25e's checks: counts and bits against the single card,
+        K11 in mode ``want`` (and never in the other), K11's modes at the
+        rank's shape against their twins, each other and the one launch,
+        every rank the same bits."""
         r0 = ranks[0]
         world, backend = r0["world"], r0["backend"]
         single = r0.get("single", ref)
         Y1 = single.pop("Y", None) if ref is None else ref["Y"]
         Ys = r0["sharded"].pop("Y")
+        Yss = r0.get("sharded_split", {}).pop("Y", None)
         res = dict(phase=f"maxcut_sharded_{label}", n=C_sp.shape[0],
                    p=MAXCUT_SHARD_P, world=world, backend=backend,
-                   ranks_on=r0["device"], call_s=call_s,
+                   ranks_on=r0["device"], call_s=call_s, mode=want,
                    fx_rel=abs(r0["sharded"]["fx"] - single["fx"]) /
                    abs(single["fx"]),
                    Y_abs=float(np.max(np.abs(Ys - Y1))),
+                   split_Y_abs=None if Yss is None else float(
+                       np.max(np.abs(Yss - Y1))),
                    single={k: v for k, v in single.items() if k != "Y"},
                    ranks=ranks)
         emit(res)
+        other = "split" if want == "peer" else "peer"
         for r in ranks:
+            for key in ("sharded", "sharded_split"):
+                g = r.get(key)
+                if g is None:
+                    continue
+                if (g["iters"], g["inner_iters"]) != (single["iters"],
+                                                      single["inner_iters"]):
+                    raise AssertionError(f"25{label}: rank {r['rank']} {key} "
+                                         f"counts {g['iters']}, "
+                                         f"{g['inner_iters']}")
+                if g["digest"] != r0[key]["digest"] or \
+                        g["fx_hex"] != r0[key]["fx_hex"]:
+                    raise AssertionError(f"25{label}: rank {r['rank']}'s "
+                                         f"{key} result differs from rank "
+                                         "0's")
             g = r["sharded"]
-            if (g["iters"], g["inner_iters"]) != (single["iters"],
-                                                  single["inner_iters"]):
-                raise AssertionError(f"25{label}: rank {r['rank']} counts "
-                                     f"{g['iters']}, {g['inner_iters']}")
-            if g["tcg"]["split"] <= 0 or g["launches"]["oblique_cols"] <= 0:
-                raise AssertionError(f"25{label}: rank {r['rank']} never "
-                                     "launched K11's split mode or K2")
-            if g["digest"] != r0["sharded"]["digest"] or \
-                    g["fx_hex"] != r0["sharded"]["fx_hex"]:
-                raise AssertionError(f"25{label}: rank {r['rank']}'s result "
-                                     "differs from rank 0's")
-            k11 = r["k11_split"]
-            if not k11["rel_err"] <= 1e-12 or (
-                    world == 1 and not k11["bit_equal_one_launch"]):
-                raise AssertionError(f"25{label}: K11 split {k11}")
-        if world == 1:
-            if r0["sharded"]["fx_hex"] != single["fx_hex"] or \
-                    r0["sharded"]["digest"] != single["digest"]:
-                raise AssertionError(f"25{label}: not bit-equal to the "
-                                     f"single-card RTR: {res['fx_rel']}, "
-                                     f"{res['Y_abs']}")
-        elif not (res["fx_rel"] <= 1e-12 and res["Y_abs"] <= 1e-10):
-            raise AssertionError(f"25{label}: fx {res['fx_rel']}, Y "
-                                 f"{res['Y_abs']}")
+            if g["mode"] != want or g["tcg"][want] <= 0 or \
+                    g["tcg"][other] != 0 or g["launches"]["oblique_cols"] <= 0:
+                raise AssertionError(f"25{label}: rank {r['rank']} ran K11 "
+                                     f"in {g['mode']} ({g['tcg']}), not "
+                                     f"{want}, or never launched K2")
+            if "sharded_split" in r and (
+                    r["sharded_split"]["tcg"]["peer"] != 0 or
+                    r["sharded_split"]["tcg"]["split"] <= 0):
+                raise AssertionError(f"25{label}: rank {r['rank']} split "
+                                     f"solve {r['sharded_split']['tcg']}")
+            k11 = r["k11"]
+            for m in ("split", "peer"):
+                if m not in k11:
+                    continue
+                if not k11[m]["rel_err"] <= 1e-12 or (
+                        world == 1 and not k11[m]["bit_equal_one_launch"]):
+                    raise AssertionError(f"25{label}: K11 {m} {k11[m]}")
+                if k11[m]["scalars_digest"] != \
+                        r0["k11"][m]["scalars_digest"]:
+                    raise AssertionError(f"25{label}: rank {r['rank']}'s "
+                                         f"K11 {m} scalar state differs "
+                                         "from rank 0's")
+            pv = k11.get("peer_vs_split")
+            if pv is not None and not (pv["bit_equal"] if world <= 2
+                                       else pv["rel_err"] <= 1e-12):
+                raise AssertionError(f"25{label}: K11 peer against split "
+                                     f"{pv}")
+        for key, y_abs in (("sharded", res["Y_abs"]),
+                           ("sharded_split", res["split_Y_abs"])):
+            if key not in r0:
+                continue
+            g = r0[key]
+            if world == 1:
+                if g["fx_hex"] != single["fx_hex"] or \
+                        g["digest"] != single["digest"]:
+                    raise AssertionError(f"25{label}: {key} not bit-equal "
+                                         "to the single-card RTR")
+            elif not (abs(g["fx"] - single["fx"]) / abs(single["fx"]) <=
+                      1e-12 and y_abs <= 1e-10):
+                raise AssertionError(f"25{label}: {key} fx {g['fx']}, Y "
+                                     f"{y_abs}")
         return res, dict(single, Y=Y1)
 
     # -- 25a / 25c at world 1 (NCCL), one spawn; 25b / 25c at world 2
     #    (gloo on card 0), one spawn --
     one = spawn(1, "nccl", "cuda", q=SYMDUAL_NCCL_Q, single=True,
                 big_q=SYMDUAL_BIG_Q)
+    # the two processes on card 0 also check K11's peer mode: they meet at
+    # its flag barrier, a time slice a barrier (tools/peer_probe.py case b)
     two = spawn(SHARD_GLOO_WORLD, "gloo", "cuda:0", q=SYMDUAL_GLOO_Q,
-                single=False)
+                single=False, peer_k11=True)
     out["a"] = symdual("a", *one["symdual"])
     out["f"] = dict(phase="symdual_sharded_f", backend="nccl",
                     call_s=one["big"][1], **one["big"][0][0])
     emit(out["f"])
     out["b"] = symdual("b", *two["symdual"])
-    c1, single = maxcut("c1", *one["maxcut"], None)
-    c2, _ = maxcut("c2", *two["maxcut"], single)
+    c1, single = maxcut("c1", *one["maxcut"], None, "peer")
+    c2, _ = maxcut("c2", *two["maxcut"], single, "split")
     out["c"] = dict(world1=c1, world2=c2)
     # -- 25d: the batch on a (batch, model) mesh --
     dense, _ = batch_graphs()
@@ -4127,13 +4313,16 @@ def sharded_6b_phases(device, seed):
         if not (np.array_equal(r["iters"], ref.iters) and
                 np.array_equal(r["inner_iters"], ref.inner_iters)):
             raise AssertionError(f"25d: rank {r['rank']} counts differ")
-        if r["digest"] != r0["digest"] or r["tcg"]["split"] <= 0:
+        if r["digest"] != r0["digest"] or r["tcg"]["split"] <= 0 or \
+                r["tcg"]["peer"] != 0:
             raise AssertionError(f"25d: rank {r['rank']}: {r['tcg']}")
     # -- 25e: NCCL across cards --
     if cards >= 2:
+        from manisdp_tpu_torch.parallel.peer import tcg_mode
+        want = tcg_mode("nccl", [(0, c) for c in range(nccl_world)])
         e = spawn(nccl_world, "nccl", "cuda", q=SYMDUAL_NCCL_Q, single=False)
         out["e"] = dict(symdual=symdual("e", *e["symdual"]),
-                        maxcut=maxcut("e", *e["maxcut"], single)[0])
+                        maxcut=maxcut("e", *e["maxcut"], single, want)[0])
     else:
         out["e"] = dict(phase="sharded_6b_e", run=False,
                         reason=f"{cards} CUDA device: NCCL needs one card "

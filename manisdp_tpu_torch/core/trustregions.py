@@ -7,15 +7,18 @@ accept / reject (at most ``maxiter`` host reads per solve), and the tCG
 loop keeps its scalars on the device: one scalar set per instance, every
 branch of the reference a select.  On a manifold sharded over ranks
 (``M.reduce``: the model-sharded MaxCut of parallel/mesh.py) every sum
-of the tCG covers all ranks, and K11 runs in its split mode; cost, inner
-and norm come all-reduced from the problem and the manifold, so every
-rank takes the same host branches.  Each tCG iteration is the Hessian
+of the tCG covers all ranks, and K11 runs in its peer mode (``M.peer``:
+the sums on the device) or its split mode; cost, inner and norm come
+all-reduced from the problem and the manifold, so every rank takes the
+same host branches.  Each tCG iteration is the Hessian
 product and one launch of kernel K11 (``kernels.tcg_step``: the dots, the
 step and the next direction); on a manifold whose tangent map is K2's
 column projection (``tangent_cols``: the oblique and masked-product
 manifolds) K11 also re-projects the direction, elsewhere ``M.tangent``
 follows it.  The stop flags are read on the host once per ``_TCG_CHUNK``
-iterations.  An iteration that starts after a stop is a
+iterations (and, in peer mode, once more after the loop): a peer-mode
+time-out (stop code ``kernels.TCG_TIMEOUT_STOP``) raises there.  An
+iteration that starts after a stop is a
 masked no-op, so the result equals the iteration-by-iteration semantics
 of the reference.
 
@@ -44,7 +47,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from ..kernels import tcg_step
+from ..kernels import TCG_TIMEOUT_STOP, tcg_step
 from .problem import Problem, TROptions, TRResult
 
 _TCG_CHUNK = 8
@@ -69,14 +72,25 @@ def cast_floats(obj, dtype):
     return obj
 
 
+def _check_stops(codes, peer) -> bool:
+    """True if every instance has stopped (``codes``: the stop codes read
+    on the host); raises on K11's peer-mode time-out."""
+    if TCG_TIMEOUT_STOP in codes:
+        raise RuntimeError(
+            peer.timeout_message() if peer is not None else
+            f"K11 stop code {TCG_TIMEOUT_STOP}: a peer-mode time-out")
+    return all(c != 0 for c in codes)
+
+
 def _make_tcg(problem: Problem, opts: TROptions, batched: bool = False):
     M = problem.manifold
     tcg_dt = getattr(torch, opts.tcg_dtype) if opts.tcg_dtype else None
     tangent_cols = getattr(M, "tangent_cols", None)
     # a manifold whose points are sharded over ranks sums every inner
     # product over them (parallel/mesh.ShardedOblique): ||r||^2 here, and
-    # K11's partials in its split mode
+    # K11's partials in its split mode, or on the device in its peer mode
     reduce = getattr(M, "reduce", None)
+    peer = getattr(M, "peer", None)
 
     def tcg(Y, grad, Delta, params, aux, gaux, active=None):
         """Returns (eta, Heta, inner iterations, stop code), the last two
@@ -133,14 +147,16 @@ def _make_tcg(problem: Problem, opts: TROptions, batched: bool = False):
 
         for it in range(opts.maxinner):
             if it and it % _TCG_CHUNK == 0 and \
-                    bool(torch.all(st[:, 1] != 0)):
+                    _check_stops(st[:, 1].tolist(), peer):
                 break
             Hm = bat(problem.hess(Y, unb(mdelta), params, aux, gaux))
             eta, Heta, r, mdelta, sc, st = tcg_step(
                 mdelta, Hm, eta, Heta, r, sc, st, opts.mininner, Yb, mask,
-                reduce)
+                reduce=None if peer is not None else reduce, peer=peer)
             if Yb is None:
                 mdelta = bat(M.tangent(Y, unb(mdelta)))
+        if peer is not None:
+            _check_stops(st[:, 1].tolist(), peer)
 
         stop = torch.where(st[:, 1] == 0, 5, st[:, 1])
         eta, Heta = unb(eta), unb(Heta)

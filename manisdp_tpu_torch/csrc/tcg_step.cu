@@ -47,14 +47,53 @@
 // earlier order whatever grid the occupancy API allows.  No float
 // atomics.
 //
-// Split mode (the model-sharded RTR, parallel/mesh.py: each rank holds a
-// column block of every vector, and every sum must cover all ranks): the
-// three phases as three ordinary launches of the same device functions,
-// a block per virtual block (per column tile in a projected phase 3).
-// Between them the caller sums the partials part (phase 1) and part2
-// (phase 2) over the ranks, entry by entry; the next launch then sums
-// them in block order as phase 2 / 3 of the one launch do.  At one rank
-// that is the one launch's arithmetic, so its bits.
+// The model-sharded RTR (parallel/mesh.py, the JAX package's
+// parallel/mesh.py:55-75): each of D ranks holds a column block of every
+// vector, and every sum must cover all ranks.  Two modes:
+//
+// Peer mode (NCCL groups whose cards reach each other's memory): still
+// the one cooperative launch a step, with both cross-rank sums made on
+// the device.  Each rank owns one receive buffer (cudaMalloc'd once per
+// (group, B, nblk, dtype) by tcg_peer_alloc: a persistent communication
+// buffer, not per-launch scratch, exported with cudaIpcGetMemHandle and
+// mapped by every peer with cudaIpcOpenMemHandle): D flags (u64), a fault
+// record, and D slots of part and of part2.  Phase 1 writes each virtual
+// block's partials into slot `me` of every rank's buffer (its own, and the
+// peers' over NVLink through the mapped pointers), then
+// __threadfence_system() and grid.sync(); block 0 stores the epoch into
+// flag `me` of every peer (st.release.sys) and spins until each peer's
+// flag in its own buffer reaches the epoch (ld.acquire.sys); grid.sync().
+// Phase 2 sums, for each virtual block in block order, the D slots in
+// rank order 0 .. D-1 (so at D = 2 the sum a + b of an all-reduce, and
+// every rank the same bits), then the same barrier at epoch + 1 for
+// part2.  At D = 1 there are no peers: the barrier is grid.sync() alone
+// and the launch is the plain one launch, bit for bit.
+//   Reuse without a reset: the host passes the epoch, 2 more each step,
+// and every rank makes the same calls (host decisions are bit-equal).
+// Slot `me` of part on rank q is written again in step k+1 only after
+// barrier 2 of step k, which rank q passes only after every rank has read
+// its part (phase 2 precedes its flag); part2 is written again only after
+// barrier 1 of step k+1, whose flag each rank stores in a launch that
+// follows, on its stream, the launch that read part2 in phase 3.  Flags
+// only grow, so one slot a peer serves both barriers.
+//   No hang: the spin is bounded by %globaltimer (kSpinNs).  On expiry
+// block 0 writes the fault record (epoch, peer) and every block gives up:
+// the state is copied with stop code kTimeoutStop, which no other path
+// writes, on every instance; a launch that finds that code in its input
+// returns at once.  The tCG loop reads the stop codes on the host every
+// _TCG_CHUNK iterations and raises, naming the rank and the epoch.
+//   The Hessian's all_gather (NCCL) precedes K11 on each rank's stream:
+// a rank spinning in step k has completed its own part of that gather,
+// and a peer's gather of step k needs nothing more from it, so no peer
+// waits on a rank that waits on it.
+//
+// Split mode (gloo, ranks sharing one card, cards without peer access):
+// the three phases as three ordinary launches of the same device
+// functions, a block per virtual block (per column tile in a projected
+// phase 3).  Between them the caller sums the partials part (phase 1) and
+// part2 (phase 2) over the ranks, entry by entry; the next launch then
+// sums them in block order as phase 2 / 3 of the one launch do.  At one
+// rank that is the one launch's arithmetic, so its bits.
 //
 // What bounds it on an H100: bytes.  One read of each input (d, Hd, r,
 // eta, Heta) and one write of each output (eta, Heta, r, d): 9 vectors of
@@ -71,6 +110,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <cstring>
 
 #include "oblique_tile.cuh"
 
@@ -82,6 +122,20 @@ constexpr int kThreads = kTileThreads;
 constexpr int kWarps = kThreads / 32;
 // entries of one thread's walk loaded before any is used or stored
 constexpr int kChunk = 4;
+// peer mode: the longest wait for a peer's flag (ns of %globaltimer), and
+// the stop code written when it runs out (kernels.TCG_TIMEOUT_STOP)
+constexpr unsigned long long kSpinNs = 10000000000ull;
+constexpr int kTimeoutStop = 8;
+
+// A rank's receive buffer for D ranks, nb instances and nblk virtual
+// blocks: D flags and the fault record (epoch, peer) in a 256-B head,
+// then part (D, nb, nblk, 2) and part2 (D, nb, nblk) in T.
+__host__ __device__ inline int64_t peer_head(int world) {
+  return ((int64_t)(world + 2) * 8 + 255) / 256 * 256;
+}
+__host__ __device__ inline int64_t peer_slot(int nb, int nblk) {
+  return (int64_t)nb * nblk;
+}
 
 template <typename T>
 struct StepArgs {
@@ -96,12 +150,116 @@ struct StepArgs {
   const T* mask;  // (n,) or null
   int64_t L;
   int nb, nblk, p, n, rows, mininner;
-  T* part;   // (nb, nblk, 2)
-  T* part2;  // (nb, nblk)
+  T* part;   // (nb, nblk, 2); peer mode: slot 0 of this rank's buffer
+  T* part2;  // (nb, nblk); the same
   T* xs;     // (nb, 4)
   T* sc_next;
   int* st_next;
+  // peer mode: every rank's receive buffer mapped here (bufs[me] is this
+  // rank's), or null; the rank, the ranks and this step's epoch
+  unsigned char* const* bufs;
+  int me, world;
+  unsigned long long epoch;
 };
+
+// ------------------------------------------------------- peer mode --
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void store_release_sys(unsigned long long* p,
+                                                  unsigned long long v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_acquire_sys(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ unsigned long long* peer_flags(const StepArgs<T>& a,
+                                                          int q) {
+  return reinterpret_cast<unsigned long long*>(a.bufs[q]);
+}
+
+// A partial: entry i of part (which 0) or part2 (1); in peer mode into
+// slot `me` of every rank's buffer.  Called by one thread.
+template <typename T>
+__device__ __forceinline__ void put_part(const StepArgs<T>& a, int which,
+                                         int64_t i, T val) {
+  if (a.bufs == nullptr) {
+    (which == 0 ? a.part : a.part2)[i] = val;
+    return;
+  }
+  const int64_t slot = peer_slot(a.nb, a.nblk);
+  const int64_t at = peer_head(a.world) +
+                     (which == 0 ? 0 : (int64_t)a.world * 2 * slot) *
+                         (int64_t)sizeof(T);
+  const int64_t k = (int64_t)a.me * (which == 0 ? 2 * slot : slot) + i;
+  for (int q = 0; q < a.world; ++q)
+    reinterpret_cast<T*>(a.bufs[q] + at)[k] = val;
+}
+
+// The grid barrier between two phases; in peer mode also the barrier
+// across the ranks at `epoch`.  False (in every block) when a peer's flag
+// did not come within kSpinNs.
+template <typename T>
+__device__ bool rank_barrier(const StepArgs<T>& a, unsigned long long epoch,
+                             cg::grid_group& grid) {
+  if (a.bufs == nullptr || a.world == 1) {
+    grid.sync();
+    return true;
+  }
+  // thread 0 wrote the block's partials (put_part): on every rank before
+  // the flags
+  if (threadIdx.x == 0) __threadfence_system();
+  grid.sync();
+  unsigned long long* mine = peer_flags(a, a.me);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    __threadfence_system();
+    for (int q = 0; q < a.world; ++q)
+      if (q != a.me) store_release_sys(peer_flags(a, q) + a.me, epoch);
+    const unsigned long long t0 = global_ns();
+    int late = -1;
+    for (int q = 0; q < a.world && late < 0; ++q) {
+      if (q == a.me) continue;
+      while (load_acquire_sys(mine + q) < epoch) {
+        if (global_ns() - t0 > kSpinNs) {
+          late = q;
+          break;
+        }
+      }
+    }
+    if (late >= 0) {
+      mine[a.world] = epoch;
+      mine[a.world + 1] = (unsigned long long)late;
+    }
+  }
+  grid.sync();
+  return *reinterpret_cast<volatile unsigned long long*>(mine + a.world) !=
+         epoch;
+}
+
+// Give up the step: the state copied with the time-out code on every
+// instance (block 0 writes it).
+template <typename T>
+__device__ void give_up(const StepArgs<T>& a) {
+  if (blockIdx.x != 0) return;
+  for (int b = threadIdx.x; b < a.nb; b += kThreads) {
+    for (int k = 0; k < 8; ++k) a.sc_next[8 * b + k] = a.sc[8 * b + k];
+    a.st_next[2 * b] = a.st[2 * b];
+    a.st_next[2 * b + 1] = kTimeoutStop;
+  }
+}
 
 // Sum of v over the block in a fixed order; every thread gets the total.
 template <typename T>
@@ -119,14 +277,21 @@ __device__ __forceinline__ T block_sum(T v, T* sh) {
   return s;
 }
 
-// Sum of the instance's nblk partials (stride `stride`) in a fixed order;
-// read through L2, since other blocks wrote them in this launch.
+// Sum of the instance's nblk partials (stride `stride`) in a fixed order,
+// each partial first summed over the `ranks` slots (`rank_stride` apart)
+// in rank order; read through L2, since other blocks (or ranks) wrote
+// them in this launch.
 template <typename T>
 __device__ __forceinline__ T sum_parts(const T* part, int nblk, int stride,
+                                       int ranks, int64_t rank_stride,
                                        T* sh) {
   T v = T(0);
-  for (int k = threadIdx.x; k < nblk; k += kThreads)
-    v += __ldcg(part + k * stride);
+  for (int k = threadIdx.x; k < nblk; k += kThreads) {
+    T s = __ldcg(part + k * stride);
+    for (int q = 1; q < ranks; ++q)
+      s += __ldcg(part + q * rank_stride + k * stride);
+    v += s;
+  }
   return block_sum(v, sh);
 }
 
@@ -160,9 +325,11 @@ template <typename T>
 __device__ __forceinline__ void dots_vblock(const StepArgs<T>& a, int64_t v,
                                             T* sh) {
   const int b = (int)(v / a.nblk), blk = (int)(v % a.nblk);
-  T* out = a.part + v * 2;
   if (a.st[2 * b + 1] != 0) {
-    if (threadIdx.x == 0) out[0] = out[1] = T(0);
+    if (threadIdx.x == 0) {
+      put_part(a, 0, v * 2, T(0));
+      put_part(a, 0, v * 2 + 1, T(0));
+    }
     return;  // the whole block leaves together
   }
   const T* __restrict__ d = a.d;
@@ -185,8 +352,8 @@ __device__ __forceinline__ void dots_vblock(const StepArgs<T>& a, int64_t v,
   a1 = block_sum(a1, sh);
   a2 = block_sum(a2, sh);
   if (threadIdx.x == 0) {
-    out[0] = a1;
-    out[1] = a2;
+    put_part(a, 0, v * 2, a1);
+    put_part(a, 0, v * 2 + 1, a2);
   }
 }
 
@@ -203,8 +370,9 @@ template <typename T>
 __device__ __forceinline__ Step<T> step_scalars(const StepArgs<T>& a, int b,
                                                 T* sh) {
   const T* pb = a.part + (int64_t)b * a.nblk * 2;
-  const T d_Hd = sum_parts(pb, a.nblk, 2, sh);
-  const T d_r = sum_parts(pb + 1, a.nblk, 2, sh);
+  const int64_t rs = 2 * peer_slot(a.nb, a.nblk);
+  const T d_Hd = sum_parts(pb, a.nblk, 2, a.world, rs, sh);
+  const T d_r = sum_parts(pb + 1, a.nblk, 2, a.world, rs, sh);
   const T* s = a.sc + 8 * b;
   const T e_Pe = s[0], e_Pd = s[1], d_Pd = s[2], z_r = s[3], mv = s[4],
           DD = s[5];
@@ -264,7 +432,7 @@ __device__ __forceinline__ void update_vblock(const StepArgs<T>& a,
        });
   acc = block_sum(acc, sh);
   if (threadIdx.x == 0) {
-    a.part2[v] = acc;
+    put_part(a, 1, v, acc);
     if (blk == 0) {
       T* xo = a.xs + 4 * b;
       xo[0] = alpha;
@@ -290,7 +458,8 @@ __device__ __forceinline__ bool finish_scalars(const StepArgs<T>& a, int b,
     }
     return false;
   }
-  const T r_r = sum_parts(a.part2 + (int64_t)b * a.nblk, a.nblk, 1, sh);
+  const T r_r = sum_parts(a.part2 + (int64_t)b * a.nblk, a.nblk, 1, a.world,
+                          peer_slot(a.nb, a.nblk), sh);
   const T* x = a.xs + 4 * b;
   const T alpha = __ldcg(x), x1 = __ldcg(x + 1), x2 = __ldcg(x + 2);
   const int j = a.st[2 * b];
@@ -362,9 +531,20 @@ tcg_step_kernel(const StepArgs<T> a) {
   cg::grid_group grid = cg::this_grid();
   int64_t lo, hi;
 
+  if (a.bufs != nullptr) {
+    // an earlier step gave up: every instance carries the time-out code
+    for (int b = 0; b < a.nb; ++b)
+      if (a.st[2 * b + 1] == kTimeoutStop) {
+        give_up(a);
+        return;
+      }
+  }
   my_range((int64_t)a.nb * a.nblk, lo, hi);
   for (int64_t v = lo; v < hi; ++v) dots_vblock(a, v, sh);
-  grid.sync();
+  if (!rank_barrier(a, a.epoch, grid)) {
+    give_up(a);
+    return;
+  }
 
   // the instance's scalars, recomputed where the instance changes
   int cur = -1;
@@ -372,7 +552,7 @@ tcg_step_kernel(const StepArgs<T> a) {
   for (int64_t v = lo; v < hi; ++v) {
     const int b = (int)(v / a.nblk);
     if (a.st[2 * b + 1] != 0) {
-      if (threadIdx.x == 0) a.part2[v] = T(0);
+      if (threadIdx.x == 0) put_part(a, 1, v, T(0));
       continue;
     }
     if (b != cur) {
@@ -381,7 +561,10 @@ tcg_step_kernel(const StepArgs<T> a) {
     }
     update_vblock(a, v, x, sh);
   }
-  grid.sync();
+  if (!rank_barrier(a, a.epoch + 1, grid)) {
+    give_up(a);
+    return;
+  }
 
   // the next direction: by virtual blocks, or by column tiles with Y; the
   // instance's first item (blk or tile 0) writes its next scalar state
@@ -542,17 +725,29 @@ int launch(const void* d, const void* Hd, void* eta, void* Heta, void* r,
            const void* sc, const void* st, const void* Y, const void* mask,
            int64_t L, int nb, int nblk, int p, int n, int mininner,
            void* part, void* part2, void* xs, void* sc_next, void* st_next,
-           int phase, void* stream) {
+           int phase, const void* bufs, int me, int world,
+           unsigned long long epoch, void* stream) {
   if (nb <= 0 || nblk <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   if (Y != nullptr && (p <= 0 || (int64_t)p * n != L))
     return (int)cudaErrorInvalidValue;
+  if (bufs != nullptr &&
+      (phase >= 0 || world < 1 || me < 0 || me >= world || epoch == 0))
+    return (int)cudaErrorInvalidValue;
   int tc = 32, rows = 0;
   if (Y != nullptr) tile_plan<T>(p, kTcgTileBytes, &tc, &rows);
-  const StepArgs<T> a{(const T*)Hd, (T*)d,  (T*)eta, (T*)Heta,
-                      (T*)r,        (const T*)sc, (const int*)st,
-                      (const T*)Y,  (const T*)mask, L, nb, nblk, p, n, rows,
-                      mininner,     (T*)part, (T*)part2, (T*)xs,
-                      (T*)sc_next,  (int*)st_next};
+  StepArgs<T> a{(const T*)Hd, (T*)d,  (T*)eta, (T*)Heta,
+                (T*)r,        (const T*)sc, (const int*)st,
+                (const T*)Y,  (const T*)mask, L, nb, nblk, p, n, rows,
+                mininner,     (T*)part, (T*)part2, (T*)xs,
+                (T*)sc_next,  (int*)st_next, nullptr, 0, 1, 0};
+  if (bufs != nullptr) {
+    // the partials' slots in this rank's own buffer; the kernel reads
+    // bufs (a device array) for every rank's
+    a.bufs = (unsigned char* const*)bufs;
+    a.me = me;
+    a.world = world;
+    a.epoch = epoch;
+  }
   const cudaStream_t s = (cudaStream_t)stream;
   if (phase >= 0)
     return tc == 16 ? launch_split<T, 16>(a, phase, s)
@@ -566,27 +761,75 @@ int launch(const void* d, const void* Hd, void* eta, void* Heta, void* r,
 extern "C" {
 
 // phase -1: the one cooperative launch; 0 dots, 1 update, 2 finish: that
-// launch of the split mode
+// launch of the split mode.  bufs (a device array of `world` pointers, one
+// receive buffer a rank, mapped here) selects the peer mode of the one
+// launch: part / part2 are then this rank's slots 0 (tcg_peer_layout) and
+// epoch (> 0) the step's; null: a plain launch (me, world, epoch unread).
 int tcg_step_f64(const void* d, const void* Hd, void* eta, void* Heta,
                  void* r, const void* sc, const void* st, const void* Y,
                  const void* mask, int64_t L, int nb, int nblk, int p, int n,
                  int mininner, void* part, void* part2, void* xs,
-                 void* sc_next, void* st_next, int phase, void* stream) {
+                 void* sc_next, void* st_next, int phase, const void* bufs,
+                 int me, int world, unsigned long long epoch, void* stream) {
   if (phase < -1 || phase > 2) return (int)cudaErrorInvalidValue;
   return launch<double>(d, Hd, eta, Heta, r, sc, st, Y, mask, L, nb, nblk, p,
                         n, mininner, part, part2, xs, sc_next, st_next, phase,
-                        stream);
+                        bufs, me, world, epoch, stream);
 }
 
 int tcg_step_f32(const void* d, const void* Hd, void* eta, void* Heta,
                  void* r, const void* sc, const void* st, const void* Y,
                  const void* mask, int64_t L, int nb, int nblk, int p, int n,
                  int mininner, void* part, void* part2, void* xs,
-                 void* sc_next, void* st_next, int phase, void* stream) {
+                 void* sc_next, void* st_next, int phase, const void* bufs,
+                 int me, int world, unsigned long long epoch, void* stream) {
   if (phase < -1 || phase > 2) return (int)cudaErrorInvalidValue;
   return launch<float>(d, Hd, eta, Heta, r, sc, st, Y, mask, L, nb, nblk, p,
                        n, mininner, part, part2, xs, sc_next, st_next, phase,
-                       stream);
+                       bufs, me, world, epoch, stream);
+}
+
+// The peer mode's receive buffer for `world` ranks, nb instances, nblk
+// virtual blocks and `elem`-byte entries: out = (bytes, byte offset of
+// part's slot 0, of part2's slot 0).
+void tcg_peer_layout(int world, int nb, int nblk, int elem, int64_t* out) {
+  const int64_t slot = peer_slot(nb, nblk);
+  out[0] = peer_head(world) + (int64_t)world * 3 * slot * elem;
+  out[1] = peer_head(world);
+  out[2] = peer_head(world) + (int64_t)world * 2 * slot * elem;
+}
+
+// A receive buffer of `bytes` on the current device, zeroed (flags 0),
+// and its IPC handle (64 bytes) for the peers.
+int tcg_peer_alloc(int64_t bytes, void** ptr, void* handle) {
+  cudaError_t e = cudaMalloc(ptr, (size_t)bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemset(*ptr, 0, (size_t)bytes);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaIpcGetMemHandle((cudaIpcMemHandle_t*)handle, *ptr);
+  if (e != cudaSuccess) {
+    cudaFree(*ptr);
+    *ptr = nullptr;
+  }
+  return (int)e;
+}
+
+// A peer's buffer mapped into this process from its handle.
+int tcg_peer_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof h);
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+int tcg_peer_close(void* ptr) { return (int)cudaIpcCloseMemHandle(ptr); }
+
+int tcg_peer_free(void* ptr) { return (int)cudaFree(ptr); }
+
+// `bytes` of device memory at src into host memory at dst (the fault
+// record), after the device's work so far.
+int tcg_peer_read(const void* src, void* dst, int64_t bytes) {
+  return (int)cudaMemcpy(dst, src, (size_t)bytes, cudaMemcpyDeviceToHost);
 }
 
 }  // extern "C"

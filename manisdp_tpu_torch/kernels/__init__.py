@@ -33,8 +33,11 @@ K10 ``symmom_adjoint`` (csrc/symmom_adjoint.cu): its exact adjoint A'(y),
 K11 ``tcg_step`` (csrc/tcg_step.cu): the truncated-CG vector step around
    one Hessian-vector product, one scalar set per instance, in one
    cooperative launch; on the oblique and masked-product manifolds it
-   also applies K2's tangent projection to the next direction.  Split
-   mode: three launches with a sum over ranks between them.
+   also applies K2's tangent projection to the next direction.  Over
+   ranks (the column-sharded MaxCut): peer mode, still one launch, the
+   sums over the ranks made on the device through IPC-mapped peer
+   memory; split mode, three launches with a sum over ranks between
+   them.
 K1 and K2 also take a batch of B instances of one padded size in one
 launch (instance mode): a BatchedSymCOO and (B, p, n) factors.
 
@@ -81,9 +84,14 @@ SYMDUAL_APPLY_LAUNCHES = {"rows": 0}
 # K1's and K2's launches in instance mode (also counted above)
 INSTANCE_LAUNCHES = {"symcoo_spmm": 0, "oblique_cols": 0}
 # K11's launches (LAUNCHES["tcg_step"]) that also projected the next
-# direction onto the tangent space, and its steps in split mode (three
-# launches each, the partials summed over the ranks between them)
-TCG_LAUNCHES = {"projected": 0, "split": 0}
+# direction onto the tangent space, its steps in split mode (three
+# launches each, the partials summed over the ranks between them) and in
+# peer mode (one launch, the sums over the ranks on the device)
+TCG_LAUNCHES = {"projected": 0, "split": 0, "peer": 0}
+# the stop code K11's peer mode writes on every instance when a peer's
+# flag did not come in time (tcg_step.cu kTimeoutStop; no other path
+# writes it)
+TCG_TIMEOUT_STOP = 8
 # the K1 / K3 launches on a pattern's span narrower than the whole n x n
 # (a sharded operator's shard, its column range)
 SPAN_LAUNCHES = {"symcoo_spmm": 0, "pattern_dots": 0}
@@ -1184,7 +1192,7 @@ def tcg_step_plain(d, Hd, eta, Heta, r, sc, st, mininner: int, Y=None,
 
 
 def tcg_step(d, Hd, eta, Heta, r, sc, st, mininner: int, Y=None,
-             mask=None, reduce=None):
+             mask=None, reduce=None, peer=None):
     """K11: one tCG iteration's vector step in one cooperative launch.
     From d, Hd = H[d] and the scalar state: the step of every active
     instance (eta, Heta unless the model increased, r <- r - alpha Hd),
@@ -1200,10 +1208,19 @@ def tcg_step(d, Hd, eta, Heta, r, sc, st, mininner: int, Y=None,
     update and the finish, with ``reduce(t)`` (the sum of ``t`` over the
     ranks, in place; returns it) on the partials between them, (B, nblk,
     2) and (B, nblk).  Every rank must hold blocks of one size.  At one
-    rank it gives the one launch's bits."""
+    rank it gives the one launch's bits.
+
+    Peer mode (``peer`` given, ``parallel.peer.PeerSums`` of the ranks'
+    group): the one launch, its partials written into every rank's
+    receive buffer and summed there in rank order after a barrier across
+    the ranks on the device (csrc/tcg_step.cu).  Every rank must make the
+    same calls.  On CPU tensors the twin sums through ``peer.plain``
+    (``parallel.distributed.ordered_sum``: the same order)."""
+    if reduce is not None and peer is not None:
+        raise ValueError("K11 takes reduce (split mode) or peer, not both")
     if not _on_cuda(d, Hd, eta, Heta, r, sc, st, Y, mask):
         return tcg_step_plain(d, Hd, eta, Heta, r, sc, st, mininner, Y,
-                              mask, reduce)
+                              mask, reduce if peer is None else peer.plain)
     dt, shape = d.dtype, d.shape
     B = shape[0]
     d, Hd, eta, Heta, r = (t.contiguous() for t in (d, Hd, eta, Heta, r))
@@ -1240,20 +1257,27 @@ def tcg_step(d, Hd, eta, Heta, r, sc, st, mininner: int, Y=None,
     xs = part2[B * nblk:]
     sc_n = xs[4 * B:].view(B, 8)
     st_n = torch.empty_like(st)
+    # peer mode: the partials go to the receive buffers, not to ws
+    bufs = None if peer is None else peer.buffers(B, nblk, dt, d.device)
     args = (d.data_ptr(), Hd.data_ptr(), eta.data_ptr(), Heta.data_ptr(),
             r.data_ptr(), sc.data_ptr(), st.data_ptr(),
             Y.data_ptr() if Y is not None else None,
             mask.data_ptr() if mask is not None else None, L, B, nblk, p, n,
-            int(mininner), ws.data_ptr(), part2.data_ptr(),
+            int(mininner),
+            ws.data_ptr() if bufs is None else bufs.part,
+            part2.data_ptr() if bufs is None else bufs.part2,
             xs.data_ptr(), sc_n.data_ptr(), st_n.data_ptr())
     step = getattr(build(), f"tcg_step_{_SUFFIX[dt]}")
-    if reduce is None:
-        err = step(*args, -1, _stream(d))
+    if bufs is not None:
+        err = step(*args, -1, bufs.ptrs.data_ptr(), bufs.me, bufs.world,
+                   bufs.next_epoch(), _stream(d))
+    elif reduce is None:
+        err = step(*args, -1, None, 0, 1, 0, _stream(d))
     else:
         sums = (ws[:2 * B * nblk].view(B, nblk, 2),
                 part2[:B * nblk].view(B, nblk))
         for phase in range(3):
-            err = step(*args, phase, _stream(d))
+            err = step(*args, phase, None, 0, 1, 0, _stream(d))
             if err != 0:
                 break
             if phase < 2:
@@ -1265,6 +1289,8 @@ def tcg_step(d, Hd, eta, Heta, r, sc, st, mininner: int, Y=None,
         TCG_LAUNCHES["projected"] += 1
     if reduce is not None:
         TCG_LAUNCHES["split"] += 1
+    if bufs is not None:
+        TCG_LAUNCHES["peer"] += 1
     return eta, Heta, r, d, sc_n, st_n
 
 
@@ -1282,6 +1308,6 @@ __all__ = ["LAUNCHES", "SPMM_LAUNCHES", "CSR_LAUNCHES", "MASKED_LAUNCHES",
            "symdual_sym_mat_plain", "symmom_apply", "symmom_apply_plain",
            "symmom_flat_length",
            "symmom_adjoint", "symmom_adjoint_plain", "INSTANCE_LAUNCHES",
-           "TCG_LAUNCHES", "tcg_blocks", "tcg_dots_plain",
+           "TCG_LAUNCHES", "TCG_TIMEOUT_STOP", "tcg_blocks", "tcg_dots_plain",
            "tcg_update_plain", "tcg_finish_plain", "tcg_step",
            "tcg_step_plain", "build"]

@@ -30,8 +30,8 @@ HEADERS = ("nmajor.cuh", "oblique_tile.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
-    ctypes.c_double
+_P, _I, _I64, _D, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
+    ctypes.c_double, ctypes.c_uint64
 _SIGNATURES = {
     "symcoo_spmm": (_P, _I64, _I64, _I64, _P, _P, _P, _P, _I, _I, _I, _I,
                     _P, _P, _I64, _I64, _I64, _P, _P, _D, _D, _P, _P, _P,
@@ -53,7 +53,17 @@ _SIGNATURES = {
     "symmom_apply": (_P, _I, _P, _P, _P),
     "symmom_adjoint": (_P, _I, _P, _D, _P, _P, _P),
     "tcg_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
-                 _I, _P, _P, _P, _P, _P, _I, _P),
+                 _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _U64, _P),
+}
+# functions of one name, no dtype: (argtypes, restype); K11's peer-mode
+# receive buffers (tcg_step.cu)
+_UNTYPED = {
+    "tcg_peer_layout": ((_I, _I, _I, _I, _P), None),
+    "tcg_peer_alloc": ((_I64, _P, _P), ctypes.c_int),
+    "tcg_peer_open": ((_P, _P), ctypes.c_int),
+    "tcg_peer_close": ((_P,), ctypes.c_int),
+    "tcg_peer_free": ((_P,), ctypes.c_int),
+    "tcg_peer_read": ((_P, _P, _I64), ctypes.c_int),
 }
 # the dtypes each kernel is built for (default: both)
 _SUFFIXES = {"oa_refine": ("f64",)}
@@ -124,6 +134,10 @@ def build() -> ctypes.CDLL:
             fn = getattr(lib, f"{base}_{suffix}")
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+    for name, (argtypes, restype) in _UNTYPED.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
     build_info.update(path=str(path), seconds=time.perf_counter() - t0)
     _lib = lib
     return lib

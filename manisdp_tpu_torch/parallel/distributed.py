@@ -25,7 +25,9 @@ and on CPU tensors:
   - ``spawn_ranks(fn, world, ...)`` runs ``fn`` on ``world`` spawned
     ranks with a FileStore rendezvous in a temporary directory (no TCP
     port) and returns each rank's result: the tests' and
-    ``chip_smoke.py``'s counterpart of the JAX tests' virtual CPU mesh.
+    ``chip_smoke.py``'s counterpart of the JAX tests' virtual CPU mesh;
+  - ``ordered_sum`` is the sum over ranks in rank order of K11's peer
+    mode (parallel/peer.py), for its plain twin.
 """
 
 from __future__ import annotations
@@ -239,6 +241,19 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
                                              (D * t.shape[-1],))
 
 
+def ordered_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``t`` over ``group``'s ranks, entry by entry in rank
+    order, ((t_0 + t_1) + t_2) + ..., in place (``t`` is returned): the
+    order of K11's peer mode, which sums on the device, and the sum of its
+    plain twin (the CPU tests; nothing on the card's path calls it).  One
+    all-gather (counted in COLLECTIVES)."""
+    parts = all_gather(t.unsqueeze(-1), group)
+    s = parts[..., 0].clone()
+    for q in range(1, parts.shape[-1]):
+        s += parts[..., q]
+    return t.copy_(s)
+
+
 def gather_objects(obj, group, device: torch.device) -> list:
     """Each rank's ``obj`` (picklable) on every rank of ``group``, in group
     rank order: one object broadcast from each rank."""
@@ -271,6 +286,8 @@ def _rank_main(rank, fn, world, backend, device, tmp, args, threads):
         out = fn(*args)
         dist.barrier()
     finally:
+        from .peer import close_all
+        close_all(wait=dist.is_initialized())
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)

@@ -11,8 +11,8 @@ are used:
     column-sharded, a contiguous block of n / D columns a rank: Y and the
     tCG's direction are all-gathered before Y·C_local and U·C_local
     (``torch.matmul``, as the JAX package leaves the products to XLA),
-    the oblique column ops (K2, and K11 in its split mode) run on the
-    local columns, and every inner product, norm and the cost are
+    the oblique column ops (K2, and K11 in its peer or split mode) run on
+    the local columns, and every inner product, norm and the cost are
     all-reduced (``ShardedOblique``), so every rank takes the same host
     branches.  In the primal AL the constraint pattern is sharded by
     pattern id (``sharded_ops.ShardedConstraintOp``; ``mesh=`` of
@@ -41,6 +41,7 @@ from ..core import (Problem, TROptions, make_batched_trustregions,
 from ..manifolds import Oblique
 from .distributed import (_set_device, all_gather, all_reduce,
                           gather_objects, init_distributed)
+from .peer import TCG_MODES, PeerSums, choose_tcg_mode
 
 
 def _require_group(n: Optional[int], device_type: str = "cuda") -> int:
@@ -125,14 +126,28 @@ def _put(a, index, device) -> torch.Tensor:
 class ShardedOblique(Oblique):
     """The oblique manifold on this rank's contiguous block of columns of
     a factor sharded over the ranks of ``group``: the column ops are
-    Oblique's on the local columns (K2; K11 projects in its split mode),
-    ``inner`` / ``norm`` sum over the local columns and all-reduce, and
-    ``reduce`` is the sum over the ranks (the tCG's ||r||^2 and K11's
-    partials, core/trustregions.py).  At one rank every value has the
+    Oblique's on the local columns (K2; K11 projects), ``inner`` /
+    ``norm`` sum over the local columns and all-reduce, and ``reduce`` is
+    the sum over the ranks (the tCG's ||r||^2, and K11's partials in its
+    split mode, core/trustregions.py).  ``tcg_mode``: K11's mode, "peer"
+    (``peer`` is then the group's PeerSums and K11 sums its partials on
+    the device), "split", or None to choose once for the group
+    (``peer.choose_tcg_mode``: peer on NCCL with peer access between
+    every pair of the ranks' cards).  At one rank every value has the
     bits of Oblique's."""
 
-    def __init__(self, group):
+    def __init__(self, group, tcg_mode: Optional[str] = None):
+        if tcg_mode not in (None,) + TCG_MODES:
+            raise ValueError(f"tcg_mode must be one of {TCG_MODES} or None, "
+                             f"got {tcg_mode!r}")
         self.group = group
+        self.tcg_mode = tcg_mode or choose_tcg_mode(group)
+        self.peer = PeerSums(group) if self.tcg_mode == "peer" else None
+
+    def close(self):
+        """Free the peer mode's receive buffers (on every rank)."""
+        if self.peer is not None:
+            self.peer.close()
 
     def reduce(self, t):
         return all_reduce(t, self.group)
@@ -144,12 +159,14 @@ class ShardedOblique(Oblique):
         return torch.sqrt(self.reduce(torch.sum(u * u, dim=(-2, -1))))
 
 
-def sharded_maxcut_problem(group) -> Problem:
+def sharded_maxcut_problem(group, tcg_mode: Optional[str] = None
+                           ) -> Problem:
     """make_maxcut_problem(dense=True) of solvers/maxcut.py on column
     shards: Y, U (..., p, n/D) and C (..., n, n/D) this rank's columns.
     Y (or U) is all-gathered before the product with C's columns; eG and
-    the Hessian's column sums are local, f is all-reduced."""
-    M = ShardedOblique(group)
+    the Hessian's column sums are local, f is all-reduced.  ``tcg_mode``:
+    K11's (ShardedOblique)."""
+    M = ShardedOblique(group, tcg_mode)
 
     def cost(Y, C):
         YC = all_gather(Y, group) @ C
@@ -178,7 +195,8 @@ def model_cols(n: int, D: int, me: int) -> slice:
     return slice(me * (n // D), (me + 1) * (n // D))
 
 
-def sharded_maxcut_solve(mesh, tr_opts: Optional[TROptions] = None):
+def sharded_maxcut_solve(mesh, tr_opts: Optional[TROptions] = None,
+                         tcg_mode: Optional[str] = None):
     """The RTR solve with Y and the dense C column-sharded over the mesh
     axis ``model``.
 
@@ -187,11 +205,15 @@ def sharded_maxcut_solve(mesh, tr_opts: Optional[TROptions] = None):
     column blocks, (p, n/D) and (n, n/D), on its device (ValueError when D
     does not divide n); ``solve(Y, C, typicaldist)`` runs the RTR on them
     and returns its TRResult with the whole Y on every rank, as the JAX
-    solve returns a global array."""
+    solve returns a global array.  ``tcg_mode``: K11's mode
+    (ShardedOblique; None chooses for the group); ``solve.manifold`` is
+    the ShardedOblique (``solve.manifold.close()`` frees the peer mode's
+    buffers; ``spawn_ranks`` and the process's exit close them too)."""
     tr_opts = tr_opts or TROptions(maxiter=4, maxinner=10,
                                    tolgradnorm=1e-8)
     D, me, group = mesh_axis(mesh, "model")
-    base = make_trustregions(sharded_maxcut_problem(group), tr_opts)
+    problem = sharded_maxcut_problem(group, tcg_mode)
+    base = make_trustregions(problem, tr_opts)
     device = _mesh_device(mesh)
 
     def shard_fn(Y, C):
@@ -203,6 +225,7 @@ def sharded_maxcut_solve(mesh, tr_opts: Optional[TROptions] = None):
         res = base(Y, C, typicaldist)
         return res._replace(Y=all_gather(res.Y, group))
 
+    solve.manifold = problem.manifold
     return solve, shard_fn
 
 
@@ -266,12 +289,14 @@ def _gather_batch(res, group, device):
                      inner_iters=inner.numpy())
 
 
-def batched_sharded_maxcut_solve(mesh, tr_opts: Optional[TROptions] = None):
+def batched_sharded_maxcut_solve(mesh, tr_opts: Optional[TROptions] = None,
+                                 tcg_mode: Optional[str] = None):
     """2-D (batch x model) parallelism on a ``make_mesh_2d`` mesh: the
     instance batch split over ``batch`` and each instance's factor and
     cost column-sharded over ``model`` (sharded_maxcut_solve's algebra on
     the port's batched RTR); only the model axis communicates during the
-    solve.
+    solve, K11's peer mode (``tcg_mode``, as sharded_maxcut_solve's) on
+    the model subgroup with the rank's B instances in one launch.
 
     Returns (solve, shard_fn): ``shard_fn(Ys, Cs)`` takes the whole batch,
     (B, p, n) factors and (B, n, n) dense costs, and returns this rank's
@@ -282,8 +307,8 @@ def batched_sharded_maxcut_solve(mesh, tr_opts: Optional[TROptions] = None):
                                    tolgradnorm=1e-8)
     Db, mb, bgroup = mesh_axis(mesh, "batch")
     Dm, mm, mgroup = mesh_axis(mesh, "model")
-    base = make_batched_trustregions(sharded_maxcut_problem(mgroup),
-                                     tr_opts)
+    problem = sharded_maxcut_problem(mgroup, tcg_mode)
+    base = make_batched_trustregions(problem, tr_opts)
     device = _mesh_device(mesh)
 
     def shard_fn(Ys, Cs):
@@ -299,4 +324,5 @@ def batched_sharded_maxcut_solve(mesh, tr_opts: Optional[TROptions] = None):
         return _gather_batch(res._replace(Y=all_gather(res.Y, mgroup)),
                              bgroup, device)
 
+    solve.manifold = problem.manifold
     return solve, shard_fn

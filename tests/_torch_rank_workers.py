@@ -199,17 +199,21 @@ def maxcut_batch(Cs, kw, mesh="batch"):
                  iterations=r.iterations, history=r.history) for r in res]
 
 
-def sharded_rtr(Y, C, typdist, tr):
-    """parallel.sharded_maxcut_solve on the model axis of all ranks."""
+def sharded_rtr(Y, C, typdist, tr, tcg_mode=None):
+    """parallel.sharded_maxcut_solve on the model axis of all ranks (K11's
+    mode ``tcg_mode``; on the CPU its twin, the peer mode's summing in
+    rank order)."""
     from manisdp_tpu_torch.core import TROptions
     from manisdp_tpu_torch.parallel import sharded_maxcut_solve
-    solve, shard = sharded_maxcut_solve(_mesh("model"), TROptions(**tr))
+    solve, shard = sharded_maxcut_solve(_mesh("model"), TROptions(**tr),
+                                        tcg_mode)
     Yl, Cl = shard(Y, C)
     res = solve(Yl, Cl, typdist)
     out = dict(Y=res.Y.numpy(), fx=float(res.fx),
                norm_grad=float(res.norm_grad), iters=res.iters,
                inner_iters=res.inner_iters, local_shape=tuple(Yl.shape),
-               cost_shape=tuple(Cl.shape))
+               cost_shape=tuple(Cl.shape),
+               tcg_mode=solve.manifold.tcg_mode)
     try:
         shard(Y[:, :-1], C[:, :-1])
     except ValueError as e:
@@ -217,13 +221,13 @@ def sharded_rtr(Y, C, typdist, tr):
     return out
 
 
-def batched_sharded_rtr(Ys, Cs, typdist, tr):
+def batched_sharded_rtr(Ys, Cs, typdist, tr, tcg_mode=None):
     """parallel.batched_sharded_maxcut_solve on a (2, world / 2) (batch,
-    model) mesh."""
+    model) mesh (K11's mode ``tcg_mode``)."""
     from manisdp_tpu_torch.core import TROptions
     from manisdp_tpu_torch.parallel.mesh import batched_sharded_maxcut_solve
     solve, shard = batched_sharded_maxcut_solve(_mesh("2d"),
-                                                TROptions(**tr))
+                                                TROptions(**tr), tcg_mode)
     Yl, Cl = shard(Ys, Cs)
     res = solve(Yl, Cl, typdist)
     return dict(Y=res.Y.numpy(), fx=res.fx.numpy(),

@@ -75,6 +75,7 @@ def test_reset_launches():
     K.SYMDUAL_APPLY_LAUNCHES["rows"] = 13
     K.TCG_LAUNCHES["split"] = 14
     K.COLLECTIVES["all_to_all"] = 15
+    K.TCG_LAUNCHES["peer"] = 16
     K.reset_launches()
     assert K.LAUNCHES == {"symcoo_spmm": 0, "oblique_cols": 0,
                           "pattern_dots": 0, "csr_gather": 0,
@@ -91,7 +92,7 @@ def test_reset_launches():
                                        "sym_mat", "adjoint_rows"}
     assert set(K.SYMDUAL_APPLY_LAUNCHES) == {"rows"}
     assert set(K.INSTANCE_LAUNCHES) == {"symcoo_spmm", "oblique_cols"}
-    assert set(K.TCG_LAUNCHES) == {"projected", "split"}
+    assert set(K.TCG_LAUNCHES) == {"projected", "split", "peer"}
     for counts in (K.SPMM_LAUNCHES, K.CSR_LAUNCHES, K.MASKED_LAUNCHES,
                    K.OBLIQUE_LAUNCHES, K.SYMDUAL_LAUNCHES,
                    K.SYMDUAL_APPLY_LAUNCHES, K.INSTANCE_LAUNCHES,
@@ -728,6 +729,74 @@ def test_tcg_split_is_bit_equal_at_world_one_on_card(cuda_device, dtype,
     assert _rel(split[4], ref[4]) <= tol and torch.equal(split[5], ref[5])
     assert K.LAUNCHES["tcg_step"] - before[0] == 2
     assert K.TCG_LAUNCHES["split"] - before[1] == 1
+
+
+@pytest.mark.parametrize("tangent", [None, "oblique"])
+def test_tcg_peer_twin_sums_through_the_peers_plain(tangent):
+    """On CPU tensors K11's peer mode is its twin with the sum over the
+    ranks taken by ``peer.plain`` (distributed.ordered_sum on a group):
+    called on the partials (B, 1, 2) and (B, 1), and at one rank equal to
+    the split twin's; reduce and peer together raise."""
+    (d, Hd, eta, Heta, r), sc, st, Y, mask = _tcg_state(
+        torch.device("cpu"), torch.float64, (3, 6, 20), tangent, 5)
+    calls = []
+
+    class Peer:
+        @staticmethod
+        def plain(t):
+            calls.append(tuple(t.shape))
+            return t
+
+    def run(**kw):
+        vecs = [t.clone() for t in (d, Hd, eta, Heta, r)]
+        return K.tcg_step(*vecs, sc, st, 1, Y, mask, **kw)
+
+    got = run(peer=Peer())
+    assert calls == [(3, 1, 2), (3, 1)]
+    for g, o in zip(got, run(reduce=lambda t: t)):
+        assert torch.equal(g, o)
+    with pytest.raises(ValueError, match="not both"):
+        run(reduce=lambda t: t, peer=Peer())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 48, 3000), (4, 8, N), (3, 192, 77)])
+@pytest.mark.parametrize("tangent", [None, "oblique", "masked"])
+def test_tcg_peer_is_bit_equal_at_world_one_on_card(cuda_device, dtype,
+                                                    shape, tangent):
+    """K11's peer mode at one rank (PeerSums without a group: its own
+    receive buffer, no peers, the barrier a grid.sync) gives the one
+    launch's bits and the split mode's on every output, over consecutive
+    steps that reuse the buffer (epochs 1, 3, 5); counted in
+    TCG_LAUNCHES["peer"]."""
+    from manisdp_tpu_torch.parallel.peer import PeerSums
+    B = shape[0]
+    (d, Hd, eta, Heta, r), sc, st, Y, mask = _tcg_state(
+        cuda_device, dtype, shape, tangent, 3)
+    peer = PeerSums()
+    try:
+        def run(**kw):
+            vecs = [t.clone() for t in (d, Hd, eta, Heta, r)]
+            return K.tcg_step(*vecs, sc, st, 1, Y, mask, **kw)
+
+        before = (K.LAUNCHES["tcg_step"], K.TCG_LAUNCHES["peer"])
+        one = run()
+        split = run(reduce=lambda t: t)
+        act = slice(0, B - 1) if B > 1 else slice(0, 1)
+        for _ in range(3):
+            got = run(peer=peer)
+            torch.cuda.synchronize()
+            for g, o, s in zip(got[:3] + got[4:], one[:3] + one[4:],
+                               split[:3] + split[4:]):
+                assert torch.equal(g, o) and torch.equal(g, s)
+            assert torch.equal(got[3][act], one[3][act])
+        assert K.TCG_LAUNCHES["peer"] - before[1] == 3
+        assert K.LAUNCHES["tcg_step"] - before[0] == 5
+        assert peer.buffers(B, K.tcg_blocks(d.numel() // B), dtype,
+                            cuda_device).epoch == 7
+    finally:
+        peer.close()
 
 
 def _one_rank_collectives():

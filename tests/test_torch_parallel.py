@@ -133,15 +133,30 @@ def ranks():
             ("batch_model", "maxcut_batch", dict(Cs=maxcut_instances()[:4],
                                                  kw=BATCH_KW,
                                                  mesh="model")),
-            ("sharded", "sharded_rtr", dict(zip(("Y", "C"),
-                                                sharded_instance()),
-                                            typdist=float(np.pi * np.sqrt(
-                                                SHARD_N)), tr=SHARD_TR)),
+            ("sharded", "sharded_rtr", _sharded_job()),
+            ("sharded_peer", "sharded_rtr", _sharded_job("peer")),
             ("sharded2d", "batched_sharded_rtr",
              dict(Ys=Ys, Cs=Cs, typdist=float(np.pi * np.sqrt(BATCH_N)),
-                  tr=BATCH_TR))]
+                  tr=BATCH_TR)),
+            ("sharded2d_peer", "batched_sharded_rtr",
+             dict(Ys=Ys, Cs=Cs, typdist=float(np.pi * np.sqrt(BATCH_N)),
+                  tr=BATCH_TR, tcg_mode="peer"))]
     return spawn_ranks(W.run_jobs, WORLD, "gloo", "cpu", args=(jobs,),
                        threads=1)
+
+
+def _sharded_job(tcg_mode=None):
+    return dict(zip(("Y", "C"), sharded_instance()),
+                typdist=float(np.pi * np.sqrt(SHARD_N)), tr=SHARD_TR,
+                tcg_mode=tcg_mode)
+
+
+@pytest.fixture(scope="module")
+def ranks2():
+    """Two gloo ranks: the sharded solve with K11's split and peer twins."""
+    jobs = [(mode, "sharded_rtr", _sharded_job(mode))
+            for mode in ("split", "peer")]
+    return spawn_ranks(W.run_jobs, 2, "gloo", "cpu", args=(jobs,), threads=1)
 
 
 def test_rank_grid_puts_nodes_outermost():
@@ -395,3 +410,84 @@ def test_batched_sharded_maxcut_solve_matches_jax(ranks):
     for r in ranks[1:]:
         np.testing.assert_array_equal(r["sharded2d"]["result"]["Y"],
                                       got["Y"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_maxcut_peer_twin_matches_jax(request, world):
+    """sharded_maxcut_solve with K11's peer mode asked for, on gloo CPU
+    ranks (its twin: the partials summed by distributed.ordered_sum, in
+    rank order, the device's order): fx to 1e-12 and Y to 1e-10 against
+    JAX's sharded_maxcut_solve on make_mesh(world), equal TR and tCG
+    counts, every rank bit-equal; at world 2 bit-equal to the split
+    mode's all_reduce twin (a + b either way).  Per tCG step the two
+    all-reduces of the partials become two all-gathers."""
+    ranks = request.getfixturevalue("ranks2" if world == 2 else "ranks")
+    split, peer = ("split", "peer") if world == 2 else \
+        ("sharded", "sharded_peer")
+    got, ref = ranks[0][peer]["result"], ranks[0][split]["result"]
+    assert (got["tcg_mode"], ref["tcg_mode"]) == ("peer", "split")
+    Y, C = sharded_instance()
+    typ = float(np.pi * np.sqrt(SHARD_N))
+    assert len(jax.devices()) >= world
+    solve, shard = jsharded(jmake_mesh(world, "model"),
+                            JTROptions(**SHARD_TR))
+    jres = solve(*shard(jnp.asarray(Y), jnp.asarray(C)), typ)
+    np.testing.assert_allclose(got["fx"], float(jres.fx), rtol=1e-12)
+    np.testing.assert_allclose(got["Y"], np.asarray(jres.Y), atol=1e-10)
+    assert (got["iters"], got["inner_iters"]) == (int(jres.iters),
+                                                  int(jres.inner_iters))
+    if world == 2:
+        np.testing.assert_array_equal(got["Y"], ref["Y"])
+        assert got["fx"] == ref["fx"]
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r[peer]["result"]["Y"], got["Y"])
+        assert r[peer]["result"]["fx"] == got["fx"]
+    cp, cs = ranks[0][peer]["collectives"], ranks[0][split]["collectives"]
+    fewer = cs["all_reduce"] - cp["all_reduce"]
+    assert fewer == cp["all_gather"] - cs["all_gather"]
+    assert fewer % 2 == 0 and fewer >= 2 * got["inner_iters"] > 0
+
+
+def test_batched_sharded_peer_twin_is_bit_equal_to_split(ranks):
+    """batched_sharded_maxcut_solve on the (2, 2) mesh with K11's peer
+    mode asked for: its model subgroup of 2 ranks sums a + b as the split
+    mode's all-reduce does, so every instance's Y and fx are bit-equal,
+    with the same counts."""
+    got = ranks[0]["sharded2d_peer"]["result"]
+    ref = ranks[0]["sharded2d"]["result"]
+    for k in ("Y", "fx", "iters", "inner_iters"):
+        np.testing.assert_array_equal(got[k], ref[k])
+
+
+@pytest.mark.parametrize("backend, places, pairs, want", [
+    ("nccl", [(7, 0), (7, 1), (7, 2), (7, 3)], "all", "peer"),
+    ("nccl", [(7, 0)], "all", "peer"),
+    ("gloo", [(7, 0), (7, 1)], "all", "split"),
+    ("nccl", [(7, 0), (7, 0)], "all", "split"),
+    ("nccl", [(7, 0), (7, 1), (7, 2)], "no 1-2", "split"),
+    ("nccl", [(7, 0), (8, 0)], "all", "split")])
+def test_tcg_mode_choice(monkeypatch, backend, places, pairs, want):
+    """K11's mode on a group, with the backend and
+    torch.cuda.can_device_access_peer faked: NCCL with peer access
+    between every pair of distinct cards on one host gives "peer"
+    (world 1 too: no pair); gloo, a shared card, a missing peer pair or
+    two hosts give "split"."""
+    from manisdp_tpu_torch.parallel.peer import tcg_mode
+    asked = []
+
+    def can_access(a, b):
+        asked.append((a, b))
+        return pairs == "all" or {a, b} != {1, 2}
+
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer", can_access)
+    assert tcg_mode(backend, places) == want
+    assert tcg_mode(backend, places, lambda a, b: pairs == "all" or
+                    {a, b} != {1, 2}) == want
+    if want == "peer" and len(places) > 1:
+        assert len(asked) == len(places) * (len(places) - 1)
+
+
+def test_sharded_oblique_rejects_an_unknown_mode():
+    from manisdp_tpu_torch.parallel.mesh import ShardedOblique
+    with pytest.raises(ValueError, match="tcg_mode"):
+        ShardedOblique(None, "ring")

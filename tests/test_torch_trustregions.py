@@ -72,3 +72,52 @@ def test_tcg32_solve_matches_jax(case):
                                atol=1e-5)
     assert abs(tres.inner_iters - int(jres.inner_iters)) <= \
         0.1 * int(jres.inner_iters)
+
+
+class _TimedOutPeer:
+    """A peer-mode stand-in: the twin's sum over one rank, and the message
+    of a time-out."""
+    plain = staticmethod(lambda t: t)
+
+    @staticmethod
+    def timeout_message():
+        return "K11 peer mode: rank 1 of 2 waited for rank 0 at epoch 7"
+
+
+@pytest.mark.parametrize("maxinner, peer, where", [
+    (10, False, "chunk"), (10, True, "chunk"), (3, True, "end")])
+def test_tcg_raises_on_the_peer_time_out_code(case, monkeypatch, maxinner,
+                                              peer, where):
+    """A step that returns K11's peer-mode time-out code (a peer's flag
+    never came) makes the tCG loop raise where it reads the stop codes on
+    the host: at the chunk read (iteration _TCG_CHUNK), and in peer mode
+    after the loop when it ends first; with a peer the message is the
+    peer's (rank and epoch).  No extra read per step."""
+    import dataclasses
+
+    from manisdp_tpu_torch import kernels as K
+    from manisdp_tpu_torch.core import trustregions as T
+    from manisdp_tpu_torch.manifolds import Oblique
+    _, tC, Y0, td = case
+    steps = []
+
+    def timed_out(*args, **kw):
+        steps.append(kw.get("peer"))
+        out = list(K.tcg_step(*args, **kw))
+        out[5] = out[5].clone()
+        out[5][:, 1] = K.TCG_TIMEOUT_STOP
+        return tuple(out)
+
+    monkeypatch.setattr(T, "tcg_step", timed_out)
+    problem = make_maxcut_problem(True)
+    if peer:
+        manifold = type("PeerOblique", (Oblique,),
+                        {"peer": _TimedOutPeer()})
+        problem = dataclasses.replace(problem, manifold=manifold)
+    solve = make_trustregions(problem, TROptions(maxiter=2,
+                                                 maxinner=maxinner))
+    match = "epoch 7" if peer else f"stop code {K.TCG_TIMEOUT_STOP}"
+    with pytest.raises(RuntimeError, match=match):
+        solve(torch.from_numpy(Y0.copy()), tC.to_dense(), td)
+    assert len(steps) == (T._TCG_CHUNK if where == "chunk" else maxinner)
+    assert all((s is not None) == peer for s in steps)
