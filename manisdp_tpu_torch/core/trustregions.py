@@ -20,7 +20,8 @@ iterations (and, in peer mode, once more after the loop): a peer-mode
 time-out (stop code ``kernels.TCG_TIMEOUT_STOP``) raises there.  An
 iteration that starts after a stop is a
 masked no-op, so the result equals the iteration-by-iteration semantics
-of the reference.
+of the reference.  Inside a recorded solver call (utils/timers.py) the
+host's waits on these reads of device values are the span ``rtr.wait``.
 
 ``make_batched_trustregions`` runs B instances of one problem at once
 (the batched MaxCut driver; the JAX package's jax.vmap of the solve): the
@@ -48,6 +49,7 @@ import numpy as np
 import torch
 
 from ..kernels import TCG_TIMEOUT_STOP, tcg_step
+from ..utils.timers import span
 from .problem import Problem, TROptions, TRResult
 
 _TCG_CHUNK = 8
@@ -146,9 +148,11 @@ def _make_tcg(problem: Problem, opts: TROptions, batched: bool = False):
             Yb, mask = bat(Y), tangent_cols(Y)
 
         for it in range(opts.maxinner):
-            if it and it % _TCG_CHUNK == 0 and \
-                    _check_stops(st[:, 1].tolist(), peer):
-                break
+            if it and it % _TCG_CHUNK == 0:
+                with span("rtr.wait"):
+                    codes = st[:, 1].tolist()
+                if _check_stops(codes, peer):
+                    break
             Hm = bat(problem.hess(Y, unb(mdelta), params, aux, gaux))
             eta, Heta, r, mdelta, sc, st = tcg_step(
                 mdelta, Hm, eta, Heta, r, sc, st, opts.mininner, Yb, mask,
@@ -156,7 +160,9 @@ def _make_tcg(problem: Problem, opts: TROptions, batched: bool = False):
             if Yb is None:
                 mdelta = bat(M.tangent(Y, unb(mdelta)))
         if peer is not None:
-            _check_stops(st[:, 1].tolist(), peer)
+            with span("rtr.wait"):
+                codes = st[:, 1].tolist()
+            _check_stops(codes, peer)
 
         stop = torch.where(st[:, 1] == 0, 5, st[:, 1])
         eta, Heta = unb(eta), unb(Heta)
@@ -195,10 +201,16 @@ def make_trustregions(problem: Problem, opts: TROptions):
         norm_grad = M.norm(Y, g)
         k = total_inner = 0
 
-        while k < opts.maxiter and float(norm_grad) >= opts.tolgradnorm:
+        while k < opts.maxiter:
+            with span("rtr.wait"):
+                going = float(norm_grad) >= opts.tolgradnorm
+            if not going:
+                break
             eta, Heta, numit, stop = tcg(Y, g, Delta, params_tcg, aux,
                                          gaux)
-            (numit, stop_inner), = torch.stack([numit, stop], 1).tolist()
+            pair = torch.stack([numit, stop], 1)
+            with span("rtr.wait"):
+                (numit, stop_inner), = pair.tolist()
 
             Y_prop = M.retr(Y, eta)
             f_prop, aux_prop = problem.cost(Y_prop, params)
@@ -218,7 +230,10 @@ def make_trustregions(problem: Problem, opts: TROptions):
                 torch.where(grow, torch.minimum(2.0 * Delta, Delta_bar),
                             Delta))
 
-            if bool(model_decreased & (rho > opts.rho_prime)):
+            accept = model_decreased & (rho > opts.rho_prime)
+            with span("rtr.wait"):
+                accept = bool(accept)
+            if accept:
                 g, gaux = problem.grad(Y_prop, params, aux_prop)
                 Y, fx, aux = Y_prop, f_prop, aux_prop
                 norm_grad = M.norm(Y, g)
@@ -280,7 +295,10 @@ def make_batched_trustregions(problem: Problem, opts: TROptions):
 
         for _ in range(opts.maxiter):
             active = (k < opts.maxiter) & (norm_grad >= opts.tolgradnorm)
-            if not bool(torch.any(active)):
+            going = torch.any(active)
+            with span("rtr.wait"):
+                going = bool(going)
+            if not going:
                 break
             eta, Heta, numit, stop_inner = tcg(Y, g, Delta, params, aux,
                                                gaux, active)
@@ -316,8 +334,9 @@ def make_batched_trustregions(problem: Problem, opts: TROptions):
             k = k + active.to(k.dtype)
             total_inner = total_inner + numit
 
-        return BatchedTRResult(
-            Y=Y, fx=fx, norm_grad=norm_grad, iters=k.cpu().numpy(),
-            inner_iters=total_inner.cpu().numpy())
+        with span("rtr.wait"):
+            iters, inner = k.cpu().numpy(), total_inner.cpu().numpy()
+        return BatchedTRResult(Y=Y, fx=fx, norm_grad=norm_grad,
+                               iters=iters, inner_iters=inner)
 
     return solve

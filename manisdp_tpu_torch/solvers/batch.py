@@ -25,6 +25,13 @@ eigenvectors of S) runs on the host per instance, as in the JAX package.
 A sparse bucket's cost is a BatchedSymCOO (K1); a dense one a (B, n_pad,
 n_pad) tensor and ``torch.matmul``.
 
+The call's spans (utils/timers.py): ``operator`` (buckets, starts, the
+dense C and its copy, the cost operator), per outer iteration ``rtr``,
+``cert`` and ``rank`` (the bookkeeping and the host rank update), and
+``result``; and the derived ``batch.held``: per outer iteration its wall
+times the share of the call's instances certified before it, the time a
+certified instance waits in its batch, weighted by instance.
+
 With ``mesh=`` (a DeviceMesh with a ``batch`` axis of D ranks) each rank
 solves a contiguous B / D of a bucket whose B the D divides (from the
 random starts the whole bucket would get, so each instance follows its
@@ -37,7 +44,6 @@ bucket.
 
 from __future__ import annotations
 
-import time
 import warnings
 from typing import Optional
 
@@ -51,11 +57,12 @@ from ..kernels import symcoo_spmm
 from ..manifolds import Oblique
 from ..ops.sparse import BatchedSymCOO
 from ..parallel.mesh import batch_rows, gather_rows, mesh_axis
-from .common import (PhaseTimers, SDPResult, bucketed,
-                     make_batched_line_search, resolve_device)
+from .common import (SDPResult, bucketed, current, make_batched_line_search,
+                     recorded, resolve_device)
 from .maxcut import make_maxcut_problem
 
 
+@recorded
 def solve_maxcut_batch(Cs, options: Optional[SolverOptions] = None,
                        mesh=None, n_bucket: int = 256, device="cuda",
                        **overrides) -> list:
@@ -72,112 +79,130 @@ def solve_maxcut_batch(Cs, options: Optional[SolverOptions] = None,
     "cpu" runs the kernels' plain twins; under a mesh, this rank's
     device.
 
-    Returns a list of B SDPResult, index-aligned with ``Cs``.
+    Returns a list of B SDPResult, index-aligned with ``Cs``; all share
+    the call's ``timers``.
     """
-    device = resolve_device(device)
-    axis = None
-    if mesh is not None and "batch" in (mesh.mesh_dim_names or ()):
-        axis = mesh_axis(mesh, "batch")
-    opt = merged_options("maxcut_unitdiag", options, **overrides)
-    if opt.inner_dtype == "mixed":
-        warnings.warn(
-            "solve_maxcut_batch does not implement the mixed-precision "
-            "inner solve yet; running the batch in float64 "
-            "(inner_dtype='mixed' ignored)", stacklevel=2)
-    B = len(Cs)
-    ns = [int(C.shape[0]) for C in Cs]
-    buckets: dict = {}
-    for b, n in enumerate(ns):
-        buckets.setdefault(bucketed(n, n_bucket), []).append(b)
+    timers = current()
+    with timers.timed("operator"):
+        device = resolve_device(device)
+        axis = None
+        if mesh is not None and "batch" in (mesh.mesh_dim_names or ()):
+            axis = mesh_axis(mesh, "batch")
+        opt = merged_options("maxcut_unitdiag", options, **overrides)
+        if opt.inner_dtype == "mixed":
+            warnings.warn(
+                "solve_maxcut_batch does not implement the mixed-precision "
+                "inner solve yet; running the batch in float64 "
+                "(inner_dtype='mixed' ignored)", stacklevel=3)
+        B = len(Cs)
+        ns = [int(C.shape[0]) for C in Cs]
+        buckets: dict = {}
+        for b, n in enumerate(ns):
+            buckets.setdefault(bucketed(n, n_bucket), []).append(b)
+        # the instances this process solves (a bucket the batch axis
+        # divides is split over it): batch.held's weights
+        solved = sum(len(ix) if axis is None or len(ix) % axis[0]
+                     else len(ix) // axis[0] for ix in buckets.values())
 
-    if opt.verbose:
-        print("ManiSDP-TPU (maxcut batch, torch) is starting...", flush=True)
-        print(f"batch = {B}, sizes = {sorted(set(ns))}, "
-              f"buckets = {sorted(buckets)}", flush=True)
+        if opt.verbose:
+            print("ManiSDP-TPU (maxcut batch, torch) is starting...",
+                  flush=True)
+            print(f"batch = {B}, sizes = {sorted(set(ns))}, "
+                  f"buckets = {sorted(buckets)}", flush=True)
 
     out: list = [None] * B
     for nb in sorted(buckets):
         idxs = buckets[nb]
         results = _solve_group([Cs[i] for i in idxs], [ns[i] for i in idxs],
-                               nb, opt, device, axis)
-        for i, r in zip(idxs, results):
-            out[i] = r
+                               nb, opt, device, axis, solved)
+        with timers.timed("result"):
+            for i, r in zip(idxs, results):
+                out[i] = r
     return out
 
 
-def _solve_group(Cs, ns, n: int, opt: SolverOptions, device, axis=None
-                 ) -> list:
+def _solve_group(Cs, ns, n: int, opt: SolverOptions, device, axis,
+                 solved: int) -> list:
     """One bucket; ``axis`` = (D, this rank's index, group) of the mesh's
-    batch axis, or None."""
-    # dense vs sparse on the padded bucket size (the single-instance rule)
-    nnzs = [sp.coo_matrix(C).nnz if sp.issparse(C)
-            else int(np.count_nonzero(C)) for C in Cs]
-    dense = (n <= opt.dense_cost_max_n or
-             n * n <= opt.dense_cost_nnz_factor * max(max(nnzs), 1))
-    # every instance's random start, drawn as for the whole bucket
-    gen = torch.Generator(device=device)
-    gen.manual_seed(opt.seed)
-    p_pad = bucketed(opt.p0, opt.p_bucket)
-    Y = torch.stack([Oblique.rand(gen, opt.p0, n, p_pad) for _ in Cs])
+    batch axis, or None; ``solved``: the instances the call solves in this
+    process."""
+    timers = current()
+    with timers.timed("operator"):
+        # dense vs sparse on the padded bucket size (the single-instance
+        # rule)
+        nnzs = [sp.coo_matrix(C).nnz if sp.issparse(C)
+                else int(np.count_nonzero(C)) for C in Cs]
+        dense = (n <= opt.dense_cost_max_n or
+                 n * n <= opt.dense_cost_nnz_factor * max(max(nnzs), 1))
+        # every instance's random start, drawn as for the whole bucket
+        gen = torch.Generator(device=device)
+        gen.manual_seed(opt.seed)
+        p_pad = bucketed(opt.p0, opt.p_bucket)
+        Y = torch.stack([Oblique.rand(gen, opt.p0, n, p_pad) for _ in Cs])
     if axis is None or len(Cs) % axis[0]:
-        return _solve_instances(Cs, ns, n, opt, device, dense, Y)
+        return _solve_instances(Cs, ns, n, opt, device, dense, Y, solved)
     D, me, group = axis
     rows = batch_rows(len(Cs), D, me)
     mine = _solve_instances(Cs[rows], ns[rows], n, opt, device, dense,
-                            Y[rows].contiguous())
-    return gather_rows(mine, group, device)
+                            Y[rows].contiguous(), solved)
+    with timers.timed("result"):
+        return gather_rows(mine, group, device)
 
 
 def _solve_instances(Cs, ns, n: int, opt: SolverOptions, device,
-                     dense: bool, Y) -> list:
+                     dense: bool, Y, solved: int) -> list:
     """Solve the instances ``Cs`` of a bucket of padded size n from the
-    (B, p_pad, n) starts ``Y``."""
-    B = len(Cs)
-    as_dev = lambda a: torch.as_tensor(  # noqa: E731
-        a, dtype=torch.float64, device=device)
+    (B, p_pad, n) starts ``Y``; ``solved``: the instances the call solves
+    in this process (batch.held's denominator)."""
+    timers = current()
+    with timers.timed("operator"):
+        B = len(Cs)
+        as_dev = lambda a: torch.as_tensor(  # noqa: E731
+            a, dtype=torch.float64, device=device)
 
-    # the zero-padded dense cost: the certificate's S, and the dense cost
-    Cs_dense = np.zeros((B, n, n))
-    for b, C in enumerate(Cs):
-        Cb = C.toarray() if sp.issparse(C) else np.asarray(C, float)
-        Cs_dense[b, :ns[b], :ns[b]] = 0.5 * (Cb + Cb.T)
-    C_dense = as_dev(Cs_dense)
-    del Cs_dense
-    C_param = C_dense if dense else BatchedSymCOO.from_scipy(Cs, n, device)
+        # the zero-padded dense cost: the certificate's S, and the dense
+        # cost
+        Cs_dense = np.zeros((B, n, n))
+        for b, C in enumerate(Cs):
+            Cb = C.toarray() if sp.issparse(C) else np.asarray(C, float)
+            Cs_dense[b, :ns[b], :ns[b]] = 0.5 * (Cb + Cb.T)
+        C_dense = as_dev(Cs_dense)
+        del Cs_dense
+        C_param = C_dense if dense else \
+            BatchedSymCOO.from_scipy(Cs, n, device)
 
-    problem = make_maxcut_problem(dense)
-    solve = make_batched_trustregions(problem, TROptions(
-        maxiter=opt.tr_maxiter, maxinner=opt.tr_maxinner,
-        tolgradnorm=opt.tolgradnorm))
-    line_search = make_batched_line_search(
-        lambda Y, Cp: problem.cost(Y, Cp)[0], Oblique.renormalize)
+        problem = make_maxcut_problem(dense)
+        solve = make_batched_trustregions(problem, TROptions(
+            maxiter=opt.tr_maxiter, maxinner=opt.tr_maxinner,
+            tolgradnorm=opt.tolgradnorm))
+        line_search = make_batched_line_search(
+            lambda Y, Cp: problem.cost(Y, Cp)[0], Oblique.renormalize)
 
-    def z_of(Y):
-        """z_b = colsum(Y_b o Y_b C_b), (B, n)."""
-        if dense:
-            return torch.sum(Y * (Y @ C_dense), dim=-2)
-        return symcoo_spmm(Y, C_param, "cost")[1]
+        def z_of(Y):
+            """z_b = colsum(Y_b o Y_b C_b), (B, n)."""
+            if dense:
+                return torch.sum(Y * (Y @ C_dense), dim=-2)
+            return symcoo_spmm(Y, C_param, "cost")[1]
 
-    p = np.full(B, opt.p0, dtype=np.int64)
-    p_pad = Y.shape[1]
-    typdist = float(np.pi * np.sqrt(n))
-    U_dir = None
-    k_cert = opt.delta + 1
+        p = np.full(B, opt.p0, dtype=np.int64)
+        p_pad = Y.shape[1]
+        typdist = float(np.pi * np.sqrt(n))
+        U_dir = None
+        k_cert = opt.delta + 1
 
-    done = np.zeros(B, dtype=bool)
-    obj = np.full(B, np.nan)
-    dinf = np.full(B, np.nan)
-    it_done = np.zeros(B, dtype=np.int64)
-    z_final = np.zeros((B, n))
-    tr_iters = np.zeros(B, dtype=np.int64)
-    hess_calls = np.zeros(B, dtype=np.int64)
-    fac_size = [[] for _ in range(B)]
-    history = [[] for _ in range(B)]
-    timers = PhaseTimers()
-    t0 = time.time()
-    it = 0
+        done = np.zeros(B, dtype=bool)
+        obj = np.full(B, np.nan)
+        dinf = np.full(B, np.nan)
+        it_done = np.zeros(B, dtype=np.int64)
+        z_final = np.zeros((B, n))
+        tr_iters = np.zeros(B, dtype=np.int64)
+        hess_calls = np.zeros(B, dtype=np.int64)
+        fac_size = [[] for _ in range(B)]
+        history = [[] for _ in range(B)]
+        it = 0
 
     for it in range(1, opt.max_outer + 1):
+        t_it, held = timers.wall(), int(done.sum())
         with timers.timed("rtr"):
             if U_dir is not None:
                 Y = line_search(Y, as_dev(U_dir), C_param,
@@ -186,8 +211,8 @@ def _solve_instances(Cs, ns, n: int, opt: SolverOptions, device,
             Y = res.Y
             z = z_of(Y)
             obj_now = torch.sum(z, dim=1).cpu().numpy()
-        tr_iters += res.iters
-        hess_calls += res.inner_iters
+            tr_iters += res.iters
+            hess_calls += res.inner_iters
 
         with timers.timed("cert"):
             # S_b = C_b - diag(z_b); padding columns add zero eigenvalues
@@ -195,52 +220,55 @@ def _solve_instances(Cs, ns, n: int, opt: SolverOptions, device,
             vals_h = vals.cpu().numpy()
             neg_vecs = vecs[:, :, :k_cert].cpu().numpy()
             z_h = z.cpu().numpy()
-        del vals, vecs
-        lam_min, lam_max = vals_h[:, 0], vals_h[:, -1]
-        dinf_now = np.maximum(0.0, -lam_min) / (1.0 + lam_max)
-        num_neg = np.sum(vals_h < 0, axis=1)
+            del vals, vecs
 
-        for b in np.nonzero(~done)[0]:
-            obj[b], dinf[b] = obj_now[b], dinf_now[b]
-            z_final[b] = z_h[b]
-            it_done[b] = it
-            fac_size[b].append(int(p[b]))
-            history[b].append(dict(iter=it, obj=float(obj_now[b]),
-                                   dinf=float(dinf_now[b]), p=int(p[b])))
-        done |= dinf_now < opt.tol
-        if opt.verbose:
-            print(f"Iter {it}, done {int(done.sum())}/{B}, "
-                  f"median dinf:{np.median(dinf_now):0.1e}, "
-                  f"p_pad:{p_pad}, time:{time.time() - t0:0.2f}s",
-                  flush=True)
-        timers.log_delta(opt.verbose)
-        if done.all():
+        with timers.timed("rank"):
+            lam_min, lam_max = vals_h[:, 0], vals_h[:, -1]
+            dinf_now = np.maximum(0.0, -lam_min) / (1.0 + lam_max)
+            num_neg = np.sum(vals_h < 0, axis=1)
+
+            for b in np.nonzero(~done)[0]:
+                obj[b], dinf[b] = obj_now[b], dinf_now[b]
+                z_final[b] = z_h[b]
+                it_done[b] = it
+                fac_size[b].append(int(p[b]))
+                history[b].append(dict(iter=it, obj=float(obj_now[b]),
+                                       dinf=float(dinf_now[b]), p=int(p[b])))
+            done |= dinf_now < opt.tol
+            if opt.verbose:
+                print(f"Iter {it}, done {int(done.sum())}/{B}, "
+                      f"median dinf:{np.median(dinf_now):0.1e}, "
+                      f"p_pad:{p_pad}, time:{timers.wall():0.2f}s",
+                      flush=True)
+            timers.log_delta(opt.verbose)
+            finished = done.all()
+            if not finished:
+                # ---- per-instance rank update (host) ----
+                Y, U_dir, p, p_pad = _rank_update(
+                    Y.cpu().numpy(), neg_vecs, num_neg, p, p_pad, done, opt)
+                Y = as_dev(Y)
+        timers.add("batch.held", (timers.wall() - t_it) * held / solved)
+        if finished:
             break
 
-        # ---- per-instance rank update (host) ----
-        with timers.timed("rank"):
-            Y, U_dir, p, p_pad = _rank_update(Y.cpu().numpy(), neg_vecs,
-                                              num_neg, p, p_pad, done, opt)
-            Y = as_dev(Y)
+    with timers.timed("result"):
+        status = np.where(done, 0, 1)
+        if opt.verbose:
+            print(f"ManiSDP-TPU batch: {int(done.sum())}/{B} optimal, "
+                  f"time = {timers.wall():0.2f}s", flush=True)
 
-    status = np.where(done, 0, 1)
-    elapsed = time.time() - t0
-    if opt.verbose:
-        print(f"ManiSDP-TPU batch: {int(done.sum())}/{B} optimal, "
-              f"time = {elapsed:0.2f}s", flush=True)
-
-    Y_h = Y.cpu().numpy()
-    out = []
-    for b in range(B):
-        Yb = Y_h[b, :p[b], :ns[b]]            # strip the n padding
-        out.append(SDPResult(
-            X=Yb.T @ Yb, obj=float(obj[b]), Y=Yb, z=z_final[b, :ns[b]],
-            dinf=float(dinf[b]), eta=float(dinf[b]), time=elapsed,
-            status=int(status[b]),
-            iterations=int(it_done[b]) if done[b] else it,
-            fac_size=fac_size[b], rtr_iters=int(tr_iters[b]),
-            hess_calls=int(hess_calls[b]), history=history[b],
-            timers=timers.t))
+        Y_h = Y.cpu().numpy()
+        out = []
+        for b in range(B):
+            Yb = Y_h[b, :p[b], :ns[b]]            # strip the n padding
+            out.append(SDPResult(
+                X=Yb.T @ Yb, obj=float(obj[b]), Y=Yb, z=z_final[b, :ns[b]],
+                dinf=float(dinf[b]), eta=float(dinf[b]),
+                status=int(status[b]),
+                iterations=int(it_done[b]) if done[b] else it,
+                fac_size=fac_size[b], rtr_iters=int(tr_iters[b]),
+                hess_calls=int(hess_calls[b]), history=history[b],
+                timers=timers.t))
     return out
 
 

@@ -11,7 +11,6 @@ once per outer iteration, off the hot path.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -19,6 +18,9 @@ import torch
 
 from ..core import TROptions, make_trustregions
 from ..core.trustregions import cast_floats
+# the span recorder lives in utils/timers.py, where the RTR reaches it
+# too; the drivers import it from here
+from ..utils.timers import PhaseTimers, current, recorded, span  # noqa: F401
 
 
 @dataclasses.dataclass
@@ -35,50 +37,16 @@ class SDPResult:
     dinf: float = np.nan
     eta: float = np.nan        # max KKT residual
     gradnorm: float = np.nan
-    time: float = 0.0
+    time: float = 0.0          # the call's wall, entry to return
     status: int = 0            # 0 optimal, 1 iter max, 2 slow progress
     iterations: int = 0
     fac_size: Optional[list] = None
     rtr_iters: int = 0         # total accepted/rejected TR iterations
     hess_calls: int = 0        # total tCG inner iterations (Hv products)
     history: Optional[list] = None
-    timers: Optional[dict] = None  # per-phase seconds: rtr/cert/rank
+    timers: Optional[dict] = None  # seconds per span (utils/timers.py)
     sigma: Optional[float] = None
     tier: int = 0
-
-
-class PhaseTimers:
-    """Wall-clock accounting of the outer loop's phases.  Each phase
-    ends on a host read of a device value, so its time covers the
-    device work it queued."""
-
-    def __init__(self):
-        self.t = {}
-        self._snap = {}
-
-    def add(self, phase: str, dt: float):
-        self.t[phase] = self.t.get(phase, 0.0) + dt
-
-    def log_delta(self, verbose):
-        """verbose == 2: print per-phase seconds since the last call."""
-        if verbose != 2:
-            return
-        d = {k: v - self._snap.get(k, 0.0) for k, v in self.t.items()}
-        self._snap = dict(self.t)
-        print("  phases: " + ", ".join(f"{k}:{v:.2f}s"
-                                       for k, v in d.items()), flush=True)
-
-    def timed(self, phase: str):
-        timers = self
-
-        class _Ctx:
-            def __enter__(self):
-                self._t0 = time.time()
-
-            def __exit__(self, *a):
-                timers.add(phase, time.time() - self._t0)
-
-        return _Ctx()
 
 
 def resolve_device(device) -> torch.device:
@@ -211,13 +179,17 @@ def make_line_search(cost_fn: Callable, renorm: Callable,
     i_max = 15 + max_extra
     ls_dt = getattr(torch, ls_dtype) if ls_dtype else None
 
+    def read(f):
+        with span("rtr.wait"):
+            return float(f)
+
     def line_search(Y, U, params):
-        f_full = lambda P: float(cost_fn(P, params))  # noqa: E731
+        f_full = lambda P: read(cost_fn(P, params))  # noqa: E731
         if ls_dt is None:
             f_of = f_full
         else:
             params_c = cast_floats(params, ls_dt)
-            f_of = lambda P: float(cost_fn(P.to(ls_dt), params_c))  # noqa: E731
+            f_of = lambda P: read(cost_fn(P.to(ls_dt), params_c))  # noqa: E731
         f0 = f_of(Y)
         alpha, i = 1.0, 1
         nY = renorm(Y + alpha * U)
@@ -252,8 +224,8 @@ def make_batched_line_search(cost_fn: Callable, renorm: Callable,
     alpha, trial count and accepted point on the device; a trial evaluates
     every instance and keeps the result where the instance is still
     searching.  The host reads "any instance still searching" once per
-    trial, at most 15 + ``max_extra`` times.  ``active`` (B,) bool: the
-    instances to search; the others keep Y."""
+    trial (the span ``rtr.wait``), at most 15 + ``max_extra`` times.
+    ``active`` (B,) bool: the instances to search; the others keep Y."""
     i_max = 15 + max_extra
 
     def line_search(Y, U, params, active=None):
@@ -266,7 +238,12 @@ def make_batched_line_search(cost_fn: Callable, renorm: Callable,
             """Shrink alpha by 0.8 for every instance in ``going`` while
             cond(i, fa) holds for it."""
             going = going & cond(i, fa)
-            while bool(torch.any(going)):
+            while True:
+                more = torch.any(going)
+                with span("rtr.wait"):
+                    more = bool(more)
+                if not more:
+                    break
                 alpha = torch.where(going, 0.8 * alpha, alpha)
                 trial = renorm(Y + per(alpha) * U)
                 nY = torch.where(per(going), trial, nY)
@@ -296,7 +273,7 @@ def make_batched_line_search(cost_fn: Callable, renorm: Callable,
 
 def log_iter(verbose: bool, it: int, obj: float, *, gap=None, pinf=None,
              dinf: float, gradnorm=None, r=None, p: int, sigma=None,
-             t0: float):
+             wall: float):
     if not verbose:
         return
     parts = [f"Iter {it}, obj:{obj:0.8f}"]
@@ -312,5 +289,5 @@ def log_iter(verbose: bool, it: int, obj: float, *, gap=None, pinf=None,
     parts.append(f"p:{p}")
     if sigma is not None:
         parts.append(f"sigma:{sigma:0.3f}")
-    parts.append(f"time:{time.time() - t0:0.2f}s")
+    parts.append(f"time:{wall:0.2f}s")
     print(", ".join(parts), flush=True)

@@ -25,7 +25,6 @@ oblique Hessian's epilogue is kernel K2.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -39,9 +38,9 @@ from ..ops.dense_cert import DenseEighCert
 from ..ops.dualops import SparseMat
 from ..ops.eigs import lobpcg_certificate
 from ..ops.eigs_rr import DeviceCertSolver
-from .common import (PhaseTimers, RankController, SDPResult, SlowProgress,
-                     bucketed, log_iter, make_line_search, mixed_prestage,
-                     pad_rows)
+from .common import (RankController, SDPResult, SlowProgress, bucketed,
+                     current, log_iter, make_line_search, mixed_prestage,
+                     pad_rows, recorded)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,6 +312,7 @@ def _make_certificate(op, n: int, k_cert: int, use_eigh: bool,
     return cert
 
 
+@recorded
 def solve_dual_al(variant_name: str, op,
                   options: Optional[SolverOptions] = None,
                   iAB: Optional[SparseMat] = None,
@@ -323,110 +323,110 @@ def solve_dual_al(variant_name: str, op,
     """The ADMM outer loop [RTR inner solve -> stats -> certificate ->
     rank update -> sigma schedule] on ``op``'s device (a DualOp or a
     SymDualOp; ``iAB`` for dual_general)."""
-    variant = DUAL_VARIANTS[variant_name]
-    opt = merged_options(variant.name, options, **overrides)
-    n, m = op.n, op.m
-    device = op.device
-    use_eigh = (opt.eig_method == "eigh") or \
-        (opt.eig_method == "auto" and n < opt.eig_switch_n)
-    k_cert = opt.delta + 1
+    timers = current()
+    with timers.timed("operator"):
+        variant = DUAL_VARIANTS[variant_name]
+        opt = merged_options(variant.name, options, **overrides)
+        n, m = op.n, op.m
+        device = op.device
+        use_eigh = (opt.eig_method == "eigh") or \
+            (opt.eig_method == "auto" and n < opt.eig_switch_n)
+        k_cert = opt.delta + 1
 
-    if opt.verbose:
-        print(f"ManiSDP-TPU ({variant.name}, torch) is starting...",
-              flush=True)
-        print(f"SDP size: n = {n}, m = {getattr(op, 'm_true', m)}",
-              flush=True)
+        if opt.verbose:
+            print(f"ManiSDP-TPU ({variant.name}, torch) is starting...",
+                  flush=True)
+            print(f"SDP size: n = {n}, m = {getattr(op, 'm_true', m)}",
+                  flush=True)
 
-    problem, cost_only = _make_problem(variant)
+        problem, cost_only = _make_problem(variant)
 
-    # two TR budgets: the reference default (tier 0) and the escalated
-    # endgame budget (tier 1)
-    def budget(tier, use32):
-        kw = dict(tolgradnorm=opt.tolgradnorm,
-                  tcg_dtype="float32" if use32 else None)
-        if tier == 0:
-            return TROptions(maxiter=opt.tr_maxiter,
-                             maxinner=opt.tr_maxinner, **kw)
-        return TROptions(maxiter=max(opt.boost_tr_maxiter, opt.tr_maxiter),
-                         maxinner=max(opt.boost_tr_maxinner,
-                                      opt.tr_maxinner), **kw)
-    M = variant.manifold
-    line_search = make_line_search(
-        cost_only, M.renormalize,
-        ls_dtype="float32" if opt.inner_dtype == "tcg32" else None)
-    # f32 copies for the tcg32 inner loop and the mixed pre-stage, built
-    # once per solve (iAB travels in params, so one problem serves both
-    # dtypes)
-    mixed = opt.inner_dtype == "mixed"
-    op32 = iab32 = None
-    if opt.inner_dtype == "tcg32" or mixed:
-        op32 = op.astype(torch.float32)
-        iab32 = iAB.astype(torch.float32) if iAB is not None else None
-    stats_fn = _make_stats(variant)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(opt.seed)
-    cert_fn = _make_certificate(op, n, k_cert, use_eigh, opt, gen)
+        # two TR budgets: the reference default (tier 0) and the escalated
+        # endgame budget (tier 1)
+        def budget(tier, use32):
+            kw = dict(tolgradnorm=opt.tolgradnorm,
+                      tcg_dtype="float32" if use32 else None)
+            if tier == 0:
+                return TROptions(maxiter=opt.tr_maxiter,
+                                 maxinner=opt.tr_maxinner, **kw)
+            return TROptions(maxiter=max(opt.boost_tr_maxiter, opt.tr_maxiter),
+                             maxinner=max(opt.boost_tr_maxinner,
+                                          opt.tr_maxinner), **kw)
+        M = variant.manifold
+        line_search = make_line_search(
+            cost_only, M.renormalize,
+            ls_dtype="float32" if opt.inner_dtype == "tcg32" else None)
+        # f32 copies for the tcg32 inner loop and the mixed pre-stage, built
+        # once per solve (iAB travels in params, so one problem serves both
+        # dtypes)
+        mixed = opt.inner_dtype == "mixed"
+        op32 = iab32 = None
+        if opt.inner_dtype == "tcg32" or mixed:
+            op32 = op.astype(torch.float32)
+            iab32 = iAB.astype(torch.float32) if iAB is not None else None
+        stats_fn = _make_stats(variant)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(opt.seed)
+        cert_fn = _make_certificate(op, n, k_cert, use_eigh, opt, gen)
 
-    rank = RankController(opt.theta, opt.delta, opt.alpha,
-                          nne_floor=variant.nne_floor, bucket=opt.p_bucket)
-    slow = SlowProgress(variant.slow_period, variant.slow_warmup)
-    as_dev = lambda a: torch.as_tensor(  # noqa: E731
-        a, dtype=torch.float64, device=device)
+        rank = RankController(opt.theta, opt.delta, opt.alpha,
+                              nne_floor=variant.nne_floor, bucket=opt.p_bucket)
+        slow = SlowProgress(variant.slow_period, variant.slow_warmup)
+        as_dev = lambda a: torch.as_tensor(  # noqa: E731
+            a, dtype=torch.float64, device=device)
 
-    normc = float(1.0 + np.sqrt(
-        float(torch.sum(op.C * op.C)) + float(torch.dot(op.cf, op.cf))))
+        normc = float(1.0 + np.sqrt(
+            float(torch.sum(op.C * op.C)) + float(torch.dot(op.cf, op.cf))))
 
-    # ManiDSDP_unitdiag.m:11 default p0 = ceil(log(m))
-    p = opt.p0 if opt.p0 > 0 else max(int(np.ceil(np.log(max(m, 2)))), 1)
-    p_pad = bucketed(p, opt.p_bucket)
-    if Y0 is not None:
-        Y0 = np.asarray(Y0, dtype=np.float64)
-        if Y0.shape[1] != n:
-            Y0 = Y0.T
-        p = Y0.shape[0]
-        p_pad = max(p_pad, bucketed(p, opt.p_bucket))
-        Y = as_dev(pad_rows(Y0, p_pad))
-    else:
-        Y = M.rand(gen, p, n, p_pad)
-    # operators over a redundant basis (SymDualOp) supply a symmetrize
-    # hook: the init, every rebuilt factor and every escape direction are
-    # projected onto the duplicate-symmetric subspace, where the expanded
-    # dynamics reproduce the reference trajectory
-    symmetrize = getattr(op, "symmetrize", None)
-    if symmetrize is not None:
-        Y = symmetrize(Y)
-    U_dir = None
+        # ManiDSDP_unitdiag.m:11 default p0 = ceil(log(m))
+        p = opt.p0 if opt.p0 > 0 else max(int(np.ceil(np.log(max(m, 2)))), 1)
+        p_pad = bucketed(p, opt.p_bucket)
+        if Y0 is not None:
+            Y0 = np.asarray(Y0, dtype=np.float64)
+            if Y0.shape[1] != n:
+                Y0 = Y0.T
+            p = Y0.shape[0]
+            p_pad = max(p_pad, bucketed(p, opt.p_bucket))
+            Y = as_dev(pad_rows(Y0, p_pad))
+        else:
+            Y = M.rand(gen, p, n, p_pad)
+        # operators over a redundant basis (SymDualOp) supply a symmetrize
+        # hook: the init, every rebuilt factor and every escape direction are
+        # projected onto the duplicate-symmetric subspace, where the expanded
+        # dynamics reproduce the reference trajectory
+        symmetrize = getattr(op, "symmetrize", None)
+        if symmetrize is not None:
+            Y = symmetrize(Y)
+        U_dir = None
 
-    Xm = torch.zeros((n, n), dtype=torch.float64, device=device) \
-        if Xm0 is None else as_dev(np.asarray(Xm0))
-    w = torch.zeros(op.f, dtype=torch.float64, device=device) if w0 is None \
-        else as_dev(np.asarray(w0, dtype=np.float64).ravel())
-    sigma = float(opt.sigma0)
-    status = 0
-    total_tr = total_hess = 0
-    fac_size, history = [], []
-    t0 = time.time()
-    obj = gap = pinf = dinf = gradnorm = eta = np.nan
-    Xp_dev = z_dev = None
-    it = 0
-    tier = 0
-    use32 = opt.inner_dtype == "tcg32"
-    frozen = 0          # consecutive endgame iterations with frozen sigma
-    best_eta = np.inf
-    last_improve = 0
-    pinf_anchor = np.inf    # sigma_push state: pinf at last sigma raise
-    anchor_it = 0
-    hold_boost = -1         # boost held through terminal-escape recovery
-    best_pinf = np.inf      # ramp trigger state: best pinf, last halve
-    pinf_improve_it = 0
-    term_dinf = None        # dinf at the previous terminal gentle escape
+        Xm = torch.zeros((n, n), dtype=torch.float64, device=device) \
+            if Xm0 is None else as_dev(np.asarray(Xm0))
+        w = torch.zeros(op.f, dtype=torch.float64, device=device) \
+            if w0 is None else as_dev(np.asarray(w0, dtype=np.float64).ravel())
+        sigma = float(opt.sigma0)
+        status = 0
+        total_tr = total_hess = 0
+        fac_size, history = [], []
+        obj = gap = pinf = dinf = gradnorm = eta = np.nan
+        Xp_dev = z_dev = None
+        it = 0
+        tier = 0
+        use32 = opt.inner_dtype == "tcg32"
+        frozen = 0          # consecutive endgame iterations with frozen sigma
+        best_eta = np.inf
+        last_improve = 0
+        pinf_anchor = np.inf    # sigma_push state: pinf at last sigma raise
+        anchor_it = 0
+        hold_boost = -1         # boost held through terminal-escape recovery
+        best_pinf = np.inf      # ramp trigger state: best pinf, last halve
+        pinf_improve_it = 0
+        term_dinf = None        # dinf at the previous terminal gentle escape
 
-    timers = PhaseTimers()
     for it in range(1, opt.max_outer + 1):
-        fac_size.append(p)
-        solve = make_trustregions(problem, budget(tier, use32))
-        params = dict(op=op, Xm=Xm, w=w, sigma=sigma, iAB=iAB)
         with timers.timed("rtr"):
+            fac_size.append(p)
+            solve = make_trustregions(problem, budget(tier, use32))
+            params = dict(op=op, Xm=Xm, w=w, sigma=sigma, iAB=iAB)
             if U_dir is not None:
                 Y = line_search(Y, U_dir, params)
             typdist = float(M.typicaldist(p, n))
@@ -448,9 +448,9 @@ def solve_dual_al(variant_name: str, op,
                 # project the inner solve's output before stats / cert
                 # read it (f32 tCG noise leaves the subspace)
                 Y = symmetrize(Y)
-        gradnorm = float(res.norm_grad)
-        total_tr += res.iters
-        total_hess += res.inner_iters
+            gradnorm = float(res.norm_grad)
+            total_tr += res.iters
+            total_hess += res.inner_iters
 
         with timers.timed("stats"):
             (Xm, w, Xp_dev, z_dev, obj_d, pinf_d, _,
@@ -464,193 +464,197 @@ def solve_dual_al(variant_name: str, op,
 
         with timers.timed("cert"):
             lam_min, lam_max, num_neg, neg_vecs = cert_fn(Xp_dev, gap, pinf)
-        # note abs() in the denominator (ManiDSDP_unitdiag.m:88)
-        dinf = max(0.0, -lam_min) / (1.0 + abs(lam_max))
 
         with timers.timed("rank"):
+            # note abs() in the denominator (ManiDSDP_unitdiag.m:88)
+            dinf = max(0.0, -lam_min) / (1.0 + abs(lam_max))
             r, _, Ul = rank.truncation(Y, p)
-        log_iter(opt.verbose, it, obj, gap=gap, pinf=pinf, dinf=dinf,
-                 gradnorm=gradnorm, r=r, p=p, sigma=sigma, t0=t0)
-        history.append(dict(iter=it, obj=obj, gap=gap, pinf=pinf, dinf=dinf,
-                            gradnorm=gradnorm, r=r, p=p, sigma=sigma,
-                            tr=res.iters, hv=res.inner_iters))
-        timers.log_delta(opt.verbose)
-        eta = max(gap, pinf, dinf)
-        # eta-stagnation boost trigger: the best eta has not halved for
-        # 2 * boost_after iterations with the gap already small
-        if eta < 0.5 * best_eta:
-            best_eta = eta
-            last_improve = it
-        if (opt.endgame_boost and tier == 0 and gap <= 1e-3 and
-                eta > opt.tol and it - last_improve >= 2 * opt.boost_after):
-            tier = 1
-        # ramp-phase trigger (config.ramp_deep_after): the best pinf has
-        # stopped halving for ramp_deep_after tier-0 outers
-        if tier == 1:
-            best_pinf = pinf
-            pinf_improve_it = it
-        else:
-            if pinf < 0.5 * best_pinf:
+            log_iter(opt.verbose, it, obj, gap=gap, pinf=pinf, dinf=dinf,
+                     gradnorm=gradnorm, r=r, p=p, sigma=sigma,
+                     wall=timers.wall())
+            history.append(dict(iter=it, obj=obj, gap=gap, pinf=pinf,
+                                dinf=dinf, gradnorm=gradnorm, r=r, p=p,
+                                sigma=sigma, tr=res.iters,
+                                hv=res.inner_iters))
+            timers.log_delta(opt.verbose)
+            eta = max(gap, pinf, dinf)
+            # eta-stagnation boost trigger: the best eta has not halved for
+            # 2 * boost_after iterations with the gap already small
+            if eta < 0.5 * best_eta:
+                best_eta = eta
+                last_improve = it
+            if (opt.endgame_boost and tier == 0 and gap <= 1e-3 and
+                    eta > opt.tol and
+                    it - last_improve >= 2 * opt.boost_after):
+                tier = 1
+            # ramp-phase trigger (config.ramp_deep_after): the best pinf has
+            # stopped halving for ramp_deep_after tier-0 outers
+            if tier == 1:
                 best_pinf = pinf
                 pinf_improve_it = it
-            if (opt.endgame_boost and opt.ramp_deep_after and
-                    gap <= opt.ramp_deep_gap and pinf > opt.tol and
-                    eta > opt.tol and
-                    it - pinf_improve_it >= opt.ramp_deep_after):
-                tier = 1
-                pinf_improve_it = it
-        if eta < opt.tol:
-            if opt.verbose:
-                print("Optimality is reached!", flush=True)
-            break
-        if slow.check(it, gap, pinf, dinf):
-            if use32:
-                # precision fallback: demote the f32 tCG inner loop to f64
-                use32 = False
-                slow.prev = None
-                if opt.verbose:
-                    print("Slow progress under tcg32 -> f64 inner "
-                          "fallback", flush=True)
             else:
-                status = 2
-                if opt.verbose:
-                    print("Slow progress!", flush=True)
-                break
-
-        Y_host = Y.cpu().numpy()
-        if r <= p - 1:
-            Y_host = Ul[:, :r].T @ Y_host
-            p = r
-        else:
-            Y_host = Y_host[:p]
-        # no escape when the certificate is not the blocker: dinf below
-        # max(tol, min(1e-5, 1e-2 pinf)) with pinf the lone blocker
-        esc_ls = opt.line_search
-        dinf_floor = max(opt.tol, min(1e-5, 1e-2 * pinf))
-        pinf_lock = (opt.endgame_boost and gap <= 1e-3 and
-                     dinf <= dinf_floor and pinf > opt.tol)
-        if pinf_lock:
-            # pinf is the lone blocker: hold the deep-solve tier so
-            # gradnorm collapses and the tau2 comparison ramps sigma
-            tier = 1
-        nne = rank.num_escape(num_neg) if dinf > dinf_floor else 0
-        if nne and pinf <= opt.tol and gap <= opt.tol:
-            # terminal gentle escape: only the most negative direction,
-            # and a deep next solve held through the recovery
-            nne = 1
-            if opt.endgame_boost:
-                tier = 1
-                hold_boost = it + 3
-            # terminal limit-cycle breaker: a gentle kick that fails to
-            # contract dinf by >= 25% per cycle falls back to the
-            # reference's constant alpha-sized append
-            if term_dinf is not None and dinf > 0.75 * term_dinf:
-                esc_ls = False
-            term_dinf = dinf
-        elif pinf > 1e-2 or gap > 1e-4:
-            # left the terminal regime -> reset
-            term_dinf = None
-        vs = neg_vecs[:, :nne]
-        if symmetrize is not None:
-            # the lift of a unit original eigenvector has expanded norm
-            # sqrt(2); the certificate returns unit expanded vectors
-            vs = np.sqrt(2.0) * vs
-        if nne == 0:
-            U_host = None
-        elif esc_ls:
-            U_host = np.vstack([np.zeros((p, n)), vs.T])
-            Y_host = np.vstack([Y_host, np.zeros((nne, n))])
-        else:
-            U_host = None
-            Y_host = np.vstack([Y_host, opt.alpha * vs.T])
-            if variant.manifold is Oblique:
-                Y_host = Y_host / np.sqrt(np.sum(Y_host ** 2, axis=0))
-        p = p + nne
-        # rank buckets grow eagerly but shrink only when the active rank
-        # collapses to half a bucket or less
-        p_need = bucketed(p, opt.p_bucket)
-        if p_need > p_pad or 2 * p_need <= p_pad:
-            p_pad = p_need
-        Y = as_dev(pad_rows(Y_host, p_pad))
-        U_dir = as_dev(pad_rows(U_host, p_pad)) if U_host is not None \
-            else None
-        if symmetrize is not None:
-            # renorm=False: after a truncation the column norms are not
-            # unit, and the reference renormalizes only the stepped point
-            Y = symmetrize(Y, renorm=False)
-            if U_dir is not None:
-                U_dir = symmetrize(U_dir, renorm=False)
-
-        sigma_prev = sigma
-        # the boost decays only on progress (eta halved recently)
-        boost_decay = (not pinf_lock) and (it - last_improve <= 1) \
-            and it > hold_boost
-        if pinf < opt.tau1 * gradnorm:
-            sigma = max(sigma / opt.gama, opt.sigma_min)
-            frozen = 0
-            if boost_decay:
-                tier = 0
-        elif pinf > opt.tau2 * gradnorm:
-            sigma = min(sigma * opt.gama, opt.sigma_max)
-            frozen = 0
-            if boost_decay:
-                tier = 0
-        else:
-            # plateau boost: escalate the TR budget after boost_after
-            # consecutive frozen iterations once the gap is small
-            if (opt.endgame_boost and tier == 0 and
-                    gap <= 1e-3 and eta > opt.tol):
-                frozen += 1
-                if frozen >= opt.boost_after:
+                if pinf < 0.5 * best_pinf:
+                    best_pinf = pinf
+                    pinf_improve_it = it
+                if (opt.endgame_boost and opt.ramp_deep_after and
+                        gap <= opt.ramp_deep_gap and pinf > opt.tol and
+                        eta > opt.tol and
+                        it - pinf_improve_it >= opt.ramp_deep_after):
                     tier = 1
+                    pinf_improve_it = it
+            if eta < opt.tol:
+                if opt.verbose:
+                    print("Optimality is reached!", flush=True)
+                break
+            if slow.check(it, gap, pinf, dinf):
+                if use32:
+                    # precision fallback: demote the f32 tCG inner loop to f64
+                    use32 = False
+                    slow.prev = None
+                    if opt.verbose:
+                        print("Slow progress under tcg32 -> f64 inner "
+                              "fallback", flush=True)
+                else:
+                    status = 2
+                    if opt.verbose:
+                        print("Slow progress!", flush=True)
+                    break
+
+            Y_host = Y.cpu().numpy()
+            if r <= p - 1:
+                Y_host = Ul[:, :r].T @ Y_host
+                p = r
             else:
+                Y_host = Y_host[:p]
+            # no escape when the certificate is not the blocker: dinf below
+            # max(tol, min(1e-5, 1e-2 pinf)) with pinf the lone blocker
+            esc_ls = opt.line_search
+            dinf_floor = max(opt.tol, min(1e-5, 1e-2 * pinf))
+            pinf_lock = (opt.endgame_boost and gap <= 1e-3 and
+                         dinf <= dinf_floor and pinf > opt.tol)
+            if pinf_lock:
+                # pinf is the lone blocker: hold the deep-solve tier so
+                # gradnorm collapses and the tau2 comparison ramps sigma
+                tier = 1
+            nne = rank.num_escape(num_neg) if dinf > dinf_floor else 0
+            if nne and pinf <= opt.tol and gap <= opt.tol:
+                # terminal gentle escape: only the most negative direction,
+                # and a deep next solve held through the recovery
+                nne = 1
+                if opt.endgame_boost:
+                    tier = 1
+                    hold_boost = it + 3
+                # terminal limit-cycle breaker: a gentle kick that fails to
+                # contract dinf by >= 25% per cycle falls back to the
+                # reference's constant alpha-sized append
+                if term_dinf is not None and dinf > 0.75 * term_dinf:
+                    esc_ls = False
+                term_dinf = dinf
+            elif pinf > 1e-2 or gap > 1e-4:
+                # left the terminal regime -> reset
+                term_dinf = None
+            vs = neg_vecs[:, :nne]
+            if symmetrize is not None:
+                # the lift of a unit original eigenvector has expanded norm
+                # sqrt(2); the certificate returns unit expanded vectors
+                vs = np.sqrt(2.0) * vs
+            if nne == 0:
+                U_host = None
+            elif esc_ls:
+                U_host = np.vstack([np.zeros((p, n)), vs.T])
+                Y_host = np.vstack([Y_host, np.zeros((nne, n))])
+            else:
+                U_host = None
+                Y_host = np.vstack([Y_host, opt.alpha * vs.T])
+                if variant.manifold is Oblique:
+                    Y_host = Y_host / np.sqrt(np.sum(Y_host ** 2, axis=0))
+            p = p + nne
+            # rank buckets grow eagerly but shrink only when the active rank
+            # collapses to half a bucket or less
+            p_need = bucketed(p, opt.p_bucket)
+            if p_need > p_pad or 2 * p_need <= p_pad:
+                p_pad = p_need
+            Y = as_dev(pad_rows(Y_host, p_pad))
+            U_dir = as_dev(pad_rows(U_host, p_pad)) if U_host is not None \
+                else None
+            if symmetrize is not None:
+                # renorm=False: after a truncation the column norms are not
+                # unit, and the reference renormalizes only the stepped point
+                Y = symmetrize(Y, renorm=False)
+                if U_dir is not None:
+                    U_dir = symmetrize(U_dir, renorm=False)
+
+            sigma_prev = sigma
+            # the boost decays only on progress (eta halved recently)
+            boost_decay = (not pinf_lock) and (it - last_improve <= 1) \
+                and it > hold_boost
+            if pinf < opt.tau1 * gradnorm:
+                sigma = max(sigma / opt.gama, opt.sigma_min)
                 frozen = 0
-
-        # forced sigma escalation on pinf stagnation (config.sigma_push)
-        if opt.sigma_push:
-            if sigma > sigma_prev or \
-                    pinf < opt.sigma_push_ratio * pinf_anchor:
-                pinf_anchor = pinf
-                anchor_it = it
-            elif (gap <= opt.sigma_push_gap and pinf > opt.tol and
-                  eta > opt.tol and it - anchor_it >= opt.sigma_push_after):
+                if boost_decay:
+                    tier = 0
+            elif pinf > opt.tau2 * gradnorm:
                 sigma = min(sigma * opt.gama, opt.sigma_max)
-                pinf_anchor = pinf
-                anchor_it = it
+                frozen = 0
+                if boost_decay:
+                    tier = 0
+            else:
+                # plateau boost: escalate the TR budget after boost_after
+                # consecutive frozen iterations once the gap is small
+                if (opt.endgame_boost and tier == 0 and
+                        gap <= 1e-3 and eta > opt.tol):
+                    frozen += 1
+                    if frozen >= opt.boost_after:
+                        tier = 1
+                else:
+                    frozen = 0
 
-        # checkpoint after the sigma update, so resuming with
-        # sigma0=st["sigma"] continues the same trajectory
-        if opt.checkpoint_every and opt.checkpoint_path and \
-                it % opt.checkpoint_every == 0:
-            from ..utils.checkpoint import save_state
-            save_state(opt.checkpoint_path, Y=Y.cpu().numpy()[:p],
-                       w=w.cpu().numpy(), Xm=Xm.cpu().numpy(), sigma=sigma,
-                       tier=tier, iteration=it)
+            # forced sigma escalation on pinf stagnation (config.sigma_push)
+            if opt.sigma_push:
+                if sigma > sigma_prev or \
+                        pinf < opt.sigma_push_ratio * pinf_anchor:
+                    pinf_anchor = pinf
+                    anchor_it = it
+                elif (gap <= opt.sigma_push_gap and pinf > opt.tol and
+                      eta > opt.tol and
+                      it - anchor_it >= opt.sigma_push_after):
+                    sigma = min(sigma * opt.gama, opt.sigma_max)
+                    pinf_anchor = pinf
+                    anchor_it = it
+
+            # checkpoint after the sigma update, so resuming with
+            # sigma0=st["sigma"] continues the same trajectory
+            if opt.checkpoint_every and opt.checkpoint_path and \
+                    it % opt.checkpoint_every == 0:
+                from ..utils.checkpoint import save_state
+                save_state(opt.checkpoint_path, Y=Y.cpu().numpy()[:p],
+                           w=w.cpu().numpy(), Xm=Xm.cpu().numpy(), sigma=sigma,
+                           tier=tier, iteration=it)
     else:
         it = opt.max_outer
 
-    if status == 0 and eta > opt.tol:
-        status = 1
+    with timers.timed("result"):
+        if status == 0 and eta > opt.tol:
+            status = 1
+            if opt.verbose:
+                print("Iteration maximum is reached!", flush=True)
+
         if opt.verbose:
-            print("Iteration maximum is reached!", flush=True)
+            print(f"ManiSDP-TPU: optimum = {obj:0.8f}, "
+                  f"time = {timers.wall():0.2f}s", flush=True)
 
-    elapsed = time.time() - t0
-    if opt.verbose:
-        print(f"ManiSDP-TPU: optimum = {obj:0.8f}, time = {elapsed:0.2f}s",
-              flush=True)
-
-    Y_act = Y.cpu().numpy()[:p]
-    # S and y rebuilt from the factor (not held during the loop)
-    S_dev = y_dev = None
-    if it > 0 and Xp_dev is not None:
-        S_dev = Y.T @ Y
-        y_dev = op.y_step(S_dev)
-        if hasattr(op, "flatten_y"):
-            y_dev = op.flatten_y(y_dev)
-    host = lambda t: t.cpu().numpy() if t is not None else None  # noqa: E731
-    return SDPResult(
-        X=host(Xp_dev), obj=obj, Y=Y_act, y=host(y_dev), S=host(S_dev),
-        z=host(z_dev), gap=gap, pinf=pinf, dinf=dinf, eta=eta,
-        gradnorm=gradnorm, time=elapsed, status=status, iterations=it,
-        fac_size=fac_size, rtr_iters=total_tr, hess_calls=total_hess,
-        history=history, timers=timers.t, sigma=sigma, tier=tier)
+        Y_act = Y.cpu().numpy()[:p]
+        # S and y rebuilt from the factor (not held during the loop)
+        S_dev = y_dev = None
+        if it > 0 and Xp_dev is not None:
+            S_dev = Y.T @ Y
+            y_dev = op.y_step(S_dev)
+            if hasattr(op, "flatten_y"):
+                y_dev = op.flatten_y(y_dev)
+        host = lambda t: None if t is None else t.cpu().numpy()  # noqa: E731
+        return SDPResult(
+            X=host(Xp_dev), obj=obj, Y=Y_act, y=host(y_dev), S=host(S_dev),
+            z=host(z_dev), gap=gap, pinf=pinf, dinf=dinf, eta=eta,
+            gradnorm=gradnorm, status=status, iterations=it,
+            fac_size=fac_size, rtr_iters=total_tr, hess_calls=total_hess,
+            history=history, timers=timers.t, sigma=sigma, tier=tier)

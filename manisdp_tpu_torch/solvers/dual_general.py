@@ -13,7 +13,7 @@ import scipy.sparse as sp
 
 from ..config import SolverOptions
 from ..ops.dualops import DualOp, SparseMat
-from .common import SDPResult, resolve_device
+from .common import SDPResult, current, recorded, resolve_device
 from .dual_al import solve_dual_al
 from .dual_unitdiag import _on_device, _resume
 
@@ -36,6 +36,7 @@ def build_iab(A, n: int, f: int, dAAt=None, device="cuda") -> SparseMat:
     return SparseMat.from_scipy(M_rm, device)
 
 
+@recorded
 def solve_dual_sdp(A, b, c, n: int, f: int = 0,
                    dAAt=None,
                    options: Optional[SolverOptions] = None,
@@ -49,12 +50,13 @@ def solve_dual_sdp(A, b, c, n: int, f: int = 0,
     multipliers (Xm, w) and penalty and continues that trajectory.
     ``device``: where the solve runs; "cuda" (the default) raises when no
     GPU is present."""
-    device = resolve_device(device)
-    Y0, kw = _resume(resume, Y0, overrides)
-    if isinstance(A, DualOp):
-        op, iAB = _on_device(A, device), None
-    else:
-        op = DualOp.build(A, b, c, n, f, dAAt, device=device)
-        iAB = build_iab(A, n, f, dAAt, device)
+    with current().timed("operator"):
+        device = resolve_device(device)
+        Y0, kw = _resume(resume, Y0, overrides)
+        if isinstance(A, DualOp):
+            op, iAB = _on_device(A, device), None
+        else:
+            op = DualOp.build(A, b, c, n, f, dAAt, device=device)
+            iAB = build_iab(A, n, f, dAAt, device)
     return solve_dual_al("dual_general", op, options, iAB=iAB, Y0=Y0,
                          **kw, **overrides)

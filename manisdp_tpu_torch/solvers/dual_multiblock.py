@@ -18,7 +18,6 @@ certificate is a batched f64 device eigh of Xp's diagonal blocks
 
 from __future__ import annotations
 
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -30,8 +29,8 @@ from ..core import Problem, make_trustregions
 from ..kernels import oblique_cols
 from ..manifolds.product import MaskedProduct
 from ..ops.dualops import DualOp, SparseMat
-from .common import (PhaseTimers, SDPResult, SlowProgress, bucketed,
-                     log_iter, make_line_search, mixed_prestage, pad_rows,
+from .common import (SDPResult, SlowProgress, bucketed, current, log_iter,
+                     make_line_search, mixed_prestage, pad_rows, recorded,
                      resolve_device)
 from .dual_al import _B_rmatvec, _iab_mat, _iab_rmat
 from .multiblock import (BlockEigh, block_rank_update, budgets, column_mask,
@@ -122,6 +121,7 @@ def _iab_flat(A, ns, f: int, m: int, dAAt, device) -> SparseMat:
         device)
 
 
+@recorded
 def solve_dual_multiblock(A, b, c, ns: Sequence[int], nob: int,
                           f: int = 0, dAAt=None,
                           options: Optional[SolverOptions] = None,
@@ -130,96 +130,96 @@ def solve_dual_multiblock(A, b, c, ns: Sequence[int], nob: int,
     """SeDuMi dual multiblock input: A (m, f + sum n_i^2), free block
     first; K.s = ns, K.nob = nob.  ``device``: where the solve runs; "cuda"
     (the default) raises when no GPU is present."""
-    device = resolve_device(device)
-    opt = merged_options("dual_multiblock", options, **overrides)
-    ns = [int(x) for x in ns]
-    nb = len(ns)
-    pure = (nob == nb)
-    op = DualOp.build(A, b, c, 0, f=f, dAAt=dAAt, ns=ns, device=device)
-    N, m = op.n, op.m
-    off = np.concatenate([[0], np.cumsum(ns)]).astype(int)
-    M = MaskedProduct(column_mask(ns, nob), device)
-    BD = torch.zeros((N, N), dtype=torch.float64, device=device)
-    for bidx in range(nb):
-        BD[off[bidx]:off[bidx + 1], off[bidx]:off[bidx + 1]] = 1.0
-    iAB = _iab_flat(A, ns, f, m, dAAt, device) \
-        if not pure and f > 0 else None
+    timers = current()
+    with timers.timed("operator"):
+        device = resolve_device(device)
+        opt = merged_options("dual_multiblock", options, **overrides)
+        ns = [int(x) for x in ns]
+        nb = len(ns)
+        pure = (nob == nb)
+        op = DualOp.build(A, b, c, 0, f=f, dAAt=dAAt, ns=ns, device=device)
+        N, m = op.n, op.m
+        off = np.concatenate([[0], np.cumsum(ns)]).astype(int)
+        M = MaskedProduct(column_mask(ns, nob), device)
+        BD = torch.zeros((N, N), dtype=torch.float64, device=device)
+        for bidx in range(nb):
+            BD[off[bidx]:off[bidx + 1], off[bidx]:off[bidx + 1]] = 1.0
+        iAB = _iab_flat(A, ns, f, m, dAAt, device) \
+            if not pure and f > 0 else None
 
-    if opt.verbose:
-        print("ManiSDP-TPU (dual multiblock, torch) is starting...",
-              flush=True)
-        print(f"SDP size: n = {max(ns)}, m = {m}", flush=True)
+        if opt.verbose:
+            print("ManiSDP-TPU (dual multiblock, torch) is starting...",
+                  flush=True)
+            print(f"SDP size: n = {max(ns)}, m = {m}", flush=True)
 
-    problem, cost_only = _make_problem(M, BD, pure)
-    budget = budgets(opt)
-    line_search = make_line_search(
-        cost_only, M.renormalize,
-        ls_dtype="float32" if opt.inner_dtype == "tcg32" else None)
-    mixed = opt.inner_dtype == "mixed"
-    op32 = iab32 = None
-    if opt.inner_dtype == "tcg32" or mixed:
-        op32 = op.astype(torch.float32)
-        iab32 = iAB.astype(torch.float32) if iAB is not None else None
+        problem, cost_only = _make_problem(M, BD, pure)
+        budget = budgets(opt)
+        line_search = make_line_search(
+            cost_only, M.renormalize,
+            ls_dtype="float32" if opt.inner_dtype == "tcg32" else None)
+        mixed = opt.inner_dtype == "mixed"
+        op32 = iab32 = None
+        if opt.inner_dtype == "tcg32" or mixed:
+            op32 = op.astype(torch.float32)
+            iab32 = iAB.astype(torch.float32) if iAB is not None else None
 
-    normc = float(1.0 + np.sqrt(
-        float(torch.sum(op.C * op.C)) + float(torch.dot(op.cf, op.cf))))
+        normc = float(1.0 + np.sqrt(
+            float(torch.sum(op.C * op.C)) + float(torch.dot(op.cf, op.cf))))
 
-    def stats(Y, Xm, w, sigma):
-        S = (Y.T @ Y) * BD
-        y = op.y_step(S)
-        As = op.residual(y, S)
-        Af = _B_rmatvec(op, y) - op.cf
-        pinf = (torch.sqrt(torch.sum(As * As)) + torch.linalg.norm(Af)) \
-            / normc
-        by = torch.dot(op.b, y)
-        if pure:
-            Xm_new = Xm - sigma * As
-        else:
-            Xm_new = Xm + sigma * (
-                _iab_mat(iAB, N, Af - w / sigma)
-                + op.adjoint_scaled(op.apply(As - Xm / sigma)) - As)
-        w_new = w - sigma * Af
-        eX = Xm_new + op.bA
-        z = torch.sum(S * eX, dim=0) * M.mask
-        Xp = eX - torch.diag(z)
-        obj = torch.sum(op.C * eX) + torch.dot(op.cf, w_new) + torch.sum(z)
-        gap = torch.abs(obj - by) / (1.0 + torch.abs(obj) + torch.abs(by))
-        return S, y, Xm_new, w_new, Xp, z, obj, pinf, gap
+        def stats(Y, Xm, w, sigma):
+            S = (Y.T @ Y) * BD
+            y = op.y_step(S)
+            As = op.residual(y, S)
+            Af = _B_rmatvec(op, y) - op.cf
+            pinf = (torch.sqrt(torch.sum(As * As)) + torch.linalg.norm(Af)) \
+                / normc
+            by = torch.dot(op.b, y)
+            if pure:
+                Xm_new = Xm - sigma * As
+            else:
+                Xm_new = Xm + sigma * (
+                    _iab_mat(iAB, N, Af - w / sigma)
+                    + op.adjoint_scaled(op.apply(As - Xm / sigma)) - As)
+            w_new = w - sigma * Af
+            eX = Xm_new + op.bA
+            z = torch.sum(S * eX, dim=0) * M.mask
+            Xp = eX - torch.diag(z)
+            obj = torch.sum(op.C * eX) + torch.dot(op.cf, w_new) + torch.sum(z)
+            gap = torch.abs(obj - by) / (1.0 + torch.abs(obj) + torch.abs(by))
+            return S, y, Xm_new, w_new, Xp, z, obj, pinf, gap
 
-    blocks = BlockEigh(ns, opt.delta, device)
-    p0 = opt.p0 if np.ndim(opt.p0) else [int(opt.p0)] * nb
-    ps = [ns[i] if ns[i] < opt.min_facsize else int(p0[i])
-          for i in range(nb)]
-    p_pad = bucketed(max(ps), opt.p_bucket)
+        blocks = BlockEigh(ns, opt.delta, device)
+        p0 = opt.p0 if np.ndim(opt.p0) else [int(opt.p0)] * nb
+        ps = [ns[i] if ns[i] < opt.min_facsize else int(p0[i])
+              for i in range(nb)]
+        p_pad = bucketed(max(ps), opt.p_bucket)
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(opt.seed)
-    as_dev = lambda a: torch.as_tensor(  # noqa: E731
-        a, dtype=torch.float64, device=device)
-    Y = as_dev(initial_factor(gen, p_pad, ns, off, ps, nob))
-    U_dir = None
+        gen = torch.Generator(device=device)
+        gen.manual_seed(opt.seed)
+        as_dev = lambda a: torch.as_tensor(  # noqa: E731
+            a, dtype=torch.float64, device=device)
+        Y = as_dev(initial_factor(gen, p_pad, ns, off, ps, nob))
+        U_dir = None
 
-    Xm = torch.zeros((N, N), dtype=torch.float64, device=device)
-    w = torch.zeros(op.f, dtype=torch.float64, device=device)
-    sigma = float(opt.sigma0)
-    slow = SlowProgress(50, 100)
-    status = 0
-    total_tr = total_hess = 0
-    fac_size, history = [], []
-    t0 = time.time()
-    obj = gap = pinf = dinf = gradnorm = eta = np.nan
-    S_dev = y_dev = Xp_dev = z_dev = None
-    it = 0
-    tier = 0
-    use32 = opt.inner_dtype == "tcg32"
-    frozen = 0          # consecutive endgame iterations with frozen sigma
+        Xm = torch.zeros((N, N), dtype=torch.float64, device=device)
+        w = torch.zeros(op.f, dtype=torch.float64, device=device)
+        sigma = float(opt.sigma0)
+        slow = SlowProgress(50, 100)
+        status = 0
+        total_tr = total_hess = 0
+        fac_size, history = [], []
+        obj = gap = pinf = dinf = gradnorm = eta = np.nan
+        S_dev = y_dev = Xp_dev = z_dev = None
+        it = 0
+        tier = 0
+        use32 = opt.inner_dtype == "tcg32"
+        frozen = 0          # consecutive endgame iterations with frozen sigma
 
-    timers = PhaseTimers()
     for it in range(1, opt.max_outer + 1):
-        fac_size.append(max(ps))
-        solve = make_trustregions(problem, budget(tier, use32))
-        params = dict(op=op, Xm=Xm, w=w, sigma=sigma, iAB=iAB)
         with timers.timed("rtr"):
+            fac_size.append(max(ps))
+            solve = make_trustregions(problem, budget(tier, use32))
+            params = dict(op=op, Xm=Xm, w=w, sigma=sigma, iAB=iAB)
             if U_dir is not None:
                 Y = line_search(Y, U_dir, params)
             typdist = MaskedProduct.typicaldist(ns, ps, nob)
@@ -237,8 +237,8 @@ def solve_dual_multiblock(A, b, c, ns: Sequence[int], nob: int,
             res = solve(Y, params, typdist, params_tcg=params_tcg)
             Y = res.Y
             gradnorm = float(res.norm_grad)
-        total_tr += res.iters
-        total_hess += res.inner_iters
+            total_tr += res.iters
+            total_hess += res.inner_iters
 
         with timers.timed("stats"):
             (S_dev, y_dev, Xm, w, Xp_dev, z_dev, obj_d, pinf_d,
@@ -247,31 +247,33 @@ def solve_dual_multiblock(A, b, c, ns: Sequence[int], nob: int,
         with timers.timed("cert"):
             certs, dinf = blocks.certify(blocks.from_dense(Xp_dev))
 
-        log_iter(opt.verbose, it, obj, gap=gap, pinf=pinf, dinf=dinf,
-                 gradnorm=gradnorm, p=max(ps), sigma=sigma, t0=t0)
-        history.append(dict(iter=it, obj=obj, gap=gap, pinf=pinf, dinf=dinf,
-                            gradnorm=gradnorm, p=max(ps), sigma=sigma))
-        eta = max(gap, pinf, dinf)
-        if eta < opt.tol:
-            if opt.verbose:
-                print("Optimality is reached!", flush=True)
-            break
-        if slow.check(it, gap, pinf, dinf):
-            if use32:
-                # precision fallback: demote the f32 tCG inner loop to f64
-                use32 = False
-                slow.prev = None
-                if opt.verbose:
-                    print("Slow progress under tcg32 -> f64 inner "
-                          "fallback", flush=True)
-            else:
-                status = 2
-                if opt.verbose:
-                    print("Slow progress!", flush=True)
-                break
-
-        # per-block rank update (ManiDSDP_multiblock.m:145-182)
         with timers.timed("rank"):
+            log_iter(opt.verbose, it, obj, gap=gap, pinf=pinf, dinf=dinf,
+                     gradnorm=gradnorm, p=max(ps), sigma=sigma,
+                     wall=timers.wall())
+            history.append(dict(iter=it, obj=obj, gap=gap, pinf=pinf,
+                                dinf=dinf, gradnorm=gradnorm, p=max(ps),
+                                sigma=sigma))
+            eta = max(gap, pinf, dinf)
+            if eta < opt.tol:
+                if opt.verbose:
+                    print("Optimality is reached!", flush=True)
+                break
+            if slow.check(it, gap, pinf, dinf):
+                if use32:
+                    # precision fallback: demote the f32 tCG inner loop to f64
+                    use32 = False
+                    slow.prev = None
+                    if opt.verbose:
+                        print("Slow progress under tcg32 -> f64 inner "
+                              "fallback", flush=True)
+                else:
+                    status = 2
+                    if opt.verbose:
+                        print("Slow progress!", flush=True)
+                    break
+
+            # per-block rank update (ManiDSDP_multiblock.m:145-182)
             Y_host, U_host = block_rank_update(
                 Y.cpu().numpy().copy(), certs, ns, off, ps, nob, opt,
                 strict=True, escape=True)
@@ -281,44 +283,44 @@ def solve_dual_multiblock(A, b, c, ns: Sequence[int], nob: int,
             U_dir = as_dev(pad_rows(U_host[:p_act], p_pad)) \
                 if U_host is not None else None
 
-        if pinf < opt.tau1 * gradnorm:
-            sigma = max(sigma / opt.gama, opt.sigma_min)
-            frozen = 0
-        elif pinf > opt.tau2 * gradnorm:
-            sigma = min(sigma * opt.gama, opt.sigma_max)
-            frozen = 0
-        else:
-            # endgame boost: sigma frozen with only dinf above tol ->
-            # escalate the TR budget
-            if (opt.endgame_boost and tier == 0 and
-                    gap <= 10 * opt.tol and pinf <= 10 * opt.tol and
-                    dinf > opt.tol):
-                frozen += 1
-                if frozen >= opt.boost_after:
-                    tier = 1
-            else:
+            if pinf < opt.tau1 * gradnorm:
+                sigma = max(sigma / opt.gama, opt.sigma_min)
                 frozen = 0
+            elif pinf > opt.tau2 * gradnorm:
+                sigma = min(sigma * opt.gama, opt.sigma_max)
+                frozen = 0
+            else:
+                # endgame boost: sigma frozen with only dinf above tol ->
+                # escalate the TR budget
+                if (opt.endgame_boost and tier == 0 and
+                        gap <= 10 * opt.tol and pinf <= 10 * opt.tol and
+                        dinf > opt.tol):
+                    frozen += 1
+                    if frozen >= opt.boost_after:
+                        tier = 1
+                else:
+                    frozen = 0
     else:
         it = opt.max_outer
 
-    if status == 0 and eta > opt.tol:
-        status = 1
+    with timers.timed("result"):
+        if status == 0 and eta > opt.tol:
+            status = 1
+            if opt.verbose:
+                print("Iteration maximum is reached!", flush=True)
+
         if opt.verbose:
-            print("Iteration maximum is reached!", flush=True)
+            print(f"ManiDSDP-TPU: optimum = {obj:0.8f}, "
+                  f"time = {timers.wall():0.2f}s", flush=True)
 
-    elapsed = time.time() - t0
-    if opt.verbose:
-        print(f"ManiDSDP-TPU: optimum = {obj:0.8f}, time = {elapsed:0.2f}s",
-              flush=True)
-
-    host = lambda t: t.cpu().numpy() if t is not None else None  # noqa: E731
-    Xp_h = host(Xp_dev)
-    X_blocks = [Xp_h[off[i]:off[i + 1], off[i]:off[i + 1]]
-                for i in range(nb)] if Xp_h is not None else None
-    return SDPResult(
-        X=X_blocks, obj=obj, Y=Y.cpu().numpy(), y=host(y_dev),
-        S=host(S_dev), z=host(z_dev), gap=gap, pinf=pinf, dinf=dinf,
-        eta=eta, gradnorm=gradnorm, time=elapsed, status=status,
-        iterations=it, fac_size=fac_size, rtr_iters=total_tr,
-        hess_calls=total_hess, history=history, timers=timers.t,
-        sigma=sigma, tier=tier)
+        host = lambda t: None if t is None else t.cpu().numpy()  # noqa: E731
+        Xp_h = host(Xp_dev)
+        X_blocks = [Xp_h[off[i]:off[i + 1], off[i]:off[i + 1]]
+                    for i in range(nb)] if Xp_h is not None else None
+        return SDPResult(
+            X=X_blocks, obj=obj, Y=Y.cpu().numpy(), y=host(y_dev),
+            S=host(S_dev), z=host(z_dev), gap=gap, pinf=pinf, dinf=dinf,
+            eta=eta, gradnorm=gradnorm, status=status,
+            iterations=it, fac_size=fac_size, rtr_iters=total_tr,
+            hess_calls=total_hess, history=history, timers=timers.t,
+            sigma=sigma, tier=tier)

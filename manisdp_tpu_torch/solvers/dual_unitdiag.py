@@ -13,7 +13,7 @@ import numpy as np
 from ..config import VARIANT_DEFAULTS, SolverOptions
 from ..ops.dualops import DualOp
 from ..ops.symdual import SymDualOp
-from .common import SDPResult, resolve_device
+from .common import SDPResult, current, recorded, resolve_device
 from .dual_al import solve_dual_al
 
 
@@ -37,6 +37,7 @@ def _on_device(op, device):
     return op
 
 
+@recorded
 def solve_dual_unitdiag(A, b, c, n: int, f: int = 0,
                         dAAt=None,
                         options: Optional[SolverOptions] = None,
@@ -52,14 +53,16 @@ def solve_dual_unitdiag(A, b, c, n: int, f: int = 0,
     multipliers (Xm, w) and penalty and continues that trajectory.
     ``device``: where the solve runs; "cuda" (the default) raises when no
     GPU is present."""
-    device = resolve_device(device)
-    Y0, kw = _resume(resume, Y0, overrides)
-    op = _on_device(A, device) if isinstance(A, (DualOp, SymDualOp)) \
-        else DualOp.build(A, b, c, n, f, dAAt, device=device)
+    with current().timed("operator"):
+        device = resolve_device(device)
+        Y0, kw = _resume(resume, Y0, overrides)
+        op = _on_device(A, device) if isinstance(A, (DualOp, SymDualOp)) \
+            else DualOp.build(A, b, c, n, f, dAAt, device=device)
     return solve_dual_al("dual_unitdiag", op, options, Y0=Y0, **kw,
                          **overrides)
 
 
+@recorded
 def solve_bqp_sos_dual(Q, e, q: int,
                        options: Optional[SolverOptions] = None,
                        device="cuda",
@@ -72,34 +75,38 @@ def solve_bqp_sos_dual(Q, e, q: int,
     internally as the reference examples do; the returned ``obj`` is
     scaled back to the unnormalized problem.
     """
-    op = SymDualOp.build_bqpsos(Q, e, q, device=device)
-    maxb = float(op.b.abs().max())
-    op = op.scaled(maxb)
-    # reference p0 = ceil(log(#constraints)) (ManiDSDP_unitdiag.m:11);
-    # the flat tensor length would inflate it
-    overrides.setdefault("p0", max(int(np.ceil(np.log(op.m_true))), 1))
-    # exact-correspondence parameter mapping (ops/symdual.py): every class
-    # size is 4x on the duplicated basis, so sigma_e = sigma_ref/4 gives
-    # identical cost values and rho tests, gradients and Hessians / 2,
-    # step norms * sqrt(2), ||As|| * 2 and gradnorm / sqrt(2): tau
-    # thresholds scale by 2 sqrt(2) and tolgradnorm by 1/sqrt(2)
-    d = VARIANT_DEFAULTS["dual_unitdiag"]
-    s2 = float(np.sqrt(2.0))
-    overrides.setdefault("sigma0", d["sigma0"] / 4.0)
-    overrides.setdefault("sigma_min", d["sigma_min"] / 4.0)
-    overrides.setdefault("sigma_max", d["sigma_max"] / 4.0)
-    overrides.setdefault("tau1", d["tau1"] * 2.0 * s2)
-    # tau2: the reference's own large-q recipe drops tau2 to 10
-    # (example/dual/example_bqp_dual.m:36, "% q = 80, i = 3")
-    tau2_ref = 10.0 if q >= 70 else d["tau2"]
-    overrides.setdefault("tau2", tau2_ref * 2.0 * s2)
-    overrides.setdefault("tolgradnorm", 1e-8 / s2)
-    # plateau-boost budget: deep enough to collapse gradnorm without the
-    # 30 x 200 default's cost
-    overrides.setdefault("boost_tr_maxiter", 15)
-    overrides.setdefault("boost_tr_maxinner", 100)
-    # forced sigma escalation on pinf stagnation (config.sigma_push)
-    overrides.setdefault("sigma_push", True)
+    timers = current()
+    with timers.timed("operator"):
+        op = SymDualOp.build_bqpsos(Q, e, q, device=device)
+        maxb = float(op.b.abs().max())
+        op = op.scaled(maxb)
+        # reference p0 = ceil(log(#constraints)) (ManiDSDP_unitdiag.m:11);
+        # the flat tensor length would inflate it
+        overrides.setdefault("p0", max(int(np.ceil(np.log(op.m_true))), 1))
+        # exact-correspondence parameter mapping (ops/symdual.py): every
+        # class size is 4x on the duplicated basis, so sigma_e =
+        # sigma_ref/4 gives identical cost values and rho tests, gradients
+        # and Hessians / 2, step norms * sqrt(2), ||As|| * 2 and gradnorm /
+        # sqrt(2): tau thresholds scale by 2 sqrt(2) and tolgradnorm by
+        # 1/sqrt(2)
+        d = VARIANT_DEFAULTS["dual_unitdiag"]
+        s2 = float(np.sqrt(2.0))
+        overrides.setdefault("sigma0", d["sigma0"] / 4.0)
+        overrides.setdefault("sigma_min", d["sigma_min"] / 4.0)
+        overrides.setdefault("sigma_max", d["sigma_max"] / 4.0)
+        overrides.setdefault("tau1", d["tau1"] * 2.0 * s2)
+        # tau2: the reference's own large-q recipe drops tau2 to 10
+        # (example/dual/example_bqp_dual.m:36, "% q = 80, i = 3")
+        tau2_ref = 10.0 if q >= 70 else d["tau2"]
+        overrides.setdefault("tau2", tau2_ref * 2.0 * s2)
+        overrides.setdefault("tolgradnorm", 1e-8 / s2)
+        # plateau-boost budget: deep enough to collapse gradnorm without
+        # the 30 x 200 default's cost
+        overrides.setdefault("boost_tr_maxiter", 15)
+        overrides.setdefault("boost_tr_maxinner", 100)
+        # forced sigma escalation on pinf stagnation (config.sigma_push)
+        overrides.setdefault("sigma_push", True)
     res = solve_dual_al("dual_unitdiag", op, options, **overrides)
-    res.obj = res.obj * maxb
+    with timers.timed("result"):
+        res.obj = res.obj * maxb
     return res

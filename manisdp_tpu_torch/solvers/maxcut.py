@@ -21,7 +21,6 @@ runs an f32 RTR on C's f32 copy before each f64 solve
 from __future__ import annotations
 
 import math
-import time
 from typing import Optional
 
 import numpy as np
@@ -34,9 +33,9 @@ from ..manifolds import Oblique
 from ..ops.eigs import lobpcg_certificate
 from ..ops.eigs_rr import DeviceCertSolver
 from ..ops.sparse import SymCOO
-from .common import (PhaseTimers, RankController, SDPResult, SlowProgress,
-                     bucketed, log_iter, make_line_search, mixed_prestage,
-                     pad_rows, resolve_device)
+from .common import (RankController, SDPResult, SlowProgress, bucketed,
+                     current, log_iter, make_line_search, mixed_prestage,
+                     pad_rows, recorded, resolve_device)
 
 
 def make_maxcut_problem(dense: bool = True) -> Problem:
@@ -218,6 +217,7 @@ def _symcoo(C, device) -> SymCOO:
     return SymCOO.from_scipy(0.5 * (C + C.T), device)
 
 
+@recorded
 def solve_maxcut_unitdiag(C, options: Optional[SolverOptions] = None,
                           Y0: Optional[np.ndarray] = None,
                           resume: Optional[str] = None,
@@ -230,77 +230,78 @@ def solve_maxcut_unitdiag(C, options: Optional[SolverOptions] = None,
     (the default) raises when no GPU is present — the solver never moves
     to the CPU on its own.
     """
-    device = resolve_device(device)
-    if resume:
-        from ..utils.checkpoint import resume_kwargs
-        Y0 = resume_kwargs(resume).get("Y0", Y0)
-    opt = merged_options("maxcut_unitdiag", options, **overrides)
-    C = _symcoo(C, device)
-    n = C.n
-    use_eigh = (opt.eig_method == "eigh") or \
-        (opt.eig_method == "auto" and n < opt.eig_switch_n)
-    dense = (n <= opt.dense_cost_max_n or
-             n * n <= opt.dense_cost_nnz_factor * C.nnz)
-    C_param = C.to_dense() if dense else C
-    k_cert = opt.delta + 1
+    timers = current()
+    with timers.timed("operator"):
+        device = resolve_device(device)
+        if resume:
+            from ..utils.checkpoint import resume_kwargs
+            Y0 = resume_kwargs(resume).get("Y0", Y0)
+        opt = merged_options("maxcut_unitdiag", options, **overrides)
+        C = _symcoo(C, device)
+        n = C.n
+        use_eigh = (opt.eig_method == "eigh") or \
+            (opt.eig_method == "auto" and n < opt.eig_switch_n)
+        dense = (n <= opt.dense_cost_max_n or
+                 n * n <= opt.dense_cost_nnz_factor * C.nnz)
+        C_param = C.to_dense() if dense else C
+        k_cert = opt.delta + 1
 
-    if opt.verbose:
-        print("ManiSDP-TPU (maxcut/unitdiag, torch) is starting...",
-              flush=True)
-        print(f"SDP size: n = {n}, m = {n}", flush=True)
+        if opt.verbose:
+            print("ManiSDP-TPU (maxcut/unitdiag, torch) is starting...",
+                  flush=True)
+            print(f"SDP size: n = {n}, m = {n}", flush=True)
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(opt.seed)
-    problem = make_maxcut_problem(dense)
-    cost_only = lambda Y, Cp: problem.cost(Y, Cp)[0]  # noqa: E731
-    line_search = make_line_search(cost_only, Oblique.renormalize)
-    cert_fn = _make_cert(opt, n, k_cert, use_eigh, dense, gen)
-    # C in f32, built once per solve where an f32 stage reads it: the
-    # sparse path's tcg32 loop, the mixed pre-stage's RTR and the
-    # certificate's f32 LOBPCG stage
-    mixed = opt.inner_dtype == "mixed"
-    C32 = None
-    if mixed or cert_fn.reads_f32 or (opt.inner_dtype == "tcg32" and
-                                      not dense):
-        C32 = C_param.to(torch.float32) if dense else \
-            C.astype(torch.float32)
-    rank = RankController(opt.theta, opt.delta, opt.alpha,
-                          nne_floor=True, bucket=opt.p_bucket)
-    slow = SlowProgress(period=20, warmup=50)
-    use32 = opt.inner_dtype == "tcg32"
+        gen = torch.Generator(device=device)
+        gen.manual_seed(opt.seed)
+        problem = make_maxcut_problem(dense)
+        cost_only = lambda Y, Cp: problem.cost(Y, Cp)[0]  # noqa: E731
+        line_search = make_line_search(cost_only, Oblique.renormalize)
+        cert_fn = _make_cert(opt, n, k_cert, use_eigh, dense, gen)
+        # C in f32, built once per solve where an f32 stage reads it: the
+        # sparse path's tcg32 loop, the mixed pre-stage's RTR and the
+        # certificate's f32 LOBPCG stage
+        mixed = opt.inner_dtype == "mixed"
+        C32 = None
+        if mixed or cert_fn.reads_f32 or (opt.inner_dtype == "tcg32" and
+                                          not dense):
+            C32 = C_param.to(torch.float32) if dense else \
+                C.astype(torch.float32)
+        rank = RankController(opt.theta, opt.delta, opt.alpha,
+                              nne_floor=True, bucket=opt.p_bucket)
+        slow = SlowProgress(period=20, warmup=50)
+        use32 = opt.inner_dtype == "tcg32"
 
-    p = opt.p0
-    p_pad = bucketed(p, opt.p_bucket)
-    typdist = float(math.pi * math.sqrt(n))
-    as_dev = lambda a: torch.as_tensor(  # noqa: E731
-        a, dtype=torch.float64, device=device)
-    if Y0 is not None:
-        Y0 = np.asarray(Y0, dtype=np.float64)
-        p = Y0.shape[0]
+        p = opt.p0
         p_pad = bucketed(p, opt.p_bucket)
-        Y = as_dev(pad_rows(Y0, p_pad))
-    else:
-        Y = Oblique.rand(gen, p, n, p_pad)
-    U_dir = None
+        typdist = float(math.pi * math.sqrt(n))
+        as_dev = lambda a: torch.as_tensor(  # noqa: E731
+            a, dtype=torch.float64, device=device)
+        if Y0 is not None:
+            Y0 = np.asarray(Y0, dtype=np.float64)
+            p = Y0.shape[0]
+            p_pad = bucketed(p, opt.p_bucket)
+            Y = as_dev(pad_rows(Y0, p_pad))
+        else:
+            Y = Oblique.rand(gen, p, n, p_pad)
+        U_dir = None
 
-    status = 0
-    total_tr = total_hess = 0
-    fac_size = []
-    history = []
-    timers = PhaseTimers()
-    t0 = time.time()
-    obj = dinf = gradnorm = np.nan
-    z_dev = None
-    it = 0
+        status = 0
+        total_tr = total_hess = 0
+        fac_size = []
+        history = []
+        obj = dinf = gradnorm = np.nan
+        z_dev = None
+        it = 0
 
     for it in range(1, opt.max_outer + 1):
-        fac_size.append(p)
-        tcg32 = use32 and not dense
-        budget = TROptions(maxiter=opt.tr_maxiter, maxinner=opt.tr_maxinner,
-                           tolgradnorm=opt.tolgradnorm,
-                           tcg_dtype="float32" if tcg32 else None)
-        solve = make_trustregions(problem, budget)
         with timers.timed("rtr"):
+            fac_size.append(p)
+            tcg32 = use32 and not dense
+            budget = TROptions(maxiter=opt.tr_maxiter,
+                               maxinner=opt.tr_maxinner,
+                               tolgradnorm=opt.tolgradnorm,
+                               tcg_dtype="float32" if tcg32 else None)
+            solve = make_trustregions(problem, budget)
             if U_dir is not None:
                 Y = line_search(Y, as_dev(U_dir), C_param)
             if mixed:
@@ -312,8 +313,8 @@ def solve_maxcut_unitdiag(C, options: Optional[SolverOptions] = None,
                         params_tcg=C32 if tcg32 else None)
             Y = res.Y
             gradnorm = float(res.norm_grad)
-        total_tr += res.iters
-        total_hess += res.inner_iters
+            total_tr += res.iters
+            total_hess += res.inner_iters
 
         with timers.timed("cert"):
             z_dev, obj, dinf, num_neg, neg_vecs, neg_vals = cert_fn(
@@ -321,73 +322,74 @@ def solve_maxcut_unitdiag(C, options: Optional[SolverOptions] = None,
 
         with timers.timed("rank"):
             r, e, Ul = rank.truncation(Y, p)
-        log_iter(opt.verbose, it, obj, dinf=dinf, r=r, p=p, t0=t0)
-        history.append(dict(iter=it, obj=obj, dinf=dinf, r=r, p=p,
-                            gradnorm=gradnorm))
-        timers.log_delta(opt.verbose)
-        if dinf < opt.tol:
-            if opt.verbose:
-                print("Optimality is reached!", flush=True)
-            break
-        if slow.check(it, dinf):
-            if use32:
-                # precision fallback: demote the f32 tCG inner loop to
-                # f64 and keep going instead of bailing with status 2
-                use32 = False
-                slow.prev = None
+            log_iter(opt.verbose, it, obj, dinf=dinf, r=r, p=p,
+                     wall=timers.wall())
+            history.append(dict(iter=it, obj=obj, dinf=dinf, r=r, p=p,
+                                gradnorm=gradnorm))
+            timers.log_delta(opt.verbose)
+            if dinf < opt.tol:
                 if opt.verbose:
-                    print("Slow progress under tcg32 -> f64 inner "
-                          "fallback", flush=True)
-            else:
-                status = 2
-                if opt.verbose:
-                    print("Slow progress!", flush=True)
+                    print("Optimality is reached!", flush=True)
                 break
+            if slow.check(it, dinf):
+                if use32:
+                    # precision fallback: demote the f32 tCG inner loop to
+                    # f64 and keep going instead of bailing with status 2
+                    use32 = False
+                    slow.prev = None
+                    if opt.verbose:
+                        print("Slow progress under tcg32 -> f64 inner "
+                              "fallback", flush=True)
+                else:
+                    status = 2
+                    if opt.verbose:
+                        print("Slow progress!", flush=True)
+                    break
 
-        # ---- rank update (host) ----
-        Y_host = Y.cpu().numpy()
-        if r <= p - 1:
-            Y_host = (Ul[:, :r].T @ Y_host)
-            p = r
-        else:
-            Y_host = Y_host[:p]
-        nne = rank.num_escape(int(num_neg))
-        vs = neg_vecs[:, :nne]                               # (n, nne)
-        if opt.line_search:
-            U_host = np.vstack([np.zeros((p, n)), vs.T])
-            Y_host = np.vstack([Y_host, np.zeros((nne, n))])
-        else:
-            U_host = None
-            Y_host = np.vstack([Y_host, opt.alpha * vs.T])
-            Y_host = Y_host / np.sqrt(np.sum(Y_host ** 2, axis=0))
-        p = p + nne
-        p_pad = max(p_pad, bucketed(p, opt.p_bucket))
-        Y = as_dev(pad_rows(Y_host, p_pad))
-        U_dir = pad_rows(U_host, p_pad) if U_host is not None else None
+            # ---- rank update (host) ----
+            Y_host = Y.cpu().numpy()
+            if r <= p - 1:
+                Y_host = (Ul[:, :r].T @ Y_host)
+                p = r
+            else:
+                Y_host = Y_host[:p]
+            nne = rank.num_escape(int(num_neg))
+            vs = neg_vecs[:, :nne]                               # (n, nne)
+            if opt.line_search:
+                U_host = np.vstack([np.zeros((p, n)), vs.T])
+                Y_host = np.vstack([Y_host, np.zeros((nne, n))])
+            else:
+                U_host = None
+                Y_host = np.vstack([Y_host, opt.alpha * vs.T])
+                Y_host = Y_host / np.sqrt(np.sum(Y_host ** 2, axis=0))
+            p = p + nne
+            p_pad = max(p_pad, bucketed(p, opt.p_bucket))
+            Y = as_dev(pad_rows(Y_host, p_pad))
+            U_dir = pad_rows(U_host, p_pad) if U_host is not None else None
 
-        if opt.checkpoint_every and opt.checkpoint_path and \
-                it % opt.checkpoint_every == 0:
-            from ..utils.checkpoint import save_state
-            save_state(opt.checkpoint_path, Y=Y_host[:p], iteration=it)
+            if opt.checkpoint_every and opt.checkpoint_path and \
+                    it % opt.checkpoint_every == 0:
+                from ..utils.checkpoint import save_state
+                save_state(opt.checkpoint_path, Y=Y_host[:p], iteration=it)
 
     else:
         it = opt.max_outer
 
-    if status == 0 and dinf > opt.tol:
-        status = 1
+    with timers.timed("result"):
+        if status == 0 and dinf > opt.tol:
+            status = 1
+            if opt.verbose:
+                print("Iteration maximum is reached!", flush=True)
+
         if opt.verbose:
-            print("Iteration maximum is reached!", flush=True)
+            print(f"ManiSDP-TPU: optimum = {obj:0.8f}, "
+                  f"time = {timers.wall():0.2f}s", flush=True)
 
-    elapsed = time.time() - t0
-    if opt.verbose:
-        print(f"ManiSDP-TPU: optimum = {obj:0.8f}, time = {elapsed:0.2f}s",
-              flush=True)
-
-    Y_act = Y.cpu().numpy()[:p]
-    X = Y_act.T @ Y_act
-    z = z_dev.cpu().numpy() if z_dev is not None else None
-    return SDPResult(X=X, obj=obj, Y=Y_act, z=z, dinf=dinf, eta=dinf,
-                     gradnorm=gradnorm, time=elapsed, status=status,
-                     iterations=it, fac_size=fac_size, rtr_iters=total_tr,
-                     hess_calls=total_hess, history=history,
-                     timers=timers.t)
+        Y_act = Y.cpu().numpy()[:p]
+        X = Y_act.T @ Y_act
+        z = z_dev.cpu().numpy() if z_dev is not None else None
+        return SDPResult(X=X, obj=obj, Y=Y_act, z=z, dinf=dinf, eta=dinf,
+                         gradnorm=gradnorm, status=status,
+                         iterations=it, fac_size=fac_size, rtr_iters=total_tr,
+                         hess_calls=total_hess, history=history,
+                         timers=timers.t)

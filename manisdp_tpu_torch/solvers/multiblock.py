@@ -19,7 +19,6 @@ block columns (N = sum n_i):
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -30,8 +29,8 @@ from ..core import Problem, TROptions, make_trustregions
 from ..kernels import oblique_cols, symcoo_spmm
 from ..manifolds.product import MaskedProduct
 from ..ops.sparse import ConstraintOp
-from .common import (PhaseTimers, SDPResult, SlowProgress, bucketed,
-                     log_iter, make_line_search, mixed_prestage, pad_rows,
+from .common import (SDPResult, SlowProgress, bucketed, current, log_iter,
+                     make_line_search, mixed_prestage, pad_rows, recorded,
                      resolve_device)
 
 
@@ -236,6 +235,7 @@ def budgets(opt: SolverOptions):
     return budget
 
 
+@recorded
 def solve_multiblock(At, b, c, ns: Sequence[int], nob: int,
                      options: Optional[SolverOptions] = None,
                      Y0: Optional[np.ndarray] = None,
@@ -252,102 +252,102 @@ def solve_multiblock(At, b, c, ns: Sequence[int], nob: int,
     per-block ranks; ``resume`` loads all of them (and sigma) from a
     checkpoint_every snapshot.  ``device``: where the solve runs; "cuda"
     (the default) raises when no GPU is present."""
-    device = resolve_device(device)
-    if resume:
-        from ..utils.checkpoint import resume_kwargs
-        rk = resume_kwargs(resume)
-        Y0 = rk.get("Y0", Y0)
-        y0 = rk.get("y0", y0)
-        ps0 = rk.get("ps0", ps0)
-        if "sigma0" in rk:
-            overrides.setdefault("sigma0", rk["sigma0"])
-    opt = merged_options("multiblock", options, **overrides)
-    ns = [int(x) for x in ns]
-    nb = len(ns)
-    if isinstance(At, ConstraintOp):
-        op = At
-        if op.device.type != device.type:
-            raise ValueError(f"the ConstraintOp lives on {op.device}, the "
-                             f"solve was asked for {device}")
-    else:
-        op = ConstraintOp.build_multiblock(At, b, c, ns, device)
-    N, m = op.n, op.m
-    off = np.concatenate([[0], np.cumsum(ns)]).astype(int)
-    M = MaskedProduct(column_mask(ns, nob), device)
+    timers = current()
+    with timers.timed("operator"):
+        device = resolve_device(device)
+        if resume:
+            from ..utils.checkpoint import resume_kwargs
+            rk = resume_kwargs(resume)
+            Y0 = rk.get("Y0", Y0)
+            y0 = rk.get("y0", y0)
+            ps0 = rk.get("ps0", ps0)
+            if "sigma0" in rk:
+                overrides.setdefault("sigma0", rk["sigma0"])
+        opt = merged_options("multiblock", options, **overrides)
+        ns = [int(x) for x in ns]
+        nb = len(ns)
+        if isinstance(At, ConstraintOp):
+            op = At
+            if op.device.type != device.type:
+                raise ValueError(f"the ConstraintOp lives on {op.device}, the "
+                                 f"solve was asked for {device}")
+        else:
+            op = ConstraintOp.build_multiblock(At, b, c, ns, device)
+        N, m = op.n, op.m
+        off = np.concatenate([[0], np.cumsum(ns)]).astype(int)
+        M = MaskedProduct(column_mask(ns, nob), device)
 
-    if opt.verbose:
-        print("ManiSDP-TPU (multiblock, torch) is starting...", flush=True)
-        print(f"SDP size: n = {max(ns)}, m = {m}", flush=True)
+        if opt.verbose:
+            print("ManiSDP-TPU (multiblock, torch) is starting...", flush=True)
+            print(f"SDP size: n = {max(ns)}, m = {m}", flush=True)
 
-    problem, cost_only = _make_problem(M)
-    budget = budgets(opt)
-    line_search = make_line_search(
-        cost_only, M.renormalize,
-        ls_dtype="float32" if opt.inner_dtype == "tcg32" else None)
-    mixed = opt.inner_dtype == "mixed"
-    op32 = op.astype(torch.float32) \
-        if opt.inner_dtype == "tcg32" or mixed else None
+        problem, cost_only = _make_problem(M)
+        budget = budgets(opt)
+        line_search = make_line_search(
+            cost_only, M.renormalize,
+            ls_dtype="float32" if opt.inner_dtype == "tcg32" else None)
+        mixed = opt.inner_dtype == "mixed"
+        op32 = op.astype(torch.float32) \
+            if opt.inner_dtype == "tcg32" or mixed else None
 
-    def stats(Y, y, sigma):
-        e = op.pattern_pair_dots(Y)
-        obj = torch.dot(op.pat.v, e)
-        Axb = op.apply_from_e(e) - op.b
-        pinf = torch.linalg.norm(Axb) / (1.0 + torch.linalg.norm(op.b))
-        y_new = y - sigma * Axb
-        sv = op.s_vals(y_new)
-        # colsum_pattern(sv * e) = colsum(Y o Y mat(sv)): K1's cost
-        # epilogue, summed in a fixed order
-        z = symcoo_spmm(Y, op.pat, "cost", vals=sv)[1] * M.mask
-        by = torch.dot(op.b, y_new) + torch.sum(z)
-        gap = torch.abs(obj - by) / (torch.abs(by) + torch.abs(obj) + 1.0)
-        return obj, pinf, y_new, sv, z, gap
+        def stats(Y, y, sigma):
+            e = op.pattern_pair_dots(Y)
+            obj = torch.dot(op.pat.v, e)
+            Axb = op.apply_from_e(e) - op.b
+            pinf = torch.linalg.norm(Axb) / (1.0 + torch.linalg.norm(op.b))
+            y_new = y - sigma * Axb
+            sv = op.s_vals(y_new)
+            # colsum_pattern(sv * e) = colsum(Y o Y mat(sv)): K1's cost
+            # epilogue, summed in a fixed order
+            z = symcoo_spmm(Y, op.pat, "cost", vals=sv)[1] * M.mask
+            by = torch.dot(op.b, y_new) + torch.sum(z)
+            gap = torch.abs(obj - by) / (torch.abs(by) + torch.abs(obj) + 1.0)
+            return obj, pinf, y_new, sv, z, gap
 
-    blocks = BlockEigh(ns, opt.delta, device)
-    pmap = blocks.pattern_map(op.pat.i.cpu().numpy().astype(np.int64),
-                              op.pat.j.cpu().numpy().astype(np.int64))
+        blocks = BlockEigh(ns, opt.delta, device)
+        pmap = blocks.pattern_map(op.pat.i.cpu().numpy().astype(np.int64),
+                                  op.pat.j.cpu().numpy().astype(np.int64))
 
-    # per-block rank state
-    p0 = opt.p0 if np.ndim(opt.p0) else [int(opt.p0)] * nb
-    ps: List[int] = [ns[i] if ns[i] < opt.min_facsize else int(p0[i])
-                     for i in range(nb)]
-    if ps0 is not None:
-        ps = [int(x) for x in ps0]
-    p_pad = bucketed(max(ps), opt.p_bucket)
+        # per-block rank state
+        p0 = opt.p0 if np.ndim(opt.p0) else [int(opt.p0)] * nb
+        ps: List[int] = [ns[i] if ns[i] < opt.min_facsize else int(p0[i])
+                         for i in range(nb)]
+        if ps0 is not None:
+            ps = [int(x) for x in ps0]
+        p_pad = bucketed(max(ps), opt.p_bucket)
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(opt.seed)
-    if Y0 is not None:
-        Y0 = np.asarray(Y0, dtype=np.float64)
-        p_pad = max(p_pad, bucketed(Y0.shape[0], opt.p_bucket))
-        Y_host = pad_rows(Y0, p_pad)
-    else:
-        Y_host = initial_factor(gen, p_pad, ns, off, ps, nob)
-    as_dev = lambda a: torch.as_tensor(  # noqa: E731
-        a, dtype=torch.float64, device=device)
-    Y = as_dev(Y_host)
-    U_dir = None
+        gen = torch.Generator(device=device)
+        gen.manual_seed(opt.seed)
+        if Y0 is not None:
+            Y0 = np.asarray(Y0, dtype=np.float64)
+            p_pad = max(p_pad, bucketed(Y0.shape[0], opt.p_bucket))
+            Y_host = pad_rows(Y0, p_pad)
+        else:
+            Y_host = initial_factor(gen, p_pad, ns, off, ps, nob)
+        as_dev = lambda a: torch.as_tensor(  # noqa: E731
+            a, dtype=torch.float64, device=device)
+        Y = as_dev(Y_host)
+        U_dir = None
 
-    y = torch.zeros(m, dtype=torch.float64, device=device) if y0 is None \
-        else as_dev(np.asarray(y0, dtype=np.float64).ravel())
-    sigma = float(opt.sigma0)
-    slow = SlowProgress(50, 100)
-    status = 0
-    total_tr = total_hess = 0
-    fac_size, history = [], []
-    t0 = time.time()
-    obj = gap = pinf = dinf = gradnorm = eta = np.nan
-    sv_dev = z_dev = None
-    it = 0
-    tier = 0
-    use32 = opt.inner_dtype == "tcg32"
-    frozen = 0          # consecutive endgame iterations with frozen sigma
+        y = torch.zeros(m, dtype=torch.float64, device=device) if y0 is None \
+            else as_dev(np.asarray(y0, dtype=np.float64).ravel())
+        sigma = float(opt.sigma0)
+        slow = SlowProgress(50, 100)
+        status = 0
+        total_tr = total_hess = 0
+        fac_size, history = [], []
+        obj = gap = pinf = dinf = gradnorm = eta = np.nan
+        sv_dev = z_dev = None
+        it = 0
+        tier = 0
+        use32 = opt.inner_dtype == "tcg32"
+        frozen = 0          # consecutive endgame iterations with frozen sigma
 
-    timers = PhaseTimers()
     for it in range(1, opt.max_outer + 1):
-        fac_size.append(max(ps))
-        solve = make_trustregions(problem, budget(tier, use32))
-        params = dict(op=op, y=y, sigma=sigma)
         with timers.timed("rtr"):
+            fac_size.append(max(ps))
+            solve = make_trustregions(problem, budget(tier, use32))
+            params = dict(op=op, y=y, sigma=sigma)
             if U_dir is not None:
                 Y = line_search(Y, U_dir, params)
             typdist = MaskedProduct.typicaldist(ns, ps, nob)
@@ -364,8 +364,8 @@ def solve_multiblock(At, b, c, ns: Sequence[int], nob: int,
             res = solve(Y, params, typdist, params_tcg=params_tcg)
             Y = res.Y
             gradnorm = float(res.norm_grad)
-        total_tr += res.iters
-        total_hess += res.inner_iters
+            total_tr += res.iters
+            total_hess += res.inner_iters
 
         with timers.timed("stats"):
             obj_d, pinf_d, y, sv_dev, z_dev, gap_d = stats(Y, y, sigma)
@@ -374,33 +374,35 @@ def solve_multiblock(At, b, c, ns: Sequence[int], nob: int,
             certs, dinf = blocks.certify(
                 blocks.from_pattern(pmap, sv_dev, z_dev))
 
-        log_iter(opt.verbose, it, obj, gap=gap, pinf=pinf, dinf=dinf,
-                 gradnorm=gradnorm, p=max(ps), sigma=sigma, t0=t0)
-        history.append(dict(iter=it, obj=obj, gap=gap, pinf=pinf, dinf=dinf,
-                            gradnorm=gradnorm, p=max(ps), sigma=sigma))
-        eta = max(gap, pinf, dinf)
-        if eta < opt.tol:
-            if opt.verbose:
-                print("Optimality is reached!", flush=True)
-            break
-        if slow.check(it, gap, pinf, dinf):
-            if use32:
-                # precision fallback: demote the f32 tCG inner loop to f64
-                use32 = False
-                slow.prev = None
-                if opt.verbose:
-                    print("Slow progress under tcg32 -> f64 inner "
-                          "fallback", flush=True)
-            else:
-                status = 2
-                if opt.verbose:
-                    print("Slow progress!", flush=True)
-                break
-
-        # ---- per-block rank update (ManiSDP_multiblock.m:112-151) ----
-        # no escape when the certificate already passes: raw sign counting
-        # would append junk directions off noise eigenvalues
         with timers.timed("rank"):
+            log_iter(opt.verbose, it, obj, gap=gap, pinf=pinf, dinf=dinf,
+                     gradnorm=gradnorm, p=max(ps), sigma=sigma,
+                     wall=timers.wall())
+            history.append(dict(iter=it, obj=obj, gap=gap, pinf=pinf,
+                                dinf=dinf, gradnorm=gradnorm, p=max(ps),
+                                sigma=sigma))
+            eta = max(gap, pinf, dinf)
+            if eta < opt.tol:
+                if opt.verbose:
+                    print("Optimality is reached!", flush=True)
+                break
+            if slow.check(it, gap, pinf, dinf):
+                if use32:
+                    # precision fallback: demote the f32 tCG inner loop to f64
+                    use32 = False
+                    slow.prev = None
+                    if opt.verbose:
+                        print("Slow progress under tcg32 -> f64 inner "
+                              "fallback", flush=True)
+                else:
+                    status = 2
+                    if opt.verbose:
+                        print("Slow progress!", flush=True)
+                    break
+
+            # ---- per-block rank update (ManiSDP_multiblock.m:112-151) ----
+            # no escape when the certificate already passes: raw sign counting
+            # would append junk directions off noise eigenvalues
             Y_host, U_host = block_rank_update(
                 Y.cpu().numpy().copy(), certs, ns, off, ps, nob, opt,
                 strict=False, escape=dinf > opt.tol)
@@ -410,58 +412,58 @@ def solve_multiblock(At, b, c, ns: Sequence[int], nob: int,
             U_dir = as_dev(pad_rows(U_host[:p_act], p_pad)) \
                 if U_host is not None else None
 
-        if pinf < opt.tau1 * gradnorm:
-            sigma = max(sigma / opt.gama, opt.sigma_min)
-            frozen = 0
-        elif pinf > opt.tau2 * gradnorm:
-            sigma = min(sigma * opt.gama, opt.sigma_max)
-            frozen = 0
-        else:
-            # endgame boost: sigma frozen with only dinf above tol ->
-            # escalate the TR budget
-            if (opt.endgame_boost and tier == 0 and
-                    gap <= 10 * opt.tol and pinf <= 10 * opt.tol and
-                    dinf > opt.tol):
-                frozen += 1
-                if frozen >= opt.boost_after:
-                    tier = 1
-            else:
+            if pinf < opt.tau1 * gradnorm:
+                sigma = max(sigma / opt.gama, opt.sigma_min)
                 frozen = 0
+            elif pinf > opt.tau2 * gradnorm:
+                sigma = min(sigma * opt.gama, opt.sigma_max)
+                frozen = 0
+            else:
+                # endgame boost: sigma frozen with only dinf above tol ->
+                # escalate the TR budget
+                if (opt.endgame_boost and tier == 0 and
+                        gap <= 10 * opt.tol and pinf <= 10 * opt.tol and
+                        dinf > opt.tol):
+                    frozen += 1
+                    if frozen >= opt.boost_after:
+                        tier = 1
+                else:
+                    frozen = 0
 
-        # checkpoint after the sigma update, so resume continues the same
-        # trajectory
-        if opt.checkpoint_every and opt.checkpoint_path and \
-                it % opt.checkpoint_every == 0:
-            from ..utils.checkpoint import save_state
-            save_state(opt.checkpoint_path, Y=Y_host[:p_act],
-                       y=y.cpu().numpy(), sigma=sigma, tier=tier,
-                       iteration=it, extra=dict(ps=np.asarray(ps)))
+            # checkpoint after the sigma update, so resume continues the same
+            # trajectory
+            if opt.checkpoint_every and opt.checkpoint_path and \
+                    it % opt.checkpoint_every == 0:
+                from ..utils.checkpoint import save_state
+                save_state(opt.checkpoint_path, Y=Y_host[:p_act],
+                           y=y.cpu().numpy(), sigma=sigma, tier=tier,
+                           iteration=it, extra=dict(ps=np.asarray(ps)))
     else:
         it = opt.max_outer
 
-    if status == 0 and eta > opt.tol:
-        status = 1
+    with timers.timed("result"):
+        if status == 0 and eta > opt.tol:
+            status = 1
+            if opt.verbose:
+                print("Iteration maximum is reached!", flush=True)
+
         if opt.verbose:
-            print("Iteration maximum is reached!", flush=True)
+            print(f"ManiSDP-TPU: optimum = {obj:0.8f}, "
+                  f"time = {timers.wall():0.2f}s", flush=True)
 
-    elapsed = time.time() - t0
-    if opt.verbose:
-        print(f"ManiSDP-TPU: optimum = {obj:0.8f}, time = {elapsed:0.2f}s",
-              flush=True)
-
-    Y_final = Y.cpu().numpy()
-    X_blocks = [Y_final[:, off[i]:off[i + 1]].T @ Y_final[:, off[i]:off[i + 1]]
-                for i in range(nb)]
-    S_host = None
-    if sv_dev is not None:
-        S_host = np.zeros((N, N))
-        S_host[op.pat.i.cpu().numpy(), op.pat.j.cpu().numpy()] = \
-            sv_dev.cpu().numpy()
-        S_host[np.arange(N), np.arange(N)] -= z_dev.cpu().numpy()
-    return SDPResult(
-        X=X_blocks, obj=obj, Y=Y_final, y=y.cpu().numpy(), S=S_host,
-        z=z_dev.cpu().numpy() if z_dev is not None else None,
-        gap=gap, pinf=pinf, dinf=dinf, eta=eta, gradnorm=gradnorm,
-        time=elapsed, status=status, iterations=it, fac_size=fac_size,
-        rtr_iters=total_tr, hess_calls=total_hess, history=history,
-        timers=timers.t, sigma=sigma, tier=tier)
+        Y_final = Y.cpu().numpy()
+        X_blocks = [Y_final[:, off[i]:off[i + 1]].T
+                    @ Y_final[:, off[i]:off[i + 1]] for i in range(nb)]
+        S_host = None
+        if sv_dev is not None:
+            S_host = np.zeros((N, N))
+            S_host[op.pat.i.cpu().numpy(), op.pat.j.cpu().numpy()] = \
+                sv_dev.cpu().numpy()
+            S_host[np.arange(N), np.arange(N)] -= z_dev.cpu().numpy()
+        return SDPResult(
+            X=X_blocks, obj=obj, Y=Y_final, y=y.cpu().numpy(), S=S_host,
+            z=z_dev.cpu().numpy() if z_dev is not None else None,
+            gap=gap, pinf=pinf, dinf=dinf, eta=eta, gradnorm=gradnorm,
+            status=status, iterations=it, fac_size=fac_size,
+            rtr_iters=total_tr, hess_calls=total_hess, history=history,
+            timers=timers.t, sigma=sigma, tier=tier)

@@ -37,7 +37,6 @@ semantics), as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -55,9 +54,9 @@ from ..parallel.distributed import broadcast
 from ..parallel.mesh import mesh_axis
 from ..parallel.sharded_ops import (ShardedConstraintOp, build_on_mesh,
                                     model_axis)
-from .common import (PhaseTimers, RankController, SDPResult, SlowProgress,
-                     bucketed, log_iter, make_line_search, mixed_prestage,
-                     pad_rows, resolve_device)
+from .common import (RankController, SDPResult, SlowProgress, bucketed,
+                     current, log_iter, make_line_search, mixed_prestage,
+                     pad_rows, recorded, resolve_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -413,6 +412,7 @@ def _ranks(group) -> list:
     return dist.get_process_group_ranks(group or dist.group.WORLD)
 
 
+@recorded
 def solve_primal_al(variant_name: str, op: ConstraintOp,
                     options: Optional[SolverOptions] = None,
                     Y0: Optional[np.ndarray] = None,
@@ -421,7 +421,7 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
                     **overrides) -> SDPResult:
     """The AL outer loop [RTR inner solve -> stats -> certificate -> rank
     update -> sigma schedule] on ``op``'s device, on the operator the
-    ladder picks (timed as ``timers["operator"]``).
+    ladder picks (within the span ``operator``).
 
     ``mesh`` (a DeviceMesh; this process one of its ranks): the operator
     is sharded by pattern id over the mesh's model axis
@@ -430,12 +430,12 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
     replicated factor; no ladder and the host rank update, as in the JAX
     package (the certificate: _make_certificate).  Every rank returns the
     same result (all but the wall-clock ``time`` and ``timers``)."""
-    variant = VARIANTS[variant_name]
-    opt = merged_options(variant.name, options, **overrides)
-    n, m = op.n, op.m
-    device = op.device
-    timers = PhaseTimers()
+    timers = current()
     with timers.timed("operator"):
+        variant = VARIANTS[variant_name]
+        opt = merged_options(variant.name, options, **overrides)
+        n, m = op.n, op.m
+        device = op.device
         if mesh is None:
             if isinstance(op, ShardedConstraintOp):
                 raise ValueError("a ShardedConstraintOp needs the mesh it "
@@ -457,89 +457,88 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
                                  "model axis")
             if opt.verbose and dist.get_rank() != 0:
                 opt = dataclasses.replace(opt, verbose=False)
-    sharded = isinstance(op, ShardedConstraintOp)
-    use_eigh = (opt.eig_method == "eigh") or \
-        (opt.eig_method == "auto" and n < opt.eig_switch_n)
-    k_cert = opt.delta + 1
+        sharded = isinstance(op, ShardedConstraintOp)
+        use_eigh = (opt.eig_method == "eigh") or \
+            (opt.eig_method == "auto" and n < opt.eig_switch_n)
+        k_cert = opt.delta + 1
 
-    if opt.verbose:
-        print(f"ManiSDP-TPU ({variant.name}, torch) is starting...",
-              flush=True)
-        # expanded operators carry an inflated flat residual length;
-        # report the true constraint count
-        print(f"SDP size: n = {n}, m = {getattr(op, 'm_true', m)}",
-              flush=True)
+        if opt.verbose:
+            print(f"ManiSDP-TPU ({variant.name}, torch) is starting...",
+                  flush=True)
+            # expanded operators carry an inflated flat residual length;
+            # report the true constraint count
+            print(f"SDP size: n = {n}, m = {getattr(op, 'm_true', m)}",
+                  flush=True)
 
-    problem, cost_only = _make_problem(variant)
-    M = variant.manifold
+        problem, cost_only = _make_problem(variant)
+        M = variant.manifold
 
-    def budget(tier, use32):
-        kw = dict(tolgradnorm=opt.tolgradnorm,
-                  tcg_dtype="float32" if use32 else None)
-        if tier == 0:
-            return TROptions(maxiter=opt.tr_maxiter,
-                             maxinner=opt.tr_maxinner, **kw)
-        return TROptions(maxiter=max(opt.boost_tr_maxiter, opt.tr_maxiter),
-                         maxinner=max(opt.boost_tr_maxinner,
-                                      opt.tr_maxinner), **kw)
+        def budget(tier, use32):
+            kw = dict(tolgradnorm=opt.tolgradnorm,
+                      tcg_dtype="float32" if use32 else None)
+            if tier == 0:
+                return TROptions(maxiter=opt.tr_maxiter,
+                                 maxinner=opt.tr_maxinner, **kw)
+            return TROptions(maxiter=max(opt.boost_tr_maxiter, opt.tr_maxiter),
+                             maxinner=max(opt.boost_tr_maxinner,
+                                          opt.tr_maxinner), **kw)
 
-    line_search = make_line_search(
-        cost_only, M.renormalize,
-        ls_dtype="float32" if opt.inner_dtype == "tcg32" else None)
-    # f32 copy of the operator for the tcg32 inner loop and the mixed
-    # pre-stage (index arrays shared; only float arrays are cast), built
-    # once per solve
-    mixed = opt.inner_dtype == "mixed"
-    op32 = op.astype(torch.float32) \
-        if opt.inner_dtype == "tcg32" or mixed else None
-    stats_fn = _make_stats(variant)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(opt.seed)
-    cert_fn = _make_certificate(variant, op, n, k_cert, use_eigh, opt, gen)
-    rank = RankController(opt.theta, opt.delta, opt.alpha,
-                          nne_floor=variant.nne_floor, bucket=opt.p_bucket)
-    slow = SlowProgress(variant.slow_period, variant.slow_warmup)
-    as_dev = lambda a: torch.as_tensor(  # noqa: E731
-        a, dtype=torch.float64, device=device)
+        line_search = make_line_search(
+            cost_only, M.renormalize,
+            ls_dtype="float32" if opt.inner_dtype == "tcg32" else None)
+        # f32 copy of the operator for the tcg32 inner loop and the mixed
+        # pre-stage (index arrays shared; only float arrays are cast), built
+        # once per solve
+        mixed = opt.inner_dtype == "mixed"
+        op32 = op.astype(torch.float32) \
+            if opt.inner_dtype == "tcg32" or mixed else None
+        stats_fn = _make_stats(variant)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(opt.seed)
+        cert_fn = _make_certificate(variant, op, n, k_cert, use_eigh, opt, gen)
+        rank = RankController(opt.theta, opt.delta, opt.alpha,
+                              nne_floor=variant.nne_floor, bucket=opt.p_bucket)
+        slow = SlowProgress(variant.slow_period, variant.slow_warmup)
+        as_dev = lambda a: torch.as_tensor(  # noqa: E731
+            a, dtype=torch.float64, device=device)
 
-    p = opt.p0 if opt.p0 > 0 else max(int(np.ceil(np.log(max(m, 2)))), 1)
-    p_pad = bucketed(p, opt.p_bucket)
-    if Y0 is not None:
-        Y0 = np.asarray(Y0, dtype=np.float64)
-        if Y0.shape[1] != n:      # accept reference (n, p) layout too
-            Y0 = Y0.T
-        p = Y0.shape[0]
-        p_pad = max(p_pad, bucketed(p, opt.p_bucket))
-        Y = as_dev(pad_rows(Y0, p_pad))
-    else:
-        Y = M.rand(gen, p, n, p_pad)
-    # operators over a redundant basis (SymMomOp) supply a symmetrize hook:
-    # the initial, every inner-solved and every rebuilt factor are
-    # projected onto the duplicate-symmetric subspace, where the expanded
-    # dynamics reproduce the reference trajectory
-    symmetrize = getattr(op, "symmetrize", None)
-    if symmetrize is not None:
-        Y = symmetrize(Y)
-    U_dir = None
+        p = opt.p0 if opt.p0 > 0 else max(int(np.ceil(np.log(max(m, 2)))), 1)
+        p_pad = bucketed(p, opt.p_bucket)
+        if Y0 is not None:
+            Y0 = np.asarray(Y0, dtype=np.float64)
+            if Y0.shape[1] != n:      # accept reference (n, p) layout too
+                Y0 = Y0.T
+            p = Y0.shape[0]
+            p_pad = max(p_pad, bucketed(p, opt.p_bucket))
+            Y = as_dev(pad_rows(Y0, p_pad))
+        else:
+            Y = M.rand(gen, p, n, p_pad)
+        # operators over a redundant basis (SymMomOp) supply a symmetrize hook:
+        # the initial, every inner-solved and every rebuilt factor are
+        # projected onto the duplicate-symmetric subspace, where the expanded
+        # dynamics reproduce the reference trajectory
+        symmetrize = getattr(op, "symmetrize", None)
+        if symmetrize is not None:
+            Y = symmetrize(Y)
+        U_dir = None
 
-    y = op.res_zeros() if y0 is None else op.res_from_mvec(y0)
-    sigma = float(opt.sigma0)
-    status = 0
-    total_tr = total_hess = 0
-    fac_size, history = [], []
-    t0 = time.time()
-    obj = gap = pinf = dinf = gradnorm = eta = np.nan
-    sv_dev = z_dev = y_dev = None
-    it = 0
-    tier = 0
-    use32 = opt.inner_dtype == "tcg32"
-    frozen = 0          # consecutive endgame iterations with frozen sigma
+        y = op.res_zeros() if y0 is None else op.res_from_mvec(y0)
+        sigma = float(opt.sigma0)
+        status = 0
+        total_tr = total_hess = 0
+        fac_size, history = [], []
+        obj = gap = pinf = dinf = gradnorm = eta = np.nan
+        sv_dev = z_dev = y_dev = None
+        it = 0
+        tier = 0
+        use32 = opt.inner_dtype == "tcg32"
+        frozen = 0          # consecutive endgame iterations with frozen sigma
 
     for it in range(1, opt.max_outer + 1):
-        fac_size.append(p)
-        solve = make_trustregions(problem, budget(tier, use32))
-        params = dict(op=op, y=y, sigma=sigma)
         with timers.timed("rtr"):
+            fac_size.append(p)
+            solve = make_trustregions(problem, budget(tier, use32))
+            params = dict(op=op, y=y, sigma=sigma)
             if U_dir is not None:
                 Y = line_search(Y, U_dir, params)
             typdist = float(M.typicaldist(p, n))
@@ -558,54 +557,55 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
             if symmetrize is not None:
                 Y = symmetrize(Y)
             gradnorm = float(res.norm_grad)
-        total_tr += res.iters
-        total_hess += res.inner_iters
+            total_tr += res.iters
+            total_hess += res.inner_iters
 
         with timers.timed("stats"):
             obj_d, pinf_d, y, sv_dev, z_dev, _, gap_d = stats_fn(
                 Y, op, y, sigma)
             obj, pinf, gap = float(obj_d), float(pinf_d), float(gap_d)
-        y_dev = y
+            y_dev = y
 
         with timers.timed("cert"):
             lam_min, lam_max, num_neg, neg_vecs, _ = cert_fn(
                 Y, sv_dev, z_dev, gap=gap, pinf=pinf)
-        dinf = max(0.0, -lam_min) / (1.0 + lam_max)
 
         with timers.timed("rank"):
+            dinf = max(0.0, -lam_min) / (1.0 + lam_max)
             r, _, Ul = rank.truncation(Y, p)
-        log_iter(opt.verbose, it, obj, gap=gap, pinf=pinf, dinf=dinf,
-                 gradnorm=gradnorm, r=r, p=p, sigma=sigma, t0=t0)
-        history.append(dict(iter=it, obj=obj, gap=gap, pinf=pinf, dinf=dinf,
-                            gradnorm=gradnorm, r=r, p=p, sigma=sigma))
-        timers.log_delta(opt.verbose)
-        eta = max(gap, pinf, dinf)
-        if eta < opt.tol:
-            if opt.verbose:
-                print("Optimality is reached!", flush=True)
-            break
-        if slow.check(it, gap, pinf, dinf):
-            if use32:
-                # precision fallback: demote the f32 tCG inner loop to f64
-                # and keep going instead of bailing
-                use32 = False
-                slow.prev = None
+            log_iter(opt.verbose, it, obj, gap=gap, pinf=pinf, dinf=dinf,
+                     gradnorm=gradnorm, r=r, p=p, sigma=sigma,
+                     wall=timers.wall())
+            history.append(dict(iter=it, obj=obj, gap=gap, pinf=pinf,
+                                dinf=dinf, gradnorm=gradnorm, r=r, p=p,
+                                sigma=sigma))
+            timers.log_delta(opt.verbose)
+            eta = max(gap, pinf, dinf)
+            if eta < opt.tol:
                 if opt.verbose:
-                    print("Slow progress under tcg32 -> f64 inner "
-                          "fallback", flush=True)
-            else:
-                status = 2
-                if opt.verbose:
-                    print("Slow progress!", flush=True)
+                    print("Optimality is reached!", flush=True)
                 break
+            if slow.check(it, gap, pinf, dinf):
+                if use32:
+                    # precision fallback: demote the f32 tCG inner loop to f64
+                    # and keep going instead of bailing
+                    use32 = False
+                    slow.prev = None
+                    if opt.verbose:
+                        print("Slow progress under tcg32 -> f64 inner "
+                              "fallback", flush=True)
+                else:
+                    status = 2
+                    if opt.verbose:
+                        print("Slow progress!", flush=True)
+                    break
 
-        # ---- rank update ----
-        # no escape when the certificate already passes: num_neg counts raw
-        # negative eigenvalues, so sign noise at a converged point would
-        # append junk directions
-        nne = rank.num_escape(num_neg) if dinf > opt.tol else 0
-        p_new = (r if r <= p - 1 else p) + nne
-        with timers.timed("rank"):
+            # ---- rank update ----
+            # no escape when the certificate already passes: num_neg counts raw
+            # negative eigenvalues, so sign noise at a converged point would
+            # append junk directions
+            nne = rank.num_escape(num_neg) if dinf > opt.tol else 0
+            p_new = (r if r <= p - 1 else p) + nne
             if variant.manifold is not Sphere and not sharded:
                 p_pad_new = max(p_pad, bucketed(p_new, opt.p_bucket))
                 UlT = np.zeros((p_pad_new, p_pad), dtype=np.float64)
@@ -655,62 +655,63 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
                 if U_dir is not None:
                     U_dir = symmetrize(U_dir, renorm=False)
 
-        # ---- sigma schedule ----
-        if pinf < opt.tau1 * gradnorm:
-            sigma = max(sigma / opt.gama, opt.sigma_min)
-            frozen = 0
-        elif pinf > opt.tau2 * gradnorm:
-            sigma = min(sigma * opt.gama, opt.sigma_max)
-            frozen = 0
-        else:
-            # endgame boost: sigma frozen with dinf the dominant blocker
-            # -> the subproblem is under-resolved; escalate the TR budget
-            near = max(gap, pinf) <= max(1e-6, 10 * opt.tol)
-            if (opt.endgame_boost and tier == 0 and near and
-                    dinf > opt.tol and dinf > 2.0 * max(gap, pinf)):
-                frozen += 1
-                if frozen >= opt.boost_after:
-                    tier = 1
-            else:
+            # ---- sigma schedule ----
+            if pinf < opt.tau1 * gradnorm:
+                sigma = max(sigma / opt.gama, opt.sigma_min)
                 frozen = 0
+            elif pinf > opt.tau2 * gradnorm:
+                sigma = min(sigma * opt.gama, opt.sigma_max)
+                frozen = 0
+            else:
+                # endgame boost: sigma frozen with dinf the dominant blocker
+                # -> the subproblem is under-resolved; escalate the TR budget
+                near = max(gap, pinf) <= max(1e-6, 10 * opt.tol)
+                if (opt.endgame_boost and tier == 0 and near and
+                        dinf > opt.tol and dinf > 2.0 * max(gap, pinf)):
+                    frozen += 1
+                    if frozen >= opt.boost_after:
+                        tier = 1
+                else:
+                    frozen = 0
 
-        # checkpoint after the sigma update, so resuming with
-        # sigma0=st["sigma"] continues the same trajectory
-        if opt.checkpoint_every and opt.checkpoint_path and \
-                it % opt.checkpoint_every == 0 and \
-                not (sharded and dist.get_rank() != 0):
-            from ..utils.checkpoint import save_state
-            save_state(opt.checkpoint_path, Y=Y.cpu().numpy()[:p],
-                       y=op.res_to_mvec(y), sigma=sigma, tier=tier,
-                       iteration=it)
+            # checkpoint after the sigma update, so resuming with
+            # sigma0=st["sigma"] continues the same trajectory
+            if opt.checkpoint_every and opt.checkpoint_path and \
+                    it % opt.checkpoint_every == 0 and \
+                    not (sharded and dist.get_rank() != 0):
+                from ..utils.checkpoint import save_state
+                save_state(opt.checkpoint_path, Y=Y.cpu().numpy()[:p],
+                           y=op.res_to_mvec(y), sigma=sigma, tier=tier,
+                           iteration=it)
     else:
         it = opt.max_outer
 
-    if status == 0 and eta > opt.tol:
-        status = 1
+    with timers.timed("result"):
+        if status == 0 and eta > opt.tol:
+            status = 1
+            if opt.verbose:
+                print("Iteration maximum is reached!", flush=True)
+
         if opt.verbose:
-            print("Iteration maximum is reached!", flush=True)
+            print(f"ManiSDP-TPU: optimum = {obj:0.8f}, "
+                  f"time = {timers.wall():0.2f}s", flush=True)
 
-    elapsed = time.time() - t0
-    if opt.verbose:
-        print(f"ManiSDP-TPU: optimum = {obj:0.8f}, time = {elapsed:0.2f}s",
-              flush=True)
-
-    Y_act = Y.cpu().numpy()[:p]
-    X = Y_act.T @ Y_act
-    S_host = _dense_s(variant, op, sv_dev, z_dev).cpu().numpy() \
-        if sv_dev is not None else None
-    return SDPResult(
-        X=X, obj=obj, Y=Y_act,
-        y=op.res_to_mvec(y_dev) if y_dev is not None else None,
-        S=S_host,
-        z=z_dev.cpu().numpy() if z_dev is not None else None,
-        gap=gap, pinf=pinf, dinf=dinf, eta=eta, gradnorm=gradnorm,
-        time=elapsed, status=status, iterations=it, fac_size=fac_size,
-        rtr_iters=total_tr, hess_calls=total_hess, history=history,
-        timers=timers.t, sigma=sigma, tier=tier)
+        Y_act = Y.cpu().numpy()[:p]
+        X = Y_act.T @ Y_act
+        S_host = _dense_s(variant, op, sv_dev, z_dev).cpu().numpy() \
+            if sv_dev is not None else None
+        return SDPResult(
+            X=X, obj=obj, Y=Y_act,
+            y=op.res_to_mvec(y_dev) if y_dev is not None else None,
+            S=S_host,
+            z=z_dev.cpu().numpy() if z_dev is not None else None,
+            gap=gap, pinf=pinf, dinf=dinf, eta=eta, gradnorm=gradnorm,
+            status=status, iterations=it, fac_size=fac_size,
+            rtr_iters=total_tr, hess_calls=total_hess, history=history,
+            timers=timers.t, sigma=sigma, tier=tier)
 
 
+@recorded
 def solve_sedumi_al(variant_name: str, At, b, c, n: int,
                     options: Optional[SolverOptions], Y0, y0, mesh,
                     resume: Optional[str], device, overrides: dict
@@ -719,22 +720,24 @@ def solve_sedumi_al(variant_name: str, At, b, c, n: int,
     ConstraintOp already on ``device``) and an optional checkpoint to
     resume from -> solve_primal_al.  With ``mesh`` SeDuMi data is
     assembled on the host and only this rank's shard is uploaded."""
-    device = resolve_device(device)
-    if resume:
-        from ..utils.checkpoint import resume_kwargs
-        rk = resume_kwargs(resume)
-        Y0 = rk.get("Y0", Y0)
-        y0 = rk.get("y0", y0)
-        if "sigma0" in rk:
-            overrides.setdefault("sigma0", rk["sigma0"])
-    if isinstance(At, (ConstraintOp, ShardedConstraintOp)):
-        op = At
-        if op.device.type != device.type:
-            raise ValueError(f"the operator lives on {op.device}, the "
-                             f"solve was asked for {device}")
-    elif mesh is not None:
-        op = build_on_mesh(ConstraintOp.assemble(At, b, c, n), mesh, device)
-    else:
-        op = ConstraintOp.build(At, b, c, n, device)
+    with current().timed("operator"):
+        device = resolve_device(device)
+        if resume:
+            from ..utils.checkpoint import resume_kwargs
+            rk = resume_kwargs(resume)
+            Y0 = rk.get("Y0", Y0)
+            y0 = rk.get("y0", y0)
+            if "sigma0" in rk:
+                overrides.setdefault("sigma0", rk["sigma0"])
+        if isinstance(At, (ConstraintOp, ShardedConstraintOp)):
+            op = At
+            if op.device.type != device.type:
+                raise ValueError(f"the operator lives on {op.device}, the "
+                                 f"solve was asked for {device}")
+        elif mesh is not None:
+            op = build_on_mesh(ConstraintOp.assemble(At, b, c, n), mesh,
+                               device)
+        else:
+            op = ConstraintOp.build(At, b, c, n, device)
     return solve_primal_al(variant_name, op, options, Y0=Y0, y0=y0,
                            mesh=mesh, **overrides)

@@ -27,23 +27,25 @@ import numpy as np
 
 from ..config import VARIANT_DEFAULTS, SolverOptions
 from ..ops.symmom import SymMomOp
-from .common import SDPResult
+from .common import SDPResult, current, recorded
 from .primal_al import solve_primal_al
 
 
+@recorded
 def solve_bqp_mom(Q, e, q: int,
                   options: Optional[SolverOptions] = None,
                   device="cuda",
                   **overrides) -> SDPResult:
     """Primal moment-SDP of min x'Qx + e'x over {-1,1}^q on ``device``
     ("cuda", the default, raises when no GPU is present)."""
-    op = SymMomOp.build_bqpmom(Q, e, q, device=device)
-    d = VARIANT_DEFAULTS["unitdiag"]
-    s2 = float(np.sqrt(2.0))
-    overrides.setdefault("tau1", d["tau1"] * s2)
-    overrides.setdefault("tau2", d["tau2"] * s2)
-    overrides.setdefault("tolgradnorm", 1e-8 / s2)
-    # keep the reference default p0 = 2 (ManiSDP_unitdiag.m:10); the
-    # driver's log(m) fallback would see the inflated flat length
-    overrides.setdefault("p0", d.get("p0", 2))
+    with current().timed("operator"):
+        op = SymMomOp.build_bqpmom(Q, e, q, device=device)
+        d = VARIANT_DEFAULTS["unitdiag"]
+        s2 = float(np.sqrt(2.0))
+        overrides.setdefault("tau1", d["tau1"] * s2)
+        overrides.setdefault("tau2", d["tau2"] * s2)
+        overrides.setdefault("tolgradnorm", 1e-8 / s2)
+        # keep the reference default p0 = 2 (ManiSDP_unitdiag.m:10); the
+        # driver's log(m) fallback would see the inflated flat length
+        overrides.setdefault("p0", d.get("p0", 2))
     return solve_primal_al("unitdiag", op, options, **overrides)
