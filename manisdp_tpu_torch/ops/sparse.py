@@ -196,6 +196,24 @@ class BatchedSymCOO:
         return SymCOO(i=self.i[at], j=self.j[at], v=self.v[at], n=self.n,
                       colptr=self.colptr[b])
 
+    def select(self, keep) -> "BatchedSymCOO":
+        """The instances ``keep`` (host indices), in that order, as a batch
+        of their own: each keeps its entries in their order and its column
+        pointer, and the entry arrays hold only theirs (so K1's choice of
+        walk, which reads the mean entries a column, sees the kept
+        instances alone)."""
+        keep = np.asarray(keep, dtype=np.int64)
+        e0 = self.eoff.cpu().numpy()[keep]
+        nnz = self.colptr[:, -1].cpu().numpy().astype(np.int64)[keep]
+        eoff = np.cumsum(nnz) - nnz
+        dev = self.v.device
+        at = torch.as_tensor(np.arange(int(nnz.sum())) +
+                             np.repeat(e0 - eoff, nnz), device=dev)
+        return BatchedSymCOO(
+            i=self.i[at], j=self.j[at], v=self.v[at],
+            colptr=self.colptr[torch.as_tensor(keep, device=dev)],
+            eoff=torch.as_tensor(eoff, device=dev), n=self.n)
+
 
 def _ptr(seg, nseg: int) -> np.ndarray:
     """CSR pointer (nseg+1,) of ascending segment ids ``seg``."""

@@ -14,15 +14,19 @@ empty), so cost, gradient and certificate are those of the unpadded
 problem; the padded block of S = C - diag(z) is 0 and adds only zero
 eigenvalues.  Padding rows (rank above the instance's own p_b) are 0.
 
-Each outer iteration runs, for all instances at once: the saddle-escape
-line search (per-instance alpha and accept masks), the batched RTR (both
-loops masked per instance: kernels K1 in instance mode, K2 over all
-columns, K11 for the tCG step), z_b = colsum(Y_b o Y_b C_b), and the dual
-certificate as one batched f64 ``torch.linalg.eigh`` of the (B, n_pad,
-n_pad) S on the card (the JAX package runs a host eigh there).  The rank
-update (truncation by a factor SVD, escape along the negative
-eigenvectors of S) runs on the host per instance, as in the JAX package.
-A sparse bucket's cost is a BatchedSymCOO (K1); a dense one a (B, n_pad,
+Each outer iteration runs, for the L instances not yet certified at
+once: the saddle-escape line search (per-instance alpha and accept
+masks), the batched RTR (both loops masked per instance: kernels K1 in
+instance mode, K2 over all columns, K11 for the tCG step), z_b =
+colsum(Y_b o Y_b C_b), and the dual certificate as one batched f64
+``torch.linalg.eigh`` of the (L, n_pad, n_pad) S on the card (the JAX
+package runs a host eigh there).  The rank update (truncation by a
+factor SVD, escape along the negative eigenvectors of S) runs on the
+host per instance, as in the JAX package.  An instance that certifies
+leaves the batch there, with the Y, z and obj of that iteration (the
+JAX package keeps it in the batch and returns the last iteration's Y);
+one that never does is returned as the last iteration left it.  A
+sparse bucket's cost is a BatchedSymCOO (K1); a dense one an (L, n_pad,
 n_pad) tensor and ``torch.matmul``.
 
 The call's spans (utils/timers.py): ``operator`` (buckets, starts, the
@@ -153,7 +157,11 @@ def _solve_instances(Cs, ns, n: int, opt: SolverOptions, device,
                      dense: bool, Y, solved: int) -> list:
     """Solve the instances ``Cs`` of a bucket of padded size n from the
     (B, p_pad, n) starts ``Y``; ``solved``: the instances the call solves
-    in this process (batch.held's denominator)."""
+    in this process (batch.held's denominator).
+
+    The batch holds the live instances only: one that certifies is
+    returned as that outer iteration left it (Y, z, obj, dinf), and its
+    rows leave Y, the cost and the certificate before the next one."""
     timers = current()
     with timers.timed("operator"):
         B = len(Cs)
@@ -178,12 +186,13 @@ def _solve_instances(Cs, ns, n: int, opt: SolverOptions, device,
         line_search = make_batched_line_search(
             lambda Y, Cp: problem.cost(Y, Cp)[0], Oblique.renormalize)
 
-        def z_of(Y):
-            """z_b = colsum(Y_b o Y_b C_b), (B, n)."""
+        def z_of(Y, C_param):
+            """z_b = colsum(Y_b o Y_b C_b), (L, n)."""
             if dense:
-                return torch.sum(Y * (Y @ C_dense), dim=-2)
+                return torch.sum(Y * (Y @ C_param), dim=-2)
             return symcoo_spmm(Y, C_param, "cost")[1]
 
+        live = np.arange(B)          # batch position -> instance
         p = np.full(B, opt.p0, dtype=np.int64)
         p_pad = Y.shape[1]
         typdist = float(np.pi * np.sqrt(n))
@@ -195,6 +204,7 @@ def _solve_instances(Cs, ns, n: int, opt: SolverOptions, device,
         dinf = np.full(B, np.nan)
         it_done = np.zeros(B, dtype=np.int64)
         z_final = np.zeros((B, n))
+        Y_final = [None] * B
         tr_iters = np.zeros(B, dtype=np.int64)
         hess_calls = np.zeros(B, dtype=np.int64)
         fac_size = [[] for _ in range(B)]
@@ -202,21 +212,23 @@ def _solve_instances(Cs, ns, n: int, opt: SolverOptions, device,
         it = 0
 
     for it in range(1, opt.max_outer + 1):
-        t_it, held = timers.wall(), int(done.sum())
+        t_it, held = timers.wall(), B - live.size
         with timers.timed("rtr"):
             if U_dir is not None:
-                Y = line_search(Y, as_dev(U_dir), C_param,
-                                active=torch.as_tensor(~done, device=device))
+                Y = line_search(Y, as_dev(U_dir), C_param)
             res = solve(Y, C_param, typdist)
             Y = res.Y
-            z = z_of(Y)
+            z = z_of(Y, C_param)
             obj_now = torch.sum(z, dim=1).cpu().numpy()
-            tr_iters += res.iters
-            hess_calls += res.inner_iters
+            tr_iters[live] += res.iters
+            hess_calls[live] += res.inner_iters
 
         with timers.timed("cert"):
             # S_b = C_b - diag(z_b); padding columns add zero eigenvalues
-            vals, vecs = torch.linalg.eigh(C_dense - torch.diag_embed(z))
+            S = C_dense.clone()
+            S.diagonal(dim1=-2, dim2=-1).sub_(z)
+            vals, vecs = torch.linalg.eigh(S)
+            del S
             vals_h = vals.cpu().numpy()
             neg_vecs = vecs[:, :, :k_cert].cpu().numpy()
             z_h = z.cpu().numpy()
@@ -227,25 +239,38 @@ def _solve_instances(Cs, ns, n: int, opt: SolverOptions, device,
             dinf_now = np.maximum(0.0, -lam_min) / (1.0 + lam_max)
             num_neg = np.sum(vals_h < 0, axis=1)
 
-            for b in np.nonzero(~done)[0]:
-                obj[b], dinf[b] = obj_now[b], dinf_now[b]
-                z_final[b] = z_h[b]
+            for k, b in enumerate(live):
+                obj[b], dinf[b] = obj_now[k], dinf_now[k]
+                z_final[b] = z_h[k]
                 it_done[b] = it
                 fac_size[b].append(int(p[b]))
-                history[b].append(dict(iter=it, obj=float(obj_now[b]),
-                                       dinf=float(dinf_now[b]), p=int(p[b])))
-            done |= dinf_now < opt.tol
+                history[b].append(dict(iter=it, obj=float(obj_now[k]),
+                                       dinf=float(dinf_now[k]), p=int(p[b]),
+                                       live=int(live.size)))
+            certified = dinf_now < opt.tol
+            done[live[certified]] = True
             if opt.verbose:
                 print(f"Iter {it}, done {int(done.sum())}/{B}, "
                       f"median dinf:{np.median(dinf_now):0.1e}, "
                       f"p_pad:{p_pad}, time:{timers.wall():0.2f}s",
                       flush=True)
             timers.log_delta(opt.verbose)
-            finished = done.all()
+            # the last iteration's live instances are returned as it left
+            # them (their Y read in ``result``)
+            finished = certified.all() or it == opt.max_outer
             if not finished:
+                Y_h = Y.cpu().numpy()
+                for k in np.nonzero(certified)[0]:
+                    Y_final[live[k]] = Y_h[k, :p[live[k]]]
+                keep = np.nonzero(~certified)[0]
+                if keep.size < live.size:
+                    live = live[keep]
+                    C_dense = C_dense[torch.as_tensor(keep, device=device)]
+                    C_param = C_dense if dense else C_param.select(keep)
                 # ---- per-instance rank update (host) ----
-                Y, U_dir, p, p_pad = _rank_update(
-                    Y.cpu().numpy(), neg_vecs, num_neg, p, p_pad, done, opt)
+                Y, U_dir, p[live], p_pad = _rank_update(
+                    Y_h[keep], neg_vecs[keep], num_neg[keep], p[live],
+                    p_pad, opt)
                 Y = as_dev(Y)
         timers.add("batch.held", (timers.wall() - t_it) * held / solved)
         if finished:
@@ -258,9 +283,11 @@ def _solve_instances(Cs, ns, n: int, opt: SolverOptions, device,
                   f"time = {timers.wall():0.2f}s", flush=True)
 
         Y_h = Y.cpu().numpy()
+        for k, b in enumerate(live):
+            Y_final[b] = Y_h[k, :p[b]]
         out = []
         for b in range(B):
-            Yb = Y_h[b, :p[b], :ns[b]]            # strip the n padding
+            Yb = Y_final[b][:, :ns[b]]            # strip the n padding
             out.append(SDPResult(
                 X=Yb.T @ Yb, obj=float(obj[b]), Y=Yb, z=z_final[b, :ns[b]],
                 dinf=float(dinf[b]), eta=float(dinf[b]),
@@ -272,17 +299,17 @@ def _solve_instances(Cs, ns, n: int, opt: SolverOptions, device,
     return out
 
 
-def _rank_update(Y_h, neg_vecs, num_neg, p, p_pad, done, opt):
+def _rank_update(Y_h, neg_vecs, num_neg, p, p_pad, opt):
     """The JAX package's per-instance rank update (solvers/batch.py:245-287)
-    on the host: truncate each instance's factor where its singular values
-    fall below theta * the largest, then append up to ``delta`` escape rows
-    along the negative eigenvectors of S (as a line-search direction, or
-    mixed in with weight alpha).  p_pad never shrinks.  Returns (Y, U or
-    None, p, p_pad)."""
-    B, _, n = Y_h.shape
+    on the host, for the L live instances: truncate each factor where its
+    singular values fall below theta * the largest, then append up to
+    ``delta`` escape rows along the negative eigenvectors of S (as a
+    line-search direction, or mixed in with weight alpha).  p_pad never
+    shrinks.  Returns (Y, U or None, p, p_pad)."""
+    L, _, n = Y_h.shape
     p_next = p.copy()
-    plans = [None] * B
-    for b in np.nonzero(~done)[0]:
+    plans = [None] * L
+    for b in range(L):
         Yb = Y_h[b, :p[b]]
         sv = np.linalg.svd(Yb, compute_uv=False) if p[b] > 1 else \
             np.array([np.linalg.norm(Yb)])
@@ -292,12 +319,9 @@ def _rank_update(Y_h, neg_vecs, num_neg, p, p_pad, done, opt):
         p_next[b] = (r if r <= p[b] - 1 else p[b]) + nne
     p_pad = max(bucketed(int(p_next.max()), opt.p_bucket), p_pad)
 
-    Y_new = np.zeros((B, p_pad, n))
-    U_new = np.zeros((B, p_pad, n))
-    for b in range(B):
-        if done[b]:
-            Y_new[b, :p[b]] = Y_h[b, :p[b]]
-            continue
+    Y_new = np.zeros((L, p_pad, n))
+    U_new = np.zeros((L, p_pad, n))
+    for b in range(L):
         r, nne = plans[b]
         Yb = Y_h[b, :p[b]]
         if r <= p[b] - 1:

@@ -224,15 +224,12 @@ def make_batched_line_search(cost_fn: Callable, renorm: Callable,
     alpha, trial count and accepted point on the device; a trial evaluates
     every instance and keeps the result where the instance is still
     searching.  The host reads "any instance still searching" once per
-    trial (the span ``rtr.wait``), at most 15 + ``max_extra`` times.
-    ``active`` (B,) bool: the instances to search; the others keep Y."""
+    trial (the span ``rtr.wait``), at most 15 + ``max_extra`` times."""
     i_max = 15 + max_extra
 
-    def line_search(Y, U, params, active=None):
+    def line_search(Y, U, params):
         B = Y.shape[0]
         per = lambda m: m.view(B, 1, 1)  # noqa: E731
-        if active is None:
-            active = torch.ones((B,), dtype=torch.bool, device=Y.device)
 
         def search(alpha, i, nY, fa, going, cond):
             """Shrink alpha by 0.8 for every instance in ``going`` while
@@ -258,15 +255,15 @@ def make_batched_line_search(cost_fn: Callable, renorm: Callable,
         nY = renorm(Y + per(alpha) * U)
         fa = cost_fn(nY, params)
         alpha, i, nY, fa = search(
-            alpha, i, nY, fa, active,
+            alpha, i, nY, fa, torch.ones_like(i, dtype=torch.bool),
             lambda i, fa: (i <= 15) & (fa - f0 > -1e-3))
         # no 1e-3 decrease in 15 trials: keep shrinking until the cost
         # strictly decreases
         done = fa - f0 <= -1e-3
-        alpha, i, nY, fa = search(alpha, i, nY, fa, active & ~done,
+        alpha, i, nY, fa = search(alpha, i, nY, fa, ~done,
                                   lambda i, fa: (i <= i_max) & (fa >= f0))
         # if even the smallest step failed to decrease, stay put
-        return torch.where(per(active & (done | (fa < f0))), nY, Y)
+        return torch.where(per(done | (fa < f0)), nY, Y)
 
     return line_search
 

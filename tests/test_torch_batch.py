@@ -10,6 +10,7 @@ import scipy.sparse as sp
 import threadpoolctl
 import torch
 
+import chip_smoke
 from manisdp_tpu import solve_maxcut_batch as j_batch
 from manisdp_tpu.config import merged_options as j_merged
 from manisdp_tpu.ops.sparse import SymCOO as JSymCOO
@@ -129,6 +130,32 @@ def test_batched_symcoo_matches_jax():
     assert int(tC.eoff[1]) == int(tC.colptr[0, -1])
 
 
+def test_batched_symcoo_select_keeps_each_instance():
+    """A subset of a BatchedSymCOO, out of order: each kept instance's K1
+    products (``plain``, ``cost``, ``hess``) equal those of instance(b) of
+    the whole batch, and the entry arrays hold only the kept entries."""
+    Cs = [random_sparse_cost(20, 1), random_sparse_cost(26, 2),
+          random_sparse_cost(18, 7), random_sparse_cost(30, 4)]
+    _, tC = _params(Cs, dense=False)
+    keep = [3, 0, 2]
+    sub = tC.select(keep)
+    assert sub.nb == 3 and sub.n == tC.n
+    assert sub.i.shape[0] == sum(int(tC.colptr[b, -1]) for b in keep)
+    Y = torch.tensor(_y0(3, 6, 8, N_PAD, seed=8))
+    U = Oblique.proj(Y, torch.tensor(_y0(3, 6, 8, N_PAD, seed=9)))
+    YC = K.symcoo_spmm(Y, sub, "plain")
+    YC2, eG = K.symcoo_spmm(Y, sub, "cost")
+    H = K.symcoo_spmm(U, sub, "hess", B=Y, eG=eG)
+    for k, b in enumerate(keep):
+        Cb = tC.instance(b)
+        assert torch.equal(sub.instance(k).colptr, Cb.colptr)
+        assert torch.equal(YC[k], K.symcoo_spmm(Y[k], Cb, "plain"))
+        ref, eGb = K.symcoo_spmm(Y[k], Cb, "cost")
+        assert torch.equal(YC2[k], ref) and torch.equal(eG[k], eGb)
+        assert torch.equal(H[k], K.symcoo_spmm(U[k], Cb, "hess", B=Y[k],
+                                               eG=eGb))
+
+
 def test_batched_hess_twin_is_the_per_instance_hessian():
     Cs, _ = _instances(dense=False)
     _, tC = _params(Cs, dense=False)
@@ -220,11 +247,6 @@ def test_batched_line_search_matches_jax():
                                   Oblique.renormalize)
     tY = ls(torch.tensor(Y), torch.tensor(U), tC)
     assert _rel(tY, jY) <= 1e-12
-    # an instance that is not searched keeps its point
-    active = torch.tensor([True, False, True])
-    tY2 = ls(torch.tensor(Y), torch.tensor(U), tC, active=active)
-    assert torch.equal(tY2[1], torch.tensor(Y[1]))
-    assert torch.equal(tY2[0], tY[0]) and torch.equal(tY2[2], tY[2])
 
 
 # -------------------------------------------------------------- solves --
@@ -274,6 +296,75 @@ def test_batch_mixed_warns_and_runs_f64():
         res = solve_maxcut_batch(Cs, verbose=False, inner_dtype="mixed",
                                  max_outer=2, p0=4, device="cpu")
     assert all(np.isfinite(r.obj) for r in res)
+
+
+def _ragged(dense):
+    """Six instances of n 8-30 in a bucket of 32 that certify at outer
+    iterations 1 and 2 (default options, tol 1e-7)."""
+    sizes = [(24, 0), (12, 1), (30, 2), (18, 3), (8, 4), (28, 5)] if dense \
+        else [(20, 1), (26, 2), (18, 7), (12, 3), (30, 4), (8, 5)]
+    make = random_sym_cost if dense else random_sparse_cost
+    return [make(n, s) for n, s in sizes]
+
+
+@pytest.mark.parametrize("case", ["dense", "sparse", "capped"])
+def test_batch_drops_certified_instances_on_their_own_paths(case):
+    """Certified instances leave the batch: every instance of a ragged
+    bucket ends as the bucket solved for it alone from its start row
+    (status, outer and RTR iterations, Hessian products and ranks equal;
+    obj, dinf and Y to 1e-12), and each outer iteration's ``live`` is B
+    less the instances certified before it.  ``capped``: max_outer 1, so
+    the uncertified instances are returned as the last iteration left
+    them."""
+    from manisdp_tpu_torch.config import merged_options
+    from manisdp_tpu_torch.solvers.batch import _solve_instances
+    from manisdp_tpu_torch.solvers.common import bucketed, recorded
+    dense = case != "sparse"
+    Cs = _ragged(dense)
+    ns = [C.shape[0] for C in Cs]
+    opt = merged_options("maxcut_unitdiag", None, tol=1e-7, verbose=False,
+                         max_outer=1 if case == "capped" else 40)
+    gen = torch.Generator()
+    gen.manual_seed(opt.seed)
+    Y0 = torch.stack([Oblique.rand(gen, opt.p0, N_PAD,
+                                   bucketed(opt.p0, opt.p_bucket))
+                      for _ in Cs])
+    run = recorded(_solve_instances)
+    batch = run(Cs, ns, N_PAD, opt, "cpu", dense, Y0.clone(), len(Cs))
+    ends = [r.iterations for r in batch]
+    statuses = [r.status for r in batch]
+    assert set(ends) == ({1} if case == "capped" else {1, 2})
+    assert set(statuses) == ({0, 1} if case == "capped" else {0})
+    for b, r in enumerate(batch):
+        s = run([Cs[b]], [ns[b]], N_PAD, opt, "cpu", dense,
+                Y0[b:b + 1].clone(), 1)[0]
+        assert (r.status, r.iterations, r.hess_calls, r.rtr_iters,
+                r.fac_size) == (s.status, s.iterations, s.hess_calls,
+                                s.rtr_iters, s.fac_size)
+        assert r.Y.shape == s.Y.shape == (r.fac_size[-1], ns[b])
+        for got, ref in ((r.obj, s.obj), (r.dinf, s.dinf), (r.Y, s.Y)):
+            assert _rel(got, ref) <= 1e-12
+        for h in r.history:
+            gone = sum(e < h["iter"] and st == 0
+                       for e, st in zip(ends, statuses))
+            assert h["live"] == len(Cs) - gone
+
+
+def test_batch_returns_the_certified_pair():
+    """Two 40 x 30 tori at p0 = 40 through the sparse bucket: the first
+    certifies at outer iteration 1, the second at 2.  Every certified
+    instance's returned z is colsum(Y o YC) of its returned Y, and obj is
+    its sum, to 1e-12 (the batch used to return the certifying
+    iteration's z with a Y the RTR had stepped on since: 7.3e-9 apart)."""
+    Cs = [chip_smoke.torus_standin(40, 30, s) for s in (0, 2)]
+    res = solve_maxcut_batch(Cs, p0=40, verbose=False, device="cpu",
+                             dense_cost_max_n=0, dense_cost_nnz_factor=0)
+    assert [r.iterations for r in res] == [1, 2]
+    for C, r in zip(Cs, res):
+        assert r.status == 0
+        z = np.sum(r.Y * (r.Y @ C.toarray()), axis=0)
+        assert _rel(r.z, z) <= 1e-12
+        assert abs(r.obj - z.sum()) <= 1e-12 * abs(z.sum())
 
 
 def test_batch_refuses_mesh_and_a_missing_card(monkeypatch):

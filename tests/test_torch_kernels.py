@@ -287,6 +287,49 @@ def test_instance_modes_match_twins_on_card(cuda_device, dtype, p_pad):
                        .to_dense())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("keep", [[3, 0, 2], [2, 3], [1]])
+def test_instance_mode_on_a_selected_batch_on_card(cuda_device, dtype, keep):
+    """K1's instance mode on ``BatchedSymCOO.select(keep)`` (the batch's
+    live instances): each kept instance's ``plain``, ``cost`` and ``hess``
+    within 1e-12 (f64) / 1e-5 (f32) of the twin, and bit-equal to its row
+    of the whole batch's launch when both take the same walk (two dense
+    instances put the whole batch on the deep walk; [2, 3] keeps the two
+    sparse ones, which take the shallow one)."""
+    from manisdp_tpu_torch.ops.sparse import BatchedSymCOO
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    rs = np.random.RandomState(14)
+    mats = []
+    for density in (0.6, 0.5, 0.04, 0.06):
+        A = sp.random(N, N, density=density, random_state=rs)
+        mats.append(A + A.T + sp.diags(rs.randn(N)))
+    C = BatchedSymCOO.from_scipy(mats, N, cuda_device, dtype)
+    sub = C.select(keep)
+    deep = lambda CC: CC.v.shape[0] > K.SPMM_DEEP_MEAN * N * CC.nb  # noqa: E731
+    assert deep(C) and deep(sub) == (keep != [2, 3])
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(2)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=dtype,  # noqa: E731
+                                 device=cuda_device)
+    Y = K.oblique_cols_plain(rnd(4, 40, N), None, "renormalize")
+    U = K.oblique_cols_plain(Y, rnd(4, 40, N), "proj")
+    rows = torch.tensor(keep, device=cuda_device)
+    Ys, Us = Y[rows].contiguous(), U[rows].contiguous()
+    whole = (K.symcoo_spmm(Y, C, "plain"), *K.symcoo_spmm(Y, C, "cost"))
+    whole += (K.symcoo_spmm(U, C, "hess", B=Y, eG=whole[2]),)
+    got = (K.symcoo_spmm(Ys, sub, "plain"), *K.symcoo_spmm(Ys, sub, "cost"))
+    got += (K.symcoo_spmm(Us, sub, "hess", B=Ys, eG=got[2]),)
+    ref = (K.symcoo_spmm_plain(Ys, sub, "plain"),
+           *K.symcoo_spmm_plain(Ys, sub, "cost"))
+    ref += (K.symcoo_spmm_plain(Us, sub, "hess", B=Ys, eG=ref[2]),)
+    for g, w, r in zip(got, whole, ref):
+        assert _rel(g, r) <= tol
+        if deep(sub) == deep(C):
+            assert torch.equal(g, w[rows])
+    torch.cuda.synchronize()
+
+
 def _tcg_state(device, dtype, shape, tangent, seed):
     """K11's inputs at one (B, p, n) shape: the vectors (d, Hd, eta, Heta,
     r) with <d, r> > 0, the scalar state (instance 1 set up for a model
