@@ -234,9 +234,15 @@ def make_trustregions(problem: Problem, opts: TROptions):
             with span("rtr.wait"):
                 accept = bool(accept)
             if accept:
-                g, gaux = problem.grad(Y_prop, params, aux_prop)
                 Y, fx, aux = Y_prop, f_prop, aux_prop
+                g = gaux = None
+                g, gaux = problem.grad(Y, params, aux)
                 norm_grad = M.norm(Y, g)
+            # free this step's trial buffers before the next step makes its
+            # own: otherwise a rejected step's residuals and an old gradient
+            # stay live beside their successors, and the solve's peak memory
+            # depends on which steps were rejected, at whatever factor size
+            eta = Heta = vecrho = Y_prop = aux_prop = None
             k += 1
             total_inner += numit
 

@@ -23,7 +23,11 @@ elementwise pass between them is kernel K6 (``kernels.oa_refine``).
 that alone proves dinf > tol is accepted, and a bound that never
 certifies falls back to an exact f64 ``torch.linalg.eigh`` on the same
 device (the JAX package falls back to a host ``np.linalg.eigh``).
-``COUNTS`` records which tier decided each call.
+``COUNTS`` records which tier decided each call, summed over every call
+and thread; inside a recorded solver call the tiers are also spans of
+its ``cert`` (utils/timers.py): ``cert.far``, ``cert.near`` (the f32
+eigh, the refinement GEMMs and K6) and ``cert.eigh64``, each ending on
+the host read its tier makes.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from ..kernels import oa_refine
+from ..utils.timers import span
 
 # tier of every certify() call: the far tier, the near tier certified by
 # its bound, accepted on the Ritz value, or decided by the f64 eigh
@@ -138,11 +143,12 @@ class DenseEighCert:
         near tier with target 0.1 * tol; an uncertified near bound stands
         when its Ritz value alone puts dinf above 2 * tol, else an exact
         f64 eigh decides."""
-        S32 = S64.to(torch.float32)
         if far:
             COUNTS["far"] += 1
-            return self.far(S32)
-        res = self.near(S64, S32, target_rel=0.1 * tol)
+            with span("cert.far"):
+                return self.far(S64.to(torch.float32))
+        with span("cert.near"):
+            res = self.near(S64, S64.to(torch.float32), target_rel=0.1 * tol)
         if res.certified:
             COUNTS["near"] += 1
             return res
@@ -152,9 +158,11 @@ class DenseEighCert:
             return dataclasses.replace(res, certified=True,
                                        lam_min=res.lam_min_ritz)
         COUNTS["eigh64"] += 1
-        vals, vecs = torch.linalg.eigh(S64)
-        lam_min = float(vals[0])
+        with span("cert.eigh64"):
+            vals, vecs = torch.linalg.eigh(S64)
+            lam_min, lam_max = float(vals[0]), float(vals[-1])
+            num_neg = int(torch.sum(vals < 0))
         return DenseCertResult(
-            lam_min=lam_min, lam_max=float(vals[-1]),
-            num_neg=int(torch.sum(vals < 0)), neg_vecs=vecs[:, :self.k],
-            slack=0.0, certified=True, lam_min_ritz=lam_min)
+            lam_min=lam_min, lam_max=lam_max, num_neg=num_neg,
+            neg_vecs=vecs[:, :self.k], slack=0.0, certified=True,
+            lam_min_ritz=lam_min)

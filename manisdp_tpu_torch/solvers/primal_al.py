@@ -559,6 +559,9 @@ def solve_primal_al(variant_name: str, op: ConstraintOp,
             gradnorm = float(res.norm_grad)
             total_tr += res.iters
             total_hess += res.inner_iters
+            # free the solve's unprojected factor, which would otherwise
+            # stay live beside Y until the next inner solve returns
+            res = None
 
         with timers.timed("stats"):
             obj_d, pinf_d, y, sv_dev, z_dev, _, gap_d = stats_fn(

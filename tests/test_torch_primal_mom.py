@@ -114,3 +114,46 @@ def test_maps_the_reference_parameters(monkeypatch):
     assert kw["tau2"] == 3.0
     assert kw["tolgradnorm"] == pytest.approx(1e-8 / s2)
     assert kw["p0"] == 2
+
+
+def test_the_rtr_frees_each_step_before_the_next(monkeypatch):
+    """When the RTR evaluates a trial point, the accepted point's residuals
+    are the only earlier ones live, and when it forms a gradient no
+    earlier gradient's carrier is: a rejected step leaves nothing behind,
+    so the solve's peak memory does not depend on which steps were
+    rejected or at what factor size."""
+    import weakref
+
+    from manisdp_tpu_torch.solvers import primal_al
+    make = primal_al._make_problem
+    made = {"cost": [], "grad": []}
+    live = {"cost": [], "grad": []}
+
+    def count(kind):
+        live[kind].append(sum(r() is not None for r in made[kind]))
+
+    def tracked(variant):
+        problem, cost_only = make(variant)
+
+        def cost(Y, params):
+            count("cost")
+            f, aux = problem.cost(Y, params)
+            made["cost"].append(weakref.ref(aux[0]))
+            return f, aux
+
+        def grad(Y, params, aux):
+            count("grad")
+            g, gaux = problem.grad(Y, params, aux)
+            made["grad"].append(weakref.ref(gaux[0]))
+            return g, gaux
+        return primal_al.Problem(manifold=problem.manifold, cost=cost,
+                                 grad=grad, hess=problem.hess), cost_only
+
+    monkeypatch.setattr(primal_al, "_make_problem", tracked)
+    Q, e = _instance(6, 0)
+    res = solve_bqp_mom(Q, e, 6, Y0=_y0(6), device="cpu", **KW)
+    assert res.status == 0
+    # the RTR took more than one step a solve, so both checks were reached
+    assert len(live["cost"]) > 2 * len(res.fac_size)
+    assert max(live["cost"]) == 1
+    assert max(live["grad"]) == 0

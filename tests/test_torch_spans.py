@@ -1,9 +1,10 @@
 """The port's per-call span recorder (utils/timers.py) on the CPU: a
-4-instance batched MaxCut with one dense and one sparse bucket, and a
-small BQP SOS dual.  Each call's top-level spans cover it from entry to
-return, the RTR's waits on the device nest inside ``rtr``, the spans are
-profiler ranges only while torch.profiler records, and recording changes
-no bit of the answer."""
+4-instance batched MaxCut with one dense and one sparse bucket, a small
+BQP SOS dual and the same size's BQP moment primal.  Each call's
+top-level spans cover it from entry to return, the RTR's waits on the
+device nest inside ``rtr`` and the dense certificate's tiers inside
+``cert``, the spans are profiler ranges only while torch.profiler
+records, and recording changes no bit of the answer."""
 
 import threading
 import time
@@ -17,6 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from manisdp_tpu_torch import solve_maxcut_batch
 from manisdp_tpu_torch.solvers.dual_unitdiag import solve_bqp_sos_dual
+from manisdp_tpu_torch.solvers.primal_mom import solve_bqp_mom
 from manisdp_tpu_torch.utils import timers as T
 
 
@@ -59,16 +61,28 @@ def _batch():
     return out
 
 
-def _bqp():
+def _bqp_instance():
     rs = np.random.RandomState(5)
     Q = rs.randn(5, 5)
-    Q = 0.5 * (Q + Q.T)
-    e = rs.randn(5)
+    return 0.5 * (Q + Q.T), rs.randn(5)
+
+
+def _bqp():
+    Q, e = _bqp_instance()
     return [solve_bqp_sos_dual(Q, e, 5, device="cpu", verbose=False,
                                line_search=True, inner_dtype="tcg32")]
 
 
-CASES = {"batch": _batch, "bqp": _bqp}
+def _mom():
+    Q, e = _bqp_instance()
+    return [solve_bqp_mom(Q, e, 5, device="cpu", verbose=False,
+                          inner_dtype="tcg32")]
+
+
+CASES = {"batch": _batch, "bqp": _bqp, "mom": _mom}
+# the cases whose certificate is ops/dense_cert.py's DenseEighCert
+TIERED = ("bqp", "mom")
+TIERS = ("cert.far", "cert.near", "cert.eigh64")
 
 
 def _timed(case):
@@ -118,7 +132,7 @@ def test_the_call_records_its_spans(case):
     assert all(v >= 0.0 for v in t.values())
     assert t["rtr.wait"] <= t["rtr"]
     assert t.get("batch.held", 0.0) <= sum(_top(t).values())
-    if case == "bqp":
+    if case != "batch":
         assert "stats" in t
     else:
         assert set(_top(t)) == {"operator", "rtr", "cert", "rank", "result"}
@@ -182,6 +196,23 @@ def test_recording_changes_no_bit(case):
         assert a.status == b.status
         assert a.obj == b.obj
         assert np.array_equal(a.Y, b.Y)
+
+
+@pytest.mark.parametrize("case", TIERED)
+def test_certificate_tiers_lie_inside_cert(case):
+    out, _ = _cached("plain", case)
+    t = out[0].timers
+    tiers = [k for k in t if k.startswith("cert.")]
+    assert tiers and set(tiers) <= set(TIERS), tiers
+    assert "cert.far" in t or "cert.near" in t
+    assert sum(t[k] for k in tiers) <= t["cert"]
+    _, ranges = _cached("profiled", case)
+    cert = ranges[T.PREFIX + "cert"]
+    seen = [k for k in TIERS if T.PREFIX + k in ranges]
+    assert seen
+    for k in seen:
+        for s, e in ranges[T.PREFIX + k]:
+            assert any(s0 <= s and e <= e0 for s0, e0 in cert), k
 
 
 def test_a_span_outside_a_call_records_nothing():
